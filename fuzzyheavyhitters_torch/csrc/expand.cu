@@ -23,9 +23,11 @@
 //
 // Bound on the H100: both.  Per (row, plane): ~400 integer ops (one
 // ChaCha8 block) against ~16 B seed + 2 B flags read, 32 B child seeds +
-// 1 B flags written, plus 4 B packed per row.  At 3.35 TB/s vs ~16.7 Tops/s
-// of int32 ALU these are within a factor of two of each other; PERF.md
-// carries both figures per run.
+// 1 B flags written, plus 4 B packed per row.  At 3.35 TB/s vs ~33.5 Tops/s
+// (the instruction issue limit) these are within a factor of two of each
+// other; PERF.md carries both figures per run.  Without a child cache (the
+// last level) only output word 8 is needed, which leaves part of the last
+// round and the feed-forward dead.
 #include "chacha.cuh"
 
 FHH_ERROR_STRING_FN
