@@ -17,19 +17,36 @@ Phases (any failure raises, and the script exits non-zero):
    shape (n_dims 2, data_len 16) at N = 262,144.  Kernel launch counts are
    zeroed just before each crawl and read just after; every hitter's count
    must equal a plaintext recount from the sampled points;
-4. after each crawl, the expand kernel held bit-exact against its plain
-   version on that crawl's real frontiers, re-crawled from its keys: each
-   time the frontier reaches a new width (so at the widest), and at the
-   last level, which builds no child cache; each check is timed;
-5. the keygen kernel held bit-exact against its plain version at each
-   crawl's shape (all N x n_dims x 2 keys, L levels) and timed.
+4. after each crawl (the secure ones of phase 6 too), the expand kernel
+   held bit-exact against its plain version on that crawl's real
+   frontiers, re-crawled from its keys with the trusted exchange (the
+   same counts, so the same frontiers): each time the frontier reaches a
+   new width (so at the widest), and at the last level, which builds no
+   child cache; each check is timed;
+5. the keygen kernel held bit-exact against its plain version at each of
+   the four crawls' shapes (all N x n_dims x 2 keys, L levels) and timed;
+6. the secure exchange through ``bin.mesh.run``: ``config4_zipf_secure``
+   (the config-4 shape with ``secure_exchange``, S = 2 so the 1-of-2^S OT
+   kernels, at N = 65,536 — the JAX package's one-chip secure shape) and
+   ``rides_secure_gc`` (``configs/config.json`` with ``secure_exchange`` and
+   ``ot_path: "gc"``, S = 4, the garbled-circuit kernels, N = 262,144).
+   Launches must be one per level of the path's two kernels and none of the
+   other path's; every hitter count must equal the plaintext recount;
+7. after each secure crawl, its kernels held bit-exact against their plain
+   versions on that crawl's real inputs, replayed from its keys and
+   sessions (the trusted exchange carries the frontier between the checked
+   levels): at the widest FE62 level and at the F255 last level, each timed;
+8. chunk checks of 1,048,576 tests, the pad index starting at 2^32 - 1000 so
+   it wraps inside the batch: ot2s at S in {2, 4, 6} and the GC kernels at
+   S in {2, 4, 6, 16}, each at W in {4, 8}.
 
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
 and power limit, every check with its times against its bound, crawl
-figures, a ``{"kernels": [...]}`` line (the config-4 crawl's launches and
-times; ``max_abs_err`` over every check of the kernel), and as its last
-line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+figures, the seconds each stage took, a ``{"kernels": [...]}`` line (each kernel's launches in the crawl
+that runs it, its time at that crawl's widest checked level; ``max_abs_err``
+over every check of the kernel), and as its last line ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -65,8 +82,38 @@ CONFIG4 = dict(
 )
 ZIPF_CLIENTS = 196608
 RIDES_CLIENTS = 262144
+# the secure config-4 cell runs bench.py's bench_secure_device shape: at the
+# last level (F = 512, F255) its 67.1M tests hold about 35 GB of extension,
+# payload and table state; 196,608 clients would need about 100 GB
+ZIPF_SECURE_CLIENTS = 65536
 KEYGEN_CHUNK = (4096 * 2, 512)  # keys, levels
 PLAIN_ROWS = 1 << 23  # rows per plain-expand slice: bounds its int64 temporaries
+PLAIN_TESTS = 1 << 19  # tests per plain ot2s/GC slice
+CHUNK_TESTS = 1 << 20  # tests of each chunk check
+CHUNK_IDX0 = 2**32 - 1000  # the chunk checks' pad index wraps inside the batch
+PROFILE_LEVELS = 8  # secure levels --profile traces per secure crawl
+
+# every kernel of the port: (module, launch counter, source, TPU kernel it replaces)
+KERNELS = {
+    "keygen": ("keygen_cuda", "LAUNCHES", "fuzzyheavyhitters_torch/csrc/keygen.cu",
+               "fuzzyheavyhitters_tpu/ops/keygen_pallas.py:206"),
+    "expand": ("expand_cuda", "LAUNCHES", "fuzzyheavyhitters_torch/csrc/expand.cu",
+               "fuzzyheavyhitters_tpu/ops/expand_pallas.py:182"),
+    "ot2s_encrypt": ("otext_cuda", "ENC_LAUNCHES", "fuzzyheavyhitters_torch/csrc/ot2s.cu",
+                     "fuzzyheavyhitters_tpu/ops/otext_pallas.py:214"),
+    "ot2s_decrypt": ("otext_cuda", "DEC_LAUNCHES", "fuzzyheavyhitters_torch/csrc/ot2s.cu",
+                     "fuzzyheavyhitters_tpu/ops/otext_pallas.py:259"),
+    "gc_garble": ("gc_cuda", "GARBLE_LAUNCHES", "fuzzyheavyhitters_torch/csrc/gc.cu",
+                  "fuzzyheavyhitters_tpu/ops/gc_pallas.py:279"),
+    "gc_eval": ("gc_cuda", "EVAL_LAUNCHES", "fuzzyheavyhitters_torch/csrc/gc.cu",
+                "fuzzyheavyhitters_tpu/ops/gc_pallas.py:336"),
+}
+# the wrapper of each secure kernel, as the protocol code calls it
+WRAPPERS = {"ot2s_encrypt": ("otext_cuda", "enc_planar"),
+            "ot2s_decrypt": ("otext_cuda", "dec_planar"),
+            "gc_garble": ("gc_cuda", "garble_planar"),
+            "gc_eval": ("gc_cuda", "eval_planar")}
+OT2S, GC = ("ot2s_encrypt", "ot2s_decrypt"), ("gc_garble", "gc_eval")
 
 
 def log(msg: str) -> None:
@@ -78,11 +125,16 @@ def bound(nbytes: float, ops: float):
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn`` on the card over ``reps`` runs (CUDA events)."""
+def cuda_ms(fn, reps: int, warm: bool = False) -> float:
+    """Mean milliseconds of ``fn`` on the card over ``reps`` runs (CUDA events).
+    ``warm`` runs it once untimed first, so that a kernel's output blocks are
+    already in the caching allocator and no timed run waits on cudaMalloc
+    (a check's plain slices in between leave the cache fragmented)."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
@@ -132,34 +184,56 @@ def plaintext_counts(points: np.ndarray, ball: int, paths: np.ndarray) -> np.nda
     return inside.sum(1)
 
 
-def run_main_path(name, cfg, n, seed, tmp, kernels):
-    """Drive ``bin.mesh.run`` once with the kernel counts zeroed just before
-    and read just after; check the answer; return (run, launches, figures)."""
+def _ops(name):
+    import importlib
+
+    return importlib.import_module(f"fuzzyheavyhitters_torch.ops.{name}")
+
+
+def _counter(kn):
+    mod, attr, _, _ = KERNELS[kn]
+    return _ops(mod), attr
+
+
+def run_main_path(name, cfg, n, seed, tmp, per_level=()):
+    """Drive ``bin.mesh.run`` once with every kernel count zeroed just before
+    and read just after; check the answer; return (run, launches, figures).
+    keygen and expand must launch; the kernels in ``per_level`` once per
+    level; every other kernel never."""
     import torch
 
     from fuzzyheavyhitters_torch.bin import mesh
 
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.LAUNCHES = 0
+    for kn in KERNELS:
+        setattr(*_counter(kn), 0)
     with open(os.path.join(tmp, f"{name}_events.jsonl"), "w") as out:
         run = mesh.run(cfg, n, device="cuda", seed=seed,
                        csv_path=os.path.join(tmp, f"{name}_hitters.csv"), out=out)
-    launches = {kn: k.LAUNCHES for kn, k in kernels.items()}
+    launches = {kn: getattr(*_counter(kn)) for kn in KERNELS}
     peak = torch.cuda.max_memory_allocated()
     res = run.result
     levels = len(run.leader.timings["expand"])
+    # expand, count, advance on the host clock; the secure phases as spans of
+    # the device stream (Leader.timings)
     phases = {k: float(np.sum(v)) for k, v in run.leader.timings.items()}
+    consumed = ([s.consumed for s in run.leader.secure.snd]
+                if run.leader.secure is not None else None)
     H = res.paths.shape[0]
     log(f"crawl {name}: N={n} data_len={cfg.data_len} n_dims={cfg.n_dims} "
+        f"secure={cfg.secure_exchange} ot_path={cfg.ot_path} "
         f"levels={levels} hitters={H} sampling_s={run.seconds['sampling']:.3f} "
         f"keygen_s={run.seconds['keygen']:.3f} crawl_wall_s={run.seconds['crawl']:.3f} "
         f"clients_per_s={n / run.seconds['crawl']:.1f} "
         f"max_memory_allocated={peak} launches={launches} "
-        f"host_phase_s={ {k: round(v, 4) for k, v in phases.items()} }")
+        f"phase_s={ {k: round(v, 4) for k, v in phases.items()} }"
+        + (f" ot_consumed_per_session={consumed}" if consumed is not None else ""))
     for kn, c in launches.items():
-        if c <= 0:
+        want = levels if kn in per_level else None
+        if kn in ("keygen", "expand") and c <= 0:
             raise AssertionError(f"{name}: kernel {kn} was never launched on the main path")
+        if kn not in ("keygen", "expand") and c != (want or 0):
+            raise AssertionError(f"{name}: kernel {kn} launched {c} times, want {want or 0}")
     if not 0 < H <= cfg.f_max:
         raise AssertionError(f"{name}: {H} hitters, want 1..f_max={cfg.f_max}")
     if res.paths.shape[1:] != (cfg.n_dims, cfg.data_len):
@@ -173,48 +247,103 @@ def run_main_path(name, cfg, n, seed, tmp, kernels):
         raise AssertionError(f"{name}: counts {res.counts[bad]} != plaintext {want[bad]}")
     log(f"crawl {name}: all {H} hitter counts equal the plaintext recount")
     return run, launches, {"n": n, "levels": levels, "hitters": H,
-                           "seconds": run.seconds, "host_phase_s": phases,
-                           "max_memory_allocated": peak,
+                           "seconds": run.seconds, "phase_s": phases,
+                           "max_memory_allocated": peak, "ot_consumed": consumed,
                            "clients_per_s": n / run.seconds["crawl"]}
 
 
-def profile_crawl(name, run, cfg, torch):
+def replay(lead, n, threshold, secure_levels, each=None):
+    """Crawl the leader's keys once more, level by level: the secure
+    exchange at ``secure_levels`` (on the leader's own OT sessions), the
+    trusted one elsewhere, which gives the same counts and so carries the
+    same frontier.  ``each(level, before)`` runs around every level."""
+    sessions = lead.secure
+    try:
+        lead.tree_init()
+        for level in range(lead.data_len):
+            lead.secure = sessions if level in secure_levels else None
+            if each:
+                each(level, True)
+            lead.run_level(level, n, threshold)
+            if each:
+                each(level, False)
+    finally:
+        lead.secure = sessions
+        for s in (lead.server0, lead.server1):
+            s.frontier = s.children = None
+
+
+def profile_crawl(name, run, cfg, torch, window=None):
     """``--profile``: crawl the run's keys once more under ``torch.profiler``;
     report device time by kernel and the device's busy and idle share of the
-    crawl (kernels run on one stream, so busy time is the sum of their times)."""
+    crawl (kernels run on one stream, so busy time is the sum of their times).
+    A secure crawl profiles the secure levels in ``window`` of a replay (a
+    whole 512-level secure crawl is millions of launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     lead = run.leader
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = lead.run(nreqs=run.points.shape[0], threshold=cfg.threshold)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    if not np.array_equal(res.paths, run.result.paths):
-        raise AssertionError(f"{name}: profiled crawl disagrees with the main-path run")
+    if window is None:
+        with prof:
+            t0 = time.perf_counter()
+            res = lead.run(nreqs=run.points.shape[0], threshold=cfg.threshold)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if not np.array_equal(res.paths, run.result.paths):
+            raise AssertionError(f"{name}: profiled crawl disagrees with the main-path run")
+    else:
+        clock = {}
+
+        def each(level, before):
+            if before and level == window[0]:
+                torch.cuda.synchronize()
+                prof.start()
+                clock["t0"] = time.perf_counter()
+            if not before and level == window[-1]:
+                torch.cuda.synchronize()
+                clock["wall"] = time.perf_counter() - clock["t0"]
+                prof.stop()
+
+        replay(lead, run.points.shape[0], cfg.threshold, set(window), each)
+        wall = clock["wall"]
     by_kernel = {}  # device-side events only: kernels, memcpys, memsets
+    runtime = {}  # host-side CUDA runtime calls: (count, host seconds)
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
             us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us / 1e6
+        elif ev.key.startswith("cuda"):
+            runtime[ev.key] = (ev.count, ev.cpu_time_total / 1e6)
     busy = float(sum(by_kernel.values()))
+    ours = {k: v for k, v in by_kernel.items() if "fhh_" in k}
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
-    log(f"profile {name}: profiled_wall_s={wall:.4f} device_busy_s={busy:.4f} "
-        f"idle_share={1.0 - busy / wall:.4f}")
+    span = "whole crawl" if window is None else f"secure levels {window[0]}..{window[-1]}"
+    log(f"profile {name} ({span}): profiled_wall_s={wall:.4f} device_busy_s={busy:.4f} "
+        f"idle_share={1.0 - busy / wall:.4f} port_kernels_s={sum(ours.values()):.4f} "
+        f"plain_pytorch_s={busy - sum(ours.values()):.4f}")
     for k, v in top.items():
         log(f"  {v * 1e3:10.3f} ms  {k[:100]}")
-    return {"profiled_wall_s": wall, "device_busy_s": busy,
-            "device_idle_share": 1.0 - busy / wall, "device_s_by_kernel": top}
+    for k, v in ours.items():
+        if k not in top:
+            log(f"  {v * 1e3:10.3f} ms  {k[:100]}")
+    runtime = dict(sorted(runtime.items(), key=lambda kv: -kv[1][1])[:8])
+    log("  host CUDA runtime calls: " + ", ".join(
+        f"{k} n={n} {s:.4f} s" for k, (n, s) in runtime.items()))
+    return {"span": span, "profiled_wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall, "port_kernels_s": sum(ours.values()),
+            "device_s_by_kernel": top, "port_kernel_s_by_name": ours,
+            "host_cuda_runtime": runtime}
 
 
 def check_keygen_chunk(kg, torch, rng):
     """Phase 2: keygen kernel vs plain on random alphas, both PRG bit modes."""
     K, L = KEYGEN_CHUNK
-    seeds = torch.from_numpy(rng.integers(-2**31, 2**31, size=(K, 2, 4)).astype(np.int32)).cuda()
-    alpha = torch.from_numpy(rng.integers(0, 2, size=(K, L)).astype(bool)).cuda()
-    side = torch.from_numpy(np.tile([True, False], K // 2)).cuda()
+    seeds = torch.from_numpy(
+        rng.integers(-2**31, 2**31, size=(K, 2, 4)).astype(np.int32)).to("cuda")
+    alpha = torch.from_numpy(rng.integers(0, 2, size=(K, L)).astype(bool)).to("cuda")
+    side = torch.from_numpy(np.tile([True, False], K // 2)).to("cuda")
     err = 0
     for derived in (False, True):
         got = kg.gen_cw(seeds, alpha, side, derived)
@@ -246,7 +375,7 @@ def expand_check(ex, args, want_children, derived, torch):
             part += (got[1][..., lo:hi], got[2][:, lo:hi])
         err = max(err, same(part, box["w"][:len(part)], f"expand rows [{lo}, {hi})"))
     del got
-    ms = cuda_ms(lambda: ex.expand_packed(*args, derived, want_children), 5)
+    ms = cuda_ms(lambda: ex.expand_packed(*args, derived, want_children), 5, warm=True)
     return err, ms, plain_ms
 
 
@@ -254,9 +383,21 @@ def measure_expand(name, run, cfg, ex, collect, prg, torch):
     """Phase 4: re-crawl the run's keys level by level and hold the expand
     kernel against its plain version on server 0's frontier each time it
     reaches a new width, and at the last level (no child cache, as the
-    crawl calls it there).  Returns the checks."""
+    crawl calls it there).  A secure crawl is replayed with the trusted
+    exchange, which gives the same counts and so the same frontiers.
+    Returns the checks."""
     lead = run.leader
     L, n = lead.data_len, run.points.shape[0]
+    sessions, lead.secure = lead.secure, None
+    try:
+        return _expand_checks(name, lead, L, n, cfg, ex, collect, prg, torch)
+    finally:
+        lead.secure = sessions
+        for s in (lead.server0, lead.server1):
+            s.frontier = s.children = None
+
+
+def _expand_checks(name, lead, L, n, cfg, ex, collect, prg, torch):
     lead.tree_init()
     widest, checks = 0, []
     for level in range(L):
@@ -287,8 +428,6 @@ def measure_expand(name, run, cfg, ex, collect, prg, torch):
                 f"bound_ms={b_ms:.4f} ({b_by})")
         if not last:
             lead.run_level(level, n, cfg.threshold)
-    for s in (lead.server0, lead.server1):
-        s.frontier = s.children = None
     return checks
 
 
@@ -296,12 +435,13 @@ def measure_keygen(name, points, cfg, kg, ibdcf, torch, rng):
     """Phase 5: keygen at a crawl's shape (all N clients x n_dims x 2 keys
     x L levels in one call): kernel vs plain, bit-exact, timed."""
     lo, hi = ibdcf.ball_bounds(points, cfg.ball_size)
-    alpha = torch.from_numpy(np.stack([lo, hi], axis=-2).reshape(-1, cfg.data_len)).cuda()
+    alpha = torch.from_numpy(np.stack([lo, hi], axis=-2).reshape(-1, cfg.data_len)).to("cuda")
     K, L = alpha.shape
-    seeds = torch.from_numpy(rng.integers(-2**31, 2**31, size=(K, 2, 4)).astype(np.int32)).cuda()
-    side = torch.from_numpy(np.tile([True, False], K // 2)).cuda()
+    seeds = torch.from_numpy(
+        rng.integers(-2**31, 2**31, size=(K, 2, 4)).astype(np.int32)).to("cuda")
+    side = torch.from_numpy(np.tile([True, False], K // 2)).to("cuda")
     derived = ibdcf.prg.DERIVED_BITS
-    ms = cuda_ms(lambda: kg.gen_cw(seeds, alpha, side, derived), 3)
+    ms = cuda_ms(lambda: kg.gen_cw(seeds, alpha, side, derived), 3, warm=True)
     got = kg.gen_cw(seeds, alpha, side, derived)
     box = {}
     plain_ms = cuda_ms(lambda: box.update(w=kg.gen_cw_plain(seeds, alpha, side, derived)), 1)
@@ -312,6 +452,159 @@ def measure_keygen(name, points, cfg, kg, ibdcf, torch, rng):
         f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
     return {"K": K, "L": L, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+PLAIN = {"ot2s_encrypt": ("otext_cuda", "enc_planar_plain"),
+         "ot2s_decrypt": ("otext_cuda", "dec_planar_plain"),
+         "gc_garble": ("gc", "garble_planar_plain"),
+         "gc_eval": ("gc", "eval_planar_plain")}
+
+
+def secure_shape(kn, args):
+    """(S, W, bp) of one call of a secure kernel's wrapper."""
+    if kn == "ot2s_encrypt":
+        return args[1].shape[0], args[2].shape[0], args[0].shape[1]
+    if kn == "ot2s_decrypt":
+        S = args[1].shape[0]
+        return S, args[2].shape[0] >> S, args[0].shape[1]
+    if kn == "gc_garble":
+        return args[3].shape[0], args[5].shape[0], args[1].shape[1]
+    return args[0].shape[0] // 4, args[4].shape[0] // 2, args[0].shape[1]
+
+
+def secure_bound(kn, S, W, bp):
+    """Least time for one call: the bytes it must move — each input plane
+    read once, except that of the ciphertext slots a test holds (2^S for
+    ot2s, 2 for GC) it reads only the one it opens; each output plane
+    written once — and the ChaCha8 blocks it must hash."""
+    if kn == "ot2s_encrypt":
+        nbytes, blocks = bp * (16 * S + 4 * S + 8 * W + (1 << S) * 4 * W), bp * (1 << S)
+    elif kn == "ot2s_decrypt":
+        nbytes, blocks = bp * (16 * S + 4 * S + 4 * W + 4 * W), bp
+    elif kn == "gc_garble":
+        nbytes = bp * (32 * S + 4 * S + 4 + 8 * W + 32 * (S - 1) + 16 * S + 4 + 8 * W)
+        blocks = bp * (4 * (S - 1) + 2)
+    else:
+        nbytes = bp * (32 * S + 32 * (S - 1) + 4 + 4 * W + 4 + 4 * W)
+        blocks = bp * (2 * (S - 1) + 1)
+    return bound(nbytes, blocks * CHACHA8_OPS)
+
+
+def _slice(kn, args, lo, hi):
+    """One call's arguments cut to tests [lo, hi): every plane by column,
+    the pad index moved to test lo."""
+    head, planes = (args[:1], args[1:-1]) if kn == "gc_garble" else ((), args[:-1])
+    if kn == "ot2s_encrypt":
+        planes, tail = planes[:4], (planes[4],)  # the offsets are per choice, not per test
+    else:
+        tail = ()
+    return head + tuple(a[:, lo:hi] for a in planes) + tail + (args[-1] + lo,)
+
+
+def secure_check(kn, args, got, kernel, what, reps=3):
+    """A secure kernel's output on one call against its plain version on
+    slices of PLAIN_TESTS tests, and the kernel timed on the same inputs."""
+    S, W, bp = secure_shape(kn, args)
+    plain = getattr(_ops(PLAIN[kn][0]), PLAIN[kn][1])
+    outs = got if isinstance(got, tuple) else (got,)
+    err, plain_ms = 0, 0.0
+    for lo in range(0, bp, PLAIN_TESTS):
+        hi = min(bp, lo + PLAIN_TESTS)
+        sl, box = _slice(kn, args, lo, hi), {}
+        plain_ms += cuda_ms(lambda: box.update(w=plain(*sl)), 1)
+        want = box["w"] if isinstance(box["w"], tuple) else (box["w"],)
+        err = max(err, same(tuple(o[:, lo:hi] for o in outs), want,
+                            f"{kn} {what} tests [{lo}, {hi})"))
+    ms = cuda_ms(lambda: kernel(*args), reps, warm=True)
+    b_ms, b_by = secure_bound(kn, S, W, bp)
+    log(f"{kn} {what} S={S} W={W} bp={bp} idx0={args[-1]}: kernel == plain, "
+        f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    return {"what": what, "S": S, "W": W, "bp": bp, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def measure_secure(name, run, cfg, kns, torch):
+    """Replay a secure crawl from its keys and sessions and hold each of its
+    kernels against the plain version on the inputs the crawl gives it: at
+    the widest FE62 level and at the F255 last level.  Between those levels
+    the trusted exchange carries the frontier (it gives the same counts).
+    The wrappers are wrapped to keep those calls' inputs and outputs."""
+    lead = run.leader
+    L, n = lead.data_len, run.points.shape[0]
+    widest = max(lead.buckets[:-1])
+    levels = {lead.buckets.index(widest): "widest_fe62", L - 1: "last_f255"}
+    orig = {kn: getattr(_ops(WRAPPERS[kn][0]), WRAPPERS[kn][1]) for kn in kns}
+    kept, on = {}, [False]
+
+    def keeping(kn):
+        def call(*a):
+            out = orig[kn](*a)
+            if on[0]:
+                kept[kn] = (a, out)
+            return out
+        return call
+
+    checks = []
+
+    def each(level, before):
+        on[0] = before and level in levels
+        if before or level not in levels:
+            return
+        for kn in kns:
+            a, out = kept.pop(kn)
+            c = secure_check(kn, a, out, orig[kn], f"{name} level={level} "
+                             f"({levels[level]}, F={lead.buckets[level]})")
+            c.update(kernel=kn, level=level, kind=levels[level])
+            checks.append(c)
+            del a, out
+        torch.cuda.empty_cache()
+
+    for kn in kns:
+        setattr(_ops(WRAPPERS[kn][0]), WRAPPERS[kn][1], keeping(kn))
+    try:
+        replay(lead, n, cfg.threshold, set(levels), each)
+    finally:
+        for kn in kns:
+            setattr(_ops(WRAPPERS[kn][0]), WRAPPERS[kn][1], orig[kn])
+    return checks
+
+
+def chunk_checks(torch, seed):
+    """Every secure kernel on CHUNK_TESTS random tests with the pad index
+    starting at CHUNK_IDX0, so the u32 index wraps inside the batch."""
+    oc, gcc = _ops("otext_cuda"), _ops("gc_cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = CHUNK_TESTS
+    words = lambda r: torch.randint(-2**31, 2**31, (r, n), dtype=torch.int32,
+                                    device="cuda", generator=g)
+    bits = lambda r: torch.randint(0, 2, (r, n), dtype=torch.int32, device="cuda", generator=g)
+    checks = {kn: [] for kn in OT2S + GC}
+    for S in (2, 4, 6):
+        for W in (4, 8):
+            offs = torch.randint(-2**31, 2**31, (1 << S, 4), dtype=torch.int32,
+                                 device="cuda", generator=g)
+            a = (words(4 * S), bits(S), words(W), words(W), offs, CHUNK_IDX0)
+            cts = oc.enc_planar(*a)
+            checks["ot2s_encrypt"].append(secure_check("ot2s_encrypt", a, cts,
+                                                       oc.enc_planar, "chunk", 1))
+            a = (words(4 * S), bits(S), cts, CHUNK_IDX0)
+            checks["ot2s_decrypt"].append(secure_check("ot2s_decrypt", a, oc.dec_planar(*a),
+                                                       oc.dec_planar, "chunk", 1))
+    for S in (2, 4, 6, 16):
+        for W in (4, 8):
+            R = [int(v) for v in torch.randint(0, 2**32, (4,), generator=torch.Generator()
+                                               .manual_seed(seed + S + W))]
+            R[0] |= 1
+            a = (R, words(4 * S), words(4 * S), bits(S), bits(1), words(W), words(W),
+                 CHUNK_IDX0)
+            tab, gbl, dec, cts = gcc.garble_planar(*a)
+            checks["gc_garble"].append(secure_check("gc_garble", a, (tab, gbl, dec, cts),
+                                                    gcc.garble_planar, "chunk", 1))
+            a = (gbl, words(4 * S), tab, dec, cts, CHUNK_IDX0)
+            checks["gc_eval"].append(secure_check("gc_eval", a, gcc.eval_planar(*a),
+                                                  gcc.eval_planar, "chunk", 1))
+            del tab, gbl, dec, cts, a
+    return checks
 
 
 def main() -> int:
@@ -338,65 +631,99 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
+    stage_s, clock = {}, [time.perf_counter()]
+
+    def stage(what):
+        """Log and keep the seconds since the previous stage ended."""
+        now = time.perf_counter()
+        stage_s[what] = now - clock[0]
+        log(f"stage {what}: {stage_s[what]:.1f} s")
+        clock[0] = now
+
     libs = cuda_build.build()
-    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    log(f"built {sorted(libs)}")
+    stage("build")
     for name in libs:
         for line in cuda_build.log_path(name).read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
     rng = np.random.default_rng(args.seed)
-    errs = {"keygen": [check_keygen_chunk(keygen_cuda, torch, rng)], "expand": []}
-    kernels = {"keygen": keygen_cuda, "expand": expand_cuda}
+    errs = {kn: [] for kn in KERNELS}
+    errs["keygen"].append(check_keygen_chunk(keygen_cuda, torch, rng))
+    stage("keygen_chunk")
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs", "config.json")) as f:
-        rides_cfg = configmod.Config(**json.load(f))
-    cells = {"config4_zipf": (configmod.Config(**CONFIG4), ZIPF_CLIENTS),
-             "rides": (rides_cfg, RIDES_CLIENTS)}
-    report = {"device": smi, "crawls": {}}
+        rides_raw = json.load(f)
+    # name: (config, clients, kernels launched once per level)
+    cells = {
+        "config4_zipf": (configmod.Config(**CONFIG4), ZIPF_CLIENTS, ()),
+        "rides": (configmod.Config(**rides_raw), RIDES_CLIENTS, ()),
+        "config4_zipf_secure": (configmod.Config(**CONFIG4, secure_exchange=True,
+                                                 ot_path="auto"), ZIPF_SECURE_CLIENTS, OT2S),
+        "rides_secure_gc": (configmod.Config(**dict(rides_raw, secure_exchange=True,
+                                                    ot_path="gc")), RIDES_CLIENTS, GC),
+    }
+    report = {"device": smi, "crawls": {}, "stage_s": stage_s}
     points, launches = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (cfg, n) in cells.items():
-            run, launches[name], fig = run_main_path(name, cfg, n, args.seed, tmp, kernels)
+        for name, (cfg, n, per_level) in cells.items():
+            run, launches[name], fig = run_main_path(name, cfg, n, args.seed, tmp, per_level)
+            stage(f"{name} crawl")
             if args.profile:
-                fig["profile"] = profile_crawl(name, run, cfg, torch)
+                window = None
+                if per_level:  # PROFILE_LEVELS secure levels from the widest FE62 one
+                    w0 = run.leader.buckets.index(max(run.leader.buckets[:-1]))
+                    window = list(range(w0, min(cfg.data_len, w0 + PROFILE_LEVELS)))
+                fig["profile"] = profile_crawl(name, run, cfg, torch, window)
+                stage(f"{name} profile")
+            if per_level:
+                fig["secure_checks"] = measure_secure(name, run, cfg, per_level, torch)
+                for c in fig["secure_checks"]:
+                    errs[c["kernel"]].append(c["max_abs_err"])
+                stage(f"{name} secure checks")
             fig["expand_checks"] = measure_expand(name, run, cfg, expand_cuda, collect,
                                                   prg, torch)
             errs["expand"] += [c["max_abs_err"] for c in fig["expand_checks"]]
-            report["crawls"][name] = fig
             points[name] = run.points
+            stage(f"{name} expand checks")
+            report["crawls"][name] = fig
             del run
             torch.cuda.empty_cache()
-    for name, (cfg, _) in cells.items():
-        kg = measure_keygen(name, points[name], cfg, keygen_cuda, ibdcf, torch, rng)
+    for name in points:
+        kg = measure_keygen(name, points[name], cells[name][0], keygen_cuda, ibdcf, torch, rng)
         report["crawls"][name]["keygen_check"] = kg
         errs["keygen"].append(kg["max_abs_err"])
+    stage("keygen checks")
+    report["chunk_checks"] = chunk_checks(torch, args.seed)
+    stage("chunk checks")
+    for kn, cs in report["chunk_checks"].items():
+        errs[kn] += [c["max_abs_err"] for c in cs]
 
     main4 = report["crawls"]["config4_zipf"]
-    meas = {"keygen": main4["keygen_check"],
-            "expand": max((c for c in main4["expand_checks"] if c["want_children"]),
-                          key=lambda c: c["B"])}
-    sources = {"keygen": ("fuzzyheavyhitters_torch/csrc/keygen.cu",
-                          "fuzzyheavyhitters_tpu/ops/keygen_pallas.py:206"),
-               "expand": ("fuzzyheavyhitters_torch/csrc/expand.cu",
-                          "fuzzyheavyhitters_tpu/ops/expand_pallas.py:182")}
+    widest = lambda cell, kn: next(c for c in report["crawls"][cell]["secure_checks"]
+                                   if c["kind"] == "widest_fe62" and c["kernel"] == kn)
+    meas = {"keygen": (main4["keygen_check"], "config4_zipf"),
+            "expand": (max((c for c in main4["expand_checks"] if c["want_children"]),
+                           key=lambda c: c["B"]), "config4_zipf")}
+    for kn in OT2S:
+        meas[kn] = (widest("config4_zipf_secure", kn), "config4_zipf_secure")
+    for kn in GC:
+        meas[kn] = (widest("rides_secure_gc", kn), "rides_secure_gc")
     rows = []
-    for name in ("keygen", "expand"):
-        m = meas[name]
-        log(f"kernel {name}: ms={m['ms']:.4f} plain_ms={m['plain_ms']:.4f} "
+    for kn, (_, _, source, replaces) in KERNELS.items():
+        m, cell = meas[kn]
+        log(f"kernel {kn}: cell={cell} ms={m['ms']:.4f} plain_ms={m['plain_ms']:.4f} "
             f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']}) "
-            f"launches={launches['config4_zipf'][name]} "
-            f"rides_launches={launches['rides'][name]} checks={len(errs[name])} "
-            f"max_abs_err={max(errs[name])}")
-        rows.append({"name": name, "route": "cuda", "source": sources[name][0],
-                     "replaces": sources[name][1], "launches": launches["config4_zipf"][name],
-                     "max_abs_err": max(errs[name]), "ms": m["ms"],
-                     "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            f"launches={ {c: launches[c][kn] for c in cells} } checks={len(errs[kn])} "
+            f"max_abs_err={max(errs[kn])}")
+        rows.append({"name": kn, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[cell][kn], "max_abs_err": max(errs[kn]),
+                     "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"], "library_ms": None})
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
-    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks and both crawls)")
+    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks and all four crawls)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -2,9 +2,12 @@
 
 The port of ``fuzzyheavyhitters_tpu/bin/mesh.py`` for one card: sample the
 clients, generate both parties' ibDCF keys, crawl the prefix tree with both
-servers on the device (trusted exchange), emit the heavy hitters, and for
-the rides workload append them to the heavy-hitter CSV.  Events are JSON
-lines on standard output.
+servers on the device, emit the heavy hitters, and for the rides workload
+append them to the heavy-hitter CSV.  Events are JSON lines on standard
+output.  With ``secure_exchange: true`` in the config the servers run the
+secure exchange (``protocol/secure.py``) on two OT-extension sessions set up
+by the Chou-Orlandi base OT from system randomness; otherwise the trusted
+exchange.
 
 ::
 
@@ -50,9 +53,12 @@ def _sync(dev: torch.device) -> None:
 
 
 def run(cfg: configmod.Config, n: int, device=None, seed: int | None = None,
-        csv_path: str = OUTPUT_CSV, out=None) -> MeshRun:
+        csv_path: str = OUTPUT_CSV, out=None, session: dict | None = None) -> MeshRun:
     """Sample ``n`` clients, keygen, crawl, emit; returns the points, the
-    result and the leader (whose servers still hold the keys)."""
+    result and the leader (whose servers still hold the keys, and whose
+    ``secure`` holds the OT sessions of a secure crawl).  ``session`` is the
+    secure crawl's base-OT material (``driver.session_material``); None
+    runs the base OT from system randomness."""
     out = sys.stdout if out is None else out
     dev = resolve_device(device)
 
@@ -75,14 +81,24 @@ def run(cfg: configmod.Config, n: int, device=None, seed: int | None = None,
 
     s0, s1 = driver.make_servers(k0, k1)
     del k0, k1
+    sessions = None
+    if cfg.secure_exchange:
+        t0 = time.perf_counter()
+        sessions = driver.make_sessions(
+            driver.session_material() if session is None else session, dev)
+        seconds["base_ot"] = time.perf_counter() - t0
+        emit("secure.session", seconds=seconds["base_ot"], ot_path=cfg.ot_path)
     lead = driver.Leader(s0, s1, n_dims=cfg.n_dims, data_len=cfg.data_len,
-                         f_max=cfg.f_max)
+                         f_max=cfg.f_max, secure=sessions, ot_path=cfg.ot_path)
     t0 = time.perf_counter()
     res = lead.run(nreqs=n, threshold=cfg.threshold)
     _sync(dev)
     seconds["crawl"] = time.perf_counter() - t0
+    extra = {}
+    if sessions is not None:
+        extra["ot_consumed"] = [s.consumed for s in sessions.snd]
     emit("crawl.done", seconds=seconds["crawl"], levels=len(lead.timings["expand"]),
-         hitters=int(res.paths.shape[0]))
+         hitters=int(res.paths.shape[0]), secure=cfg.secure_exchange, **extra)
     for row, c in zip(res.decode_ints(), res.counts):
         emit("hitter", value=str(row.tolist()), count=int(c))
     if cfg.distribution == "rides" and res.paths.shape[0]:

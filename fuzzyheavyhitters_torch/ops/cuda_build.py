@@ -22,7 +22,7 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
-SOURCES = {"keygen": "keygen.cu", "expand": "expand.cu"}
+SOURCES = {"keygen": "keygen.cu", "expand": "expand.cu", "ot2s": "ot2s.cu", "gc": "gc.cu"}
 HEADERS = ("chacha.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -101,6 +101,30 @@ def load(name: str) -> ctypes.CDLL:
                 lib.fhh_error_string.restype = ctypes.c_char_p
                 _libs[name] = lib
     return lib
+
+
+def check_planes(what: str, arrs, n: int):
+    """Validate plane-major kernel inputs ``[(name, tensor, rows), ...]``:
+    each int32[rows, n], all on one cpu or cuda device, which is returned."""
+    import torch
+
+    dev = arrs[0][1].device
+    for name, a, rows in arrs:
+        if a.dtype != torch.int32 or tuple(a.shape) != (rows, n):
+            raise ValueError(f"{what}: {name} must be int32[{rows}, {n}], got "
+                             f"{a.dtype}{list(a.shape)}")
+        if a.device != dev:
+            raise ValueError(f"{what}: {name} is on {a.device}, not {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {dev}")
+    return dev
+
+
+def check_compiled(src: str, S: int, W: int, kernel_s, kernel_w) -> None:
+    """Raise unless ``src`` was compiled for string width S and payload W."""
+    if S not in kernel_s or W not in kernel_w:
+        raise ValueError(f"csrc/{src} is compiled for S in {kernel_s}, W in {kernel_w}; "
+                         f"got S={S}, W={W}")
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -96,6 +96,39 @@ def chacha_block(block: torch.Tensor) -> torch.Tensor:
     return to_i32(torch.stack(out, dim=-1))
 
 
+STREAM_BLOCKS = 1 << 22  # blocks per plain ChaCha pass: bounds its int64 temporaries
+
+
+def stream_blocks(seed: torch.Tensor, n_blocks: int, offset: int = 0) -> torch.Tensor:
+    """CTR-mode stream: int32[..., 4] seed -> int32[..., n_blocks, 16].
+
+    The seed is the starting counter block, used UNMASKED (the reference
+    masks only in ``expand_dir``, prg.rs:97, not in its CTR stream,
+    prg.rs:136); block k adds ``offset + k`` (mod 2^32) to word 0 —
+    ``ops/prg.py:stream_blocks`` of the JAX package.  ``offset`` is a Python
+    int (a session's stream position).  Computed in passes of at most
+    :data:`STREAM_BLOCKS` blocks into one preallocated output."""
+    lead = seed.shape[:-1]
+    s = to_u64(seed.reshape(-1, SEED_WORDS))  # [rows, 4]
+    out = torch.empty((s.shape[0], n_blocks, 16), dtype=torch.int32, device=seed.device)
+    step = max(1, STREAM_BLOCKS // s.shape[0])
+    for k0 in range(0, n_blocks, step):
+        k1 = min(n_blocks, k0 + step)
+        ctr = (torch.arange(k0, k1, dtype=torch.int64, device=seed.device) + offset) & M32
+        w0 = (s[:, :1] + ctr[None, :]) & M32
+        blk = [w0] + [s[:, i:i + 1].expand(-1, k1 - k0) for i in range(1, SEED_WORDS)]
+        out[:, k0:k1] = to_i32(torch.stack(chacha_words(blk), dim=-1))
+    return out.reshape(lead + (n_blocks, 16))
+
+
+def stream_words(seed: torch.Tensor, n_words: int, offset: int = 0) -> torch.Tensor:
+    """int32[..., 4] seed -> int32[..., n_words] pseudorandom words (the
+    stream from block ``offset`` on)."""
+    n_blocks = -(-n_words // 16)
+    out = stream_blocks(seed, n_blocks, offset)
+    return out.reshape(out.shape[:-2] + (n_blocks * 16,))[..., :n_words]
+
+
 def expand_words(blk: list, derived_bits: bool):
     """Masked expansion on int64 words: -> (left words, right words,
     (t_l, t_r), (y_l, y_r)) with the bits as bool tensors."""

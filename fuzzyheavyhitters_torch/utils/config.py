@@ -2,12 +2,13 @@
 
 Same fields and defaults as ``fuzzyheavyhitters_tpu/utils/config.py`` (the
 reference schema of src/config.rs:5-16 plus the TPU package's knobs), so
-every config file in ``configs/`` parses unchanged.  Fields this slice
-does not use parse as before and are ignored.  Three options select paths
-that are not ported yet; they raise ``NotImplementedError`` naming the
-slice that brings them, instead of silently running the trusted crawl:
+every config file in ``configs/`` parses unchanged.  Fields the port does
+not use yet parse as before and are ignored.  ``secure_exchange: true``
+runs the GC/OT data plane, with ``ot_path`` ("auto", "ot2s" or "gc")
+choosing its equality engine.  Two options select paths that are not
+ported yet; they raise ``NotImplementedError`` naming the slice that brings
+them, instead of silently running another crawl:
 
-- ``secure_exchange: true``  — the GC/OT data plane (slice 2);
 - ``crawl_radix_bits > 1``   — radix-2^k level fusion (slice 3);
 - ``malicious: true``        — the sketch + MPC verification (slice 5).
 """
@@ -56,11 +57,8 @@ class Config:
     debug_guards: bool = False
 
     def __post_init__(self):
-        if self.secure_exchange:
-            raise NotImplementedError(
-                "secure_exchange: the GC/OT data plane is not ported yet "
-                "(PyTorch port slice 2); run with secure_exchange=false"
-            )
+        if self.ot_path not in ("auto", "ot2s", "gc"):
+            raise ValueError(f"ot_path must be auto, ot2s or gc, got {self.ot_path!r}")
         if self.crawl_radix_bits != 1:
             raise NotImplementedError(
                 f"crawl_radix_bits={self.crawl_radix_bits}: radix-2^k level "

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from fuzzyheavyhitters_torch.ops import expand_cuda, keygen_cuda
+from fuzzyheavyhitters_torch.ops import expand_cuda, gc, gc_cuda, keygen_cuda, otext_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -71,3 +71,58 @@ def test_wrappers_reject_bad_inputs(cuda):
         keygen_cuda.gen_cw(seeds, alpha, torch.zeros(4, dtype=torch.bool))  # mixed devices
     with pytest.raises(ValueError):
         keygen_cuda.gen_cw(seeds.float(), alpha, torch.zeros(4, dtype=torch.bool, device=cuda))
+
+
+def _planes(rng, rows, n, bits=False):
+    if bits:
+        return torch.from_numpy(rng.integers(0, 2, size=(rows, n)).astype(np.int32))
+    return _ints(rng, (rows, n))
+
+
+@pytest.mark.parametrize("S", [2, 4, 6])
+@pytest.mark.parametrize("W", [4, 8])
+def test_ot2s_kernels_equal_plain(cuda, S, W):
+    rng = np.random.default_rng(13 + S + W)
+    n = 8192 + 777  # not a whole number of 256-thread blocks
+    idx0 = 2**32 - 1000  # the pad index wraps inside the batch
+    q, x = _planes(rng, 4 * S, n), _planes(rng, S, n, bits=True)
+    mv0, mv1 = _planes(rng, W, n), _planes(rng, W, n)
+    offs = _ints(rng, (1 << S, 4))
+    want = otext_cuda.enc_planar_plain(q, x, mv0, mv1, offs, idx0)
+    before = otext_cuda.ENC_LAUNCHES
+    got = otext_cuda.enc_planar(q.to(cuda), x.to(cuda), mv0.to(cuda), mv1.to(cuda),
+                                offs.to(cuda), idx0)
+    torch.cuda.synchronize()
+    assert otext_cuda.ENC_LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want)
+    t, y = _planes(rng, 4 * S, n), _planes(rng, S, n, bits=True)
+    want = otext_cuda.dec_planar_plain(t, y, got.cpu(), idx0)
+    got = otext_cuda.dec_planar(t.to(cuda), y.to(cuda), got, idx0)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("S", [2, 4, 6, 16])
+@pytest.mark.parametrize("W", [4, 8])
+def test_gc_kernels_equal_plain(cuda, S, W):
+    rng = np.random.default_rng(17 + S + W)
+    n = 8192 + 333
+    idx0 = 2**32 - 1000
+    R = [int(v) for v in rng.integers(0, 2**32, size=4)]
+    R[0] |= 1
+    args = (_planes(rng, 4 * S, n), _planes(rng, 4 * S, n), _planes(rng, S, n, True),
+            _planes(rng, 1, n, True), _planes(rng, W, n), _planes(rng, W, n))
+    want = gc.garble_planar_plain(R, *args, idx0)
+    before = gc_cuda.GARBLE_LAUNCHES
+    got = gc_cuda.garble_planar(R, *(a.to(cuda) for a in args), idx0)
+    torch.cuda.synchronize()
+    assert gc_cuda.GARBLE_LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    tab, gbl, dec, cts = want
+    evl = _planes(rng, 4 * S, n)
+    want = gc.eval_planar_plain(gbl, evl, tab, dec, cts, idx0)
+    got = gc_cuda.eval_planar(*(a.to(cuda) for a in (gbl, evl, tab, dec, cts)), idx0)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
