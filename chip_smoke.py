@@ -9,14 +9,20 @@ Phases (any failure raises, and the script exits non-zero):
 1. build every CUDA kernel of the port from ``fuzzyheavyhitters_torch/csrc``
    (one ``nvcc`` per source, all started together);
 2. hold the keygen kernel bit-exact against its plain PyTorch version on the
-   card (a 4096-client x L=512 chunk, both PRG bit modes);
+   card, in both PRG bit modes: a 4096-client x L=512 chunk, and a chunk of
+   K = 8,191 keys x L = 509 levels, off the kernel's block and tile sizes;
 3. the main path at full size, two crawls through ``bin.mesh.run`` with both
    servers on the card: the BASELINE.json config-4 shape (zipf over 10,000
    sites, exponent 1.03, data_len 512, n_dims 1, ball 2, threshold 0.001,
    f_max 1024) at N = 196,608 clients, and the ``configs/config.json`` rides
    shape (n_dims 2, data_len 16) at N = 262,144.  Kernel launch counts are
    zeroed just before each crawl and read just after; every hitter's count
-   must equal a plaintext recount from the sampled points;
+   must equal a plaintext recount from the sampled points.  Then the trusted
+   covid crawl of the JAX package's ``bench.bench_covid``: 64 hot counties
+   written from the seed into a centroid file, jitterless f64 lat/lon bits
+   (data_len 64, n_dims 2, ball 1, threshold 0.01, f_max 2048) at N = 65,536
+   clients, through ``ibdcf.gen_l_inf_ball`` and ``driver.Leader``; every
+   hot county with its 3 x 3 ulp ball (at least 576 hitters) must survive;
 4. after each crawl (the secure ones of phase 6 too), the expand kernel
    held bit-exact against its plain version on that crawl's real
    frontiers, re-crawled from its keys with the trusted exchange (the
@@ -24,7 +30,7 @@ Phases (any failure raises, and the script exits non-zero):
    new width (so at the widest), and at the last level, which builds no
    child cache; each check is timed;
 5. the keygen kernel held bit-exact against its plain version at each of
-   the four crawls' shapes (all N x n_dims x 2 keys, L levels) and timed;
+   the five crawls' shapes (all N x n_dims x 2 keys, L levels) and timed;
 6. the secure exchange through ``bin.mesh.run``: ``config4_zipf_secure``
    (the config-4 shape with ``secure_exchange``, S = 2 so the 1-of-2^S OT
    kernels, at N = 65,536 — the JAX package's one-chip secure shape) and
@@ -43,10 +49,11 @@ Phases (any failure raises, and the script exits non-zero):
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
 and power limit, every check with its times against its bound, crawl
-figures, the seconds each stage took, a ``{"kernels": [...]}`` line (each kernel's launches in the crawl
-that runs it, its time at that crawl's widest checked level; ``max_abs_err``
-over every check of the kernel), and as its last line ``{"ok": true,
-"device": {...}}``.  Imports nothing of JAX.
+figures, the seconds each stage took, a ``{"kernels": [...]}`` line (each
+kernel's launches in the crawl that runs it, its time at that crawl's
+widest checked level; ``max_abs_err`` over every check of the kernel), and
+as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -86,7 +93,15 @@ RIDES_CLIENTS = 262144
 # last level (F = 512, F255) its 67.1M tests hold about 35 GB of extension,
 # payload and table state; 196,608 clients would need about 100 GB
 ZIPF_SECURE_CLIENTS = 65536
-KEYGEN_CHUNK = (4096 * 2, 512)  # keys, levels
+# bench.py:bench_covid's trusted covid crawl, at 8 x its 8,192 clients: about
+# 1,024 clients per hot county
+COVID = dict(
+    data_len=64, n_dims=2, ball_size=1, addkey_batch_size=100, num_sites=64,
+    threshold=0.01, zipf_exponent=1.03, server0="127.0.0.1:8000",
+    server1="127.0.0.1:8001", distribution="covid", f_max=2048,
+)
+COVID_CLIENTS = 65536
+KEYGEN_CHUNKS = ((4096 * 2, 512), (8191, 509))  # keys, levels
 PLAIN_ROWS = 1 << 23  # rows per plain-expand slice: bounds its int64 temporaries
 PLAIN_TESTS = 1 << 19  # tests per plain ot2s/GC slice
 CHUNK_TESTS = 1 << 20  # tests of each chunk check
@@ -195,21 +210,64 @@ def _counter(kn):
     return _ops(mod), attr
 
 
-def run_main_path(name, cfg, n, seed, tmp, per_level=()):
-    """Drive ``bin.mesh.run`` once with every kernel count zeroed just before
-    and read just after; check the answer; return (run, launches, figures).
-    keygen and expand must launch; the kernels in ``per_level`` once per
-    level; every other kernel never."""
+def mesh_run(name, cfg, n, seed, tmp):
+    """One collection through ``bin.mesh.run`` on the card."""
+    from fuzzyheavyhitters_torch.bin import mesh
+
+    with open(os.path.join(tmp, f"{name}_events.jsonl"), "w") as out:
+        return mesh.run(cfg, n, device="cuda", seed=seed,
+                        csv_path=os.path.join(tmp, f"{name}_hitters.csv"), out=out)
+
+
+def covid_run(name, cfg, n, seed, tmp):
+    """The JAX package's ``bench.bench_covid`` on the card: ``cfg.num_sites``
+    hot counties written from the seed into a centroid file, jitterless
+    points (clients of one county share one f64 pattern), keygen through
+    ``ibdcf.gen_l_inf_ball`` and the trusted crawl through ``driver.Leader``."""
     import torch
 
     from fuzzyheavyhitters_torch.bin import mesh
+    from fuzzyheavyhitters_torch.ops import ibdcf
+    from fuzzyheavyhitters_torch.protocol import driver
+    from fuzzyheavyhitters_torch.workloads import covid
+
+    rng = np.random.default_rng(seed)
+    cpath = os.path.join(tmp, f"{name}_centroids.csv")
+    with open(cpath, "w") as f:
+        f.write("fips_code,latitude,longitude\n")
+        for i in range(cfg.num_sites):
+            f.write(f"{10000 + i},{25 + 25 * rng.random():.4f},"
+                    f"{-120 + 50 * rng.random():.4f}\n")
+    seconds = {}
+    t0 = time.perf_counter()
+    pts = covid.sample_covid_locations(os.path.join(tmp, "absent.csv"), cpath, n,
+                                       fuzz_factor=None, rng=rng)
+    seconds["sampling"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k0, k1 = ibdcf.gen_l_inf_ball(pts, cfg.ball_size, rng, device="cuda")
+    torch.cuda.synchronize()
+    seconds["keygen"] = time.perf_counter() - t0
+    lead = driver.Leader(*driver.make_servers(k0, k1), n_dims=cfg.n_dims,
+                         data_len=cfg.data_len, f_max=cfg.f_max)
+    del k0, k1
+    t0 = time.perf_counter()
+    res = lead.run(nreqs=n, threshold=cfg.threshold)
+    torch.cuda.synchronize()
+    seconds["crawl"] = time.perf_counter() - t0
+    return mesh.MeshRun(points=pts, result=res, leader=lead, seconds=seconds)
+
+
+def run_main_path(name, cfg, n, seed, tmp, per_level, drive, min_hitters):
+    """Drive one collection (``drive``: ``mesh_run`` or ``covid_run``) with
+    every kernel count zeroed just before and read just after; check the
+    answer; return (run, launches, figures).  keygen and expand must launch;
+    the kernels in ``per_level`` once per level; every other kernel never."""
+    import torch
 
     torch.cuda.reset_peak_memory_stats()
     for kn in KERNELS:
         setattr(*_counter(kn), 0)
-    with open(os.path.join(tmp, f"{name}_events.jsonl"), "w") as out:
-        run = mesh.run(cfg, n, device="cuda", seed=seed,
-                       csv_path=os.path.join(tmp, f"{name}_hitters.csv"), out=out)
+    run = drive(name, cfg, n, seed, tmp)
     launches = {kn: getattr(*_counter(kn)) for kn in KERNELS}
     peak = torch.cuda.max_memory_allocated()
     res = run.result
@@ -234,8 +292,8 @@ def run_main_path(name, cfg, n, seed, tmp, per_level=()):
             raise AssertionError(f"{name}: kernel {kn} was never launched on the main path")
         if kn not in ("keygen", "expand") and c != (want or 0):
             raise AssertionError(f"{name}: kernel {kn} launched {c} times, want {want or 0}")
-    if not 0 < H <= cfg.f_max:
-        raise AssertionError(f"{name}: {H} hitters, want 1..f_max={cfg.f_max}")
+    if not min_hitters <= H <= cfg.f_max:
+        raise AssertionError(f"{name}: {H} hitters, want {min_hitters}..f_max={cfg.f_max}")
     if res.paths.shape[1:] != (cfg.n_dims, cfg.data_len):
         raise AssertionError(f"{name}: hitter paths shaped {res.paths.shape}")
     thresh = max(1, int(cfg.threshold * n))
@@ -337,20 +395,22 @@ def profile_crawl(name, run, cfg, torch, window=None):
             "host_cuda_runtime": runtime}
 
 
-def check_keygen_chunk(kg, torch, rng):
-    """Phase 2: keygen kernel vs plain on random alphas, both PRG bit modes."""
-    K, L = KEYGEN_CHUNK
-    seeds = torch.from_numpy(
-        rng.integers(-2**31, 2**31, size=(K, 2, 4)).astype(np.int32)).to("cuda")
-    alpha = torch.from_numpy(rng.integers(0, 2, size=(K, L)).astype(bool)).to("cuda")
-    side = torch.from_numpy(np.tile([True, False], K // 2)).to("cuda")
+def check_keygen_chunks(kg, torch, rng):
+    """Phase 2: keygen kernel vs plain on random alphas and sides, both PRG
+    bit modes, at each of KEYGEN_CHUNKS."""
     err = 0
-    for derived in (False, True):
-        got = kg.gen_cw(seeds, alpha, side, derived)
-        want = kg.gen_cw_plain(seeds, alpha, side, derived)
-        torch.cuda.synchronize()
-        err = max(err, same(got, want, f"keygen chunk (derived_bits={derived})"))
-    log(f"keygen chunk K={K} L={L}: kernel == plain in both PRG bit modes, max_abs_err={err}")
+    for K, L in KEYGEN_CHUNKS:
+        seeds = torch.from_numpy(
+            rng.integers(-2**31, 2**31, size=(K, 2, 4)).astype(np.int32)).to("cuda")
+        alpha = torch.from_numpy(rng.integers(0, 2, size=(K, L)).astype(bool)).to("cuda")
+        side = torch.from_numpy(rng.integers(0, 2, size=K).astype(bool)).to("cuda")
+        for derived in (False, True):
+            got = kg.gen_cw(seeds, alpha, side, derived)
+            want = kg.gen_cw_plain(seeds, alpha, side, derived)
+            torch.cuda.synchronize()
+            err = max(err, same(got, want, f"keygen chunk K={K} L={L} (derived_bits={derived})"))
+        log(f"keygen chunk K={K} L={L}: kernel == plain in both PRG bit modes, "
+            f"max_abs_err={err}")
     return err
 
 
@@ -650,25 +710,31 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     errs = {kn: [] for kn in KERNELS}
-    errs["keygen"].append(check_keygen_chunk(keygen_cuda, torch, rng))
+    errs["keygen"].append(check_keygen_chunks(keygen_cuda, torch, rng))
     stage("keygen_chunk")
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs", "config.json")) as f:
         rides_raw = json.load(f)
-    # name: (config, clients, kernels launched once per level)
+    # name: (config, clients, kernels launched once per level, driver, least
+    # hitters); covid wants every hot county and its 3 x 3 ulp ball
+    covid_cfg = configmod.Config(**COVID)
     cells = {
-        "config4_zipf": (configmod.Config(**CONFIG4), ZIPF_CLIENTS, ()),
-        "rides": (configmod.Config(**rides_raw), RIDES_CLIENTS, ()),
+        "config4_zipf": (configmod.Config(**CONFIG4), ZIPF_CLIENTS, (), mesh_run, 1),
+        "rides": (configmod.Config(**rides_raw), RIDES_CLIENTS, (), mesh_run, 1),
         "config4_zipf_secure": (configmod.Config(**CONFIG4, secure_exchange=True,
-                                                 ot_path="auto"), ZIPF_SECURE_CLIENTS, OT2S),
+                                                 ot_path="auto"), ZIPF_SECURE_CLIENTS, OT2S,
+                                mesh_run, 1),
         "rides_secure_gc": (configmod.Config(**dict(rides_raw, secure_exchange=True,
-                                                    ot_path="gc")), RIDES_CLIENTS, GC),
+                                                    ot_path="gc")), RIDES_CLIENTS, GC,
+                            mesh_run, 1),
+        "covid": (covid_cfg, COVID_CLIENTS, (), covid_run, covid_cfg.num_sites * 9),
     }
     report = {"device": smi, "crawls": {}, "stage_s": stage_s}
     points, launches = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (cfg, n, per_level) in cells.items():
-            run, launches[name], fig = run_main_path(name, cfg, n, args.seed, tmp, per_level)
+        for name, (cfg, n, per_level, drive, min_hitters) in cells.items():
+            run, launches[name], fig = run_main_path(name, cfg, n, args.seed, tmp,
+                                                     per_level, drive, min_hitters)
             stage(f"{name} crawl")
             if args.profile:
                 window = None
@@ -723,7 +789,7 @@ def main() -> int:
                      "bound_by": m["bound_by"], "library_ms": None})
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
-    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks and all four crawls)")
+    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks and all five crawls)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

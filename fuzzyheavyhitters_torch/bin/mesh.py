@@ -16,8 +16,8 @@ exchange.
 
 It runs on ``cuda`` unless ``--device`` names another device, and raises
 when there is no card.  The multi-process and multi-card options of the
-JAX binary are refused (``NotImplementedError``): they arrive with the
-multi-card slice of the port.
+JAX binary are refused (``NotImplementedError``): that path is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -130,8 +130,7 @@ def main(argv=None) -> None:
         if getattr(args, flag) is not None:
             raise NotImplementedError(
                 f"--{flag}: multi-process and multi-card runs are not ported "
-                "yet (PyTorch port slice 6); this binary runs one process on "
-                "one card"
+                "to PyTorch yet; this binary runs one process on one card"
             )
     cfg = configmod.load_config(args.config)
     run(cfg, args.num_requests, device=args.device, seed=args.seed,

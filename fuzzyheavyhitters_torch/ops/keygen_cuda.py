@@ -95,8 +95,11 @@ def gen_cw(init_seeds, alpha, side, derived_bits: bool | None = None):
         raise ValueError("csrc/chacha.cuh is compiled for N_ROUNDS = 8")
     K, L = alpha.shape
     init_seeds, alpha, side = (t.contiguous() for t in (init_seeds, alpha, side))
-    if init_seeds.data_ptr() % 16:  # the kernel loads seeds as 16-byte uint4
+    # the kernel loads seeds, and each key's tile of alpha bytes, 16 B at a time
+    if init_seeds.data_ptr() % 16:
         init_seeds = init_seeds.clone()
+    if alpha.data_ptr() % 16:
+        alpha = alpha.clone()
     cw_seed = torch.empty((K, L, 4), dtype=torch.int32, device=alpha.device)
     cw_bits = torch.empty((K, L, 2), dtype=torch.bool, device=alpha.device)
     cw_y = torch.empty((K, L, 2), dtype=torch.bool, device=alpha.device)

@@ -6,11 +6,11 @@ every config file in ``configs/`` parses unchanged.  Fields the port does
 not use yet parse as before and are ignored.  ``secure_exchange: true``
 runs the GC/OT data plane, with ``ot_path`` ("auto", "ot2s" or "gc")
 choosing its equality engine.  Two options select paths that are not
-ported yet; they raise ``NotImplementedError`` naming the slice that brings
-them, instead of silently running another crawl:
+ported yet; they raise ``NotImplementedError`` naming the missing path,
+instead of silently running another crawl:
 
-- ``crawl_radix_bits > 1``   — radix-2^k level fusion (slice 3);
-- ``malicious: true``        — the sketch + MPC verification (slice 5).
+- ``crawl_radix_bits > 1``   — radix-2^k level fusion;
+- ``malicious: true``        — the sketch + MPC verification.
 """
 
 from __future__ import annotations
@@ -62,12 +62,12 @@ class Config:
         if self.crawl_radix_bits != 1:
             raise NotImplementedError(
                 f"crawl_radix_bits={self.crawl_radix_bits}: radix-2^k level "
-                "fusion is not ported yet (PyTorch port slice 3)"
+                "fusion is not ported to PyTorch yet"
             )
         if self.malicious:
             raise NotImplementedError(
-                "malicious: the sketch verification is not ported yet "
-                "(PyTorch port slice 5)"
+                "malicious: the sketch + MPC verification is not ported to "
+                "PyTorch yet"
             )
 
 

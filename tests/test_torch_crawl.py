@@ -21,10 +21,10 @@ from fuzzyheavyhitters_torch.protocol import driver as tdriver
 from fuzzyheavyhitters_torch.utils import config as tconfig
 from fuzzyheavyhitters_torch.utils import resolve_device
 
-jworkloads, jibdcf, jprg, jdriver, jconfig = torch_ref.reference(
-    "fuzzyheavyhitters_tpu.workloads", "fuzzyheavyhitters_tpu.ops.ibdcf",
-    "fuzzyheavyhitters_tpu.ops.prg", "fuzzyheavyhitters_tpu.protocol.driver",
-    "fuzzyheavyhitters_tpu.utils.config")
+jworkloads, jcovid, jibdcf, jprg, jdriver, jconfig = torch_ref.reference(
+    "fuzzyheavyhitters_tpu.workloads", "fuzzyheavyhitters_tpu.workloads.covid",
+    "fuzzyheavyhitters_tpu.ops.ibdcf", "fuzzyheavyhitters_tpu.ops.prg",
+    "fuzzyheavyhitters_tpu.protocol.driver", "fuzzyheavyhitters_tpu.utils.config")
 
 _BASE = dict(
     ball_size=2, addkey_batch_size=100, num_sites=20, threshold=0.05,
@@ -125,18 +125,25 @@ def test_config_refuses_later_slices(field, value):
     if field == "secure_exchange":  # ported; with the malicious sketch it still raises
         assert tconfig.Config(**raw).secure_exchange
         raw["malicious"] = True
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="not ported to PyTorch yet"):
         tconfig.Config(**raw)
 
 
 def test_refusals_of_unported_paths(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="covid"):
+    # covid is ported: the JAX package's sampler on the caller's seed
+    covid_raw = dict(WORKLOADS["rides"], distribution="covid", data_len=64)
+    pts = tworkloads.sample_points(tconfig.Config(**covid_raw), 4, np.random.default_rng(0))
+    assert pts.shape == (4, 2, 64) and pts.dtype == bool
+    np.testing.assert_array_equal(pts, jcovid.sample_covid_locations(
+        tworkloads.COVID_CSV, tworkloads.CENTROIDS_CSV, 4,
+        fuzz_factor=float(tworkloads.AUG_LEN), seed=0))
+    with pytest.raises(ValueError, match="data_len 64, n_dims 2"):
         tworkloads.sample_points(
             tconfig.Config(**dict(WORKLOADS["rides"], distribution="covid")), 4,
             np.random.default_rng(0))
     cfg_path = tmp_path / "z.json"
     cfg_path.write_text(json.dumps(WORKLOADS["zipf"]))
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="multi-process and multi-card"):
         tmesh.main(["--config", str(cfg_path), "-n", "4", "--processes", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -44,6 +44,25 @@ def test_keygen_kernel_equals_plain(cuda, derived):
 
 
 @pytest.mark.parametrize("derived", [False, True])
+@pytest.mark.parametrize("K,L", [(1, 509), (127, 16), (8191, 509), (300, 64), (129, 8)])
+def test_keygen_kernel_equals_plain_off_tile(cuda, derived, K, L):
+    """Odd key counts (a block part full, a lone key) and level counts that
+    end in a short tile, or fill whole tiles, of the kernel's 16 levels."""
+    rng = np.random.default_rng(K + L)
+    seeds = _ints(rng, (K, 2, 4))
+    alpha = torch.from_numpy(rng.integers(0, 2, size=(K, L)).astype(bool))
+    side = torch.from_numpy(rng.integers(0, 2, size=K).astype(bool))
+    want = keygen_cuda.gen_cw_plain(seeds, alpha, side, derived)
+    # alpha as a view at an odd byte offset: the wrapper realigns it
+    alpha_odd = torch.zeros(K * L + 1, dtype=torch.bool, device=cuda)[1:].view(K, L)
+    alpha_odd.copy_(alpha.to(cuda))
+    got = keygen_cuda.gen_cw(seeds.to(cuda), alpha_odd, side.to(cuda), derived)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("derived", [False, True])
 @pytest.mark.parametrize("d2,want_children", [(2, True), (4, True), (6, False)])
 def test_expand_kernel_equals_plain(cuda, derived, d2, want_children):
     rng = np.random.default_rng(12)
