@@ -30,12 +30,14 @@ Phases (any failure raises, and the script exits non-zero):
    new width (so at the widest), and at the last level, which builds no
    child cache; each check is timed;
 5. the keygen kernel held bit-exact against its plain version at each of
-   the five crawls' shapes (all N x n_dims x 2 keys, L levels) and timed;
+   the six crawls' shapes (all N x n_dims x 2 keys, L levels) and timed;
 6. the secure exchange through ``bin.mesh.run``: ``config4_zipf_secure``
    (the config-4 shape with ``secure_exchange``, S = 2 so the 1-of-2^S OT
-   kernels, at N = 65,536 — the JAX package's one-chip secure shape) and
+   kernels, at N = 65,536 — the JAX package's one-chip secure shape),
    ``rides_secure_gc`` (``configs/config.json`` with ``secure_exchange`` and
-   ``ot_path: "gc"``, S = 4, the garbled-circuit kernels, N = 262,144).
+   ``ot_path: "gc"``, S = 4, the garbled-circuit kernels, N = 262,144) and
+   ``rides_secure`` (that config with ``ot_path: "auto"``, S = 4 on the
+   ot2s kernels, N = 65,536: the engine a user of the config gets).
    Launches must be one per level of the path's two kernels and none of the
    other path's; every hitter count must equal the plaintext recount;
 7. after each secure crawl, its kernels held bit-exact against their plain
@@ -44,7 +46,19 @@ Phases (any failure raises, and the script exits non-zero):
    levels): at the widest FE62 level and at the F255 last level, each timed;
 8. chunk checks of 1,048,576 tests, the pad index starting at 2^32 - 1000 so
    it wraps inside the batch: ot2s at S in {2, 4, 6} and the GC kernels at
-   S in {2, 4, 6, 16}, each at W in {4, 8}.
+   S in {2, 4, 6, 16}, each at W in {4, 8};
+9. the socket deployment: two ``bin.server`` processes and a ``bin.leader``
+   (``--seed``) as real OS processes on the card, on free localhost ports,
+   for ``rides_socket`` (``configs/config.json``, trusted, N = 262,144) and
+   ``rides_secure_socket`` (the same config with ``secure_exchange``, ot2s at
+   S = 4, N = 65,536, whose in-process crawl ``rides_secure`` phase 6 runs
+   through ``bin.mesh.run``).  Each hitter count must equal the plaintext
+   recount, the hitters must equal ``bin.mesh.run``'s for the same config,
+   seed and N, and each server's ``server.exit`` line must show one expand
+   launch per level and, secure, one ot2s encrypt per level it garbled and
+   one decrypt per level it evaluated, with no GC launch.  A process that
+   exits non-zero, prints a traceback or outlives its timeout fails the
+   script.
 
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
@@ -101,6 +115,12 @@ COVID = dict(
     server1="127.0.0.1:8001", distribution="covid", f_max=2048,
 )
 COVID_CLIENTS = 65536
+# the secure socket cell's cut is forced by the wire: at the last level (F =
+# 32, F255) the 1-of-16 table is 512 B a test, 4.3 GB a frame at 65,536
+# clients, 17 GB at 262,144, held three or four times over in host memory
+RIDES_SECURE_CLIENTS = 65536
+SOCKET_START_S = 240  # seconds for a server to listen (torch import, CUDA init)
+SOCKET_LEADER_S = 420  # seconds for a leader's whole run
 KEYGEN_CHUNKS = ((4096 * 2, 512), (8191, 509))  # keys, levels
 PLAIN_ROWS = 1 << 23  # rows per plain-expand slice: bounds its int64 temporaries
 PLAIN_TESTS = 1 << 19  # tests per plain ot2s/GC slice
@@ -393,6 +413,148 @@ def profile_crawl(name, run, cfg, torch, window=None):
             "device_idle_share": 1.0 - busy / wall, "port_kernels_s": sum(ours.values()),
             "device_s_by_kernel": top, "port_kernel_s_by_name": ours,
             "host_cuda_runtime": runtime}
+
+
+def free_ports():
+    """(port0, port1) free on localhost with port1 + 1 free too: server 1's
+    data plane listens there."""
+    import socket
+
+    while True:
+        with socket.socket() as a, socket.socket() as b, socket.socket() as c:
+            a.bind(("127.0.0.1", 0))
+            p1 = a.getsockname()[1]
+            try:
+                b.bind(("127.0.0.1", p1 + 1))
+            except OSError:
+                continue
+            c.bind(("127.0.0.1", 0))
+            return c.getsockname()[1], p1
+
+
+def _events(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.startswith("{")]
+
+
+def _wait_event(path, event, proc, timeout):
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        if any(e["event"] == event for e in _events(path)):
+            return
+        if proc.poll() is not None:
+            with open(path) as f:
+                raise AssertionError(f"{path}: exited {proc.returncode} before {event}:\n"
+                                     f"{f.read()[-3000:]}")
+        time.sleep(0.1)
+    raise AssertionError(f"{path}: no {event} within {timeout} s")
+
+
+def socket_run(name, cfg, n, seed, tmp, env=None):
+    """Phase 9: ``bin.server --server_id 1``, then ``--server_id 0`` once
+    server 1 listens for its peer, then ``bin.leader --seed`` once both
+    serve, as OS processes (on the card unless ``cfg.backend`` is
+    ``"cpu"``), in the working directory ``tmp/name``; SIGTERM to the
+    servers after the leader's exit.  ``env`` adds variables to the
+    processes' environment.  Every process must exit 0 without a traceback
+    inside its timeout; all three are killed in a ``finally``.  Returns
+    the leader's and the servers' events and the working directory."""
+    import dataclasses
+    import signal
+
+    p0, p1 = free_ports()
+    work = os.path.join(tmp, name)
+    os.makedirs(work)
+    cfg_path = os.path.join(work, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dict(dataclasses.asdict(cfg), server0=f"127.0.0.1:{p0}",
+                       server1=f"127.0.0.1:{p1}"), f)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **(env or {}),
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs, logs = {}, {}
+
+    device = "cpu" if cfg.backend == "cpu" else "cuda"
+
+    def spawn(who, mod, *args):
+        logs[who] = os.path.join(work, f"{who}.log")
+        with open(logs[who], "w") as out:
+            procs[who] = subprocess.Popen(
+                [sys.executable, "-m", f"fuzzyheavyhitters_torch.bin.{mod}", "--config",
+                 cfg_path, "--device", device, *args], cwd=work, env=env, stdout=out,
+                stderr=subprocess.STDOUT)
+
+    try:
+        spawn("server1", "server", "--server_id", "1")
+        _wait_event(logs["server1"], "server.plane_listening", procs["server1"], SOCKET_START_S)
+        spawn("server0", "server", "--server_id", "0")
+        for who in ("server0", "server1"):
+            _wait_event(logs[who], "server.serving", procs[who], SOCKET_START_S)
+        t0 = time.perf_counter()
+        spawn("leader", "leader", "-n", str(n), "--seed", str(seed))
+        rc = procs["leader"].wait(timeout=SOCKET_LEADER_S)
+        wall = time.perf_counter() - t0
+        for who in ("server0", "server1"):
+            procs[who].send_signal(signal.SIGTERM)
+        rcs = {who: procs[who].wait(timeout=60) for who in ("server0", "server1")}
+        rcs["leader"] = rc
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for who, path in logs.items():
+        with open(path) as f:
+            text = f.read()
+        if rcs[who] != 0 or "Traceback" in text:
+            raise AssertionError(f"{name}: {who} exited {rcs[who]}:\n{text[-3000:]}")
+    ev = {who: _events(path) for who, path in logs.items()}
+    one = lambda who, event: next(e for e in ev[who] if e["event"] == event)
+    return {"work": work, "wall_s": wall, "crawl": one("leader", "crawl.done"),
+            "addkeys": one("leader", "addkeys.done"), "keygen": one("leader", "keygen"),
+            "hitters": [e for e in ev["leader"] if e["event"] == "hitter"],
+            "exits": [one(f"server{sid}", "server.exit") for sid in (0, 1)]}
+
+
+def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_level):
+    """Phase 9's checks: the hitters equal ``bin.mesh.run``'s and every
+    count the plaintext recount; each server launched expand once per level
+    and, with ``per_level`` (the ot2s pair), encrypt once per level it
+    garbled (level % 2 == its id) and decrypt once per level it evaluated;
+    no other kernel."""
+    L = cfg.data_len
+    got = {e["value"]: e["count"] for e in run["hitters"]}
+    if got != mesh_hitters:
+        raise AssertionError(f"{name}: socket hitters {got} != bin.mesh's {mesh_hitters}")
+    vals = np.array([json.loads(v) for v in got], np.int64).reshape(len(got), cfg.n_dims)
+    paths = ((vals[..., None] >> np.arange(L - 1, -1, -1)) & 1).astype(bool)
+    want = plaintext_counts(points, cfg.ball_size, paths)
+    if not np.array_equal(np.array(list(got.values())), want):
+        raise AssertionError(f"{name}: counts {list(got.values())} != plaintext {want}")
+    launches = {}
+    for sid, ex in enumerate(run["exits"]):
+        garbled = sum(1 for lv in range(L) if lv % 2 == sid)
+        want_l = {kn: 0 for kn in KERNELS}
+        want_l["expand"] = L
+        if per_level:
+            want_l.update(ot2s_encrypt=garbled, ot2s_decrypt=L - garbled)
+        if ex["launches"] != want_l or ex["levels"] != L:
+            raise AssertionError(f"{name}: server {sid} launched {ex['launches']} over "
+                                 f"{ex['levels']} levels, want {want_l} over {L}")
+        launches[f"server{sid}"] = ex["launches"]
+        log(f"socket {name} server{sid}: data_bytes_sent={ex['data_bytes_sent']} "
+            f"data_bytes_recv={ex['data_bytes_recv']} control_bytes_recv="
+            f"{ex['control_bytes_recv']} control_bytes_sent={ex['control_bytes_sent']} "
+            f"phase_s={ {k: round(v, 4) for k, v in ex['seconds'].items()} } "
+            f"launches={ex['launches']}")
+    log(f"socket {name}: N={points.shape[0]} hitters={len(got)} (= bin.mesh's, each = the "
+        f"plaintext recount) crawl_s={run['crawl']['seconds']:.3f} bin.mesh crawl_s="
+        f"{mesh_crawl_s:.3f} addkeys_s={run['addkeys']['seconds']:.3f} keygen_s="
+        f"{run['keygen']['seconds']:.3f} leader_wall_s={run['wall_s']:.3f}")
+    return {"n": int(points.shape[0]), "hitters": len(got), "crawl_s": run["crawl"]["seconds"],
+            "mesh_crawl_s": mesh_crawl_s, "addkeys_s": run["addkeys"]["seconds"],
+            "keygen_s": run["keygen"]["seconds"], "leader_wall_s": run["wall_s"],
+            "launches": launches, "servers": run["exits"]}
 
 
 def check_keygen_chunks(kg, torch, rng):
@@ -727,10 +889,15 @@ def main() -> int:
         "rides_secure_gc": (configmod.Config(**dict(rides_raw, secure_exchange=True,
                                                     ot_path="gc")), RIDES_CLIENTS, GC,
                             mesh_run, 1),
+        "rides_secure": (configmod.Config(**dict(rides_raw, secure_exchange=True,
+                                                 ot_path="auto")), RIDES_SECURE_CLIENTS, OT2S,
+                         mesh_run, 1),
         "covid": (covid_cfg, COVID_CLIENTS, (), covid_run, covid_cfg.num_sites * 9),
     }
-    report = {"device": smi, "crawls": {}, "stage_s": stage_s}
-    points, launches = {}, {}
+    # phase 9: socket cell -> the in-process cell of the same config, seed and N
+    sockets = {"rides_socket": "rides", "rides_secure_socket": "rides_secure"}
+    report = {"device": smi, "crawls": {}, "sockets": {}, "stage_s": stage_s}
+    points, launches, hitters = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, (cfg, n, per_level, drive, min_hitters) in cells.items():
             run, launches[name], fig = run_main_path(name, cfg, n, args.seed, tmp,
@@ -752,10 +919,19 @@ def main() -> int:
                                                   prg, torch)
             errs["expand"] += [c["max_abs_err"] for c in fig["expand_checks"]]
             points[name] = run.points
+            hitters[name] = {str(row.tolist()): int(c) for row, c in
+                             zip(run.result.decode_ints(), run.result.counts)}
             stage(f"{name} expand checks")
             report["crawls"][name] = fig
             del run
             torch.cuda.empty_cache()
+        for name, cell in sockets.items():
+            cfg, n, per_level = cells[cell][0], cells[cell][1], cells[cell][2]
+            run = socket_run(name, cfg, n, args.seed, tmp)
+            report["sockets"][name] = check_socket_run(
+                name, run, cfg, points[cell], hitters[cell],
+                report["crawls"][cell]["seconds"]["crawl"], per_level)
+            stage(f"{name} socket run")
     for name in points:
         kg = measure_keygen(name, points[name], cells[name][0], keygen_cuda, ibdcf, torch, rng)
         report["crawls"][name]["keygen_check"] = kg
@@ -779,17 +955,20 @@ def main() -> int:
     rows = []
     for kn, (_, _, source, replaces) in KERNELS.items():
         m, cell = meas[kn]
+        sock = {f"{c}/{who}": report["sockets"][c]["launches"][who][kn]
+                for c in sockets for who in ("server0", "server1")}
         log(f"kernel {kn}: cell={cell} ms={m['ms']:.4f} plain_ms={m['plain_ms']:.4f} "
             f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']}) "
-            f"launches={ {c: launches[c][kn] for c in cells} } checks={len(errs[kn])} "
-            f"max_abs_err={max(errs[kn])}")
+            f"launches={ {c: launches[c][kn] for c in cells} } socket_launches={sock} "
+            f"checks={len(errs[kn])} max_abs_err={max(errs[kn])}")
         rows.append({"name": kn, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[cell][kn], "max_abs_err": max(errs[kn]),
                      "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"], "library_ms": None})
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
-    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks and all five crawls)")
+    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, six crawls and two "
+        "socket runs)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -7,14 +7,19 @@ package.  Layout mirrors the reference package's module names:
 
 - ``utils``     bit codecs, config, device selection
 - ``workloads`` zipf / rides samplers + CSV output
-- ``ops``       fixed-key ChaCha PRG, ibDCF keys, and the CUDA kernels
-                (``keygen_cuda``, ``expand_cuda``; sources under ``csrc/``)
-- ``protocol``  the frontier crawl (``collect``) and the in-process
-                two-server driver (``driver``)
-- ``bin``       ``mesh``: the single-card entry point
+- ``ops``       fixed-key ChaCha PRG, ibDCF keys, fields, base OT and IKNP,
+                and the CUDA kernels (``*_cuda``; sources under ``csrc/``)
+- ``protocol``  the frontier crawl (``collect``), the secure exchange
+                (``secure``), the in-process two-server driver (``driver``)
+                and the socket deployment (``rpc``, ``leader_rpc``,
+                ``sessions``)
+- ``resilience`` dial retries and verb budgets
+- ``bin``       ``mesh`` (one process), ``server`` and ``leader`` (the
+                socket deployment)
 
-This slice runs the trusted-exchange crawl on one card.  Entry points run
-on ``cuda`` unless the caller passes ``device="cpu"``; with no card and no
+The crawl runs trusted or secure, in one process or as two server
+processes and a leader on the JAX package's wire.  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; with no card and no
 explicit CPU request they raise.
 
 32-bit words (ChaCha state, seeds, correction words) live as ``torch.int32``

@@ -1,0 +1,140 @@
+"""Leader binary: client simulation and the protocol driver (the port of
+``fuzzyheavyhitters_tpu/bin/leader.py``, ref: src/bin/leader.rs)::
+
+    python -m fuzzyheavyhitters_torch.bin.leader --config configs/config.json -n 1000
+
+Start both ``bin.server`` processes first.  Flow (leader.rs:300-440): keygen
+report, client sampling, keygen, connect, ``reset``, batched key upload,
+the level loop, one ``hitter`` line per heavy hitter and, for the rides
+workload, the heavy-hitter CSV (``data/ride_heavy_hitters.csv`` under the
+working directory).  Events are JSON lines on standard output.
+
+This leader runs the UNSUPERVISED crawl: the JAX leader's default
+supervised crawl with checkpoint recovery (``FHH_SUPERVISE``), its
+streaming windows (``FHH_WINDOWS``), its warmup (``FHH_WARMUP``) and its
+named collections (``FHH_COLLECTION``) are not ported, and a variable that
+asks for one of them is refused.  Keygen runs on ``cuda`` unless
+``--device`` names another device or the config says ``"backend": "cpu"``.
+With ``--seed s`` sampling and keygen draw from ``default_rng(s)`` in
+``bin.mesh``'s order, so the keys, and the hitters, equal ``bin.mesh``'s
+for the same config, seed and N; the keygen report draws from a generator
+of its own.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..ops import ibdcf
+from ..protocol.leader_rpc import RpcLeader
+from ..protocol.rpc import CollectorClient
+from ..utils import config as configmod
+from ..utils import resolve_device
+from ..workloads import OUTPUT_CSV, rides, sample_points, strings
+from .server import emit, split_addr
+
+
+def refuse_unported_env() -> None:
+    """Refuse the JAX leader's variables when they ask for an unported mode."""
+    asks = {
+        "FHH_SUPERVISE": (os.environ.get("FHH_SUPERVISE", "0") != "0",
+                          "the supervised crawl with checkpoint recovery"),
+        "FHH_WINDOWS": (int(os.environ.get("FHH_WINDOWS", "1")) > 1,
+                        "streaming ingestion in tumbling windows"),
+        "FHH_WARMUP": (os.environ.get("FHH_WARMUP", "0") != "0", "the per-bucket warmup"),
+        "FHH_COLLECTION": (os.environ.get("FHH_COLLECTION", "default") not in ("", "default"),
+                           "the multi-tenant collection layer"),
+    }
+    for var, (asked, path) in asks.items():
+        if asked:
+            raise NotImplementedError(f"{var}={os.environ[var]}: {path} is not ported to "
+                                      "PyTorch yet; this leader runs the unsupervised crawl")
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def keygen_report(cfg, rng, dev) -> None:
+    """Key size and keygen throughput (ref: leader.rs:90-104, 319-329), after
+    one untimed call."""
+    n = min(cfg.num_sites, 1000)
+    pts = np.stack([strings.generate_random_bit_vectors(rng, cfg.data_len, cfg.n_dims)
+                    for _ in range(n)])
+    ibdcf.gen_l_inf_ball(pts, 1, rng, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    k0, _ = ibdcf.gen_l_inf_ball(pts, 1, rng, device=dev)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    emit("keygen.report", engine=ibdcf.best_engine(dev),
+         key_bytes=sum(x[0].nbytes for x in ibdcf.keys_to_numpy(k0)), n_keys=n,
+         seconds=round(dt, 3), sec_per_key=round(dt / n, 6))
+
+
+async def run(cfg, nreqs: int, dev, seed) -> None:
+    keygen_report(cfg, np.random.default_rng(), dev)
+    rng = np.random.default_rng(seed)
+    emit("sampling", distribution=cfg.distribution, n=nreqs, device=str(dev))
+    pts = sample_points(cfg, nreqs, rng)
+    t0 = time.perf_counter()
+    k0, k1 = ibdcf.gen_l_inf_ball(pts, cfg.ball_size, rng, device=dev)
+    keys0, keys1 = ibdcf.keys_to_numpy(k0), ibdcf.keys_to_numpy(k1)
+    emit("keygen", seconds=time.perf_counter() - t0, n_keys=nreqs)
+    del k0, k1  # the servers hold the keys from here on: free the card
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    c0 = await CollectorClient.connect(*split_addr(cfg.server0))
+    c1 = await CollectorClient.connect(*split_addr(cfg.server1))
+    try:
+        lead = RpcLeader(cfg, c0, c1)
+        t0 = time.perf_counter()
+        await asyncio.gather(c0.call("reset"), c1.call("reset"))
+        await lead.upload_keys(keys0, keys1)
+        del keys0, keys1
+        emit("addkeys.done", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        res = await lead.run(nreqs)
+        emit("crawl.done", seconds=time.perf_counter() - t0, levels=cfg.data_len,
+             hitters=int(res.paths.shape[0]), secure=cfg.secure_exchange,
+             control_bytes={"server0": c0.stats, "server1": c1.stats})
+    finally:
+        await c0.aclose()
+        await c1.aclose()
+    for row, c in zip(res.decode_ints(), res.counts):
+        emit("hitter", value=str(row.tolist()), count=int(c))
+    if cfg.distribution == "rides" and res.paths.shape[0]:
+        os.makedirs(os.path.dirname(OUTPUT_CSV), exist_ok=True)
+        rides.save_heavy_hitters(res.paths, OUTPUT_CSV)
+        emit("csv.written", path=OUTPUT_CSV, hitters=int(res.paths.shape[0]))
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(
+        prog="Leader", description="Leader of the socket deployment (PyTorch/CUDA); runs "
+        "the unsupervised crawl (FHH_SUPERVISE, FHH_WINDOWS, FHH_WARMUP and FHH_COLLECTION "
+        "modes are not ported and are refused).")
+    p.add_argument("-c", "--config", required=True, help="Location of JSON config file")
+    p.add_argument("-n", "--num_requests", type=int, required=True,
+                   help="Number of client requests")
+    p.add_argument("--device", default=None,
+                   help='keygen device (default "cuda", or "cpu" when the config says '
+                        '"backend": "cpu")')
+    p.add_argument("--seed", type=int, default=None,
+                   help="seed of the client sampling and keygen randomness")
+    args = p.parse_args(argv)
+    refuse_unported_env()
+    cfg = configmod.load_config(args.config)
+    dev = resolve_device(args.device or ("cpu" if cfg.backend == "cpu" else None))
+    asyncio.run(run(cfg, args.num_requests, dev, args.seed))
+
+
+if __name__ == "__main__":
+    main()

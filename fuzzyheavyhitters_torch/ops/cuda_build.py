@@ -5,7 +5,8 @@ shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  Libraries land in
 ``build/fhh_torch/`` beside the package (``FHH_TORCH_BUILD_DIR`` overrides
 it), named by a hash of their sources and flags, so an edited source is
-rebuilt and an unchanged one is reused.  Everything here runs at first use,
+rebuilt and an unchanged one is reused; processes that start together on
+one build directory build each library once (:func:`build`).  Everything here runs at first use,
 never at import: the CPU tests import every module on hosts with no
 ``nvcc``.
 """
@@ -13,6 +14,7 @@ never at import: the CPU tests import every module on hosts with no
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -60,32 +62,51 @@ def log_path(name: str) -> Path:
 def build(names=None) -> dict:
     """Compile the named kernels (default: all) that are not built yet, one
     ``nvcc`` per source, all started together.  Returns name -> library
-    path; raises with the compiler's output if any build fails."""
+    path; raises with the compiler's output if any build fails.
+
+    Safe across processes on one build directory (two servers starting
+    together): the build runs under an ``fcntl`` lock on ``build.lock``
+    there, so a second process waits and then finds the libraries built;
+    each ``nvcc`` writes to per-process temporary files, and its log is
+    renamed into place before its library, so a library's log is never
+    truncated by another build."""
     names = list(SOURCES) if names is None else list(names)
     with _lock:
         build_dir().mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for name in names:
-            out = lib_path(name)
-            if out.exists():
-                continue
-            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            log = open(log_path(name), "w")
-            cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / SOURCES[name])]
-            procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
-                           log, tmp, out)
-        failed = []
-        for name, (proc, log, tmp, out) in procs.items():
-            rc = proc.wait()
-            log.close()
-            if rc == 0:
-                os.replace(tmp, out)
-            else:
-                failed.append(f"{name} (nvcc rc={rc}):\n{log_path(name).read_text()}")
-        if failed:
-            raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        with open(build_dir() / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            _build_locked(names)
     return {name: lib_path(name) for name in names}
+
+
+def _build_locked(names) -> None:
+    todo = [name for name in names if not lib_path(name).exists()]
+    if not todo:
+        return
+    compiler = nvcc()
+    procs = {}
+    for name in todo:
+        out = lib_path(name)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        tmp_log = out.with_name(f"{out.stem}.{os.getpid()}.tmp.log")
+        log = open(tmp_log, "w")
+        cmd = [compiler, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                       log, tmp, tmp_log, out)
+    failed = []
+    for name, (proc, log, tmp, tmp_log, out) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp_log, log_path(name))
+            os.replace(tmp, out)
+        else:
+            failed.append(f"{name} (nvcc rc={rc}):\n{tmp_log.read_text()}")
+            tmp_log.unlink()
+            tmp.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:

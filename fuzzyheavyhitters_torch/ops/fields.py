@@ -13,7 +13,10 @@ Every right shift the JAX package applies to ``uint32``/``uint64`` is a
 logical shift; on int32/int64 PyTorch shifts arithmetically, so each one
 here is masked (``_shr``).  Adds and products wrap mod 2^64 exactly as the
 unsigned ones do.  Both classes take the device of their tensor inputs;
-``from_int`` and ``zeros`` take a ``device``.
+``from_int`` and ``zeros`` take a ``device``.  The ``np_*`` methods are
+their NumPy twins on the wire forms (FE62 ``uint64``, F255 ``uint32[..., 8]``)
+for the little host-side arithmetic of the socket deployment: the trusted
+exchange's masks and the leader's reconstruction.
 """
 
 from __future__ import annotations
@@ -150,6 +153,42 @@ class FE62:
     def to_numpy_ints(cls, v) -> np.ndarray:
         return cls.canon(v).cpu().numpy().astype(np.uint64)
 
+    # -- NumPy twins (uint64 bit patterns, wrapping like the tensor ops): the
+    # wire form of FE62 shares, for the trusted exchange's masks and the
+    # leader's reconstruction on the host --------------------------------
+
+    @staticmethod
+    def _np_bit_reduce(v: np.ndarray) -> np.ndarray:
+        excess = v >> np.uint64(62)
+        return (v & np.uint64(_M62)) + excess + (excess << np.uint64(30))
+
+    @classmethod
+    def np_add(cls, a, b) -> np.ndarray:
+        return cls._np_bit_reduce(np.asarray(a, np.uint64) + np.asarray(b, np.uint64))
+
+    @classmethod
+    def np_sub(cls, a, b) -> np.ndarray:
+        with np.errstate(over="ignore"):
+            neg = cls._np_bit_reduce(np.uint64(2 * cls.P) - np.asarray(b, np.uint64))
+        return cls.np_add(a, neg)
+
+    @classmethod
+    def np_canon(cls, v) -> np.ndarray:
+        v = cls._np_bit_reduce(cls._np_bit_reduce(np.asarray(v, np.uint64)))
+        return np.where(v >= np.uint64(cls.P), v - np.uint64(cls.P), v)
+
+    @classmethod
+    def np_sample(cls, words) -> np.ndarray:
+        """:meth:`sample` on uint32[..., 4] host words."""
+        w = np.asarray(words, np.uint64)
+        lo = (w[..., 0] | (w[..., 1] << np.uint64(32))) & np.uint64(_M62)
+        hi = w[..., 2] | (w[..., 3] << np.uint64(32))
+        h0, h1 = hi & np.uint64(_M32), hi >> np.uint64(32)
+        r = cls._np_bit_reduce(lo + hi)
+        r = cls._np_bit_reduce(r + (h0 << np.uint64(30)))
+        r = cls._np_bit_reduce(r + (h1 << np.uint64(30)))
+        return cls._np_bit_reduce(r + h1)
+
 
 _P255 = (1 << 255) - 19
 _P255_LIMBS = tuple((_P255 >> (32 * i)) & _M32 for i in range(8))
@@ -268,6 +307,69 @@ class F255:
         for _ in range(2):  # the second fold cannot carry again
             limbs, carry = cls._carry_chain([limbs[0] + carry * 38] + limbs[1:])
         return cls._pack(cls._settle(cls._settle(limbs)))
+
+    # -- NumPy twins on uint32[..., 8] limbs (the wire form of F255 shares)
+
+    @staticmethod
+    def _np_geq_p(limbs: np.ndarray) -> np.ndarray:
+        ge = np.ones(limbs.shape[:-1], bool)
+        decided = np.zeros(limbs.shape[:-1], bool)
+        for i in reversed(range(8)):
+            gt = ~decided & (limbs[..., i] > _P255_LIMBS[i])
+            lt = ~decided & (limbs[..., i] < _P255_LIMBS[i])
+            ge = np.where(lt, False, np.where(gt, True, ge))
+            decided = decided | gt | lt
+        return ge
+
+    @staticmethod
+    def _np_sub_p_if(limbs: np.ndarray, cond: np.ndarray) -> np.ndarray:
+        out = np.empty(limbs.shape, np.uint32)
+        borrow = np.zeros(limbs.shape[:-1], np.int64)
+        for i in range(8):
+            d = limbs[..., i].astype(np.int64) - _P255_LIMBS[i] - borrow
+            out[..., i] = d & _M32
+            borrow = (d < 0).astype(np.int64)
+        return np.where(cond[..., None], out, limbs)
+
+    @classmethod
+    def _np_settle(cls, limbs: np.ndarray) -> np.ndarray:
+        return cls._np_sub_p_if(limbs, cls._np_geq_p(limbs))
+
+    @staticmethod
+    def _np_carry_chain(cols: list):
+        out, carry = [], np.zeros_like(cols[0])
+        for c in cols:
+            c = c + carry
+            out.append(c & _M32)
+            carry = c >> 32
+        return out, carry
+
+    @classmethod
+    def np_add(cls, a, b) -> np.ndarray:
+        a, b = np.asarray(a, np.uint32), np.asarray(b, np.uint32)
+        cols = [a[..., i].astype(np.int64) + b[..., i] for i in range(8)]
+        limbs, carry = cls._np_carry_chain(cols)
+        limbs = cls._np_carry_chain([limbs[0] + carry * 38] + limbs[1:])[0]
+        return cls._np_settle(np.stack(limbs, axis=-1).astype(np.uint32))
+
+    @classmethod
+    def np_neg(cls, a) -> np.ndarray:
+        a = np.asarray(a, np.uint32)
+        out, borrow = [], 0
+        for i in range(8):
+            d = _P255_LIMBS[i] - a[..., i].astype(np.int64) - borrow
+            out.append(d & _M32)
+            borrow = (d < 0).astype(np.int64)
+        return cls._np_settle(np.stack(out, axis=-1).astype(np.uint32))  # p - 0 = p === 0
+
+    @classmethod
+    def np_sub(cls, a, b) -> np.ndarray:
+        return cls.np_add(a, cls.np_neg(b))
+
+    @classmethod
+    def np_sample(cls, words) -> np.ndarray:
+        """:meth:`sample` on uint32[..., 8] host words."""
+        return cls._np_settle(cls._np_settle(np.asarray(words, np.uint32)))
 
     @classmethod
     def to_numpy_ints(cls, v) -> np.ndarray:

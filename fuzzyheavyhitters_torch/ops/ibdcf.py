@@ -30,7 +30,7 @@ import torch
 
 from . import keygen_cuda, prg
 from ..utils import bits as bitutils
-from ..utils import resolve_device, tensor_from_numpy, words_from_numpy
+from ..utils import resolve_device, tensor_from_numpy, words_from_numpy, words_to_numpy
 
 
 class IbDcfKeyBatch(NamedTuple):
@@ -246,6 +246,22 @@ def keys_from_numpy(batch, device) -> IbDcfKeyBatch:
         key_idx=as_bool(batch.key_idx),
         root_seed=words_from_numpy(batch.root_seed, dev),
         cw_seed=words_from_numpy(batch.cw_seed, dev),
+        cw_bits=as_bool(batch.cw_bits),
+        cw_y_bits=as_bool(batch.cw_y_bits),
+    )
+
+
+def keys_to_numpy(batch: IbDcfKeyBatch) -> IbDcfKeyBatch:
+    """The wire form of a key batch (inverse of :func:`keys_from_numpy`):
+    the five leaves of the JAX package's ``IbDcfKeyBatch`` as host numpy —
+    ``key_idx`` bool, ``root_seed`` uint32[..., 4], ``cw_seed`` uint32[..., L,
+    4], ``cw_bits``/``cw_y_bits`` bool[..., L, 2] — so that either package's
+    server takes either package's upload."""
+    as_bool = lambda t: t.detach().cpu().numpy().astype(bool, copy=False)
+    return IbDcfKeyBatch(
+        key_idx=as_bool(batch.key_idx),
+        root_seed=words_to_numpy(batch.root_seed),
+        cw_seed=words_to_numpy(batch.cw_seed),
         cw_bits=as_bool(batch.cw_bits),
         cw_y_bits=as_bool(batch.cw_y_bits),
     )

@@ -22,6 +22,7 @@ This module is the plain version that the CUDA kernels are held against
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 SEED_WORDS = 4  # 128-bit seeds as int32[..., 4], little-endian word order
@@ -159,3 +160,69 @@ def expand(seed: torch.Tensor, derived_bits: bool | None = None):
         torch.stack(bits, dim=-1),
         torch.stack(ybits, dim=-1),
     )
+
+
+# ---------------------------------------------------------------------------
+# NumPy twins of the CTR stream, for tiny host-side derivations only (the
+# trusted exchange's shared mask stream, ``protocol/sessions.py``).  Bit-
+# exact copies of the JAX package's ``np_chacha_block``/``np_stream_words``/
+# ``seeds_from_bytes`` (its ops/prg.py:268-370); device work never runs here.
+# ---------------------------------------------------------------------------
+
+
+def _np_rotl(x, n: int):
+    return ((x << np.uint32(n)) | (x >> np.uint32(32 - n))).astype(np.uint32)
+
+
+def np_chacha_block(block) -> np.ndarray:
+    """uint32[..., 4] input blocks -> uint32[..., 16]: :func:`chacha_block`
+    on the host."""
+    block = np.asarray(block, np.uint32)
+    if block.shape[-1] != SEED_WORDS:
+        raise ValueError(f"input blocks must be uint32[..., 4], got {block.shape}")
+    shape = block.shape[:-1]
+    x = [np.full(shape, w, np.uint32) for w in _SIGMA + _FIXED_KEY]
+    x += [block[..., i].copy() for i in range(SEED_WORDS)]
+    init = [v.copy() for v in x]
+
+    def qr(a, b, c, d):
+        a = a + b
+        d = _np_rotl(d ^ a, 16)
+        c = c + d
+        b = _np_rotl(b ^ c, 12)
+        a = a + b
+        d = _np_rotl(d ^ a, 8)
+        c = c + d
+        b = _np_rotl(b ^ c, 7)
+        return a, b, c, d
+
+    with np.errstate(over="ignore"):  # uint32 wraparound is the cipher's add
+        for _ in range(N_ROUNDS // 2):
+            x[0], x[4], x[8], x[12] = qr(x[0], x[4], x[8], x[12])
+            x[1], x[5], x[9], x[13] = qr(x[1], x[5], x[9], x[13])
+            x[2], x[6], x[10], x[14] = qr(x[2], x[6], x[10], x[14])
+            x[3], x[7], x[11], x[15] = qr(x[3], x[7], x[11], x[15])
+            x[0], x[5], x[10], x[15] = qr(x[0], x[5], x[10], x[15])
+            x[1], x[6], x[11], x[12] = qr(x[1], x[6], x[11], x[12])
+            x[2], x[7], x[8], x[13] = qr(x[2], x[7], x[8], x[13])
+            x[3], x[4], x[9], x[14] = qr(x[3], x[4], x[9], x[14])
+        return np.stack([a + b for a, b in zip(x, init)], axis=-1)
+
+
+def np_stream_words(seed, n_words: int) -> np.ndarray:
+    """:func:`stream_words` on the host from block 0: uint32[..., 4] seed
+    (unmasked, counter added to word 0) -> uint32[..., n_words]."""
+    seed = np.asarray(seed, np.uint32)
+    n_blocks = -(-n_words // 16)
+    blocks = np.broadcast_to(seed[..., None, :], seed.shape[:-1] + (n_blocks, 4)).copy()
+    with np.errstate(over="ignore"):
+        blocks[..., 0] += np.arange(n_blocks, dtype=np.uint32)
+    out = np_chacha_block(blocks)
+    return out.reshape(out.shape[:-2] + (n_blocks * 16,))[..., :n_words]
+
+
+def seeds_from_bytes(data: bytes) -> np.ndarray:
+    """16-byte chunks -> uint32[n, 4] seeds (little-endian words)."""
+    if len(data) % 16:
+        raise ValueError(f"seed bytes come in 16-byte chunks, got {len(data)}")
+    return np.frombuffer(data, dtype="<u4").reshape(-1, 4)

@@ -49,6 +49,40 @@ from . import collect, secure
 SECURE_PHASES = ("otext", "b2a", "garble", "eval", "field")
 
 
+class PhaseClock:
+    """Seconds per named phase, as ``with clock(name): ...`` around the
+    work (the ``phase`` argument of ``protocol/secure.py``).  On the card a
+    phase is the span of the device stream between CUDA events recorded
+    around it — no sync of its own — read by :meth:`settle` once a readback
+    has waited for the work; on the CPU it is host time."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.spent: dict = {}
+        self._marks: list = []  # (phase, start event, end event)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        if self.cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            yield
+            ev[1].record()
+            self._marks.append((name, *ev))
+            return
+        t = time.perf_counter()
+        yield
+        self.spent[name] = self.spent.get(name, 0.0) + time.perf_counter() - t
+
+    def settle(self) -> dict:
+        """Seconds per phase since the last settle (waits for the events)."""
+        for name, start, end in self._marks:
+            end.synchronize()
+            self.spent[name] = self.spent.get(name, 0.0) + start.elapsed_time(end) / 1e3
+        out, self.spent, self._marks = self.spent, {}, []
+        return out
+
+
 @dataclass
 class ServerState:
     """One collector server's state (ref: server.rs:44-52)."""
@@ -216,23 +250,7 @@ class Leader:
         Returns (counts int64[F, 2^d], the host times at which the strings
         were ready and the reconstruction began)."""
         sec, d = self.secure, self.n_dims
-        dev = packed[0].device
-        spent = {k: 0.0 for k in SECURE_PHASES}
-        marks = []  # (phase, start event, end event) on the card, read after the readback
-
-        @contextlib.contextmanager
-        def phase(name):
-            if dev.type == "cuda":
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                ev[0].record()
-                yield
-                ev[1].record()
-                marks.append((name, *ev))
-                return
-            t = time.perf_counter()
-            yield
-            spent[name] += time.perf_counter() - t
-
+        phase = PhaseClock(packed[0].device)
         field_ = F255 if last else FE62
         g = level % 2
         ev = 1 - g
@@ -270,11 +288,9 @@ class Leader:
             v = FE62.canon(FE62.sub(sh[0], sh[1])).cpu().numpy()
             if (v > N).any():  # e.g. a share-sign or role mismatch
                 raise RuntimeError("count reconstruction out of range")
-        for name, start, end in marks:
-            end.synchronize()
-            spent[name] += start.elapsed_time(end) / 1e3
-        for k, s in spent.items():
-            self.timings[k].append(s)
+        spent = phase.settle()
+        for k in SECURE_PHASES:
+            self.timings[k].append(spent.get(k, 0.0))
         return v, t1, tc
 
     def run(self, nreqs: int, threshold: float) -> CrawlResult:

@@ -1,0 +1,644 @@
+"""The socket deployment: leader↔server control plane and the server↔server
+data plane (the port of ``fuzzyheavyhitters_tpu/protocol/rpc.py``).
+
+Process topology of the reference (server.rs, leader.rs): two collector
+servers and a leader, each its own process.
+
+- **Control plane.**  The leader connects to both servers and drives the
+  eight verbs of the reference's ``Collector`` service (rpc.rs:56-66):
+  ``reset, add_keys, tree_init, tree_crawl, tree_crawl_last, tree_prune,
+  tree_prune_last, final_shares``.  Frames are length-prefixed pickles
+  (``<Q`` length, protocol 5): ``(req_id, verb, payload)`` to a server,
+  ``(req_id, response)`` back; a failed verb answers ``{"__error__":
+  "Type: message"}``.
+- **Data plane.**  One server↔server TCP connection (server 1 listens on
+  its control port + 1, server 0 dials, server.rs:344-354) carrying
+  ``(channel, payload)`` frames on channel ``"default"``; a third element,
+  the trace header a traced JAX peer adds, is accepted and ignored.
+
+The wire is the JAX package's, frame for frame: every payload is numpy
+arrays of its dtypes (uint32 words, uint64 FE62 shares, uint32[..., 8] F255
+shares, bool bits, int32 indices), Python scalars, dicts, tuples and bytes —
+never a ``torch.Tensor`` (:func:`_send` refuses one) — so a JAX server can
+pair with a port server, and either package's leader can drive either pair.
+
+Per plane, once: a 16-byte coin flip (sent in trusted mode too, because a
+JAX peer sends it), then in secure mode the two base-OT sessions, one per
+garbling direction.  Per level, trusted: the packed share bits are swapped
+in role order and both servers count; counts go to the leader masked by
+the shared stream of ``protocol/sessions.py``.  Per level, secure: the
+whole-level 2PC of ``protocol/secure.py`` with the garbler and ``ot_path``
+named by the request; each server returns its additive share sums.
+
+Not ported (they answer ``NotImplementedError`` naming the missing path,
+never "unknown verb"): the other verbs of the JAX server, multi-tenant
+collections, node-span shards, radix fusion, and the client's
+reconnect-and-replay with the server's replay-dedup cache — a lost
+transport fails the call loudly.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import pickle
+import secrets
+import socket
+import struct
+import time
+
+import numpy as np
+import torch
+
+from ..ops import baseot, ibdcf, otext
+from ..ops.fields import F255, FE62
+from ..resilience import policy as respolicy
+from ..utils import resolve_device, words_from_numpy, words_to_numpy
+from ..utils.config import Config
+from . import collect, secure, sessions
+from .driver import PhaseClock
+from .sessions import DEFAULT_COLLECTION
+
+_log = logging.getLogger(__name__)
+_HDR = struct.Struct("<Q")
+
+
+def _check_wire(obj) -> None:
+    """Raise if a frame holds a ``torch.Tensor``: a JAX peer unpickles
+    frames without torch."""
+    if isinstance(obj, torch.Tensor):
+        raise TypeError("a wire frame holds a torch.Tensor; frames carry numpy arrays")
+    if isinstance(obj, dict):
+        for v in obj.values():
+            _check_wire(v)
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            _check_wire(v)
+
+
+async def _send(writer: asyncio.StreamWriter, obj, count=None) -> None:
+    """One frame.  ``count`` is called with the framed byte size."""
+    _check_wire(obj)
+    data = pickle.dumps(obj, protocol=5)
+    if count is not None:
+        count(len(data) + _HDR.size)
+    writer.write(_HDR.pack(len(data)) + data)
+    await writer.drain()
+
+
+async def _recv(reader: asyncio.StreamReader, count=None):
+    """One frame.  Waits indefinitely by design: response waits are bounded
+    by the caller's verb budget, the data plane by TCP keepalive."""
+    (n,) = _HDR.unpack(await reader.readexactly(_HDR.size))
+    if count is not None:
+        count(n + _HDR.size)
+    return pickle.loads(await reader.readexactly(n))
+
+
+async def _fetch_words(t: torch.Tensor) -> np.ndarray:
+    """int32 device words -> uint32 host array, off the event loop (two
+    servers in one loop must not serialize on a device->host copy)."""
+    return await asyncio.to_thread(words_to_numpy, t)
+
+
+def _share_wire(field, sh: torch.Tensor) -> np.ndarray:
+    """Share sums in the JAX package's wire dtype: FE62 uint64 bit
+    patterns, F255 uint32[..., 8] limbs."""
+    if field is F255:
+        return words_to_numpy(sh)
+    return sh.detach().cpu().numpy().view(np.uint64)
+
+
+def _keepalive(writer: asyncio.StreamWriter) -> None:
+    """TCP keepalive on the data plane, so a silently dead peer surfaces
+    as a connection error within about two minutes."""
+    sock = writer.get_extra_info("socket")
+    if sock is None:
+        return
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_KEEPALIVE, 1)
+    for opt, val in (("TCP_KEEPIDLE", 60), ("TCP_KEEPINTVL", 20), ("TCP_KEEPCNT", 3)):
+        if hasattr(socket, opt):
+            sock.setsockopt(socket.IPPROTO_TCP, getattr(socket, opt), val)
+
+
+def not_ported(what: str, path: str) -> NotImplementedError:
+    return NotImplementedError(f"{what}: {path} is not ported to PyTorch yet")
+
+
+# the JAX server's other verbs, each with the path it belongs to
+UNPORTED_VERBS = {
+    "sketch_verify": "the malicious sketch verification",
+    "submit_keys": "streaming ingestion",
+    "window_seal": "streaming ingestion",
+    "window_load": "streaming ingestion",
+    "status": "the status probe of the operating plane",
+    "tree_checkpoint": "checkpoint/restore of the crawl",
+    "tree_restore": "checkpoint/restore of the crawl",
+    "plane_reset": "data-plane recovery",
+    "plane_break": "data-plane recovery",
+    "warmup": "the per-bucket warmup",
+    "session_export": "collection-session migration",
+    "session_import": "collection-session migration",
+}
+
+# the run report's phases: host-clock spans of every level (the JAX server's
+# fss, gc_ot, field), then the secure exchange's steps, spans of the device
+# stream on the card (driver.PhaseClock)
+PHASES = ("fss", "gc_ot", "field", "otext", "b2a", "garble", "eval")
+
+
+class CollectorServer:
+    """One collector server (ref: server.rs:44-172) holding one party's key
+    share, its own OT secrets and its own crawl state on ``device``; only
+    wire frames cross to the peer.  ``server_id`` 0 dials the peer, 1
+    listens."""
+
+    VERBS = ("reset", "add_keys", "tree_init", "tree_crawl", "tree_crawl_last",
+             "tree_prune", "tree_prune_last", "final_shares")
+
+    def __init__(self, server_id: int, cfg: Config, device=None):
+        if server_id not in (0, 1):
+            raise ValueError(f"server_id must be 0 or 1, got {server_id}")
+        if cfg.server_data_devices > 1:
+            raise not_ported(f"server_data_devices={cfg.server_data_devices}",
+                              "a collector server sharded over several cards")
+        self.server_id = server_id
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.boot_id = secrets.token_hex(8)
+        # run report: seconds per phase, bytes per plane, crawled levels
+        self.stats = {"seconds": dict.fromkeys(PHASES, 0.0),
+                      "data_bytes_sent": 0, "data_bytes_recv": 0,
+                      "control_bytes_sent": 0, "control_bytes_recv": 0, "levels": 0}
+        self._verb_lock = asyncio.Lock()  # every verb but add_keys runs under it
+        self._peer_reader = self._peer_writer = None
+        self._rpc_srv = self._peer_srv = None
+        self._ctl_writers: set = set()
+        self._plane_keyed = False  # the handshake below ran on this data plane
+        self._ot_snd = self._ot_rcv = None  # extension sender (garbler) / receiver
+        self._sec_seed = None  # per-level GC and b2a seeds
+        self._crawl_ctr = 0
+        self._clear()
+
+    def _clear(self) -> None:
+        self.keys_parts: list = []  # uploaded numpy key chunks
+        self.keys = None  # IbDcfKeyBatch [N, d, 2] on the device
+        self.alive_keys = None
+        self.frontier = None
+        self.children = None  # the child cache of this level's crawl
+        self.last_shares = None  # surviving leaves' F255 shares
+
+    def _count(self, key: str):
+        def add(n: int) -> None:
+            self.stats[key] += n
+        return add
+
+    # -- verbs ----------------------------------------------------------------
+
+    async def reset(self, _req) -> bool:
+        self._clear()
+        if self._ot_snd is not None:  # fresh GC/b2a randomness per collection
+            self._sec_seed = np.frombuffer(secrets.token_bytes(16), "<u4").copy()
+        return True
+
+    async def add_keys(self, req) -> bool:
+        """Append one key chunk: the five leaves of a [B, d, 2] batch."""
+        if req.get("sketch") is not None:
+            raise not_ported("add_keys", "the malicious sketch material")
+        self.keys_parts.append(tuple(np.asarray(a) for a in req["keys"]))
+        return True
+
+    async def tree_init(self, req) -> bool:
+        if not self.keys_parts and self.keys is None:
+            raise RuntimeError("tree_init before add_keys")
+        await self._ensure_plane()
+        if self.keys_parts:
+            leaves = [np.concatenate(p) for p in zip(*self.keys_parts)]
+            self.keys_parts = []
+            self.keys = ibdcf.keys_from_numpy(ibdcf.IbDcfKeyBatch(*leaves), self.device)
+        n, d = self.keys.cw_seed.shape[:2]
+        if not 1 <= d <= collect.MAX_DIMS:
+            raise ValueError(f"n_dims={d}: supported 1..{collect.MAX_DIMS}")
+        self.alive_keys = torch.ones(n, dtype=torch.bool, device=self.device)
+        self.frontier = collect.tree_init(self.keys, int((req or {}).get("root_bucket", 1)))
+        self.children = self.last_shares = None
+        return True
+
+    async def tree_crawl(self, req) -> np.ndarray:
+        """-> FE62 shares uint64[F, 2^d] of the per-child counts (rpc.rs:60)."""
+        return await self._crawl("tree_crawl", req, last=False)
+
+    async def tree_crawl_last(self, req) -> np.ndarray:
+        """-> F255 shares uint32[F, 2^d, 8] of the last level (rpc.rs:61),
+        kept for ``tree_prune_last`` and ``final_shares``."""
+        self.last_shares = await self._crawl("tree_crawl_last", req, last=True)
+        return self.last_shares
+
+    async def tree_prune(self, req) -> bool:
+        """Fused prune + advance: the surviving children, gathered from this
+        level's child cache (ref: rpc.rs:63, collect.rs:918-929).  A prune
+        with no cache re-expands the frontier first."""
+        if self.frontier is None:
+            raise RuntimeError("tree_prune before tree_init")
+        parent, pat, n_alive = self._prune_args("tree_prune", req)
+        children = self.children
+        if children is None:
+            _, children = collect.expand_share_bits(self.keys, self.frontier,
+                                                    int(req["level"]), want_children=True)
+        dev = self.device
+        self.frontier = collect.advance_from_children(
+            children, torch.from_numpy(parent).to(dev), torch.from_numpy(pat).to(dev), n_alive)
+        self.children = None
+        return True
+
+    async def tree_prune_last(self, req) -> bool:
+        """Compact the last level's shares to the survivors
+        (ref: collect.rs:931-942)."""
+        if self.last_shares is None:
+            raise RuntimeError("tree_prune_last called before tree_crawl_last")
+        self.children = None
+        parent, pat, n_alive = self._prune_args("tree_prune_last", req)
+        child = (pat[:n_alive].astype(np.int64) << np.arange(pat.shape[1])).sum(axis=1)
+        self.last_shares = self.last_shares[parent[:n_alive], child]
+        return True
+
+    async def final_shares(self, _req) -> dict:
+        """The surviving leaves' count shares (ref: rpc.rs:65)."""
+        return {"server_id": self.server_id, "shares": self.last_shares}
+
+    @staticmethod
+    def _prune_args(verb: str, req):
+        parent = np.asarray(req["parent_idx"], np.int64)
+        pat = np.asarray(req["pattern_bits"], bool)
+        if pat.ndim != 2:
+            raise not_ported(f"{verb} with pattern bits shaped {list(pat.shape)}",
+                              "radix-2^k level fusion")
+        return parent, pat, int(req["n_alive"])
+
+    # -- one level ------------------------------------------------------------
+
+    async def _crawl(self, verb: str, req, last: bool) -> np.ndarray:
+        if self.frontier is None:
+            raise RuntimeError(f"{verb} before tree_init")
+        if req.get("shard") is not None:
+            raise not_ported(f"{verb} with shard {req['shard']}", "the node-span sharded crawl")
+        level = int(req["level"])
+        await self._ensure_plane()
+        field = F255 if last else FE62
+        self.stats["levels"] += 1
+        if self.cfg.secure_exchange:
+            return await self._crawl_secure(level, field, last, int(req.get("garbler", 0)),
+                                            req.get("ot_path"))
+        counts = await self._crawl_trusted(level, last)
+        # trusted mode: both servers hold these counts; the shared mask is a
+        # wire-format shim for the leader's v0 - v1, not a secret
+        F, C = counts.shape
+        r = sessions.mask_rows(level, F, C, f255=last)
+        if self.server_id == 1:
+            return r
+        if last:
+            c = np.zeros((F, C, 8), np.uint32)
+            c[..., 0] = counts
+            return F255.np_add(c, r)
+        return FE62.np_add(counts.astype(np.uint64), r)
+
+    def _phases(self, **seconds) -> None:
+        for k, v in seconds.items():
+            self.stats["seconds"][k] += v
+
+    async def _crawl_trusted(self, level: int, last: bool) -> np.ndarray:
+        """Swap the packed share bits uint32[F, N] with the peer and count
+        -> int64[F, 2^d] (ref: collect.rs:945-964)."""
+        t0 = time.perf_counter()
+        packed, children = collect.expand_share_bits(self.keys, self.frontier, level,
+                                                     want_children=not last)
+        mine = await _fetch_words(packed)
+        t1 = time.perf_counter()
+        peer = await self._swap(mine)
+        t2 = time.perf_counter()
+        if peer.shape != mine.shape:
+            raise RuntimeError(f"level {level}: the peer's share bits are shaped "
+                               f"{peer.shape}, this server's {mine.shape}")
+        dev_counts = collect.counts_by_pattern(
+            packed, words_from_numpy(peer, self.device),
+            collect.pattern_masks(self.keys.cw_seed.shape[1]), self.alive_keys,
+            self.frontier.alive)
+        counts = await asyncio.to_thread(lambda: dev_counts.cpu().numpy())
+        self.children = children
+        self._phases(fss=t1 - t0, gc_ot=t2 - t1, field=time.perf_counter() - t2)
+        return counts
+
+    async def _crawl_secure(self, level: int, field, last: bool, garbler: int,
+                            ot_path) -> np.ndarray:
+        """The whole-level 2PC (ref: collect.rs:419-501): the evaluator sends
+        its extension's ``u``, the garbler answers with its one planar
+        message, each server sums its additive shares per (node, pattern).
+        No share bit crosses the wire."""
+        dev = self.device
+        clock = PhaseClock(dev)
+        t0 = time.perf_counter()
+        packed, children = collect.expand_share_bits(self.keys, self.frontier, level,
+                                                     want_children=not last)
+        strs = secure.child_strings(packed, self.keys.cw_seed.shape[1])
+        del packed
+        F, C, N, S = strs.shape
+        B = F * C * N
+        flat = strs.reshape(B, S)
+        w = secure.alive_weight(self.frontier.alive, self.alive_keys, C)
+        # the crawl counter keeps every garbling's randomness fresh if a leader
+        # re-crawls a level without a reset
+        self._crawl_ctr += 1
+        gseed = secure.derive_seed(self._sec_seed, 1, level, self._crawl_ctr)
+        bseed = secure.derive_seed(self._sec_seed, 2, level, self._crawl_ctr)
+        path = secure.ot_path(S, ot_path or self.cfg.ot_path)
+        t1 = time.perf_counter()
+        if self.server_id == garbler:  # garbler = OT-extension sender
+            u = words_from_numpy(await self._dp_recv(), dev)
+            msg, vals = secure.gb_step_level(self._ot_snd, u, flat, gseed, bseed, field,
+                                             garbler, path, phase=clock)
+            del u
+            await self._dp_send(await _fetch_words(msg))
+            del msg
+        else:  # evaluator = OT-extension receiver
+            u, t_rows, idx0 = secure.ev_step1_fused(self._ot_rcv, flat, phase=clock)
+            await self._dp_send(await _fetch_words(u))
+            del u
+            msg = words_from_numpy(await self._dp_recv(), dev)
+            vals = secure.ev_open_level(t_rows, flat, msg, B, S, field, idx0, path,
+                                        phase=clock)
+            del t_rows, msg
+        del flat
+        t2 = time.perf_counter()
+        sh = secure.node_share_sums(field, vals.reshape((F, C, N) + field.limb_shape), w)
+        del vals
+        shares = await asyncio.to_thread(_share_wire, field, sh)
+        self.children = children
+        self._phases(fss=t1 - t0, gc_ot=t2 - t1, field=time.perf_counter() - t2,
+                     **clock.settle())
+        return shares
+
+    # -- data plane -----------------------------------------------------------
+
+    async def _dp_send(self, obj) -> None:
+        await _send(self._peer_writer, (DEFAULT_COLLECTION, obj),
+                    count=self._count("data_bytes_sent"))
+
+    async def _dp_recv(self):
+        frame = await _recv(self._peer_reader, count=self._count("data_bytes_recv"))
+        if frame[0] != DEFAULT_COLLECTION:
+            raise not_ported(f"a data-plane frame on channel {frame[0]!r}",
+                              "the multi-tenant collection layer")
+        return frame[1]
+
+    async def _swap(self, obj):
+        """Role-ordered exchange: server 0 writes first, server 1 reads
+        first (symmetric send-then-recv deadlocks once frames outgrow the
+        socket buffers)."""
+        if self.server_id == 0:
+            await self._dp_send(obj)
+            return await self._dp_recv()
+        peer = await self._dp_recv()
+        await self._dp_send(obj)
+        return peer
+
+    async def _ensure_plane(self) -> None:
+        """Key the data plane once: the coin flip, then in secure mode the
+        base-OT sessions (rpc.py:3144-3216 of the JAX package)."""
+        if self._plane_keyed:
+            return
+        # the coin flip seeds the JAX server's sketch challenge; the port has
+        # no sketch yet, but a JAX peer sends and awaits this frame
+        await self._swap(secrets.token_bytes(16))
+        if self.cfg.secure_exchange:
+            await self._setup_secure()
+        self._plane_keyed = True
+
+    async def _setup_secure(self) -> None:
+        """Two base-OT sessions seeding the IKNP extension, one per garbling
+        direction: in session ``g`` server ``g`` is the extension sender and
+        plays base-OT receiver with its secret ``s``.  The elliptic-curve
+        work runs off the event loop."""
+        for g in (0, 1):
+            if self.server_id == g:
+                s_bits = otext.fresh_s_bits()
+                a_msg = await self._dp_recv()
+                br = baseot.BaseOtReceiver(s_bits)
+                await self._dp_send(await asyncio.to_thread(br.round1, a_msg))
+                seeds = await asyncio.to_thread(br.seeds)
+                self._ot_snd = otext.OtExtSender(s_bits, seeds, self.device)
+            else:
+                bs = baseot.BaseOtSender()
+                await self._dp_send(bs.round1())
+                r_msgs = await self._dp_recv()
+                s0, s1 = await asyncio.to_thread(
+                    lambda: bs.seeds([baseot.decompress(m) for m in r_msgs]))
+                self._ot_rcv = otext.OtExtReceiver(s0, s1, self.device)
+        self._sec_seed = np.frombuffer(secrets.token_bytes(16), "<u4").copy()
+
+    # -- serving --------------------------------------------------------------
+
+    async def _dispatch(self, verb: str, req):
+        """Run one verb; every failure is a response.  ``add_keys`` runs
+        without the verb lock (it appends and never suspends)."""
+        try:
+            if verb in UNPORTED_VERBS:
+                raise not_ported(verb, UNPORTED_VERBS[verb])
+            if verb not in self.VERBS:
+                raise ValueError(f"unknown verb {verb!r}")
+            if verb == "add_keys":
+                return await self.add_keys(req)
+            async with self._verb_lock:
+                return await getattr(self, verb)(req)
+        except Exception as e:  # the RPC boundary: every failure goes to the caller
+            _log.warning("server %d: verb %s failed: %s: %s", self.server_id, verb,
+                         type(e).__name__, e)
+            return {"__error__": f"{type(e).__name__}: {e}"}
+
+    def _hello(self, req) -> dict:
+        coll = (req or {}).get("collection") or DEFAULT_COLLECTION
+        if coll != DEFAULT_COLLECTION:
+            e = not_ported(f"__hello__ for collection {coll!r}",
+                            "the multi-tenant collection layer")
+            return {"__error__": f"{type(e).__name__}: {e}"}
+        return {"boot_id": self.boot_id, "server_id": self.server_id,
+                "collection": DEFAULT_COLLECTION, "clock": round(time.time(), 6)}
+
+    async def _handle_leader(self, reader, writer) -> None:
+        """Control-plane serve loop: every request runs as its own task, so
+        many ``add_keys`` chunks are in flight at once; responses carry the
+        request id.  On disconnect the verbs in flight finish (a verb
+        mid-exchange must not leave the peer's frame unread)."""
+        write_lock = asyncio.Lock()
+        self._ctl_writers.add(writer)
+
+        async def handle(req_id, verb, req):
+            resp = self._hello(req) if verb == "__hello__" else await self._dispatch(verb, req)
+            try:
+                async with write_lock:
+                    await _send(writer, (req_id, resp), count=self._count("control_bytes_sent"))
+            except ConnectionError:
+                pass  # leader gone; the verb itself has finished
+            except RuntimeError:
+                if not writer.is_closing():  # asyncio's write on a closing transport
+                    raise
+
+        tasks: set = set()
+        try:
+            while True:
+                req_id, verb, req = await _recv(reader, count=self._count("control_bytes_recv"))
+                t = asyncio.create_task(handle(req_id, verb, req))
+                tasks.add(t)
+                t.add_done_callback(tasks.discard)
+        except (asyncio.IncompleteReadError, ConnectionResetError):
+            pass
+        finally:
+            if tasks:
+                await asyncio.wait(set(tasks))
+            writer.close()
+            self._ctl_writers.discard(writer)
+
+    def _attach_plane(self, reader, writer) -> None:
+        self._peer_reader, self._peer_writer = reader, writer
+        _keepalive(writer)
+
+    async def start(self, host: str, port: int, peer_host: str, peer_port: int,
+                    on_plane_listen=None):
+        """Bring up the data plane first (server.rs:344-354: server 1
+        listens on ``peer_port``, server 0 dials it under ``DIAL_POLICY``),
+        then listen for the leader.  ``on_plane_listen`` is called once
+        server 1 listens for its peer.  Returns the leader-facing server."""
+        if self.server_id == 1:
+            ready = asyncio.Event()
+
+            async def on_peer(reader, writer):
+                if self._peer_writer is not None:  # one data plane per server
+                    writer.close()
+                    return
+                self._attach_plane(reader, writer)
+                ready.set()
+
+            self._peer_srv = await asyncio.start_server(on_peer, host, peer_port)
+            if on_plane_listen is not None:
+                on_plane_listen()
+            await ready.wait()  # as long as the peer takes to come up
+        else:
+            async def dial():
+                return await asyncio.wait_for(asyncio.open_connection(peer_host, peer_port),
+                                              respolicy.DIAL_TIMEOUT_S)
+
+            try:
+                r, w = await respolicy.retry_async(dial, respolicy.DIAL_POLICY)
+            except respolicy.TRANSIENT_ERRORS as e:
+                raise ConnectionError(
+                    f"peer data plane unreachable at {peer_host}:{peer_port}: {e!r}") from e
+            self._attach_plane(r, w)
+        self._rpc_srv = await asyncio.start_server(self._handle_leader, host, port)
+        return self._rpc_srv
+
+    async def aclose(self) -> None:
+        """Close the listeners, the leader connections and the data plane
+        (transports first: a listener's ``wait_closed`` waits for them)."""
+        for w in list(self._ctl_writers):
+            w.close()
+        if self._peer_writer is not None:
+            self._peer_writer.close()
+        for srv in (self._rpc_srv, self._peer_srv):
+            if srv is not None:
+                srv.close()
+                await srv.wait_closed()
+
+
+class CollectorClient:
+    """The leader's stub of one server: request ids, so any number of calls
+    ride one connection (a reader task resolves them by id); the
+    ``__hello__`` handshake on connect; ``__error__`` responses raise
+    ``RuntimeError``.  No reconnect: a lost transport fails every call in
+    flight with ``ConnectionError``."""
+
+    def __init__(self, host: str, port: int):
+        self._host, self._port = host, port
+        self._r = self._w = None
+        self._send_lock = asyncio.Lock()
+        self._pending: dict = {}
+        self._next_id = 0
+        self._reader_task = None
+        self._dead: ConnectionError | None = None
+        self.collection = DEFAULT_COLLECTION
+        self.session_id = secrets.token_hex(8)
+        self.boot_id = self.server_id = None  # from the hello
+        self.budgets = respolicy.VerbBudgets()
+        self.stats = {"control_bytes_sent": 0, "control_bytes_recv": 0}
+
+    @classmethod
+    async def connect(cls, host: str, port: int) -> "CollectorClient":
+        c = cls(host, port)
+        await c._connect()
+        return c
+
+    def _count(self, key: str):
+        def add(n: int) -> None:
+            self.stats[key] += n
+        return add
+
+    async def _connect(self) -> None:
+        async def dial():
+            return await asyncio.wait_for(asyncio.open_connection(self._host, self._port),
+                                          respolicy.DIAL_TIMEOUT_S)
+
+        try:
+            self._r, self._w = await respolicy.retry_async(dial, respolicy.DIAL_POLICY)
+        except respolicy.TRANSIENT_ERRORS as e:
+            raise ConnectionError(f"server {self._host}:{self._port} unreachable: {e!r}") from e
+        self._reader_task = asyncio.ensure_future(self._read_loop(self._r))
+        hello = await self._roundtrip(
+            "__hello__", {"session": self.session_id, "epoch": 1, "collection": self.collection},
+            self.budgets.deadline("__hello__"))
+        if isinstance(hello, dict) and "__error__" in hello:
+            raise RuntimeError(f"hello refused by {self._host}:{self._port}: {hello['__error__']}")
+        self.boot_id, self.server_id = hello.get("boot_id"), hello.get("server_id")
+
+    async def _read_loop(self, reader) -> None:
+        try:
+            while True:
+                req_id, resp = await _recv(reader, count=self._count("control_bytes_recv"))
+                fut = self._pending.pop(req_id, None)
+                if fut is not None and not fut.done():
+                    fut.set_result(resp)
+        except Exception as e:  # reader death fails every call in flight
+            self._fail(ConnectionError(f"connection to {self._host}:{self._port} lost: {e!r}"))
+
+    def _fail(self, err: ConnectionError) -> None:
+        self._dead = err
+        for fut in self._pending.values():
+            if not fut.done():
+                fut.set_exception(err)
+        self._pending.clear()
+
+    async def _roundtrip(self, verb: str, req, deadline: respolicy.Deadline):
+        if self._dead is not None:
+            raise self._dead
+        self._next_id += 1
+        req_id = self._next_id
+        fut = asyncio.get_running_loop().create_future()
+        self._pending[req_id] = fut
+        try:
+            async with self._send_lock:
+                await _send(self._w, (req_id, verb, req or {}),
+                            count=self._count("control_bytes_sent"))
+            return await deadline.wait_for(fut)
+        finally:
+            self._pending.pop(req_id, None)
+
+    async def call(self, verb: str, req=None):
+        """One verb under its wall-clock budget; a server error raises."""
+        resp = await self._roundtrip(verb, req, self.budgets.deadline(verb))
+        if isinstance(resp, dict) and "__error__" in resp:
+            raise RuntimeError(f"server error on {verb}: {resp['__error__']}")
+        return resp
+
+    async def aclose(self) -> None:
+        if self._reader_task is not None:
+            self._reader_task.cancel()
+        if self._w is not None and not self._w.is_closing():
+            self._w.close()
+        self._fail(ConnectionError("client closed"))

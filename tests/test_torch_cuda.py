@@ -145,3 +145,24 @@ def test_gc_kernels_equal_plain(cuda, S, W):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+def test_two_processes_build_on_an_empty_build_dir(cuda, tmp_path):
+    """Two processes started together on an empty FHH_TORCH_BUILD_DIR (two
+    servers of the socket deployment): both load the kernel and read a
+    whole compiler log."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("from fuzzyheavyhitters_torch.ops import cuda_build as b; b.load('expand'); "
+            "print(b.log_path('expand').read_text().count('registers'))")
+    env = dict(os.environ, FHH_TORCH_BUILD_DIR=str(tmp_path))
+    procs = [subprocess.Popen([sys.executable, "-c", code], env=env, cwd=repo,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert all(int(o.split()[-1]) >= 1 for o in outs), outs
+    assert not [f for f in os.listdir(tmp_path) if ".tmp." in f]
