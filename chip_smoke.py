@@ -60,6 +60,28 @@ Phases (any failure raises, and the script exits non-zero):
    exits non-zero, prints a traceback or outlives its timeout fails the
    script.
 
+10. ``config4_zipf_stream``: the config-4 shape at 196,608 clients through
+    the streaming crawl of the JAX package's ``bench_crawl_hbm_max``:
+    keygen in chunks of 32,768 clients on the card, landed level-major in
+    host memory (``ibdcf.gen_l_inf_ball_host``), then ``driver.Leader(
+    stream_chunk=32, stream_window=64, min_bucket=128)`` over those keys.  Its
+    hitters must equal ``config4_zipf``'s and the plaintext recount, and
+    expand must launch once per server per level plus once per advance
+    chunk.  The expand kernel is held against its plain version on that
+    path's new inputs (a window-sliced level's cw past the first window, a
+    gathered 32-parent chunk with the child cache, the widest bucket), and
+    keygen at the chunk's shape;
+11. ``config4_zipf_resume``: the same streamed crawl checkpointing after
+    level 255 (``checkpoint_every=256``) into the temporary directory,
+    stopped there; a fresh ``Leader`` over the same host keys resumes it.
+    Its hitters must equal phase 10's, and the file must be gone;
+12. ``rides_socket_spans`` and ``rides_secure_socket_spans``: the two socket
+    cells of phase 9 with ``crawl_shard_nodes: 8`` and
+    ``crawl_pipeline_depth: 2`` (the secure one with ``secure_whole_level:
+    false``).  Hitters must equal the unsplit runs' (so ``bin.mesh``'s) and
+    the recount, each server must launch expand once per span and the ot2s
+    kernels once per span it garbled or evaluated.
+
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
 and power limit, every check with its times against its bound, crawl
@@ -73,6 +95,7 @@ JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -127,6 +150,11 @@ PLAIN_TESTS = 1 << 19  # tests per plain ot2s/GC slice
 CHUNK_TESTS = 1 << 20  # tests of each chunk check
 CHUNK_IDX0 = 2**32 - 1000  # the chunk checks' pad index wraps inside the batch
 PROFILE_LEVELS = 8  # secure levels --profile traces per secure crawl
+# bench.py:485-489 (bench_crawl_hbm_max): the streaming crawl's leader
+STREAM = dict(stream_chunk=32, stream_window=64, min_bucket=128)
+KEYGEN_HOST_CHUNK = 32768  # clients per keygen chunk landed in host memory (bench.py:469)
+RESUME_EVERY = 256  # one checkpoint, after level 255 of 512
+SPANS = dict(crawl_shard_nodes=8, crawl_pipeline_depth=2)
 
 # every kernel of the port: (module, launch counter, source, TPU kernel it replaces)
 KERNELS = {
@@ -459,7 +487,6 @@ def socket_run(name, cfg, n, seed, tmp, env=None):
     processes' environment.  Every process must exit 0 without a traceback
     inside its timeout; all three are killed in a ``finally``.  Returns
     the leader's and the servers' events and the working directory."""
-    import dataclasses
     import signal
 
     p0, p1 = free_ports()
@@ -517,12 +544,21 @@ def socket_run(name, cfg, n, seed, tmp, env=None):
 
 
 def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_level):
-    """Phase 9's checks: the hitters equal ``bin.mesh.run``'s and every
-    count the plaintext recount; each server launched expand once per level
-    and, with ``per_level`` (the ot2s pair), encrypt once per level it
-    garbled (level % 2 == its id) and decrypt once per level it evaluated;
-    no other kernel."""
+    """Phase 9's (and 12's) checks: the hitters equal ``bin.mesh.run``'s and
+    every count the plaintext recount; each server launched expand once per
+    crawl verb (one per level, or one per node span of it) and, with
+    ``per_level`` (the ot2s pair), encrypt once per verb of a level it
+    garbled (level % 2 == its id) and decrypt once per verb of a level it
+    evaluated; no other kernel."""
+    from fuzzyheavyhitters_torch.protocol import collect
+
     L = cfg.data_len
+    buckets = run["crawl"]["buckets"]
+    whole = cfg.secure_exchange and cfg.secure_whole_level
+    spans = [1 if whole else len(collect.shard_spans(b, cfg.crawl_shard_nodes))
+             for b in buckets]
+    if len(spans) != L:
+        raise AssertionError(f"{name}: the leader crawled {len(spans)} levels, want {L}")
     got = {e["value"]: e["count"] for e in run["hitters"]}
     if got != mesh_hitters:
         raise AssertionError(f"{name}: socket hitters {got} != bin.mesh's {mesh_hitters}")
@@ -532,29 +568,34 @@ def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_lev
     if not np.array_equal(np.array(list(got.values())), want):
         raise AssertionError(f"{name}: counts {list(got.values())} != plaintext {want}")
     launches = {}
+    verbs = sum(spans)
     for sid, ex in enumerate(run["exits"]):
-        garbled = sum(1 for lv in range(L) if lv % 2 == sid)
+        garbled = sum(n for lv, n in enumerate(spans) if lv % 2 == sid)
         want_l = {kn: 0 for kn in KERNELS}
-        want_l["expand"] = L
+        want_l["expand"] = verbs
         if per_level:
-            want_l.update(ot2s_encrypt=garbled, ot2s_decrypt=L - garbled)
-        if ex["launches"] != want_l or ex["levels"] != L:
+            want_l.update(ot2s_encrypt=garbled, ot2s_decrypt=verbs - garbled)
+        if ex["launches"] != want_l or ex["levels"] != verbs:
             raise AssertionError(f"{name}: server {sid} launched {ex['launches']} over "
-                                 f"{ex['levels']} levels, want {want_l} over {L}")
+                                 f"{ex['levels']} crawl verbs, want {want_l} over {verbs}")
         launches[f"server{sid}"] = ex["launches"]
         log(f"socket {name} server{sid}: data_bytes_sent={ex['data_bytes_sent']} "
-            f"data_bytes_recv={ex['data_bytes_recv']} control_bytes_recv="
+            f"data_bytes_recv={ex['data_bytes_recv']} data_frame_max={ex['data_frame_max']} "
+            f"control_bytes_recv="
             f"{ex['control_bytes_recv']} control_bytes_sent={ex['control_bytes_sent']} "
             f"phase_s={ {k: round(v, 4) for k, v in ex['seconds'].items()} } "
             f"launches={ex['launches']}")
     log(f"socket {name}: N={points.shape[0]} hitters={len(got)} (= bin.mesh's, each = the "
         f"plaintext recount) crawl_s={run['crawl']['seconds']:.3f} bin.mesh crawl_s="
         f"{mesh_crawl_s:.3f} addkeys_s={run['addkeys']['seconds']:.3f} keygen_s="
-        f"{run['keygen']['seconds']:.3f} leader_wall_s={run['wall_s']:.3f}")
-    return {"n": int(points.shape[0]), "hitters": len(got), "crawl_s": run["crawl"]["seconds"],
+        f"{run['keygen']['seconds']:.3f} leader_wall_s={run['wall_s']:.3f} "
+        f"crawl_verbs_per_server={verbs} pipeline={run['crawl']['pipeline']}")
+    return {"n": int(points.shape[0]), "hitters": len(got), "hitter_map": got, "crawl_s": run["crawl"]["seconds"],
             "mesh_crawl_s": mesh_crawl_s, "addkeys_s": run["addkeys"]["seconds"],
             "keygen_s": run["keygen"]["seconds"], "leader_wall_s": run["wall_s"],
-            "launches": launches, "servers": run["exits"]}
+            "launches": launches, "servers": run["exits"], "crawl_verbs": verbs,
+            "pipeline": run["crawl"]["pipeline"],
+            "data_frame_max": [ex["data_frame_max"] for ex in run["exits"]]}
 
 
 def check_keygen_chunks(kg, torch, rng):
@@ -601,6 +642,17 @@ def expand_check(ex, args, want_children, derived, torch):
     return err, ms, plain_ms
 
 
+def expand_bound(B, N, d2, want_children, derived):
+    """Least time of one expansion of B rows: read seed + t + y per (row,
+    plane) and the cw planes once, write packed per row and, with the child
+    cache, 8 seed words + flags; hash a whole ChaCha8 block per (row,
+    plane) with the cache, without it only what word 8 needs."""
+    if not want_children:
+        return bound(B * d2 * 18 + N * d2 + B * 4,
+                     B * d2 * (CHACHA8_WORD8_OPS if derived else 0))
+    return bound(B * d2 * (18 + 33) + N * d2 * 17 + B * 4, B * d2 * CHACHA8_OPS)
+
+
 def measure_expand(name, run, cfg, ex, collect, prg, torch):
     """Phase 4: re-crawl the run's keys level by level and hold the expand
     kernel against its plain version on server 0's frontier each time it
@@ -633,15 +685,7 @@ def _expand_checks(name, lead, L, n, cfg, ex, collect, prg, torch):
             args = (st.seed.reshape(4, d2, B), st.bit.reshape(d2, B),
                     st.y_bit.reshape(d2, B), cws, cwf)
             err, ms, plain_ms = expand_check(ex, args, not last, prg.DERIVED_BITS, torch)
-            # read seed + t + y per (row, plane) and the cw planes once, write
-            # packed per row and, with the child cache, 8 seed words + flags
-            if last:
-                nbytes = B * d2 * 18 + N * d2 + B * 4
-                ops = B * d2 * (CHACHA8_WORD8_OPS if prg.DERIVED_BITS else 0)
-            else:
-                nbytes = B * d2 * (18 + 33) + N * d2 * 17 + B * 4
-                ops = B * d2 * CHACHA8_OPS
-            b_ms, b_by = bound(nbytes, ops)
+            b_ms, b_by = expand_bound(B, N, d2, not last, prg.DERIVED_BITS)
             checks.append({"level": level, "F": F, "N": N, "d2": d2, "B": B,
                            "want_children": not last, "max_abs_err": err, "ms": ms,
                            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
@@ -791,6 +835,183 @@ def measure_secure(name, run, cfg, kns, torch):
     return checks
 
 
+def stream_run(name, cfg, n, seed, tmp):
+    """Phase 10: ``bench.py``'s streaming crawl on the card.  Sampling draws
+    from ``default_rng(seed)`` as ``bin.mesh`` does; keygen runs in chunks
+    of KEYGEN_HOST_CHUNK clients, each landed in host memory (timed with
+    the copies); the peak memory counter is reset just before the crawl."""
+    import torch
+
+    from fuzzyheavyhitters_torch.bin import mesh
+    from fuzzyheavyhitters_torch.ops import ibdcf
+    from fuzzyheavyhitters_torch.protocol import driver
+    from fuzzyheavyhitters_torch.workloads import sample_points
+
+    rng = np.random.default_rng(seed)
+    seconds = {}
+    t0 = time.perf_counter()
+    pts = sample_points(cfg, n, rng)
+    seconds["sampling"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h0, h1 = ibdcf.gen_l_inf_ball_host(pts, cfg.ball_size, rng, device="cuda",
+                                       chunk=KEYGEN_HOST_CHUNK)
+    torch.cuda.synchronize()
+    seconds["keygen"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    lead = driver.Leader(*driver.make_servers(h0, h1, "cuda"), n_dims=cfg.n_dims,
+                         data_len=cfg.data_len, f_max=cfg.f_max, **STREAM)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = lead.run(nreqs=n, threshold=cfg.threshold)
+    torch.cuda.synchronize()
+    seconds["crawl"] = time.perf_counter() - t0
+    return mesh.MeshRun(points=pts, result=res, leader=lead, seconds=seconds)
+
+
+def stream_launches(buckets, chunk):
+    """Expand launches of a streamed crawl over ``buckets`` (one per level):
+    per server, the level's expansion, and at each inner level one per
+    advance chunk of the next bucket (the whole bucket when the chunk does
+    not tile it)."""
+    per = 0
+    for level, F in enumerate(buckets):
+        per += 1
+        if level + 1 < len(buckets):
+            F2 = buckets[level + 1]
+            c = min(F2, chunk)
+            per += F2 // c if F2 % c == 0 else 1
+    return 2 * per
+
+
+def measure_stream_expand(name, run, cfg, ex, prg, torch):
+    """Phase 10's kernel checks: replay the streamed crawl level by level,
+    keep server 0's expand calls of three kinds and hold each against the
+    plain version: the level expansion at the first level of the second
+    window (its cw sliced from an uploaded window), the first advance chunk
+    (gathered parents, child cache) at the level before the widest inner
+    bucket, and the level expansion at the widest bucket."""
+    lead = run.leader
+    b = lead.buckets
+    L = lead.data_len
+    want = {"window_slice": (lead.stream_window, False),
+            "gathered_chunk": (max(range(L - 1), key=lambda lv: (b[lv + 1], -lv)), True),
+            "widest_bucket": (b.index(max(b)), False)}
+    kept, level_now = {}, [0]
+    orig = ex.expand_packed
+
+    def keeping(*a):
+        for kind, key in want.items():
+            if key == (level_now[0], a[-1]) and kind not in kept:
+                kept[kind] = a
+        return orig(*a)
+
+    ex.expand_packed = keeping
+    try:
+        lead.tree_init()
+        for level in range(L):
+            level_now[0] = level
+            lead.run_level(level, run.points.shape[0], cfg.threshold)
+    finally:
+        ex.expand_packed = orig
+    checks = []
+    for kind, (level, wc) in want.items():
+        args = kept.pop(kind)[:5]
+        d2, B = args[1].shape
+        N = args[4].shape[1]
+        err, ms, plain_ms = expand_check(ex, args, wc, prg.DERIVED_BITS, torch)
+        b_ms, b_by = expand_bound(B, N, d2, wc, prg.DERIVED_BITS)
+        checks.append({"kind": kind, "level": level, "F": B // N, "N": N, "d2": d2, "B": B,
+                       "want_children": wc, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
+        log(f"expand {name} {kind} level={level} F={B // N} N={N} d2={d2} "
+            f"want_children={wc}: kernel == plain, max_abs_err={err} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        del args
+    return checks
+
+
+class _Stopped(Exception):
+    """Raised after the resume phase's checkpoint to stop its crawl there."""
+
+
+def resume_run(name, run, cfg, tmp, want_hitters):
+    """Phase 11: the streamed crawl of ``run``'s host keys, checkpointed
+    after level RESUME_EVERY - 1 and stopped; a fresh leader over the same
+    keys resumes it.  Returns its figures."""
+    import torch
+
+    from fuzzyheavyhitters_torch.protocol import driver
+
+    keys = (run.leader.server0.keys, run.leader.server1.keys)
+    n = run.points.shape[0]
+    path = os.path.join(tmp, f"{name}.npz")
+    fig = {}
+
+    def leader():
+        return driver.Leader(*driver.make_servers(*keys, "cuda"), n_dims=cfg.n_dims,
+                             data_len=cfg.data_len, f_max=cfg.f_max, **STREAM)
+
+    first = leader()
+    write = first.checkpoint
+
+    def checkpoint(*a):
+        t0 = time.perf_counter()
+        first._key_fingerprint()
+        fig["fingerprint_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write(*a)
+        fig["write_s"] = time.perf_counter() - t0
+        fig["level"] = a[1]
+        raise _Stopped
+
+    first.checkpoint = checkpoint
+    t0 = time.perf_counter()
+    try:
+        first.run(nreqs=n, threshold=cfg.threshold, checkpoint_path=path,
+                  checkpoint_every=RESUME_EVERY)
+        raise AssertionError(f"{name}: the crawl wrote no checkpoint")
+    except _Stopped:
+        pass
+    fig["first_s"] = time.perf_counter() - t0
+    fig["bytes"] = os.path.getsize(path)
+    del first
+    torch.cuda.empty_cache()
+    second = leader()
+    restore = second.restore
+
+    def timed_restore(*a):
+        t0 = time.perf_counter()
+        second._key_fingerprint()
+        t1 = time.perf_counter()
+        out = restore(*a)
+        torch.cuda.synchronize()
+        fig["restore_fingerprint_s"], fig["restore_s"] = t1 - t0, time.perf_counter() - t1
+        return out
+
+    second.restore = timed_restore
+    t0 = time.perf_counter()
+    res = second.run(nreqs=n, threshold=cfg.threshold, checkpoint_path=path,
+                     checkpoint_every=RESUME_EVERY, resume=True)
+    torch.cuda.synchronize()
+    fig["resumed_s"] = time.perf_counter() - t0
+    fig["levels_resumed"] = len(second.timings["expand"])
+    got = {str(row.tolist()): int(c) for row, c in zip(res.decode_ints(), res.counts)}
+    if got != want_hitters:
+        raise AssertionError(f"{name}: resumed hitters differ from the streamed crawl's")
+    if os.path.exists(path) or os.path.exists(path + ".tmp"):
+        raise AssertionError(f"{name}: the completed crawl left its checkpoint behind")
+    if fig["level"] != RESUME_EVERY - 1 or fig["levels_resumed"] != cfg.data_len - RESUME_EVERY:
+        raise AssertionError(f"{name}: checkpoint after level {fig['level']}, "
+                             f"{fig['levels_resumed']} levels resumed")
+    log(f"resume {name}: checkpoint after level {fig['level']} bytes={fig['bytes']} "
+        f"fingerprint_s={fig['fingerprint_s']:.3f} write_s={fig['write_s']:.3f} "
+        f"restore_s={fig['restore_s']:.3f} (its fingerprint "
+        f"{fig['restore_fingerprint_s']:.3f} s) crawl_to_checkpoint_s={fig['first_s']:.3f} "
+        f"resumed_crawl_s={fig['resumed_s']:.3f} levels_resumed={fig['levels_resumed']} "
+        f"hitters={len(got)} (= the streamed crawl's); the file is gone")
+    return fig
+
+
 def chunk_checks(torch, seed):
     """Every secure kernel on CHUNK_TESTS random tests with the pad index
     starting at CHUNK_IDX0, so the u32 index wraps inside the batch."""
@@ -925,12 +1146,71 @@ def main() -> int:
             report["crawls"][name] = fig
             del run
             torch.cuda.empty_cache()
+        # phases 10-11: the streamed config-4 crawl from host keys, and its resume
+        name, cfg4 = "config4_zipf_stream", cells["config4_zipf"][0]
+        run, launches[name], fig = run_main_path(name, cfg4, ZIPF_CLIENTS, args.seed, tmp,
+                                                 (), stream_run, 1)
+        lead = run.leader
+        got = {str(row.tolist()): int(c) for row, c in
+               zip(run.result.decode_ints(), run.result.counts)}
+        if got != hitters["config4_zipf"]:
+            raise AssertionError(f"{name}: hitters differ from config4_zipf's")
+        want_ex = stream_launches(lead.buckets, STREAM["stream_chunk"])
+        want_kg = -(-ZIPF_CLIENTS // KEYGEN_HOST_CHUNK)
+        if launches[name]["expand"] != want_ex or launches[name]["keygen"] != want_kg:
+            raise AssertionError(f"{name}: launches {launches[name]}, want expand={want_ex} "
+                                 f"keygen={want_kg}")
+        keys = (lead.server0.keys, lead.server1.keys)
+        # the parties share their correction words: count each tensor once
+        fig["host_key_bytes"] = sum(t.nbytes for t in {id(t): t for k in keys for t in k}.values())
+        log(f"stream {name}: hitters={len(got)} (= config4_zipf's, each = the plaintext "
+            f"recount) keygen_s={run.seconds['keygen']:.3f} (chunks of {KEYGEN_HOST_CHUNK} "
+            f"into host memory) crawl_s={run.seconds['crawl']:.3f} host_key_bytes="
+            f"{fig['host_key_bytes']} max_memory_allocated={fig['max_memory_allocated']} "
+            f"(cached config4_zipf: "
+            f"{report['crawls']['config4_zipf']['max_memory_allocated']}) "
+            f"expand_launches={launches[name]['expand']} (= {want_ex}) "
+            f"buckets_max={max(lead.buckets)}")
+        stage(f"{name} crawl")
+        if args.profile:
+            fig["profile"] = profile_crawl(name, run, cfg4, torch)
+            stage(f"{name} profile")
+        fig["stream_checks"] = measure_stream_expand(name, run, cfg4, expand_cuda, prg, torch)
+        errs["expand"] += [c["max_abs_err"] for c in fig["stream_checks"]]
+        kg = measure_keygen(f"{name} chunk", run.points[:KEYGEN_HOST_CHUNK], cfg4, keygen_cuda,
+                            ibdcf, torch, rng)
+        fig["keygen_check"] = kg
+        errs["keygen"].append(kg["max_abs_err"])
+        stage(f"{name} checks")
+        fig["resume"] = resume_run("config4_zipf_resume", run, cfg4, tmp, got)
+        stage("config4_zipf_resume")
+        report["crawls"][name] = fig
+        del run, lead, keys
+        torch.cuda.empty_cache()
         for name, cell in sockets.items():
             cfg, n, per_level = cells[cell][0], cells[cell][1], cells[cell][2]
             run = socket_run(name, cfg, n, args.seed, tmp)
             report["sockets"][name] = check_socket_run(
                 name, run, cfg, points[cell], hitters[cell],
                 report["crawls"][cell]["seconds"]["crawl"], per_level)
+            stage(f"{name} socket run")
+        # phase 12: the same socket cells crawled in node spans, pipelined
+        for base in list(sockets):
+            name, cell = f"{base}_spans", sockets[base]
+            cfg, n, per_level = cells[cell][0], cells[cell][1], cells[cell][2]
+            extra = dict(SPANS, **({"secure_whole_level": False} if cfg.secure_exchange else {}))
+            cfg = dataclasses.replace(cfg, **extra)
+            run = socket_run(name, cfg, n, args.seed, tmp)
+            rep = check_socket_run(name, run, cfg, points[cell], hitters[cell],
+                                   report["crawls"][cell]["seconds"]["crawl"], per_level)
+            whole = report["sockets"][base]
+            if rep["hitter_map"] != whole["hitter_map"]:
+                raise AssertionError(f"{name}: hitters differ from {base}'s")
+            log(f"spans {name}: {extra} hitters = {base}'s; data_frame_max={rep['data_frame_max']}"
+                f" ({base}: {whole['data_frame_max']}) crawl_s={rep['crawl_s']:.3f} ({base}: "
+                f"{whole['crawl_s']:.3f}) crawl_verbs_per_server={rep['crawl_verbs']} "
+                f"pipeline={rep['pipeline']}")
+            report["sockets"][name] = rep
             stage(f"{name} socket run")
     for name in points:
         kg = measure_keygen(name, points[name], cells[name][0], keygen_cuda, ibdcf, torch, rng)
@@ -956,19 +1236,25 @@ def main() -> int:
     for kn, (_, _, source, replaces) in KERNELS.items():
         m, cell = meas[kn]
         sock = {f"{c}/{who}": report["sockets"][c]["launches"][who][kn]
-                for c in sockets for who in ("server0", "server1")}
+                for c in report["sockets"] for who in ("server0", "server1")}
         log(f"kernel {kn}: cell={cell} ms={m['ms']:.4f} plain_ms={m['plain_ms']:.4f} "
             f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']}) "
-            f"launches={ {c: launches[c][kn] for c in cells} } socket_launches={sock} "
+            f"launches={ {c: launches[c][kn] for c in launches} } socket_launches={sock} "
             f"checks={len(errs[kn])} max_abs_err={max(errs[kn])}")
         rows.append({"name": kn, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[cell][kn], "max_abs_err": max(errs[kn]),
                      "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"], "library_ms": None})
+        if kn == "expand":  # the streamed path's inputs, under the same launch counter
+            rows[-1]["stream_checks"] = [
+                {k: c[k] for k in ("kind", "level", "F", "want_children", "max_abs_err", "ms",
+                                   "plain_ms", "bound_ms")}
+                for c in report["crawls"]["config4_zipf_stream"]["stream_checks"]]
+            rows[-1]["stream_launches"] = launches["config4_zipf_stream"][kn]
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
-    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, six crawls and two "
-        "socket runs)")
+    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, seven crawls, a resume "
+        "and four socket runs)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

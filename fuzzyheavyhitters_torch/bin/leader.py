@@ -104,6 +104,7 @@ async def run(cfg, nreqs: int, dev, seed) -> None:
         res = await lead.run(nreqs)
         emit("crawl.done", seconds=time.perf_counter() - t0, levels=cfg.data_len,
              hitters=int(res.paths.shape[0]), secure=cfg.secure_exchange,
+             buckets=lead.buckets, pipeline=lead.pipeline,
              control_bytes={"server0": c0.stats, "server1": c1.stats})
     finally:
         await c0.aclose()

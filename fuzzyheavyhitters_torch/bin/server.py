@@ -12,8 +12,8 @@ CUDA context before it listens.  Events are JSON lines on standard output:
 ``server.plane_listening`` (server 1, once its peer may dial),
 ``server.serving`` once the leader may connect, and on SIGTERM or SIGINT
 ``server.exit`` with the seconds per
-phase, the bytes of each plane and the launches of each kernel in this
-process.  The JAX binary's checkpoint directory, fleet registration and
+phase, the bytes of each plane, the largest data-plane frame and the
+launches of each kernel in this process.  The JAX binary's checkpoint directory, fleet registration and
 multi-card options are not ported: their variables are refused.
 """
 
@@ -92,6 +92,7 @@ async def amain(cfg, server_id: int, device) -> None:
              seconds=server.stats["seconds"], levels=server.stats["levels"],
              data_bytes_sent=server.stats["data_bytes_sent"],
              data_bytes_recv=server.stats["data_bytes_recv"],
+             data_frame_max=server.stats["data_frame_max"],
              control_bytes_sent=server.stats["control_bytes_sent"],
              control_bytes_recv=server.stats["control_bytes_recv"],
              launches=launch_counts())

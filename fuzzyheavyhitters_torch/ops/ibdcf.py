@@ -16,6 +16,11 @@ the CUDA kernel on a card and its plain version on the CPU
 ``numpy.random.Generator`` drawn in the JAX package's order, so one seed
 gives the same keys in both packages.
 
+The streaming crawl holds its keys in host memory as :class:`HostKeys`: the
+correction words level-major in the expand kernel's planar layout, so one
+window of levels is one contiguous slice (:func:`gen_l_inf_ball_host`
+generates them on the card in client chunks).
+
 Semantics: with keys on bound ``b``, the XOR of the two parties' share bits
 after evaluating MSB-first input ``x`` is ``[x < b]`` for a side=True
 ("left") key and ``[x > b]`` for side=False ("right").
@@ -49,6 +54,27 @@ class IbDcfKeyBatch(NamedTuple):
     @property
     def batch_shape(self):
         return tuple(self.cw_seed.shape[:-2])
+
+
+class HostKeys(NamedTuple):
+    """ONE party's keys in host memory for the streaming crawl, the
+    correction words level-major in the expand kernel's layout (see
+    :func:`cw_level_major`):
+
+    - ``key_idx``   bool[N, d, 2]
+    - ``root_seed`` int32[N, d, 2, 4]
+    - ``cws``       int32[L, 4, d2, N]  correction seeds, d2 = 2 * d planes
+    - ``cwf``       uint8[L, d2, N]     bl | br<<1 | yl<<2 | yr<<3
+    """
+
+    key_idx: torch.Tensor
+    root_seed: torch.Tensor
+    cws: torch.Tensor
+    cwf: torch.Tensor
+
+    @property
+    def data_len(self) -> int:
+        return self.cws.shape[0]
 
 
 class EvalState(NamedTuple):
@@ -102,6 +128,29 @@ def level_cw(key: IbDcfKeyBatch, level: int):
         raise IndexError(f"level {level} out of range for data_len {key.data_len}")
     return (key.cw_seed[..., level, :], key.cw_bits[..., level, :],
             key.cw_y_bits[..., level, :])
+
+
+def cw_level_major(key: IbDcfKeyBatch, lo: int = 0, hi: int | None = None):
+    """Correction words of levels ``[lo, hi)`` in the expand kernel's
+    layout, level-major: ``cws`` int32[W, 4, d2, N] and ``cwf`` uint8[W, d2,
+    N] with plane p = dim * 2 + side and flags bl|br<<1|yl<<2|yr<<3, for a
+    batch [N, d, 2]."""
+    N, d = key.cw_seed.shape[:2]
+    sl = slice(lo, hi)
+    cws = key.cw_seed[..., sl, :]
+    W = cws.shape[-2]
+    cws = cws.permute(3, 4, 1, 2, 0).reshape(W, 4, 2 * d, N)
+    u8 = lambda a, s: a.to(torch.uint8) << s
+    b, y = key.cw_bits[..., sl, :], key.cw_y_bits[..., sl, :]
+    cwf = u8(b[..., 0], 0) | u8(b[..., 1], 1) | u8(y[..., 0], 2) | u8(y[..., 1], 3)
+    return cws.contiguous(), cwf.permute(3, 1, 2, 0).reshape(W, 2 * d, N).contiguous()
+
+
+def host_keys(key: IbDcfKeyBatch) -> HostKeys:
+    """A key batch [N, d, 2] as :class:`HostKeys` in host memory."""
+    cws, cwf = cw_level_major(key)
+    return HostKeys(key_idx=key.key_idx.cpu(), root_seed=key.root_seed.cpu(),
+                    cws=cws.cpu(), cwf=cwf.cpu())
 
 
 def eval_bit(cw, state: EvalState, direction: torch.Tensor,
@@ -217,6 +266,35 @@ def gen_l_inf_ball(points_bits, ball_size: int, rng: np.random.Generator,
     alpha = np.stack([lo, hi], axis=-2)  # [N, n_dims, 2, L]
     side = np.broadcast_to(np.array([True, False]), alpha.shape[:-1])
     return _gen_on(alpha, side, _rng_seeds(rng, alpha.shape[:-1]), device)
+
+
+def gen_l_inf_ball_host(points_bits, ball_size: int, rng: np.random.Generator,
+                        device=None, chunk: int = 32768):
+    """:func:`gen_l_inf_ball` for a batch whose keys would crowd the card:
+    keygen runs on ``device`` ``chunk`` clients at a time (drawing from
+    ``rng`` in the same order), and each chunk's correction words are put
+    level-major on the device and copied into host memory.  Returns both
+    parties' :class:`HostKeys`; the two share their correction-word
+    tensors, as the parties of :func:`gen_pair` do."""
+    points = np.asarray(points_bits, bool)
+    N, d, L = points.shape
+    d2 = 2 * d
+    cws = torch.empty((L, 4, d2, N), dtype=torch.int32)
+    cwf = torch.empty((L, d2, N), dtype=torch.uint8)
+    key_idx = [torch.empty((N, d, 2), dtype=torch.bool) for _ in range(2)]
+    roots = [torch.empty((N, d, 2, 4), dtype=torch.int32) for _ in range(2)]
+    for lo in range(0, N, chunk):
+        hi = min(N, lo + chunk)
+        parts = gen_l_inf_ball(points[lo:hi], ball_size, rng, device=device)
+        c_s, c_f = cw_level_major(parts[0])
+        cws[..., lo:hi].copy_(c_s)
+        cwf[..., lo:hi].copy_(c_f)
+        for p, k in enumerate(parts):
+            key_idx[p][lo:hi].copy_(k.key_idx)
+            roots[p][lo:hi].copy_(k.root_seed)
+        del parts, c_s, c_f
+    return tuple(HostKeys(key_idx=key_idx[p], root_seed=roots[p], cws=cws, cwf=cwf)
+                 for p in range(2))
 
 
 def gen_l_inf_ball_from_coords(coords: np.ndarray, ball_size: int,

@@ -15,7 +15,12 @@ seed ``int32[4, d, 2, F, N]``, bits ``bool[d, 2, F, N]`` — the layout of
 the expand kernel (``ops/expand_cuda.py``), whose plain version the CPU
 runs.  The frontier's node axis ``F`` is a power-of-two bucket sized to the
 survivors (:func:`bucket_for`); the expansion also returns both children's
-states, so advancing past the prune is a gather, not a second PRG pass.
+states, so advancing past the prune is a gather, not a second PRG pass.  The
+streaming crawl (``driver.Leader`` over ``ibdcf.HostKeys``) keeps no child cache: it
+feeds the expansion one level's correction words from a host window
+(:func:`expand_share_bits_from_cw`) and re-expands the surviving parents,
+``node_chunk`` at a time (:func:`advance_from_cw`).  A level may also be
+crawled in node spans (:func:`shard_spans`), as the socket server does.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import expand_cuda, prg
-from ..ops.ibdcf import EvalState, IbDcfKeyBatch, eval_init
+from ..ops.ibdcf import EvalState, IbDcfKeyBatch, cw_level_major, eval_init
 
 MAX_DIMS = 8  # the packed 32-bit word holds d*4 bits
 
@@ -55,16 +60,17 @@ class PlanarChildren(NamedTuple):
     flags: torch.Tensor
 
 
-def bucket_for(n_alive: int, f_max: int) -> int:
-    """Smallest power of two ≥ ``n_alive``, capped by ``f_max``; more than
-    ``f_max`` survivors raise."""
+def bucket_for(n_alive: int, f_max: int, min_bucket: int = 1) -> int:
+    """Smallest power of two ≥ ``n_alive`` (and ≥ ``min_bucket``), capped by
+    ``f_max``; more than ``f_max`` survivors raise.  ``min_bucket`` changes
+    shapes only, never hitters."""
     if n_alive > f_max:
         raise ValueError(
             f"{n_alive} surviving nodes exceed f_max={f_max}; "
             "raise f_max or the threshold"
         )
     b = 1 << max(0, int(np.ceil(np.log2(max(1, n_alive)))))
-    return min(f_max, b)
+    return min(f_max, max(b, min_bucket))
 
 
 def tree_init(keys: IbDcfKeyBatch, f_bucket: int = 1) -> Frontier:
@@ -113,12 +119,8 @@ def pattern_masks(d: int) -> np.ndarray:
 def level_cw_planar(keys: IbDcfKeyBatch, level: int):
     """One level's correction words in the expand kernel's layout:
     ``cws`` int32[4, d2, N] and ``cwf`` uint8[d2, N] (bl|br<<1|yl<<2|yr<<3)."""
-    N, d = keys.cw_seed.shape[:2]
-    cws = keys.cw_seed[..., level, :].permute(3, 1, 2, 0).reshape(4, 2 * d, N)
-    u8 = lambda a, s: a.to(torch.uint8) << s
-    b, y = keys.cw_bits[..., level, :], keys.cw_y_bits[..., level, :]
-    cwf = u8(b[..., 0], 0) | u8(b[..., 1], 1) | u8(y[..., 0], 2) | u8(y[..., 1], 3)
-    return cws.contiguous(), cwf.permute(1, 2, 0).reshape(2 * d, N).contiguous()
+    cws, cwf = cw_level_major(keys, level, level + 1)
+    return cws[0], cwf[0]
 
 
 def expand_share_bits(keys: IbDcfKeyBatch, frontier: Frontier, level: int,
@@ -129,10 +131,18 @@ def expand_share_bits(keys: IbDcfKeyBatch, frontier: Frontier, level: int,
     :class:`PlanarChildren` cache (None when ``want_children`` is False,
     the last level).  The expansion is ``ops/expand_cuda.expand_packed``:
     the kernel on a card, its plain version on the CPU."""
+    return expand_share_bits_from_cw(level_cw_planar(keys, level), frontier, want_children)
+
+
+def expand_share_bits_from_cw(cw, frontier: Frontier, want_children: bool = True):
+    """:func:`expand_share_bits` fed one level's correction words directly,
+    ``cw = (cws int32[4, d2, N], cwf uint8[d2, N])`` as
+    :func:`level_cw_planar` builds them: the streaming crawl holds its keys
+    in host memory and uploads only windows of levels."""
+    cws, cwf = cw
     st = frontier.states
     d, _, F, N = st.bit.shape
     d2, B = 2 * d, F * N
-    cws, cwf = level_cw_planar(keys, level)
     packed, oseeds, oflags = expand_cuda.expand_packed(
         st.seed.reshape(4, d2, B), st.bit.reshape(d2, B),
         st.y_bit.reshape(d2, B), cws, cwf, prg.DERIVED_BITS, want_children,
@@ -156,21 +166,73 @@ def advance_from_children(children: PlanarChildren, parent_idx: torch.Tensor,
     of a dim take the same direction (ref: collect.rs:100)."""
     _, _, d, _, _, N = children.seed.shape
     F2 = parent_idx.shape[0]
-    dev = parent_idx.device
-    seed = torch.empty((4, d, 2, F2, N), dtype=torch.int32, device=dev)
-    bit = torch.empty((d, 2, F2, N), dtype=torch.bool, device=dev)
-    y_bit = torch.empty((d, 2, F2, N), dtype=torch.bool, device=dev)
+    states = _empty_states(d, F2, N, parent_idx.device)
+    _select_children(children, parent_idx, pattern_bits, states)
+    return Frontier(states=states, alive=torch.arange(F2, device=parent_idx.device) < n_alive)
+
+
+def _empty_states(d: int, F: int, N: int, dev) -> EvalState:
+    return EvalState(seed=torch.empty((4, d, 2, F, N), dtype=torch.int32, device=dev),
+                     bit=torch.empty((d, 2, F, N), dtype=torch.bool, device=dev),
+                     y_bit=torch.empty((d, 2, F, N), dtype=torch.bool, device=dev))
+
+
+def _select_children(children: PlanarChildren, idx: torch.Tensor,
+                     pattern_bits: torch.Tensor, out: EvalState) -> None:
+    """Write child ``idx[i]`` of the cache, in direction ``pattern_bits[i]``
+    per dim, into node slot ``i`` of ``out`` (seed [4, d, 2, F', N], bits
+    [d, 2, F', N]; views are written in place)."""
+    d = children.seed.shape[2]
     for j in range(d):
         dir_j = pattern_bits[:, j].to(torch.int64)  # [F']
         # advanced indices on axes 0 and 3 -> [F', 4, 2, N]
-        g = children.seed[:, :, j][dir_j, :, :, parent_idx]
-        seed[:, j] = g.permute(1, 2, 0, 3)
-        fl = children.flags[j][:, parent_idx]  # [2, F', N]
+        g = children.seed[:, :, j][dir_j, :, :, idx]
+        out.seed[:, j] = g.permute(1, 2, 0, 3)
+        fl = children.flags[j][:, idx]  # [2, F', N]
         sh = dir_j.to(torch.uint8)[None, :, None]
-        bit[j] = ((fl >> sh) & 1) != 0
-        y_bit[j] = ((fl >> (sh + 2)) & 1) != 0
-    alive = torch.arange(F2, device=dev) < n_alive
-    return Frontier(states=EvalState(seed=seed, bit=bit, y_bit=y_bit), alive=alive)
+        out.bit[j] = ((fl >> sh) & 1) != 0
+        out.y_bit[j] = ((fl >> (sh + 2)) & 1) != 0
+
+
+def advance_from_cw(cw, frontier: Frontier, parent_idx: torch.Tensor,
+                    pattern_bits: torch.Tensor, n_alive: int,
+                    node_chunk: int | None = None) -> Frontier:
+    """The streaming crawl's advance, with no child cache: re-expand the
+    surviving parents with this level's ``cw`` (as
+    :func:`expand_share_bits_from_cw` takes it) and keep each child's
+    direction.  ``node_chunk`` parent slots at a time: gather their
+    plane-major states, expand them with the child cache, select as
+    :func:`advance_from_children` does, and write the chunk into the new
+    frontier at its offset.  A chunk that does not tile the bucket is
+    replaced by the whole bucket (both are powers of two in the crawl), so
+    the peak is the old frontier, the new one and one chunk's expansion.
+    The caller drops its references to ``frontier`` afterwards.
+
+    parent_idx:   int64[F'] parent slot per surviving child (bucket-padded);
+    pattern_bits: bool[F', d] child pattern per survivor;
+    n_alive:      number of real entries (the rest is padding)."""
+    st = frontier.states
+    d, _, _, N = st.bit.shape
+    F2 = parent_idx.shape[0]
+    dev = parent_idx.device
+    c = F2 if node_chunk is None else min(F2, node_chunk)
+    if F2 % c:
+        c = F2
+    out = _empty_states(d, F2, N, dev)
+    local = torch.arange(c, device=dev)
+    for lo in range(0, F2, c):
+        pidx = parent_idx[lo:lo + c]
+        parents = Frontier(states=EvalState(seed=st.seed.index_select(3, pidx),
+                                            bit=st.bit.index_select(2, pidx),
+                                            y_bit=st.y_bit.index_select(2, pidx)),
+                           alive=frontier.alive.index_select(0, pidx))
+        _, children = expand_share_bits_from_cw(cw, parents, want_children=True)
+        del parents
+        chunk = EvalState(seed=out.seed[:, :, :, lo:lo + c], bit=out.bit[:, :, lo:lo + c],
+                          y_bit=out.y_bit[:, :, lo:lo + c])
+        _select_children(children, local, pattern_bits[lo:lo + c], chunk)
+        del children
+    return Frontier(states=out, alive=torch.arange(F2, device=dev) < n_alive)
 
 
 def counts_by_pattern(packed_self: torch.Tensor, packed_peer: torch.Tensor,
@@ -221,16 +283,49 @@ def states_from_numpy(states, device) -> EvalState:
 
 
 # ---------------------------------------------------------------------------
+# Node spans of a level (the socket server's ``shard`` requests)
+# ---------------------------------------------------------------------------
+
+
+def shard_spans(f_bucket: int, shard_nodes: int) -> list:
+    """Node-axis spans ``[(lo, hi), ...]`` covering ``[0, f_bucket)``, a
+    pure function of public values so the leader and both servers agree.
+    ``shard_nodes <= 0`` gives one span, the whole bucket."""
+    if shard_nodes <= 0 or f_bucket <= shard_nodes:
+        return [(0, f_bucket)]
+    return [(lo, min(lo + shard_nodes, f_bucket)) for lo in range(0, f_bucket, shard_nodes)]
+
+
+def frontier_slice(frontier: Frontier, lo: int, hi: int) -> Frontier:
+    """Node slots ``[lo, hi)`` of the frontier (views: axis 3 of the
+    seeds, axis 2 of the bits, the alive mask)."""
+    st = frontier.states
+    return Frontier(states=EvalState(seed=st.seed[:, :, :, lo:hi], bit=st.bit[:, :, lo:hi],
+                                     y_bit=st.y_bit[:, :, lo:hi]),
+                    alive=frontier.alive[lo:hi])
+
+
+def children_cat(parts: list) -> PlanarChildren:
+    """One level's child cache from per-span caches ``[(lo, children),
+    ...]`` in any order: concatenated along the node axis in ``lo`` order,
+    the inverse of :func:`frontier_slice`."""
+    parts = [c for _, c in sorted(parts, key=lambda t: t[0])]
+    return PlanarChildren(seed=torch.cat([p.seed for p in parts], dim=4),
+                          flags=torch.cat([p.flags for p in parts], dim=2))
+
+
+# ---------------------------------------------------------------------------
 # Host-side compaction helpers (leader-side prune bookkeeping)
 # ---------------------------------------------------------------------------
 
 
-def compact_survivors(keep: np.ndarray, f_max: int):
+def compact_survivors(keep: np.ndarray, f_max: int, min_bucket: int = 1):
     """keep: bool[F, 2^d] -> (parent_idx int32[Fb], pattern int32[Fb],
-    n_alive) zero-padded to the survivor bucket; survivors in row-major
-    (node, pattern) order.  Raises if survivors exceed ``f_max``."""
+    n_alive) zero-padded to the survivor bucket ``bucket_for(n_alive,
+    f_max, min_bucket)``; survivors in row-major (node, pattern) order.
+    Raises if survivors exceed ``f_max``."""
     f, c = np.nonzero(keep)
-    fb = bucket_for(len(f), f_max)
+    fb = bucket_for(len(f), f_max, min_bucket)
     parent = np.zeros(fb, np.int32)
     pattern = np.zeros(fb, np.int32)
     parent[: len(f)] = f

@@ -10,17 +10,33 @@ re-served leaf shares (collect.rs:993-1029).  The garbler alternates per
 level (``level % 2``, the reference's ``gc_sender`` flip) and the equality
 engine rides each verb, so both servers follow this leader's config.
 
-Options that select paths not ported here raise ``NotImplementedError``
-naming the path: ``crawl_shard_nodes > 0`` (node-span sharded crawl
-verbs), ``crawl_pipeline_depth > 1`` (the pipelined span crawl) and
-``server_data_devices > 1`` (servers sharded over several cards).  The
-supervised crawl with checkpoint recovery, warmup and streaming windows
-are not ported either.
+Node spans: with ``crawl_shard_nodes > 0`` a level's crawl verbs go out
+one per node span (``collect.shard_spans`` of the frontier bucket), the
+trusted crawl always and the secure one with ``secure_whole_level:
+false``; the spans' answers are reassembled in order.  With
+``crawl_pipeline_depth > 1`` up to that many span verbs ride in flight:
+both servers run them in frame-arrival order under their verb locks, so
+the positional data plane stays matched while the next span's expansion
+overlaps this span's exchange.  ``pipeline`` keeps the JAX leader's
+figures: the depth of the last pipelined level, the overlap (span
+seconds beyond the levels' wall time) and the stalls (head-of-line waits
+while a later span had finished).
+
+A span that fails cancels the spans in flight and raises: the JAX
+leader's per-span retry (``_shard_call``) and its quiesce after a
+pipeline fault (``plane_break``/``plane_reset``) belong to the recovery
+path, not ported yet, as every verb of this unsupervised leader fails
+loudly.  ``server_data_devices > 1`` (servers sharded over several cards)
+raises ``NotImplementedError``; the supervised crawl with checkpoint
+recovery, warmup and streaming windows are not ported either.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
+import contextlib
+import time
 
 import numpy as np
 
@@ -36,12 +52,6 @@ UPLOAD_WINDOW = 256  # add_keys chunks in flight per upload (leader.rs:340-364 k
 
 class RpcLeader:
     def __init__(self, cfg: Config, client0: CollectorClient, client1: CollectorClient):
-        if cfg.crawl_shard_nodes > 0:
-            raise not_ported(f"crawl_shard_nodes={cfg.crawl_shard_nodes}",
-                              "the node-span sharded crawl")
-        if cfg.crawl_pipeline_depth > 1:
-            raise not_ported(f"crawl_pipeline_depth={cfg.crawl_pipeline_depth}",
-                              "the pipelined span crawl")
         if cfg.server_data_devices > 1:
             raise not_ported(f"server_data_devices={cfg.server_data_devices}",
                               "a collector server sharded over several cards")
@@ -49,6 +59,8 @@ class RpcLeader:
         self.c0, self.c1 = client0, client1
         self.paths: np.ndarray | None = None
         self.n_nodes = 0
+        self.buckets: list = []  # frontier bucket per level
+        self.pipeline = {"depth": 0, "overlap_s": 0.0, "stalls": 0}
 
     @staticmethod
     async def _all(*coros):
@@ -85,14 +97,75 @@ class RpcLeader:
                           for lo in range(0, n, bs)
                           for c, k in ((self.c0, keys0), (self.c1, keys1))))
 
+    async def _crawl_level(self, level: int, last: bool):
+        """This level's crawl verbs -> (server 0's, server 1's) answers:
+        one verb per node span, in order, or ``crawl_pipeline_depth`` of
+        them in flight; the whole level in one verb when there is one span
+        or the secure exchange batches whole levels."""
+        cfg = self.cfg
+        verb = "tree_crawl_last" if last else "tree_crawl"
+        req = {"level": level, "garbler": level % 2, "ot_path": cfg.ot_path}
+        spans = collect.shard_spans(self.buckets[-1], cfg.crawl_shard_nodes)
+        if len(spans) == 1 or (cfg.secure_exchange and cfg.secure_whole_level):
+            return await self._both(verb, req)
+        depth = min(max(1, cfg.crawl_pipeline_depth), len(spans))
+        if depth > 1:
+            return await self._crawl_level_pipelined(verb, req, spans, depth)
+        parts0, parts1 = [], []
+        for span in spans:
+            s0, s1 = await self._both(verb, dict(req, shard=list(span)))
+            parts0.append(np.asarray(s0))
+            parts1.append(np.asarray(s1))
+        return np.concatenate(parts0, axis=0), np.concatenate(parts1, axis=0)
+
+    async def _crawl_level_pipelined(self, verb: str, req: dict, spans: list, depth: int):
+        """A window of up to ``depth`` span verbs in flight, refilled as the
+        oldest completes (in-order reassembly).  A failure cancels the
+        window and raises."""
+
+        def launch(span):
+            async def one():
+                t0 = time.perf_counter()
+                r = await self._both(verb, dict(req, shard=list(span)))
+                return r, time.perf_counter() - t0
+            return asyncio.ensure_future(one())
+
+        t_level = time.perf_counter()
+        it = iter(spans[depth:])
+        window = collections.deque(launch(sp) for sp in spans[:depth])
+        parts0, parts1 = [], []
+        busy, stalls = 0.0, 0
+        try:
+            while window:
+                head = window.popleft()
+                if not head.done() and any(t.done() for t in window):
+                    stalls += 1
+                (s0, s1), dt = await head
+                busy += dt
+                parts0.append(np.asarray(s0))
+                parts1.append(np.asarray(s1))
+                nxt = next(it, None)
+                if nxt is not None:
+                    window.append(launch(nxt))
+        except BaseException:
+            for t in window:
+                t.cancel()
+            for t in window:
+                with contextlib.suppress(Exception, asyncio.CancelledError):
+                    await t
+            raise
+        self.pipeline["depth"] = depth
+        self.pipeline["overlap_s"] += max(0.0, busy - (time.perf_counter() - t_level))
+        self.pipeline["stalls"] += stalls
+        return np.concatenate(parts0, axis=0), np.concatenate(parts1, axis=0)
+
     async def _run_one_level(self, level: int, nreqs: int, thresh: int):
         """One crawl -> reconstruct -> threshold -> prune round; returns the
         surviving nodes' counts, or None when the crawl died out."""
         cfg = self.cfg
         d, L = cfg.n_dims, cfg.data_len
         last = level == L - 1
-        req = {"level": level, "garbler": level % 2, "ot_path": cfg.ot_path}
-        s0, s1 = await self._both("tree_crawl_last" if last else "tree_crawl", req)
+        s0, s1 = await self._crawl_level(level, last)
         if last:
             v = F255.np_sub(s0, s1)
             if v[..., 1:].any():
@@ -108,6 +181,8 @@ class RpcLeader:
         parent, pattern, n_alive = collect.compact_survivors(keep, cfg.f_max)
         if n_alive == 0:
             return None
+        if not last:
+            self.buckets.append(int(parent.shape[0]))  # the next level's span plan
         pat_bits = collect.pattern_to_bits(pattern, d)
         prune = {"parent_idx": parent, "pattern_bits": pat_bits, "n_alive": n_alive}
         if last:
@@ -126,6 +201,8 @@ class RpcLeader:
         await self._both("tree_init", {"root_bucket": 1})
         self.paths = np.zeros((1, d, 0), bool)
         self.n_nodes = 1
+        self.buckets = [1]
+        self.pipeline = {"depth": 0, "overlap_s": 0.0, "stalls": 0}
         thresh = max(1, int(cfg.threshold * nreqs))
         for level in range(L):
             kept = await self._run_one_level(level, nreqs, thresh)

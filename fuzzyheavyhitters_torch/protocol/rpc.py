@@ -30,11 +30,21 @@ the shared stream of ``protocol/sessions.py``.  Per level, secure: the
 whole-level 2PC of ``protocol/secure.py`` with the garbler and ``ot_path``
 named by the request; each server returns its additive share sums.
 
+Node spans: a crawl verb may carry ``shard: [lo, hi)``, a span of the
+frontier's node axis (``collect.shard_spans``), trusted or secure.  The
+server crawls that view of the frontier, swaps that span's frames, answers
+that span's counts or shares — the trusted mask rows are sliced from the
+whole level's stream, so a node's mask does not depend on the split — and
+banks the span's child cache (or, at the last level, its shares) for the
+prune, which refuses a torn level.  A span verb that arrives while an
+earlier one holds the verb lock runs its expansion at once (the
+frame-arrival pre-expand, at most 32 stashed): device work only, it never
+touches the data plane, so the frame order stays the JAX package's.
+
 Not ported (they answer ``NotImplementedError`` naming the missing path,
 never "unknown verb"): the other verbs of the JAX server, multi-tenant
-collections, node-span shards, radix fusion, and the client's
-reconnect-and-replay with the server's replay-dedup cache — a lost
-transport fails the call loudly.
+collections, radix fusion, and the client's reconnect-and-replay with the
+server's replay-dedup cache — a lost transport fails the call loudly.
 """
 
 from __future__ import annotations
@@ -166,9 +176,10 @@ class CollectorServer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.boot_id = secrets.token_hex(8)
-        # run report: seconds per phase, bytes per plane, crawled levels
+        # run report: seconds per phase, bytes per plane and the largest
+        # data-plane frame, crawl verbs served
         self.stats = {"seconds": dict.fromkeys(PHASES, 0.0),
-                      "data_bytes_sent": 0, "data_bytes_recv": 0,
+                      "data_bytes_sent": 0, "data_bytes_recv": 0, "data_frame_max": 0,
                       "control_bytes_sent": 0, "control_bytes_recv": 0, "levels": 0}
         self._verb_lock = asyncio.Lock()  # every verb but add_keys runs under it
         self._peer_reader = self._peer_writer = None
@@ -187,10 +198,20 @@ class CollectorServer:
         self.frontier = None
         self.children = None  # the child cache of this level's crawl
         self.last_shares = None  # surviving leaves' F255 shares
+        self._clear_spans()
+
+    def _clear_spans(self) -> None:
+        self._shard_children: dict = {}  # span lo -> child cache of this level
+        self._shard_last: dict = {}  # span lo -> last-level shares
+        self._shard_level = None
+        self._expand_ready: dict = {}  # (last, level, span) -> pre-expanded stage
+        self._mask_cache = None  # ((level, F, f255), the whole level's mask rows)
 
     def _count(self, key: str):
         def add(n: int) -> None:
             self.stats[key] += n
+            if key.startswith("data_"):
+                self.stats["data_frame_max"] = max(self.stats["data_frame_max"], n)
         return add
 
     # -- verbs ----------------------------------------------------------------
@@ -222,6 +243,7 @@ class CollectorServer:
         self.alive_keys = torch.ones(n, dtype=torch.bool, device=self.device)
         self.frontier = collect.tree_init(self.keys, int((req or {}).get("root_bucket", 1)))
         self.children = self.last_shares = None
+        self._clear_spans()
         return True
 
     async def tree_crawl(self, req) -> np.ndarray:
@@ -230,17 +252,28 @@ class CollectorServer:
 
     async def tree_crawl_last(self, req) -> np.ndarray:
         """-> F255 shares uint32[F, 2^d, 8] of the last level (rpc.rs:61),
-        kept for ``tree_prune_last`` and ``final_shares``."""
-        self.last_shares = await self._crawl("tree_crawl_last", req, last=True)
-        return self.last_shares
+        kept for ``tree_prune_last`` and ``final_shares``; a span's shares
+        are banked for ``tree_prune_last`` to assemble."""
+        shares = await self._crawl("tree_crawl_last", req, last=True)
+        shard = self._parse_shard(req)
+        if shard is None:
+            self.last_shares = shares
+        else:
+            self.last_shares = None
+            self._shard_last[shard[0]] = shares
+        return shares
 
     async def tree_prune(self, req) -> bool:
         """Fused prune + advance: the surviving children, gathered from this
-        level's child cache (ref: rpc.rs:63, collect.rs:918-929).  A prune
-        with no cache re-expands the frontier first."""
+        level's child cache (ref: rpc.rs:63, collect.rs:918-929), assembled
+        from its spans when the level was crawled in spans.  A prune with no
+        cache re-expands the frontier first."""
         if self.frontier is None:
             raise RuntimeError("tree_prune before tree_init")
         parent, pat, n_alive = self._prune_args("tree_prune", req)
+        self._expand_ready.clear()  # the frontier is about to change
+        if self.children is None and self._shard_children:
+            self.children = self._assemble_shard_children()
         children = self.children
         if children is None:
             _, children = collect.expand_share_bits(self.keys, self.frontier,
@@ -254,6 +287,14 @@ class CollectorServer:
     async def tree_prune_last(self, req) -> bool:
         """Compact the last level's shares to the survivors
         (ref: collect.rs:931-942)."""
+        self._expand_ready.clear()
+        if self.last_shares is None and self._shard_last:
+            whole = np.concatenate([p for _, p in sorted(self._shard_last.items())], axis=0)
+            if whole.shape[0] != self.frontier.f_bucket:
+                raise RuntimeError(f"sharded last crawl incomplete: shares cover "
+                                   f"{whole.shape[0]} of {self.frontier.f_bucket} slots")
+            self.last_shares = whole
+            self._shard_last.clear()
         if self.last_shares is None:
             raise RuntimeError("tree_prune_last called before tree_crawl_last")
         self.children = None
@@ -275,25 +316,114 @@ class CollectorServer:
                               "radix-2^k level fusion")
         return parent, pat, int(req["n_alive"])
 
+    # -- node spans -----------------------------------------------------------
+
+    @staticmethod
+    def _parse_shard(req):
+        s = (req or {}).get("shard")
+        return None if s is None else (int(s[0]), int(s[1]))
+
+    def _frontier_view(self, shard):
+        if shard is None:
+            return self.frontier
+        return collect.frontier_slice(self.frontier, *shard)
+
+    def _stash_children(self, level: int, shard, children) -> None:
+        """Bank one crawl's child cache for the prune: the whole level's,
+        or a span's under its ``lo`` (the first span of a new level drops
+        any stale ones)."""
+        if shard is None:
+            self.children = children
+            return
+        if self._shard_level != level:
+            self._shard_children.clear()
+            self._shard_last.clear()
+            self._shard_level = level
+        self.children = None
+        if children is not None:
+            self._shard_children[shard[0]] = children
+
+    def _assemble_shard_children(self):
+        """The level's child cache from its spans; a missing span raises
+        rather than advance garbage for its nodes."""
+        children = collect.children_cat(list(self._shard_children.items()))
+        got = children.seed.shape[4]
+        if got != self.frontier.f_bucket:
+            raise RuntimeError(f"sharded crawl incomplete: child caches cover {got} of "
+                               f"{self.frontier.f_bucket} frontier slots")
+        self._shard_children.clear()
+        return children
+
+    def _mask_rows(self, level: int, shard, C: int, f255: bool) -> np.ndarray:
+        """The trusted answer's mask rows of one (level, span): the whole
+        level's stream sliced to the span's nodes (one-entry cache)."""
+        F = self.frontier.f_bucket
+        key = (level, F, f255)
+        if self._mask_cache is None or self._mask_cache[0] != key:
+            self._mask_cache = (key, sessions.mask_rows(level, F, C, f255))
+        full = self._mask_cache[1]
+        return full if shard is None else full[shard[0]:shard[1]]
+
+    def _do_expand(self, level: int, last: bool, shard) -> dict:
+        """The device half of one crawl verb: the expansion of the frontier
+        view (and in secure mode its equality strings).  Dispatches device
+        work and never touches the data plane."""
+        frontier = self._frontier_view(shard)
+        packed, children = collect.expand_share_bits(self.keys, frontier, level,
+                                                     want_children=not last)
+        out = {"packed": packed, "children": children, "frontier": frontier}
+        if self.cfg.secure_exchange:
+            strs = secure.child_strings(packed, self.keys.cw_seed.shape[1])
+            F, C, N, S = strs.shape
+            out.update(flat=strs.reshape(F * C * N, S), dims=(F, C, N, S))
+            del out["packed"]
+        return out
+
+    def _expand_stage(self, level: int, last: bool, shard) -> dict:
+        hit = self._expand_ready.pop((last, level, shard), None)
+        return hit if hit is not None else self._do_expand(level, last, shard)
+
+    def _maybe_pre_expand(self, verb: str, req) -> None:
+        """Frame arrival of a span's crawl verb, before the verb lock: run
+        its expansion now, while an earlier span holds the lock on the data
+        plane.  A prefetch only: any failure here leaves the verb to
+        recompute, and surface the error, under the lock."""
+        if verb not in ("tree_crawl", "tree_crawl_last"):
+            return
+        shard = self._parse_shard(req)
+        if shard is None or self.keys is None or self.frontier is None:
+            return
+        if shard[1] > self.frontier.f_bucket:
+            return
+        key = (verb == "tree_crawl_last", int(req["level"]), shard)
+        if key in self._expand_ready or len(self._expand_ready) >= 32:
+            return
+        t0 = time.perf_counter()
+        try:
+            self._expand_ready[key] = self._do_expand(key[1], key[0], shard)
+        except Exception:  # prefetch only: the verb recomputes and reports
+            self._expand_ready.pop(key, None)
+            return
+        self._phases(fss=time.perf_counter() - t0)
+
     # -- one level ------------------------------------------------------------
 
     async def _crawl(self, verb: str, req, last: bool) -> np.ndarray:
         if self.frontier is None:
             raise RuntimeError(f"{verb} before tree_init")
-        if req.get("shard") is not None:
-            raise not_ported(f"{verb} with shard {req['shard']}", "the node-span sharded crawl")
         level = int(req["level"])
+        shard = self._parse_shard(req)
         await self._ensure_plane()
         field = F255 if last else FE62
         self.stats["levels"] += 1
         if self.cfg.secure_exchange:
             return await self._crawl_secure(level, field, last, int(req.get("garbler", 0)),
-                                            req.get("ot_path"))
-        counts = await self._crawl_trusted(level, last)
+                                            req.get("ot_path"), shard)
+        counts = await self._crawl_trusted(level, last, shard)
         # trusted mode: both servers hold these counts; the shared mask is a
         # wire-format shim for the leader's v0 - v1, not a secret
         F, C = counts.shape
-        r = sessions.mask_rows(level, F, C, f255=last)
+        r = self._mask_rows(level, shard, C, f255=last)
         if self.server_id == 1:
             return r
         if last:
@@ -306,12 +436,13 @@ class CollectorServer:
         for k, v in seconds.items():
             self.stats["seconds"][k] += v
 
-    async def _crawl_trusted(self, level: int, last: bool) -> np.ndarray:
-        """Swap the packed share bits uint32[F, N] with the peer and count
-        -> int64[F, 2^d] (ref: collect.rs:945-964)."""
+    async def _crawl_trusted(self, level: int, last: bool, shard) -> np.ndarray:
+        """Swap the packed share bits uint32[F, N] of the frontier (or the
+        span) with the peer and count -> int64[F, 2^d] (ref:
+        collect.rs:945-964)."""
         t0 = time.perf_counter()
-        packed, children = collect.expand_share_bits(self.keys, self.frontier, level,
-                                                     want_children=not last)
+        ex = self._expand_stage(level, last, shard)
+        packed, frontier = ex["packed"], ex["frontier"]
         mine = await _fetch_words(packed)
         t1 = time.perf_counter()
         peer = await self._swap(mine)
@@ -322,29 +453,26 @@ class CollectorServer:
         dev_counts = collect.counts_by_pattern(
             packed, words_from_numpy(peer, self.device),
             collect.pattern_masks(self.keys.cw_seed.shape[1]), self.alive_keys,
-            self.frontier.alive)
+            frontier.alive)
         counts = await asyncio.to_thread(lambda: dev_counts.cpu().numpy())
-        self.children = children
+        self._stash_children(level, shard, ex["children"])
         self._phases(fss=t1 - t0, gc_ot=t2 - t1, field=time.perf_counter() - t2)
         return counts
 
     async def _crawl_secure(self, level: int, field, last: bool, garbler: int,
-                            ot_path) -> np.ndarray:
-        """The whole-level 2PC (ref: collect.rs:419-501): the evaluator sends
-        its extension's ``u``, the garbler answers with its one planar
-        message, each server sums its additive shares per (node, pattern).
-        No share bit crosses the wire."""
+                            ot_path, shard) -> np.ndarray:
+        """The whole-level (or span) 2PC (ref: collect.rs:419-501): the
+        evaluator sends its extension's ``u``, the garbler answers with its
+        one planar message, each server sums its additive shares per (node,
+        pattern).  No share bit crosses the wire."""
         dev = self.device
         clock = PhaseClock(dev)
         t0 = time.perf_counter()
-        packed, children = collect.expand_share_bits(self.keys, self.frontier, level,
-                                                     want_children=not last)
-        strs = secure.child_strings(packed, self.keys.cw_seed.shape[1])
-        del packed
-        F, C, N, S = strs.shape
+        ex = self._expand_stage(level, last, shard)
+        flat = ex["flat"]
+        F, C, N, S = ex["dims"]
         B = F * C * N
-        flat = strs.reshape(B, S)
-        w = secure.alive_weight(self.frontier.alive, self.alive_keys, C)
+        w = secure.alive_weight(ex["frontier"].alive, self.alive_keys, C)
         # the crawl counter keeps every garbling's randomness fresh if a leader
         # re-crawls a level without a reset
         self._crawl_ctr += 1
@@ -367,12 +495,12 @@ class CollectorServer:
             vals = secure.ev_open_level(t_rows, flat, msg, B, S, field, idx0, path,
                                         phase=clock)
             del t_rows, msg
-        del flat
+        del flat, ex["flat"]
         t2 = time.perf_counter()
         sh = secure.node_share_sums(field, vals.reshape((F, C, N) + field.limb_shape), w)
         del vals
         shares = await asyncio.to_thread(_share_wire, field, sh)
-        self.children = children
+        self._stash_children(level, shard, ex["children"])
         self._phases(fss=t1 - t0, gc_ot=t2 - t1, field=time.perf_counter() - t2,
                      **clock.settle())
         return shares
@@ -447,6 +575,7 @@ class CollectorServer:
                 raise ValueError(f"unknown verb {verb!r}")
             if verb == "add_keys":
                 return await self.add_keys(req)
+            self._maybe_pre_expand(verb, req)
             async with self._verb_lock:
                 return await getattr(self, verb)(req)
         except Exception as e:  # the RPC boundary: every failure goes to the caller

@@ -166,3 +166,60 @@ def test_two_processes_build_on_an_empty_build_dir(cuda, tmp_path):
     assert [p.returncode for p in procs] == [0, 0], outs
     assert all(int(o.split()[-1]) >= 1 for o in outs), outs
     assert not [f for f in os.listdir(tmp_path) if ".tmp." in f]
+
+
+def test_cw_windows_upload_equals_the_host_slices(cuda):
+    """Windows copied through the two pinned staging buffers on a side
+    stream arrive intact, also when a buffer is refilled (third window)."""
+    from fuzzyheavyhitters_torch.ops.ibdcf import HostKeys
+    from fuzzyheavyhitters_torch.protocol import driver
+
+    rng = np.random.default_rng(5)
+    L, d2, N = 10, 4, 333
+    keys = HostKeys(key_idx=torch.zeros((N, 2, 2), dtype=torch.bool),
+                    root_seed=_ints(rng, (N, 2, 2, 4)), cws=_ints(rng, (L, 4, d2, N)),
+                    cwf=torch.from_numpy(rng.integers(0, 16, size=(L, d2, N)).astype(np.uint8)))
+    up = driver.CwWindows(keys, 4, cuda)
+    for level in list(range(L)) + [1, 9]:  # a window taken up again after a later one
+        cws, cwf = up.at(level)
+        assert cws.device.type == "cuda"
+        assert torch.equal(cws.cpu(), keys.cws[level]) and torch.equal(cwf.cpu(), keys.cwf[level])
+
+
+def test_streamed_crawl_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """The streamed crawl (host keys, windows, chunked re-expanding
+    advance) on the card, and its resume from a checkpoint, give the CPU
+    run's hitters."""
+    from fuzzyheavyhitters_torch.ops import ibdcf
+    from fuzzyheavyhitters_torch.protocol import driver
+
+    rng = np.random.default_rng(9)
+    N, L = 3000, 40
+    pts = np.zeros((N, 1, L), bool)
+    pts[:, 0] = rng.integers(0, 2, size=(8, L)).astype(bool)[rng.integers(0, 8, N)]
+
+    def leader(dev):
+        h = ibdcf.gen_l_inf_ball_host(pts, 2, np.random.default_rng(1), device=dev, chunk=1024)
+        return driver.Leader(*driver.make_servers(*h, dev), n_dims=1, data_len=L, f_max=64,
+                             stream_chunk=4, stream_window=16, min_bucket=8)
+
+    want = leader("cpu").run(N, 0.05)
+    assert want.paths.shape[0] > 0
+    got = leader(cuda).run(N, 0.05)
+    first, path = leader(cuda), str(tmp_path / "c.npz")
+    write = first.checkpoint
+
+    class Stop(Exception):
+        pass
+
+    def stop_after(*a):
+        write(*a)
+        raise Stop
+
+    first.checkpoint = stop_after
+    with pytest.raises(Stop):
+        first.run(N, 0.05, checkpoint_path=path, checkpoint_every=16)
+    resumed = leader(cuda).run(N, 0.05, checkpoint_path=path, resume=True)
+    for res in (got, resumed):
+        np.testing.assert_array_equal(res.paths, want.paths)
+        np.testing.assert_array_equal(res.counts, want.counts)

@@ -12,6 +12,8 @@ package, over localhost TCP in one event loop, tolerance zero:
     trusted and secure, and their ``final_shares`` reconstruct them;
 (d) the refusals: unported verbs, a named collection, unported options.
 
+The node-span crawl is held in ``test_torch_spans.py``.
+
 Ports come from the OS (``chip_smoke.free_ports``).  The JAX package's
 functions run inside ``torch_ref.installed()`` (they import sibling modules
 at call time)."""
@@ -90,12 +92,13 @@ async def _close(clients, servers):
         await asyncio.wait_for(s.aclose(), 30)
 
 
-async def _socket_run(kinds, leader, d, mode, keys):
+async def _socket_run(kinds, leader, d, mode, keys, extra=None, seen=None):
     """Servers of ``kinds`` (server 0, server 1: "port" or "jax") and a
-    ``leader`` of either package, on ``keys``; returns (result, the
-    servers' final_shares)."""
-    tcfg = tconfig.Config(**_cfg_kw(d, mode))
-    jcfg = jconfig.Config(**_cfg_kw(d, mode))
+    ``leader`` of either package, on ``keys``, with the config fields
+    ``extra`` added; returns (result, the servers' final_shares).  ``seen``
+    (a dict) receives the leader and the servers."""
+    tcfg = tconfig.Config(**_cfg_kw(d, mode), **(extra or {}))
+    jcfg = jconfig.Config(**_cfg_kw(d, mode), **(extra or {}))
     make = {"port": lambda sid: trpc.CollectorServer(sid, tcfg, "cpu"),
             "jax": lambda sid: jrpc.CollectorServer(sid, jcfg)}
     s0, s1 = make[kinds[0]](0), make[kinds[1]](1)
@@ -110,6 +113,8 @@ async def _socket_run(kinds, leader, d, mode, keys):
         for p in (p0, p1):
             clients.append(await rpc.CollectorClient.connect("127.0.0.1", p))
         lead = lrpc.RpcLeader(cfg, *clients)
+        if seen is not None:
+            seen.update(leader=lead, servers=(s0, s1))
         await asyncio.gather(*(c.call("reset") for c in clients))
         await lead.upload_keys(*keys)
         res = await asyncio.wait_for(lead.run(N), 300)
@@ -119,9 +124,9 @@ async def _socket_run(kinds, leader, d, mode, keys):
         await _close(clients, (s0, s1))
 
 
-def _run(kinds, leader, d, mode, keys):
+def _run(kinds, leader, d, mode, keys, extra=None, seen=None):
     with torch_ref.installed():
-        return asyncio.run(_socket_run(kinds, leader, d, mode, keys))
+        return asyncio.run(_socket_run(kinds, leader, d, mode, keys, extra, seen))
 
 
 _JAX_WANT = {}
@@ -339,9 +344,6 @@ def test_requests_of_unported_paths_are_refused():
             lead = tleader.RpcLeader(cfg, *clients)
             await lead.upload_keys(k0, k1)
             await lead._both("tree_init", {"root_bucket": 1})
-            with pytest.raises(RuntimeError, match=r"tree_crawl with shard \[0, 1\]: the "
-                               "node-span sharded crawl is not ported"):
-                await clients[0].call("tree_crawl", {"level": 0, "shard": [0, 1]})
             with pytest.raises(RuntimeError, match="radix-2\\^k level fusion"):
                 await clients[0].call("tree_prune", {
                     "level": 0, "parent_idx": np.zeros(1, np.int32),
@@ -357,9 +359,7 @@ def test_requests_of_unported_paths_are_refused():
     asyncio.run(flow())
 
 
-@pytest.mark.parametrize("opt,path", [("crawl_shard_nodes", "the node-span sharded crawl"),
-                                      ("crawl_pipeline_depth", "the pipelined span crawl"),
-                                      ("server_data_devices", "several cards")])
+@pytest.mark.parametrize("opt,path", [("server_data_devices", "several cards")])
 def test_unported_options_are_refused(opt, path):
     cfg = tconfig.Config(**_cfg_kw(1, "trusted"), **{opt: 2})
     with pytest.raises(NotImplementedError, match=f"{opt}=2: .*{path}"):
