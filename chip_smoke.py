@@ -33,7 +33,7 @@ Phases (any failure raises, and the script exits non-zero):
    the six crawls' shapes (all N x n_dims x 2 keys, L levels) and timed;
 6. the secure exchange through ``bin.mesh.run``: ``config4_zipf_secure``
    (the config-4 shape with ``secure_exchange``, S = 2 so the 1-of-2^S OT
-   kernels, at N = 65,536 — the JAX package's one-chip secure shape),
+   kernels, at N = 32,768 — half the JAX package's one-chip secure shape),
    ``rides_secure_gc`` (``configs/config.json`` with ``secure_exchange`` and
    ``ot_path: "gc"``, S = 4, the garbled-circuit kernels, N = 262,144) and
    ``rides_secure`` (that config with ``ot_path: "auto"``, S = 4 on the
@@ -46,13 +46,15 @@ Phases (any failure raises, and the script exits non-zero):
    levels): at the widest FE62 level and at the F255 last level, each timed;
 8. chunk checks of 1,048,576 tests, the pad index starting at 2^32 - 1000 so
    it wraps inside the batch: ot2s at S in {2, 4, 6} and the GC kernels at
-   S in {2, 4, 6, 16}, each at W in {4, 8};
+   S in {2, 4, 6, 8, 16}, each at W in {4, 8};
 9. the socket deployment: two ``bin.server`` processes and a ``bin.leader``
-   (``--seed``) as real OS processes on the card, on free localhost ports,
+   (``--seed``) as real OS processes on the card, started together on free
+   localhost ports (server 0 and the leader dial with retries),
    for ``rides_socket`` (``configs/config.json``, trusted, N = 262,144) and
    ``rides_secure_socket`` (the same config with ``secure_exchange``, ot2s at
    S = 4, N = 65,536, whose in-process crawl ``rides_secure`` phase 6 runs
-   through ``bin.mesh.run``).  Each hitter count must equal the plaintext
+   through ``bin.mesh.run``).  The leaders run with ``FHH_SUPERVISE=0`` and
+   ``FHH_WARMUP=0`` (``SOCKET_ENV``).  Each hitter count must equal the plaintext
    recount, the hitters must equal ``bin.mesh.run``'s for the same config,
    seed and N, and each server's ``server.exit`` line must show one expand
    launch per level and, secure, one ot2s encrypt per level it garbled and
@@ -80,7 +82,32 @@ Phases (any failure raises, and the script exits non-zero):
     ``crawl_pipeline_depth: 2`` (the secure one with ``secure_whole_level:
     false``).  Hitters must equal the unsplit runs' (so ``bin.mesh``'s) and
     the recount, each server must launch expand once per span and the ot2s
-    kernels once per span it garbled or evaluated.
+    kernels once per span it garbled or evaluated;
+13. ``config4_zipf_radix3``: ``config4_zipf``'s keys (same seed) crawled
+    through ``driver.Leader(radix=3)``, 170 fused rounds of 3 levels and a
+    tail of 2; hitters equal ``config4_zipf``'s and the recount, expand
+    launches 2 x 512 (r passes of the kernel per round and server), peak
+    memory and crawl seconds beside ``config4_zipf``'s.  Server 0's whole
+    fused level (radix word and child cache) built through the kernel is
+    held against the same level built with the plain expand, at the widest
+    round with a child cache and at the r = 2 tail round;
+14. ``rides_socket_radix2``: ``rides_socket`` with ``crawl_radix_bits: 2``:
+    8 crawl verbs and 16 expand launches per server, the hitters of
+    ``bin.mesh`` and the recount, data-plane bytes and crawl seconds beside
+    ``rides_socket``'s;
+15. ``rides_secure_socket_radix2``: the same with ``secure_exchange`` and
+    ``ot_path: "auto"`` at N = 16,384, so the garbled circuit at S' = 8: GC
+    garble once per fused round a server garbled and eval once per round it
+    evaluated (the garbler flips per round), no ot2s launch; the hitters of
+    ``bin.mesh.run`` at the same config, seed and N (one level a round) and
+    the recount;
+16. ``rides_socket_radix2_warm``: phase 14 again, its leader ``bin.leader.run``
+    in this process with the warmup (``FHH_WARMUP``'s default) over the
+    buckets phase 14's crawl walked: each server must warm one shape per
+    bucket and launch expand 4 times per shape (a full round with the child
+    cache and the tail round, 2 levels each) besides the crawl's 16; the
+    hitters must equal phase 14's; the warmup's seconds and the servers'
+    peak memory and crawl seconds beside phase 14's.
 
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
@@ -96,6 +123,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -126,10 +154,11 @@ CONFIG4 = dict(
 )
 ZIPF_CLIENTS = 196608
 RIDES_CLIENTS = 262144
-# the secure config-4 cell runs bench.py's bench_secure_device shape: at the
-# last level (F = 512, F255) its 67.1M tests hold about 35 GB of extension,
-# payload and table state; 196,608 clients would need about 100 GB
-ZIPF_SECURE_CLIENTS = 65536
+# the secure config-4 cell runs half of bench.py's bench_secure_device shape
+# (65,536 clients, about 155 s of crawl on the card), so that the script,
+# with the radix cells, stays inside 600 s; the 1,048,576-test chunk checks
+# keep the pad index's wrap past 2^32 covered
+ZIPF_SECURE_CLIENTS = 32768
 # bench.py:bench_covid's trusted covid crawl, at 8 x its 8,192 clients: about
 # 1,024 clients per hot county
 COVID = dict(
@@ -155,6 +184,18 @@ STREAM = dict(stream_chunk=32, stream_window=64, min_bucket=128)
 KEYGEN_HOST_CHUNK = 32768  # clients per keygen chunk landed in host memory (bench.py:469)
 RESUME_EVERY = 256  # one checkpoint, after level 255 of 512
 SPANS = dict(crawl_shard_nodes=8, crawl_pipeline_depth=2)
+ZIPF_RADIX = 3  # phase 13: config4_zipf in rounds of 3 levels (170 and a tail of 2)
+RIDES_RADIX = 2  # phase 14-15: rides over sockets in rounds of 2 levels (S' = 8 secure)
+# phase 15's cut: a fused level carries 16 patterns of GC tests at about 512 B
+# a test, where two radix-1 levels carry 2 x 4 patterns of ot2s tests at
+# about 320 B; 16,384 clients move about the bytes of rides_secure_socket
+RIDES_RADIX_SECURE_CLIENTS = 16384
+# the socket leaders skip the warmup: its default ladder runs every bucket up
+# to f_max = 1024, whose expansion alone (rides, 262,144 clients) needs about
+# 55 GB per server, two servers on one card; phase 16 warms the buckets its
+# crawl walks
+SOCKET_ENV = {"FHH_WARMUP": "0"}
+PLAIN_COMPARE = 1 << 26  # elements per slice of a large kernel-vs-plain comparison
 
 # every kernel of the port: (module, launch counter, source, TPU kernel it replaces)
 KERNELS = {
@@ -231,12 +272,20 @@ def _ints(bits: np.ndarray) -> list:
 def plaintext_counts(points: np.ndarray, ball: int, paths: np.ndarray) -> np.ndarray:
     """Clients whose L∞ ball holds each hitter in every dimension, from the
     sampled points alone (no FSS, no port code): a client at v covers
-    [max(0, v - ball), min(2^L - 1, v + ball)] per dimension, in Python
-    integers.  Interval ends and hitters are ranked together, so the
-    containment test is a vectorised comparison of ranks."""
+    [max(0, v - ball), min(2^L - 1, v + ball)] per dimension, in int64 up
+    to L = 62 and in Python integers past it, where interval ends and
+    hitters are ranked together, so the containment test is a vectorised
+    comparison of ranks."""
     N, d, L = points.shape
     top = (1 << L) - 1
     inside = np.ones((paths.shape[0], N), bool)
+    if L <= 62:
+        w = np.int64(1) << np.arange(L - 1, -1, -1, dtype=np.int64)
+        v, x = (points * w).sum(-1), (paths * w).sum(-1)  # [N, d], [H, d]
+        for j in range(d):
+            lo, hi = np.maximum(0, v[:, j] - ball), np.minimum(top, v[:, j] + ball)
+            inside &= (lo[None] <= x[:, j, None]) & (x[:, j, None] <= hi[None])
+        return inside.sum(1)
     for j in range(d):
         v, x = _ints(points[:, j]), _ints(paths[:, j])
         lo = [max(0, a - ball) for a in v]
@@ -478,15 +527,22 @@ def _wait_event(path, event, proc, timeout):
     raise AssertionError(f"{path}: no {event} within {timeout} s")
 
 
-def socket_run(name, cfg, n, seed, tmp, env=None):
-    """Phase 9: ``bin.server --server_id 1``, then ``--server_id 0`` once
-    server 1 listens for its peer, then ``bin.leader --seed`` once both
-    serve, as OS processes (on the card unless ``cfg.backend`` is
-    ``"cpu"``), in the working directory ``tmp/name``; SIGTERM to the
-    servers after the leader's exit.  ``env`` adds variables to the
-    processes' environment.  Every process must exit 0 without a traceback
-    inside its timeout; all three are killed in a ``finally``.  Returns
-    the leader's and the servers' events and the working directory."""
+def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None):
+    """Phase 9: ``bin.server --server_id 1``, ``--server_id 0`` and ``bin.leader
+    --seed`` started together as OS processes (on the card unless
+    ``cfg.backend`` is ``"cpu"``; server 0 and the leader dial with retries,
+    after start-ups at least as long as the servers'), in the working
+    directory ``tmp/name``; SIGTERM to the servers after the leader's exit.
+    The leader runs with ``FHH_SUPERVISE=0``, the JAX leader's opt-out of the
+    supervised crawl (not ported); ``env`` adds variables to the processes'
+    environment.  With ``warm_buckets`` the leader is ``bin.leader.run`` in
+    this process once both servers serve, its events written to its log as
+    the process's are, and its warmup over those buckets.  Every process
+    must exit 0 without a traceback inside its timeout; all are killed in a
+    ``finally``.  Returns the leader's and the servers' events and the
+    working directory."""
+    import asyncio
+    import contextlib
     import signal
 
     p0, p1 = free_ports()
@@ -497,34 +553,50 @@ def socket_run(name, cfg, n, seed, tmp, env=None):
         json.dump(dict(dataclasses.asdict(cfg), server0=f"127.0.0.1:{p0}",
                        server1=f"127.0.0.1:{p1}"), f)
     repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, **(env or {}),
-               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    procs, logs = {}, {}
+    env = {**os.environ, "FHH_SUPERVISE": "0", **(env or {}),
+           "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs, logs = {}, {who: os.path.join(work, f"{who}.log")
+                       for who in ("server0", "server1", "leader")}
 
     device = "cpu" if cfg.backend == "cpu" else "cuda"
 
     def spawn(who, mod, *args):
-        logs[who] = os.path.join(work, f"{who}.log")
         with open(logs[who], "w") as out:
             procs[who] = subprocess.Popen(
                 [sys.executable, "-m", f"fuzzyheavyhitters_torch.bin.{mod}", "--config",
                  cfg_path, "--device", device, *args], cwd=work, env=env, stdout=out,
                 stderr=subprocess.STDOUT)
 
+    rcs = {}
     try:
-        spawn("server1", "server", "--server_id", "1")
-        _wait_event(logs["server1"], "server.plane_listening", procs["server1"], SOCKET_START_S)
-        spawn("server0", "server", "--server_id", "0")
-        for who in ("server0", "server1"):
-            _wait_event(logs[who], "server.serving", procs[who], SOCKET_START_S)
+        for sid in (1, 0):
+            spawn(f"server{sid}", "server", "--server_id", str(sid))
         t0 = time.perf_counter()
-        spawn("leader", "leader", "-n", str(n), "--seed", str(seed))
-        rc = procs["leader"].wait(timeout=SOCKET_LEADER_S)
+        if warm_buckets is None:
+            spawn("leader", "leader", "-n", str(n), "--seed", str(seed))
+            rcs["leader"] = procs["leader"].wait(timeout=SOCKET_LEADER_S)
+        else:
+            import torch
+
+            from fuzzyheavyhitters_torch.bin import leader
+            from fuzzyheavyhitters_torch.utils import config as configmod
+
+            for who in ("server0", "server1"):
+                _wait_event(logs[who], "server.serving", procs[who], SOCKET_START_S)
+            t0 = time.perf_counter()
+            here = os.getcwd()
+            os.chdir(work)  # the rides CSV lands under the working directory
+            try:
+                with open(logs["leader"], "w") as out, contextlib.redirect_stdout(out):
+                    asyncio.run(leader.run(configmod.load_config(cfg_path), n,
+                                           torch.device(device), seed, warm_buckets))
+            finally:
+                os.chdir(here)
+            rcs["leader"] = 0
         wall = time.perf_counter() - t0
         for who in ("server0", "server1"):
             procs[who].send_signal(signal.SIGTERM)
-        rcs = {who: procs[who].wait(timeout=60) for who in ("server0", "server1")}
-        rcs["leader"] = rc
+            rcs[who] = procs[who].wait(timeout=60)
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -533,32 +605,39 @@ def socket_run(name, cfg, n, seed, tmp, env=None):
     for who, path in logs.items():
         with open(path) as f:
             text = f.read()
-        if rcs[who] != 0 or "Traceback" in text:
-            raise AssertionError(f"{name}: {who} exited {rcs[who]}:\n{text[-3000:]}")
+        if rcs.get(who) != 0 or "Traceback" in text:
+            raise AssertionError(f"{name}: {who} exited {rcs.get(who)}:\n{text[-3000:]}")
     ev = {who: _events(path) for who, path in logs.items()}
-    one = lambda who, event: next(e for e in ev[who] if e["event"] == event)
+    one = lambda who, event: next((e for e in ev[who] if e["event"] == event), None)
     return {"work": work, "wall_s": wall, "crawl": one("leader", "crawl.done"),
+            "warmup": one("leader", "warmup.done"),
             "addkeys": one("leader", "addkeys.done"), "keygen": one("leader", "keygen"),
             "hitters": [e for e in ev["leader"] if e["event"] == "hitter"],
             "exits": [one(f"server{sid}", "server.exit") for sid in (0, 1)]}
 
 
 def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_level):
-    """Phase 9's (and 12's) checks: the hitters equal ``bin.mesh.run``'s and
-    every count the plaintext recount; each server launched expand once per
-    crawl verb (one per level, or one per node span of it) and, with
-    ``per_level`` (the ot2s pair), encrypt once per verb of a level it
-    garbled (level % 2 == its id) and decrypt once per verb of a level it
-    evaluated; no other kernel."""
+    """Phase 9's (and 12's, 14's, 15's) checks: the hitters equal
+    ``bin.mesh.run``'s and every count the plaintext recount; each server
+    ran one crawl verb per round (of ``crawl_radix_bits`` levels) or per
+    node span of it, launched expand once per level of each verb, and, with
+    ``per_level`` (the ot2s or the GC pair), the garbling kernel once per
+    verb of a round it garbled (round index % 2 == its id) and the other
+    once per verb of a round it evaluated; no other kernel.  After a
+    (trusted) warmup each server must also report one shape per warmed
+    bucket and span size, and launch expand once per level of the rounds
+    ``rpc.CollectorServer._warm_bucket`` runs at each shape."""
     from fuzzyheavyhitters_torch.protocol import collect
 
-    L = cfg.data_len
+    L, k = cfg.data_len, cfg.crawl_radix_bits
+    bases = list(range(0, L, k))
     buckets = run["crawl"]["buckets"]
     whole = cfg.secure_exchange and cfg.secure_whole_level
     spans = [1 if whole else len(collect.shard_spans(b, cfg.crawl_shard_nodes))
              for b in buckets]
-    if len(spans) != L:
-        raise AssertionError(f"{name}: the leader crawled {len(spans)} levels, want {L}")
+    if len(spans) != len(bases):
+        raise AssertionError(f"{name}: the leader crawled {len(spans)} rounds, "
+                             f"want {len(bases)}")
     got = {e["value"]: e["count"] for e in run["hitters"]}
     if got != mesh_hitters:
         raise AssertionError(f"{name}: socket hitters {got} != bin.mesh's {mesh_hitters}")
@@ -569,12 +648,24 @@ def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_lev
         raise AssertionError(f"{name}: counts {list(got.values())} != plaintext {want}")
     launches = {}
     verbs = sum(spans)
-    for sid, ex in enumerate(run["exits"]):
-        garbled = sum(n for lv, n in enumerate(spans) if lv % 2 == sid)
-        want_l = {kn: 0 for kn in KERNELS}
-        want_l["expand"] = verbs
+    passes = sum(n * min(k, L - lv) for n, lv in zip(spans, bases))
+    warm = run["warmup"]
+    if warm is not None:
         if per_level:
-            want_l.update(ot2s_encrypt=garbled, ot2s_decrypt=verbs - garbled)
+            raise AssertionError(f"{name}: the launch check counts a trusted warmup only")
+        shapes = sum(len({hi - lo for lo, hi in collect.shard_spans(b, cfg.crawl_shard_nodes)}
+                         | {b}) for b in set(warm["f_buckets"]))
+        if warm["shapes"] != [shapes, shapes]:
+            raise AssertionError(f"{name}: the servers warmed {warm['shapes']} shapes, want "
+                                 f"{shapes} each")
+        base_last = k * ((L - 1) // k)  # a full round with the cache, and the tail round
+        passes += shapes * (min(k, L) if base_last == 0 else k + L - base_last)
+    for sid, ex in enumerate(run["exits"]):
+        garbled = sum(n for i, n in enumerate(spans) if i % 2 == sid)
+        want_l = {kn: 0 for kn in KERNELS}
+        want_l["expand"] = passes
+        if per_level:
+            want_l.update({per_level[0]: garbled, per_level[1]: verbs - garbled})
         if ex["launches"] != want_l or ex["levels"] != verbs:
             raise AssertionError(f"{name}: server {sid} launched {ex['launches']} over "
                                  f"{ex['levels']} crawl verbs, want {want_l} over {verbs}")
@@ -589,13 +680,16 @@ def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_lev
         f"plaintext recount) crawl_s={run['crawl']['seconds']:.3f} bin.mesh crawl_s="
         f"{mesh_crawl_s:.3f} addkeys_s={run['addkeys']['seconds']:.3f} keygen_s="
         f"{run['keygen']['seconds']:.3f} leader_wall_s={run['wall_s']:.3f} "
-        f"crawl_verbs_per_server={verbs} pipeline={run['crawl']['pipeline']}")
+        f"crawl_verbs_per_server={verbs} radix={k} pipeline={run['crawl']['pipeline']}")
     return {"n": int(points.shape[0]), "hitters": len(got), "hitter_map": got, "crawl_s": run["crawl"]["seconds"],
             "mesh_crawl_s": mesh_crawl_s, "addkeys_s": run["addkeys"]["seconds"],
             "keygen_s": run["keygen"]["seconds"], "leader_wall_s": run["wall_s"],
             "launches": launches, "servers": run["exits"], "crawl_verbs": verbs,
-            "pipeline": run["crawl"]["pipeline"],
-            "data_frame_max": [ex["data_frame_max"] for ex in run["exits"]]}
+            "pipeline": run["crawl"]["pipeline"], "radix": k,
+            "data_bytes_sent": [ex["data_bytes_sent"] for ex in run["exits"]],
+            "data_frame_max": [ex["data_frame_max"] for ex in run["exits"]],
+            "max_memory_allocated": [ex["max_memory_allocated"] for ex in run["exits"]],
+            "buckets": buckets, "warmup": warm}
 
 
 def check_keygen_chunks(kg, torch, rng):
@@ -694,6 +788,156 @@ def _expand_checks(name, lead, L, n, cfg, ex, collect, prg, torch):
                 f"bound_ms={b_ms:.4f} ({b_by})")
         if not last:
             lead.run_level(level, n, cfg.threshold)
+    return checks
+
+
+def radix_run(name, cfg, n, seed, tmp, tail):
+    """Phase 13: ``bin.mesh``'s sampling and keygen on the card (the same
+    seed gives ``config4_zipf``'s keys), then the trusted crawl through
+    ``driver.Leader(radix=cfg.crawl_radix_bits)``.  Keeps in ``tail`` the
+    tail round's level and server 0's input frontier, which the round
+    itself drops, for :func:`measure_radix`."""
+    import torch
+
+    from fuzzyheavyhitters_torch.bin import mesh
+    from fuzzyheavyhitters_torch.ops import ibdcf
+    from fuzzyheavyhitters_torch.protocol import driver
+    from fuzzyheavyhitters_torch.workloads import sample_points
+
+    rng = np.random.default_rng(seed)
+    seconds = {}
+    t0 = time.perf_counter()
+    pts = sample_points(cfg, n, rng)
+    seconds["sampling"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k0, k1 = ibdcf.gen_l_inf_ball(pts, cfg.ball_size, rng, device="cuda")
+    torch.cuda.synchronize()
+    seconds["keygen"] = time.perf_counter() - t0
+    lead = driver.Leader(*driver.make_servers(k0, k1), n_dims=cfg.n_dims,
+                         data_len=cfg.data_len, f_max=cfg.f_max, radix=cfg.crawl_radix_bits)
+    del k0, k1
+    step = lead.run_level
+
+    def keep_tail(level, nreqs, threshold):
+        if level + min(lead.radix, lead.data_len - level) == lead.data_len:
+            tail.update(level=level, frontier=lead.server0.frontier)
+        return step(level, nreqs, threshold)
+
+    lead.run_level = keep_tail
+    t0 = time.perf_counter()
+    res = lead.run(nreqs=n, threshold=cfg.threshold)
+    torch.cuda.synchronize()
+    seconds["crawl"] = time.perf_counter() - t0
+    del lead.run_level
+    return mesh.MeshRun(points=pts, result=res, leader=lead, seconds=seconds)
+
+
+def same_sliced(got, want, what: str) -> int:
+    """``same`` over paired tensors too large for its int64 copies, in
+    slices of PLAIN_COMPARE elements."""
+    err = 0
+    for a, b in zip(got, want, strict=True):
+        if a.shape != b.shape:
+            raise AssertionError(f"{what}: kernel {list(a.shape)} != plain {list(b.shape)}")
+        a, b = a.reshape(-1), b.reshape(-1)
+        for lo in range(0, a.numel(), PLAIN_COMPARE):
+            hi = lo + PLAIN_COMPARE
+            err = max(err, same((a[lo:hi],), (b[lo:hi],), f"{what} elements [{lo}, {hi})"))
+    return err
+
+
+def radix_check(name, keys, fr, level, r, want_children, ex, collect, prg, torch):
+    """The fused level at ``level`` (r passes) of one server's ``keys`` from
+    its frontier ``fr``, built twice: through the expand kernel, as the
+    crawl builds it, and with the kernel replaced by its plain version on
+    row slices; the radix word and the child cache of one against the
+    other.  Times the fused level, its r kernel launches alone (CUDA events
+    around each), and the plain build."""
+    d, _, F, N = fr.states.bit.shape
+    d2 = 2 * d
+    orig = ex.expand_packed
+    marks = []
+
+    def timed(*a):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = orig(*a)
+        ev[1].record()
+        marks.append(ev)
+        return out
+
+    def plain(seed, t, y, cws, cwf, derived, wc):
+        B = t.shape[1]
+        out = (torch.empty(B, dtype=torch.int32, device=t.device),
+               torch.empty((2, 4, d2, B), dtype=torch.int32, device=t.device) if wc else None,
+               torch.empty((d2, B), dtype=torch.uint8, device=t.device) if wc else None)
+        for lo in range(0, B, PLAIN_ROWS):
+            hi = min(B, lo + PLAIN_ROWS)
+            p, sd, fl = ex.expand_packed_plain(seed[..., lo:hi], t[:, lo:hi], y[:, lo:hi],
+                                               cws, cwf, derived, wc, row0=lo)
+            out[0][lo:hi] = p
+            if wc:
+                out[1][..., lo:hi] = sd
+                out[2][:, lo:hi] = fl
+        return out
+
+    build = lambda: collect.expand_share_bits_radix(keys, fr, level, r, want_children)
+    flat = lambda w: (w[0],) if w[1] is None else (w[0], w[1].seed, w[1].flags)
+    ex.expand_packed = timed
+    try:
+        got = flat(build())
+    finally:
+        ex.expand_packed = orig
+    torch.cuda.synchronize()
+    kernel_ms = sum(a.elapsed_time(b) for a, b in marks)
+    box = {}
+    ex.expand_packed = plain
+    try:
+        plain_ms = cuda_ms(lambda: box.update(w=flat(build())), 1)
+    finally:
+        ex.expand_packed = orig
+    err = same_sliced(got, box.pop("w"), f"radix expand {name} level={level} r={r}")
+    del got
+    ms = cuda_ms(build, 3, warm=True)
+    bounds = [expand_bound(F * N << t, N, d2, want_children or t + 1 < r, prg.DERIVED_BITS)
+              for t in range(r)]
+    b_ms = sum(b for b, _ in bounds)
+    b_by = "+".join(by for _, by in bounds)
+    log(f"radix expand {name} level={level} r={r} F={F} N={N} d2={d2} "
+        f"want_children={want_children}: kernel == plain (radix word"
+        f"{' and child cache' if want_children else ''}), max_abs_err={err} ms={ms:.4f} "
+        f"kernel_ms={kernel_ms:.4f} ({r} launches) plain_ms={plain_ms:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by})")
+    return {"level": level, "r": r, "F": F, "N": N, "d2": d2, "want_children": want_children,
+            "max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def measure_radix(name, run, cfg, tail, ex, collect, prg, torch):
+    """Phase 13's kernel checks: server 0's fused level held against its
+    plain build (``radix_check``) at the tail round, from the frontier
+    ``radix_run`` kept in ``tail``, and at the widest round with a child
+    cache, re-crawled from the keys up to that round only."""
+    lead = run.leader
+    L, k, n = lead.data_len, lead.radix, run.points.shape[0]
+    keys = lead.server0.keys
+    checks = [radix_check(name, keys, tail.pop("frontier"), tail["level"], L - tail["level"],
+                          False, ex, collect, prg, torch)]
+    checks[0]["kind"] = "tail"
+    torch.cuda.empty_cache()
+    bases = list(range(0, L, k))
+    inner = lead.buckets[:-1]
+    widest = bases[inner.index(max(inner))]
+    lead.tree_init()
+    try:
+        for level in bases[:bases.index(widest)]:
+            lead.run_level(level, n, cfg.threshold)
+        checks.insert(0, radix_check(name, keys, lead.server0.frontier, widest, k, True, ex,
+                                     collect, prg, torch))
+        checks[0]["kind"] = "widest"
+    finally:
+        for s in (lead.server0, lead.server1):
+            s.frontier = s.children = None
     return checks
 
 
@@ -1033,7 +1277,7 @@ def chunk_checks(torch, seed):
             a = (words(4 * S), bits(S), cts, CHUNK_IDX0)
             checks["ot2s_decrypt"].append(secure_check("ot2s_decrypt", a, oc.dec_planar(*a),
                                                        oc.dec_planar, "chunk", 1))
-    for S in (2, 4, 6, 16):
+    for S in (2, 4, 6, 8, 16):
         for W in (4, 8):
             R = [int(v) for v in torch.randint(0, 2**32, (4,), generator=torch.Generator()
                                                .manual_seed(seed + S + W))]
@@ -1146,6 +1390,38 @@ def main() -> int:
             report["crawls"][name] = fig
             del run
             torch.cuda.empty_cache()
+        # phase 13: config4_zipf's keys crawled in fused rounds of ZIPF_RADIX levels
+        name = "config4_zipf_radix3"
+        cfg_r = dataclasses.replace(cells["config4_zipf"][0], crawl_radix_bits=ZIPF_RADIX)
+        tail = {}
+        run, launches[name], fig = run_main_path(name, cfg_r, ZIPF_CLIENTS, args.seed, tmp, (),
+                                                 functools.partial(radix_run, tail=tail), 1)
+        got = {str(row.tolist()): int(c) for row, c in
+               zip(run.result.decode_ints(), run.result.counts)}
+        if got != hitters["config4_zipf"]:
+            raise AssertionError(f"{name}: hitters differ from config4_zipf's")
+        # r passes of the kernel per fused round and server: 2 x data_len
+        want_ex, rounds = 2 * cfg_r.data_len, -(-cfg_r.data_len // ZIPF_RADIX)
+        if launches[name]["expand"] != want_ex or len(run.leader.buckets) != rounds:
+            raise AssertionError(f"{name}: {launches[name]['expand']} expand launches over "
+                                 f"{len(run.leader.buckets)} rounds, want {want_ex} over {rounds}")
+        main4 = report["crawls"]["config4_zipf"]
+        log(f"radix {name}: hitters={len(got)} (= config4_zipf's, each = the plaintext recount) "
+            f"rounds={rounds} crawl_s={run.seconds['crawl']:.3f} (config4_zipf: "
+            f"{main4['seconds']['crawl']:.3f}) max_memory_allocated={fig['max_memory_allocated']} "
+            f"(config4_zipf: {main4['max_memory_allocated']}) expand_launches="
+            f"{launches[name]['expand']} (= {want_ex}) buckets_max={max(run.leader.buckets)}")
+        stage(f"{name} crawl")
+        if args.profile:
+            fig["profile"] = profile_crawl(name, run, cfg_r, torch)
+            stage(f"{name} profile")
+        fig["radix_checks"] = measure_radix(name, run, cfg_r, tail, expand_cuda, collect, prg,
+                                            torch)
+        errs["expand"] += [c["max_abs_err"] for c in fig["radix_checks"]]
+        stage(f"{name} checks")
+        report["crawls"][name] = fig
+        del run
+        torch.cuda.empty_cache()
         # phases 10-11: the streamed config-4 crawl from host keys, and its resume
         name, cfg4 = "config4_zipf_stream", cells["config4_zipf"][0]
         run, launches[name], fig = run_main_path(name, cfg4, ZIPF_CLIENTS, args.seed, tmp,
@@ -1189,7 +1465,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         for name, cell in sockets.items():
             cfg, n, per_level = cells[cell][0], cells[cell][1], cells[cell][2]
-            run = socket_run(name, cfg, n, args.seed, tmp)
+            run = socket_run(name, cfg, n, args.seed, tmp, SOCKET_ENV)
             report["sockets"][name] = check_socket_run(
                 name, run, cfg, points[cell], hitters[cell],
                 report["crawls"][cell]["seconds"]["crawl"], per_level)
@@ -1200,7 +1476,7 @@ def main() -> int:
             cfg, n, per_level = cells[cell][0], cells[cell][1], cells[cell][2]
             extra = dict(SPANS, **({"secure_whole_level": False} if cfg.secure_exchange else {}))
             cfg = dataclasses.replace(cfg, **extra)
-            run = socket_run(name, cfg, n, args.seed, tmp)
+            run = socket_run(name, cfg, n, args.seed, tmp, SOCKET_ENV)
             rep = check_socket_run(name, run, cfg, points[cell], hitters[cell],
                                    report["crawls"][cell]["seconds"]["crawl"], per_level)
             whole = report["sockets"][base]
@@ -1212,6 +1488,64 @@ def main() -> int:
                 f"pipeline={rep['pipeline']}")
             report["sockets"][name] = rep
             stage(f"{name} socket run")
+        # phases 14-15: rides over sockets in fused rounds of RIDES_RADIX levels
+        rides_cfg = cells["rides"][0]
+        radix_sockets = {
+            "rides_socket_radix2": (
+                dataclasses.replace(rides_cfg, crawl_radix_bits=RIDES_RADIX), RIDES_CLIENTS, (),
+                "rides_socket"),
+            "rides_secure_socket_radix2": (
+                dataclasses.replace(rides_cfg, secure_exchange=True, ot_path="auto",
+                                    crawl_radix_bits=RIDES_RADIX),
+                RIDES_RADIX_SECURE_CLIENTS, GC, "rides_secure_socket"),
+        }
+        for name, (cfg, n, per_level, base) in radix_sockets.items():
+            if n == RIDES_CLIENTS:  # the rides cell: bin.mesh at this config, seed and N
+                pts, want_h = points["rides"], hitters["rides"]
+                mesh_s = report["crawls"]["rides"]["seconds"]["crawl"]
+            else:  # bin.mesh at this config, seed and N, which crawls one level a round
+                mrun = mesh_run(f"{name}_mesh", cfg, n, args.seed, tmp)
+                res = mrun.result
+                if len(mrun.leader.timings["expand"]) != cfg.data_len:
+                    raise AssertionError(f"{name}: bin.mesh crawled "
+                                         f"{len(mrun.leader.timings['expand'])} rounds")
+                if not np.array_equal(res.counts, plaintext_counts(mrun.points, cfg.ball_size,
+                                                                   res.paths)):
+                    raise AssertionError(f"{name}: bin.mesh counts != the plaintext recount")
+                pts, mesh_s = mrun.points, mrun.seconds["crawl"]
+                want_h = {str(row.tolist()): int(c) for row, c in
+                          zip(res.decode_ints(), res.counts)}
+                del mrun, res
+                torch.cuda.empty_cache()
+            run = socket_run(name, cfg, n, args.seed, tmp, SOCKET_ENV)
+            rep = check_socket_run(name, run, cfg, pts, want_h, mesh_s, per_level)
+            whole = report["sockets"][base]
+            log(f"radix {name}: crawl_radix_bits={RIDES_RADIX} N={n} hitters = bin.mesh's; "
+                f"crawl_verbs_per_server={rep['crawl_verbs']} ({base}: {whole['crawl_verbs']}) "
+                f"data_bytes_sent={rep['data_bytes_sent']} ({base} at N={whole['n']}: "
+                f"{whole['data_bytes_sent']}) data_frame_max={rep['data_frame_max']} "
+                f"crawl_s={rep['crawl_s']:.3f} ({base}: {whole['crawl_s']:.3f})")
+            report["sockets"][name] = rep
+            stage(f"{name} socket run")
+        # phase 16: phase 14 again, its leader warming the buckets that crawl walked
+        name, base = "rides_socket_radix2_warm", "rides_socket_radix2"
+        cfg, cold = radix_sockets[base][0], report["sockets"][base]
+        run = socket_run(name, cfg, RIDES_CLIENTS, args.seed, tmp,
+                         warm_buckets=sorted(set(cold["buckets"])))
+        if run["warmup"] is None:
+            raise AssertionError(f"{name}: the leader ran no warmup (FHH_WARMUP=0 is set)")
+        rep = check_socket_run(name, run, cfg, points["rides"], hitters["rides"],
+                               report["crawls"]["rides"]["seconds"]["crawl"], ())
+        if rep["hitter_map"] != cold["hitter_map"]:
+            raise AssertionError(f"{name}: hitters differ from {base}'s")
+        log(f"warmup {name}: f_buckets={run['warmup']['f_buckets']} shapes="
+            f"{run['warmup']['shapes']} warmup_s={run['warmup']['seconds']:.3f} hitters = "
+            f"{base}'s; crawl_s={rep['crawl_s']:.3f} ({base}, no warmup: {cold['crawl_s']:.3f}) "
+            f"server max_memory_allocated={rep['max_memory_allocated']} ({base}: "
+            f"{cold['max_memory_allocated']}) expand_launches="
+            f"{[rep['launches'][w]['expand'] for w in ('server0', 'server1')]}")
+        report["sockets"][name] = rep
+        stage(f"{name} socket run")
     for name in points:
         kg = measure_keygen(name, points[name], cells[name][0], keygen_cuda, ibdcf, torch, rng)
         report["crawls"][name]["keygen_check"] = kg
@@ -1251,10 +1585,15 @@ def main() -> int:
                                    "plain_ms", "bound_ms")}
                 for c in report["crawls"]["config4_zipf_stream"]["stream_checks"]]
             rows[-1]["stream_launches"] = launches["config4_zipf_stream"][kn]
+            rows[-1]["radix_checks"] = [
+                {k: c[k] for k in ("kind", "level", "r", "F", "want_children", "max_abs_err",
+                                   "ms", "kernel_ms", "plain_ms", "bound_ms")}
+                for c in report["crawls"]["config4_zipf_radix3"]["radix_checks"]]
+            rows[-1]["radix_launches"] = launches["config4_zipf_radix3"][kn]
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
-    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, seven crawls, a resume "
-        "and four socket runs)")
+    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, nine crawls, a resume "
+        "and seven socket runs)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -5,15 +5,19 @@
 
 Start both ``bin.server`` processes first.  Flow (leader.rs:300-440): keygen
 report, client sampling, keygen, connect, ``reset``, batched key upload,
-the level loop, one ``hitter`` line per heavy hitter and, for the rides
-workload, the heavy-hitter CSV (``data/ride_heavy_hitters.csv`` under the
-working directory).  Events are JSON lines on standard output.
+the warmup (``warmup.done``; ``FHH_WARMUP=0`` skips it, as in the JAX
+leader), the crawl in rounds of ``crawl_radix_bits`` levels, one ``hitter``
+line per heavy hitter and, for the rides workload, the heavy-hitter CSV
+(``data/ride_heavy_hitters.csv`` under the working directory).  Events are
+JSON lines on standard output.
 
-This leader runs the UNSUPERVISED crawl: the JAX leader's default
-supervised crawl with checkpoint recovery (``FHH_SUPERVISE``), its
-streaming windows (``FHH_WINDOWS``), its warmup (``FHH_WARMUP``) and its
-named collections (``FHH_COLLECTION``) are not ported, and a variable that
-asks for one of them is refused.  Keygen runs on ``cuda`` unless
+The environment means what it means to the JAX leader, defaults included.
+Unset, ``FHH_SUPERVISE`` asks for the supervised crawl with checkpoint
+recovery, which is not ported: run with ``FHH_SUPERVISE=0`` (the JAX
+leader's own opt-out) for the unsupervised crawl.  Streaming windows
+(``FHH_WINDOWS`` > 1) and named collections (``FHH_COLLECTION``) are not
+ported either; a variable that asks for an unported mode is refused by
+name.  Keygen runs on ``cuda`` unless
 ``--device`` names another device or the config says ``"backend": "cpu"``.
 With ``--seed s`` sampling and keygen draw from ``default_rng(s)`` in
 ``bin.mesh``'s order, so the keys, and the hitters, equal ``bin.mesh``'s
@@ -41,20 +45,22 @@ from .server import emit, split_addr
 
 
 def refuse_unported_env() -> None:
-    """Refuse the JAX leader's variables when they ask for an unported mode."""
+    """Refuse the JAX leader's variables, read with its defaults, when they
+    ask for an unported mode."""
+    supervise = os.environ.get("FHH_SUPERVISE", "1")
     asks = {
-        "FHH_SUPERVISE": (os.environ.get("FHH_SUPERVISE", "0") != "0",
+        "FHH_SUPERVISE": (supervise != "0", supervise,
                           "the supervised crawl with checkpoint recovery"),
         "FHH_WINDOWS": (int(os.environ.get("FHH_WINDOWS", "1")) > 1,
-                        "streaming ingestion in tumbling windows"),
-        "FHH_WARMUP": (os.environ.get("FHH_WARMUP", "0") != "0", "the per-bucket warmup"),
+                        os.environ.get("FHH_WINDOWS"), "streaming ingestion in tumbling windows"),
         "FHH_COLLECTION": (os.environ.get("FHH_COLLECTION", "default") not in ("", "default"),
-                           "the multi-tenant collection layer"),
+                           os.environ.get("FHH_COLLECTION"), "the multi-tenant collection layer"),
     }
-    for var, (asked, path) in asks.items():
+    for var, (asked, val, path) in asks.items():
         if asked:
-            raise NotImplementedError(f"{var}={os.environ[var]}: {path} is not ported to "
-                                      "PyTorch yet; this leader runs the unsupervised crawl")
+            raise NotImplementedError(
+                f"{var}={val}: {path} is not ported to PyTorch yet; this leader runs the "
+                "unsupervised crawl (FHH_SUPERVISE=0)")
 
 
 def _sync(dev: torch.device) -> None:
@@ -79,7 +85,10 @@ def keygen_report(cfg, rng, dev) -> None:
          seconds=round(dt, 3), sec_per_key=round(dt / n, 6))
 
 
-async def run(cfg, nreqs: int, dev, seed) -> None:
+async def run(cfg, nreqs: int, dev, seed, warm_buckets=None) -> None:
+    """The leader's flow (see the module docstring); ``warm_buckets`` names
+    the warmup's buckets (None: :meth:`RpcLeader.warmup`'s ladder to
+    ``f_max``)."""
     keygen_report(cfg, np.random.default_rng(), dev)
     rng = np.random.default_rng(seed)
     emit("sampling", distribution=cfg.distribution, n=nreqs, device=str(dev))
@@ -100,9 +109,15 @@ async def run(cfg, nreqs: int, dev, seed) -> None:
         await lead.upload_keys(keys0, keys1)
         del keys0, keys1
         emit("addkeys.done", seconds=time.perf_counter() - t0)
+        if os.environ.get("FHH_WARMUP", "1") != "0":
+            t0 = time.perf_counter()
+            info = await lead.warmup(warm_buckets)
+            emit("warmup.done", seconds=time.perf_counter() - t0, f_buckets=info["f_buckets"],
+                 shapes=[info["s0"]["shapes"], info["s1"]["shapes"]])
         t0 = time.perf_counter()
         res = await lead.run(nreqs)
         emit("crawl.done", seconds=time.perf_counter() - t0, levels=cfg.data_len,
+             radix=cfg.crawl_radix_bits, rounds=len(lead.buckets),
              hitters=int(res.paths.shape[0]), secure=cfg.secure_exchange,
              buckets=lead.buckets, pipeline=lead.pipeline,
              control_bytes={"server0": c0.stats, "server1": c1.stats})
@@ -120,8 +135,8 @@ async def run(cfg, nreqs: int, dev, seed) -> None:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         prog="Leader", description="Leader of the socket deployment (PyTorch/CUDA); runs "
-        "the unsupervised crawl (FHH_SUPERVISE, FHH_WINDOWS, FHH_WARMUP and FHH_COLLECTION "
-        "modes are not ported and are refused).")
+        "the unsupervised crawl with FHH_SUPERVISE=0 (the supervised crawl, FHH_WINDOWS and "
+        "FHH_COLLECTION modes are not ported and are refused); FHH_WARMUP=0 skips the warmup.")
     p.add_argument("-c", "--config", required=True, help="Location of JSON config file")
     p.add_argument("-n", "--num_requests", type=int, required=True,
                    help="Number of client requests")

@@ -15,9 +15,12 @@ exchange.
     python -m fuzzyheavyhitters_torch.bin.mesh --config configs/config.json -n 100 --device cpu
 
 It runs on ``cuda`` unless ``--device`` names another device, and raises
-when there is no card.  The multi-process and multi-card options of the
-JAX binary are refused (``NotImplementedError``): that path is not ported
-yet.
+when there is no card.  Like the JAX binary, whose ``MeshRunner`` has no
+radix, it crawls one bit per level whatever ``crawl_radix_bits`` says:
+fused rounds run in ``driver.Leader(radix=k)`` and the socket deployment,
+and its ``crawl.done`` line counts the levels it crawled.  The
+multi-process and multi-card options of the JAX binary are refused
+(``NotImplementedError``): that path is not ported yet.
 """
 
 from __future__ import annotations

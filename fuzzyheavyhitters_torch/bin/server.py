@@ -12,8 +12,9 @@ CUDA context before it listens.  Events are JSON lines on standard output:
 ``server.plane_listening`` (server 1, once its peer may dial),
 ``server.serving`` once the leader may connect, and on SIGTERM or SIGINT
 ``server.exit`` with the seconds per
-phase, the bytes of each plane, the largest data-plane frame and the
-launches of each kernel in this process.  The JAX binary's checkpoint directory, fleet registration and
+phase, the bytes of each plane, the largest data-plane frame, the
+launches of each kernel in this process and, on the card, its peak
+``torch.cuda.max_memory_allocated``.  The JAX binary's checkpoint directory, fleet registration and
 multi-card options are not ported: their variables are refused.
 """
 
@@ -25,6 +26,8 @@ import json
 import os
 import signal
 import sys
+
+import torch
 
 from ..protocol.rpc import CollectorServer, not_ported
 from ..utils import config as configmod
@@ -70,8 +73,6 @@ async def amain(cfg, server_id: int, device) -> None:
     peer_host = host1 if server_id == 0 else my_host
     server = CollectorServer(server_id, cfg, device)
     if server.device.type == "cuda":  # kernels and CUDA context before the first verb
-        import torch
-
         from ..ops import cuda_build
 
         cuda_build.build()
@@ -95,7 +96,9 @@ async def amain(cfg, server_id: int, device) -> None:
              data_frame_max=server.stats["data_frame_max"],
              control_bytes_sent=server.stats["control_bytes_sent"],
              control_bytes_recv=server.stats["control_bytes_recv"],
-             launches=launch_counts())
+             launches=launch_counts(), max_memory_allocated=(
+                 torch.cuda.max_memory_allocated(server.device)
+                 if server.device.type == "cuda" else 0))
 
 
 def main(argv=None) -> None:

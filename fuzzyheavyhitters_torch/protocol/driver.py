@@ -1,8 +1,7 @@
 """In-process protocol driver: a leader and two colocated server states.
 
-The port of ``fuzzyheavyhitters_tpu/protocol/driver.py`` for radix 1: both
-servers' state machines live in one process on one device.  Two data
-planes:
+The port of ``fuzzyheavyhitters_tpu/protocol/driver.py``: both servers'
+state machines live in one process on one device.  Two data planes:
 
 - trusted exchange: the per-(node, client) packed share bits are compared
   directly (the counts the leader would reconstruct anyway, ref:
@@ -25,6 +24,16 @@ Level-loop semantics mirror the reference leader (ref: leader.rs:185-297):
   (node, pattern) order, so ``f_max`` truncation and the paths match the
   JAX package exactly;
 - paths decode MSB-first per dim; heavy hitters are the surviving leaves.
+
+Radix-2^k level fusion (``Leader.radix``, trusted exchange only): each
+round crawls bit levels ``[level, level + r)``, ``r = min(radix, data_len
+- level)``, with one fused expansion per server
+(``collect.expand_share_bits_radix``), one count over the 2^(r·d) fused
+children and one prune, walked in the radix-1 crawl's survivor order
+(``collect.radix_pattern_order``), so hitters, ``f_max`` truncation and
+paths are those of the radix-1 crawl.  As in the JAX package, the
+streamed crawl and the secure exchange run radix 1 only: fused secure
+levels run over the socket deployment.
 
 Streaming (servers over ``ibdcf.HostKeys``, trusted exchange only): the
 keys stay in host memory; each server's correction words ride
@@ -314,10 +323,11 @@ class Leader:
     # stream_chunk parent slots at a time (None: the whole bucket)
     stream_chunk: int | None = None
     stream_window: int = 64
+    radix: int = 1  # bit levels per crawl round (Config.crawl_radix_bits)
     paths: np.ndarray = field(default=None)  # bool[F, d, level]
     n_nodes: int = 0
-    buckets: list = field(default_factory=list)  # frontier bucket per level
-    # seconds per level, host clock: "expand" (enqueue of both servers'
+    buckets: list = field(default_factory=list)  # frontier bucket per round
+    # seconds per round, host clock: "expand" (enqueue of both servers'
     # expansions, and the strings in a secure crawl), "count" (counts, or
     # the leader's reconstruction, and the readback that waits for the
     # device), "advance" (prune bookkeeping + enqueue of both gathers, or
@@ -331,6 +341,14 @@ class Leader:
     def __post_init__(self):
         if not 1 <= self.n_dims <= collect.MAX_DIMS:
             raise ValueError(f"n_dims={self.n_dims}: supported 1..{collect.MAX_DIMS}")
+        collect.check_radix(self.n_dims, self.radix)
+        if self.radix > 1 and self.stream:
+            raise ValueError("streaming crawl mode pins crawl_radix_bits=1 "
+                             "(advance_from_cw re-expands one bit per level)")
+        if self.radix > 1 and self.secure is not None:
+            raise ValueError("the in-process secure crawl pins crawl_radix_bits=1 (as the JAX "
+                             "package's): fused secure levels run over the socket deployment "
+                             "(bin.server and bin.leader)")
         if isinstance(self.server1.keys, HostKeys) != self.stream:
             raise TypeError("both servers' keys are ibdcf.HostKeys (a streamed crawl) "
                             "or neither is")
@@ -370,13 +388,15 @@ class Leader:
         self._reset()
 
     def run_level(self, level: int, nreqs: int, threshold: float) -> int:
-        """One expand -> count -> threshold -> prune -> advance round;
-        returns the surviving node count.  The last level builds no child
-        cache and leaves no frontier: nothing advances past it.  When
-        streaming, the level expands without a child cache and the
+        """One expand -> count -> threshold -> prune -> advance round over
+        bit levels ``[level, level + r)``, ``r = min(radix, data_len -
+        level)``; returns the surviving node count.  The last round builds
+        no child cache and leaves no frontier: nothing advances past it.
+        When streaming, the level expands without a child cache and the
         advance re-expands the survivors' parents."""
         d = self.n_dims
-        last = level == self.data_len - 1
+        r = min(self.radix, self.data_len - level)
+        last = level + r == self.data_len
         servers = (self.server0, self.server1)
         alive_nodes = self.server0.frontier.alive
         t0 = time.perf_counter()
@@ -386,8 +406,8 @@ class Leader:
                 cws.append(self._cw[i].at(level))
                 p, _ = collect.expand_share_bits_from_cw(cws[i], s.frontier, want_children=False)
             else:
-                p, s.children = collect.expand_share_bits(
-                    s.keys, s.frontier, level, want_children=not last)
+                p, s.children = collect.expand_share_bits_radix(
+                    s.keys, s.frontier, level, r, want_children=not last)
                 s.frontier = None  # the child cache is all the advance needs
             packed.append(p)
         self.buckets.append(int(alive_nodes.shape[0]))
@@ -396,18 +416,22 @@ class Leader:
         else:
             t1 = tc = time.perf_counter()
             counts = collect.counts_by_pattern(
-                packed[0], packed[1], collect.pattern_masks(d),
+                packed[0], packed[1], collect.pattern_masks_radix(d, r),
                 self.server0.alive_keys, alive_nodes,
             )
             # the one per-level readback: thresholding is leader logic
-            counts = counts.cpu().numpy()  # [F, 2^d]
+            counts = counts.cpu().numpy()  # [F, 2^(r·d)]
         del packed
         t2 = time.perf_counter()
         thresh = max(1, int(threshold * nreqs))  # ref: leader.rs:193-194
-        keep = counts >= thresh
+        # fused children in the radix-1 crawl's visit order (the identity
+        # at r = 1), so survivors and f_max truncation are the same
+        order = collect.radix_pattern_order(d, r)
+        keep = counts[:, order] >= thresh
         keep[self.n_nodes:, :] = False
-        parent, pattern, n_alive = collect.compact_survivors(keep, self.f_max, self.min_bucket)
-        pat_bits = collect.pattern_to_bits(pattern, d)
+        parent, rank, n_alive = collect.compact_survivors(keep, self.f_max, self.min_bucket)
+        pattern = order[rank]
+        pat_bits = collect.pattern_to_bits_radix(pattern, d, r)  # [F', r, d]
         if not last and (n_alive or not self.stream):
             parent_t = torch.from_numpy(parent.astype(np.int64)).to(self.device)
             pat_t = torch.from_numpy(pat_bits).to(self.device)
@@ -417,18 +441,18 @@ class Leader:
                     # next server advances: two old and two new frontiers
                     # at once are what overflows the card at wide levels
                     old, s.frontier = s.frontier, None
-                    s.frontier = collect.advance_from_cw(cws[i], old, parent_t, pat_t, n_alive,
-                                                         self.stream_chunk)
+                    s.frontier = collect.advance_from_cw(cws[i], old, parent_t, pat_t[:, 0],
+                                                         n_alive, self.stream_chunk)
                     del old
                 else:
-                    s.frontier = collect.advance_from_children(
-                        s.children, parent_t, pat_t, n_alive)
+                    s.frontier = collect.advance_from_children_radix(
+                        s.children, parent_t, pat_t, n_alive, r)
                     s.children = None
         else:
             for s in servers:
                 s.frontier = s.children = None
         self.paths = np.concatenate(
-            [self.paths[parent[:n_alive]], pat_bits[:n_alive, :, None]], axis=-1)
+            [self.paths[parent[:n_alive]], pat_bits[:n_alive].transpose(0, 2, 1)], axis=-1)
         self.n_nodes = n_alive
         self._last_counts = counts[parent[:n_alive], pattern[:n_alive]]
         t3 = time.perf_counter()
@@ -488,14 +512,15 @@ class Leader:
 
     def run(self, nreqs: int, threshold: float, checkpoint_path: str | None = None,
             checkpoint_every: int = 64, resume: bool = False) -> CrawlResult:
-        """Full crawl: init + data_len levels + final reconstruction
-        (ref: leader.rs:417-438 then final_shares at :282-297).
+        """Full crawl: init + data_len levels in rounds of ``radix`` + final
+        reconstruction (ref: leader.rs:417-438 then final_shares at
+        :282-297).
 
-        ``checkpoint_path`` persists the crawl state every
-        ``min(checkpoint_every, max(1, data_len // 2))`` completed levels
-        (so a short crawl still checkpoints mid-crawl), never after the
-        last level; ``resume=True`` restores from that file when it exists
-        and continues from the next level.  Keys are not in the file: build
+        ``checkpoint_path`` persists the crawl state after each round that
+        completes a multiple of ``min(checkpoint_every, max(1, data_len //
+        2))`` levels (so a short crawl still checkpoints mid-crawl), never
+        after the last round; ``resume=True`` restores from that file when
+        it exists and continues from the next round.  Keys are not in the file: build
         the Leader over the same keys to resume.  A crawl that completes
         removes the file."""
         if checkpoint_path is not None and self.secure is not None:
@@ -513,15 +538,18 @@ class Leader:
             return result
 
         every = min(checkpoint_every, max(1, self.data_len // 2))
-        for level in range(start, self.data_len):
+        for level in range(start, self.data_len, self.radix):
+            r = min(self.radix, self.data_len - level)
             n = self.run_level(level, nreqs, threshold)
             if n == 0:
                 return done(CrawlResult(
-                    paths=np.zeros((0, self.n_dims, level + 1), bool),
+                    paths=np.zeros((0, self.n_dims, level + r), bool),
                     counts=np.zeros(0, np.int64),
                 ))
-            if checkpoint_path is not None and level + 1 < self.data_len \
-                    and (level + 1) % every == 0:
+            # checkpoints fall on the fused grid: after the round that
+            # ends on a multiple of ``every``
+            if checkpoint_path is not None and level + r < self.data_len \
+                    and (level + r) % every == 0:
                 self.checkpoint(checkpoint_path, level, nreqs, threshold)
         return done(CrawlResult(paths=self.paths, counts=self._last_counts))
 
@@ -553,15 +581,16 @@ class Leader:
 
     def checkpoint(self, path: str, level: int, nreqs: int | None = None,
                    threshold: float | None = None) -> None:
-        """Persist the crawl state after ``level`` completed, in the JAX
-        package's npz format: both servers' frontiers (plane-major, seeds
+        """Persist the crawl state after the round based at ``level``
+        completed, in the JAX package's npz format (``radix`` stamped): both
+        servers' frontiers (plane-major, seeds
         as uint32: ``planar`` True) and liveness flags, the leader's
         paths, ``meta`` = [n_dims, data_len, f_max, min_bucket], the key
         fingerprint and, from :meth:`run`, ``params`` = (nreqs,
         threshold).  Written to ``path.tmp`` and renamed over ``path``."""
         blob = {
             "level": np.int64(level),
-            "radix": np.int64(1),
+            "radix": np.int64(self.radix),
             "planar": np.bool_(True),
             "paths": self.paths,
             "n_nodes": np.int64(self.n_nodes),
@@ -588,7 +617,7 @@ class Leader:
     def restore(self, path: str, nreqs: int | None = None,
                 threshold: float | None = None) -> int:
         """Load a checkpoint (this package's or the JAX package's) and
-        return the next level to run.  Refuses, with the live state
+        return the next round's base level.  Refuses, with the live state
         untouched, a file of another shape, radix or key batch, one with
         no key fingerprint, and one written for other (nreqs, threshold).
         A file of the JAX package's interleaved engine (``planar`` False)
@@ -598,10 +627,12 @@ class Leader:
         want = [self.n_dims, self.data_len, self.f_max, self.min_bucket]
         if z["meta"].tolist() != want:
             raise ValueError(f"checkpoint shape {z['meta'].tolist()} != leader shape {want}")
+        # a file of another radix holds a frontier at a depth this leader's
+        # round grid never visits (files without the stamp are radix 1)
         saved_radix = int(z["radix"]) if "radix" in z else 1
-        if saved_radix != 1:  # the port crawls one bit per level
+        if saved_radix != self.radix:
             raise ValueError(f"checkpoint crawl radix {saved_radix} != leader "
-                             "crawl_radix_bits 1")
+                             f"crawl_radix_bits {self.radix}")
         if "key_fp" not in z:
             raise ValueError("checkpoint predates the key-fingerprint format — "
                              "re-run the crawl from the start")
@@ -629,7 +660,8 @@ class Leader:
         self.n_nodes = int(z["n_nodes"])
         self._last_counts = z["last_counts"].astype(np.int64)
         self._reset()
-        return int(z["level"]) + 1
+        lvl = int(z["level"])  # base level of the last completed round
+        return lvl + min(self.radix, self.data_len - lvl)
 
 
 def make_servers(keys0, keys1, device=None):

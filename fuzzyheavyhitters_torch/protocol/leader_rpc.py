@@ -2,13 +2,19 @@
 the control plane (the unsupervised ``RpcLeader`` of the JAX package's
 ``protocol/leader_rpc.py``, ref: src/bin/leader.rs:185-297).
 
-Batched key upload with a rolling window, then per level: ``tree_crawl``
-on both servers, the leader's ``v0 - v1`` reconstruction of every count on
-the host, the threshold ``max(1, threshold · nreqs)`` (leader.rs:193-194),
-the fused prune; the last level in F255 and the final cross-check of the
-re-served leaf shares (collect.rs:993-1029).  The garbler alternates per
-level (``level % 2``, the reference's ``gc_sender`` flip) and the equality
-engine rides each verb, so both servers follow this leader's config.
+Batched key upload with a rolling window, an optional warmup
+(:meth:`RpcLeader.warmup`), then per round: ``tree_crawl`` on both servers,
+the leader's ``v0 - v1`` reconstruction of every count on the host, the
+threshold ``max(1, threshold · nreqs)`` (leader.rs:193-194), the fused
+prune; the last round in F255 and the final cross-check of the re-served
+leaf shares (collect.rs:993-1029).  A round is ``crawl_radix_bits`` = k bit
+levels (``r = min(k, data_len - level)`` at the tail): bases 0, k, 2k, …,
+2^(d·r) count columns walked in the radix-1 survivor order
+(``collect.radix_pattern_order``), prunes ``[F', d]`` at r = 1 and ``[F',
+r, d]`` otherwise, r path bits per dim.  The garbler alternates per round
+(``(level // k) % 2``, the reference's ``gc_sender`` flip: ``level % 2``
+would pin one garbler at even k) and the equality engine rides each verb,
+so both servers follow this leader's config.
 
 Node spans: with ``crawl_shard_nodes > 0`` a level's crawl verbs go out
 one per node span (``collect.shard_spans`` of the frontier bucket), the
@@ -28,7 +34,7 @@ pipeline fault (``plane_break``/``plane_reset``) belong to the recovery
 path, not ported yet, as every verb of this unsupervised leader fails
 loudly.  ``server_data_devices > 1`` (servers sharded over several cards)
 raises ``NotImplementedError``; the supervised crawl with checkpoint
-recovery, warmup and streaming windows are not ported either.
+recovery and streaming windows are not ported either.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ class RpcLeader:
         self.c0, self.c1 = client0, client1
         self.paths: np.ndarray | None = None
         self.n_nodes = 0
-        self.buckets: list = []  # frontier bucket per level
+        self.buckets: list = []  # frontier bucket per round
         self.pipeline = {"depth": 0, "overlap_s": 0.0, "stalls": 0}
 
     @staticmethod
@@ -97,6 +103,25 @@ class RpcLeader:
                           for lo in range(0, n, bs)
                           for c, k in ((self.c0, keys0), (self.c1, keys1))))
 
+    async def warmup(self, f_buckets=None) -> dict:
+        """Ask both servers to warm every bucket shape (``rpc.CollectorServer.
+        warmup``); by default the powers of two from 1 to ``f_max``, and
+        ``f_max`` itself, the ladder ``collect.bucket_for`` walks.  Call after :meth:`upload_keys`: it touches no crawl state."""
+        cfg = self.cfg
+        if f_buckets is None:
+            f_buckets, b = [], 1
+            while b <= cfg.f_max:
+                f_buckets.append(b)
+                b *= 2
+            if f_buckets and f_buckets[-1] != cfg.f_max:
+                f_buckets.append(cfg.f_max)
+        r0, r1 = await self._both("warmup", {
+            "f_buckets": [int(b) for b in f_buckets], "ot_path": cfg.ot_path,
+            "secure_spans": bool(cfg.secure_exchange and not cfg.secure_whole_level
+                                 and cfg.crawl_shard_nodes),
+            "data_shards": int(cfg.server_data_devices)})
+        return {"f_buckets": list(f_buckets), "s0": r0, "s1": r1}
+
     async def _crawl_level(self, level: int, last: bool):
         """This level's crawl verbs -> (server 0's, server 1's) answers:
         one verb per node span, in order, or ``crawl_pipeline_depth`` of
@@ -104,7 +129,9 @@ class RpcLeader:
         or the secure exchange batches whole levels."""
         cfg = self.cfg
         verb = "tree_crawl_last" if last else "tree_crawl"
-        req = {"level": level, "garbler": level % 2, "ot_path": cfg.ot_path}
+        # the garbler flips per round: bases 0, k, 2k, ...
+        req = {"level": level, "garbler": (level // cfg.crawl_radix_bits) % 2,
+               "ot_path": cfg.ot_path}
         spans = collect.shard_spans(self.buckets[-1], cfg.crawl_shard_nodes)
         if len(spans) == 1 or (cfg.secure_exchange and cfg.secure_whole_level):
             return await self._both(verb, req)
@@ -160,11 +187,13 @@ class RpcLeader:
         return np.concatenate(parts0, axis=0), np.concatenate(parts1, axis=0)
 
     async def _run_one_level(self, level: int, nreqs: int, thresh: int):
-        """One crawl -> reconstruct -> threshold -> prune round; returns the
-        surviving nodes' counts, or None when the crawl died out."""
+        """One crawl -> reconstruct -> threshold -> prune round over bit
+        levels ``[level, level + r)``; returns the surviving nodes' counts,
+        or None when the crawl died out."""
         cfg = self.cfg
         d, L = cfg.n_dims, cfg.data_len
-        last = level == L - 1
+        r = min(cfg.crawl_radix_bits, L - level)
+        last = level + r == L
         s0, s1 = await self._crawl_level(level, last)
         if last:
             v = F255.np_sub(s0, s1)
@@ -176,21 +205,26 @@ class RpcLeader:
             if (v > nreqs).any():  # e.g. a share-sign or role mismatch
                 raise RuntimeError("count reconstruction out of range")
             counts = v.astype(np.uint32)
-        keep = counts >= thresh
+        # fused children in the radix-1 visit order (the identity at r = 1)
+        order = collect.radix_pattern_order(d, r)
+        keep = counts[:, order] >= thresh
         keep[self.n_nodes:, :] = False
-        parent, pattern, n_alive = collect.compact_survivors(keep, cfg.f_max)
+        parent, rank, n_alive = collect.compact_survivors(keep, cfg.f_max)
         if n_alive == 0:
             return None
+        pattern = order[rank]
         if not last:
-            self.buckets.append(int(parent.shape[0]))  # the next level's span plan
-        pat_bits = collect.pattern_to_bits(pattern, d)
-        prune = {"parent_idx": parent, "pattern_bits": pat_bits, "n_alive": n_alive}
+            self.buckets.append(int(parent.shape[0]))  # the next round's span plan
+        pat_bits = collect.pattern_to_bits_radix(pattern, d, r)  # [F', r, d]
+        # r = 1 keeps the radix-1 wire, [F', d]
+        prune = {"parent_idx": parent, "pattern_bits": pat_bits[:, 0] if r == 1 else pat_bits,
+                 "n_alive": n_alive}
         if last:
             await self._both("tree_prune_last", prune)
         else:
             await self._both("tree_prune", dict(prune, level=level))
         self.paths = np.concatenate(
-            [self.paths[parent[:n_alive]], pat_bits[:n_alive, :, None]], axis=-1)
+            [self.paths[parent[:n_alive]], pat_bits[:n_alive].transpose(0, 2, 1)], axis=-1)
         self.n_nodes = n_alive
         return counts[parent[:n_alive], pattern[:n_alive]]
 
@@ -204,10 +238,11 @@ class RpcLeader:
         self.buckets = [1]
         self.pipeline = {"depth": 0, "overlap_s": 0.0, "stalls": 0}
         thresh = max(1, int(cfg.threshold * nreqs))
-        for level in range(L):
+        k = cfg.crawl_radix_bits
+        for level in range(0, L, k):
             kept = await self._run_one_level(level, nreqs, thresh)
             if kept is None:
-                return CrawlResult(paths=np.zeros((0, d, level + 1), bool),
+                return CrawlResult(paths=np.zeros((0, d, min(L, level + k)), bool),
                                    counts=np.zeros(0, np.uint32))
         # the crawl-time counts only pruned: the result is reconstructed from
         # the re-served leaf shares, which must agree with them

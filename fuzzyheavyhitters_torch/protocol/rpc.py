@@ -7,10 +7,10 @@ servers and a leader, each its own process.
 - **Control plane.**  The leader connects to both servers and drives the
   eight verbs of the reference's ``Collector`` service (rpc.rs:56-66):
   ``reset, add_keys, tree_init, tree_crawl, tree_crawl_last, tree_prune,
-  tree_prune_last, final_shares``.  Frames are length-prefixed pickles
-  (``<Q`` length, protocol 5): ``(req_id, verb, payload)`` to a server,
-  ``(req_id, response)`` back; a failed verb answers ``{"__error__":
-  "Type: message"}``.
+  tree_prune_last, final_shares``, and the JAX server's ``warmup``.
+  Frames are length-prefixed pickles (``<Q`` length, protocol 5):
+  ``(req_id, verb, payload)`` to a server, ``(req_id, response)`` back; a
+  failed verb answers ``{"__error__": "Type: message"}``.
 - **Data plane.**  One server↔server TCP connection (server 1 listens on
   its control port + 1, server 0 dials, server.rs:344-354) carrying
   ``(channel, payload)`` frames on channel ``"default"``; a third element,
@@ -41,10 +41,23 @@ earlier one holds the verb lock runs its expansion at once (the
 frame-arrival pre-expand, at most 32 stashed): device work only, it never
 touches the data plane, so the frame order stays the JAX package's.
 
+Radix-2^k level fusion (``Config.crawl_radix_bits`` = k, the server's
+own, checked at ``tree_init``): the crawl verb based at ``level`` covers
+bit levels ``[level, level + r)``, ``r = min(k, data_len - level)``
+(``collect.expand_share_bits_radix``; secure strings of S' = 2·d·r bits),
+answers 2^(d·r) count columns, and the prune takes fused patterns
+``[F', r, d]`` (``[F', d]`` when r = 1, so k = 1 is byte-identical).
+
+``warmup`` runs, for each requested frontier bucket and each span size it
+implies, the expansions a crawl at that bucket runs (and the count, or the
+whole secure chain on a throwaway in-process OT pair), touching no live
+state: the port compiles no XLA, so this is what the JAX verb's compile
+pass becomes.
+
 Not ported (they answer ``NotImplementedError`` naming the missing path,
 never "unknown verb"): the other verbs of the JAX server, multi-tenant
-collections, radix fusion, and the client's reconnect-and-replay with the
-server's replay-dedup cache — a lost transport fails the call loudly.
+collections, and the client's reconnect-and-replay with the server's
+replay-dedup cache — a lost transport fails the call loudly.
 """
 
 from __future__ import annotations
@@ -146,7 +159,6 @@ UNPORTED_VERBS = {
     "tree_restore": "checkpoint/restore of the crawl",
     "plane_reset": "data-plane recovery",
     "plane_break": "data-plane recovery",
-    "warmup": "the per-bucket warmup",
     "session_export": "collection-session migration",
     "session_import": "collection-session migration",
 }
@@ -164,7 +176,7 @@ class CollectorServer:
     listens."""
 
     VERBS = ("reset", "add_keys", "tree_init", "tree_crawl", "tree_crawl_last",
-             "tree_prune", "tree_prune_last", "final_shares")
+             "tree_prune", "tree_prune_last", "final_shares", "warmup")
 
     def __init__(self, server_id: int, cfg: Config, device=None):
         if server_id not in (0, 1):
@@ -229,17 +241,31 @@ class CollectorServer:
         self.keys_parts.append(tuple(np.asarray(a) for a in req["keys"]))
         return True
 
-    async def tree_init(self, req) -> bool:
+    def _concat_keys(self, verb: str) -> None:
+        """The uploaded chunks as one key batch on the device, checked
+        against the crawl radix."""
         if not self.keys_parts and self.keys is None:
-            raise RuntimeError("tree_init before add_keys")
-        await self._ensure_plane()
+            raise RuntimeError(f"{verb} before add_keys")
         if self.keys_parts:
             leaves = [np.concatenate(p) for p in zip(*self.keys_parts)]
             self.keys_parts = []
             self.keys = ibdcf.keys_from_numpy(ibdcf.IbDcfKeyBatch(*leaves), self.device)
-        n, d = self.keys.cw_seed.shape[:2]
+        d = self.keys.cw_seed.shape[1]
         if not 1 <= d <= collect.MAX_DIMS:
             raise ValueError(f"n_dims={d}: supported 1..{collect.MAX_DIMS}")
+        collect.check_radix(d, self.cfg.crawl_radix_bits)
+
+    def crawl_radix(self, level: int) -> int:
+        """Bit levels of the crawl round based at ``level``: the server's
+        radix, clipped at the tail of the key batch's data_len."""
+        return min(self.cfg.crawl_radix_bits, self.keys.cw_seed.shape[-2] - int(level))
+
+    async def tree_init(self, req) -> bool:
+        if not self.keys_parts and self.keys is None:
+            raise RuntimeError("tree_init before add_keys")
+        await self._ensure_plane()
+        self._concat_keys("tree_init")
+        n = self.keys.cw_seed.shape[0]
         self.alive_keys = torch.ones(n, dtype=torch.bool, device=self.device)
         self.frontier = collect.tree_init(self.keys, int((req or {}).get("root_bucket", 1)))
         self.children = self.last_shares = None
@@ -265,22 +291,30 @@ class CollectorServer:
 
     async def tree_prune(self, req) -> bool:
         """Fused prune + advance: the surviving children, gathered from this
-        level's child cache (ref: rpc.rs:63, collect.rs:918-929), assembled
-        from its spans when the level was crawled in spans.  A prune with no
-        cache re-expands the frontier first."""
+        round's child cache (ref: rpc.rs:63, collect.rs:918-929), assembled
+        from its spans when the round was crawled in spans.  A prune with no
+        cache re-expands the round's r bits first."""
         if self.frontier is None:
             raise RuntimeError("tree_prune before tree_init")
-        parent, pat, n_alive = self._prune_args("tree_prune", req)
+        level = int(req["level"])
+        parent, pat, n_alive = self._prune_args(req)
+        r = pat.shape[1]
+        if r != self.crawl_radix(level):
+            raise RuntimeError(
+                f"prune pattern carries {r} step bit(s) where this session's level-{level} "
+                f"round fuses {self.crawl_radix(level)} (crawl_radix_bits mismatch between "
+                "leader and server?)")
         self._expand_ready.clear()  # the frontier is about to change
         if self.children is None and self._shard_children:
-            self.children = self._assemble_shard_children()
+            self.children = self._assemble_shard_children(r)
         children = self.children
         if children is None:
-            _, children = collect.expand_share_bits(self.keys, self.frontier,
-                                                    int(req["level"]), want_children=True)
+            _, children = collect.expand_share_bits_radix(self.keys, self.frontier, level, r,
+                                                          want_children=True)
         dev = self.device
-        self.frontier = collect.advance_from_children(
-            children, torch.from_numpy(parent).to(dev), torch.from_numpy(pat).to(dev), n_alive)
+        self.frontier = collect.advance_from_children_radix(
+            children, torch.from_numpy(parent).to(dev), torch.from_numpy(pat).to(dev),
+            n_alive, r)
         self.children = None
         return True
 
@@ -298,8 +332,15 @@ class CollectorServer:
         if self.last_shares is None:
             raise RuntimeError("tree_prune_last called before tree_crawl_last")
         self.children = None
-        parent, pat, n_alive = self._prune_args("tree_prune_last", req)
-        child = (pat[:n_alive].astype(np.int64) << np.arange(pat.shape[1])).sum(axis=1)
+        parent, pat, n_alive = self._prune_args(req)
+        _, r, d = pat.shape
+        base = self.keys.cw_seed.shape[-2] - r
+        if r != self.crawl_radix(base):
+            raise RuntimeError(f"leaf prune pattern carries {r} step bit(s) where this "
+                               f"session's tail round fuses {self.crawl_radix(base)}")
+        # the step-major fused leaf id
+        shift = np.arange(r)[:, None] * d + np.arange(d)[None, :]
+        child = (pat[:n_alive].astype(np.int64) << shift).sum(axis=(1, 2))
         self.last_shares = self.last_shares[parent[:n_alive], child]
         return True
 
@@ -307,13 +348,69 @@ class CollectorServer:
         """The surviving leaves' count shares (ref: rpc.rs:65)."""
         return {"server_id": self.server_id, "shares": self.last_shares}
 
+    async def warmup(self, req) -> dict:
+        """Run, for every requested bucket ``f_buckets`` and every span size
+        it implies under ``crawl_shard_nodes`` (none for a whole-level
+        secure crawl unless ``secure_spans``), what a crawl at that bucket
+        runs (:meth:`_warm_bucket`), with the leader's ``ot_path``.  Touches
+        no live state: neither the frontier, nor the OT sessions, nor the
+        data plane.  -> ``{"shapes", "ladder_hits"}`` (the hits of the JAX
+        server's tenant ladder, always 0: tenancy is not ported)."""
+        self._concat_keys("warmup")
+        req = req or {}
+        buckets = sorted({int(b) for b in req.get("f_buckets", []) if int(b) > 0})
+        ot_path = req.get("ot_path") or self.cfg.ot_path
+        whole = (self.cfg.secure_exchange and self.cfg.secure_whole_level
+                 and not req.get("secure_spans"))
+        L = self.keys.cw_seed.shape[-2]
+        shapes = 0
+        for b in buckets:
+            sizes = set() if whole else {
+                hi - lo for lo, hi in collect.shard_spans(b, self.cfg.crawl_shard_nodes)}
+            for fb in sorted(sizes | {b}):
+                self._warm_bucket(fb, L, ot_path)
+                shapes += 1
+                await asyncio.sleep(0)  # the control plane keeps answering
+        if self.device.type == "cuda":  # the peer process shares the card
+            torch.cuda.empty_cache()
+        return {"shapes": shapes, "ladder_hits": 0}
+
+    def _warm_bucket(self, fb: int, L: int, ot_path: str) -> None:
+        """A throwaway root frontier of ``fb`` slots through the rounds a
+        crawl runs: the full-radix round with the child cache and the tail
+        round without (one round when it is the whole crawl); then the
+        count, or in secure mode the level's whole 2PC chain
+        (``secure.warm_level_kernels``) in FE62 or, for the tail, F255."""
+        d = self.keys.cw_seed.shape[1]
+        k = self.cfg.crawl_radix_bits
+        fr = collect.tree_init(self.keys, fb)
+        base_last = k * ((L - 1) // k)
+        steps = ([(min(k, L), True)] if base_last == 0
+                 else [(k, False), (L - base_last, True)])
+        alive = self.alive_keys
+        if alive is None:
+            alive = torch.ones(self.keys.cw_seed.shape[0], dtype=torch.bool, device=self.device)
+        for r, last in steps:
+            # the child cache is dropped at once: the tail round is built without it
+            packed = collect.expand_share_bits_radix(
+                self.keys, fr, base_last if last else 0, r, want_children=not last)[0]
+            if self.cfg.secure_exchange:
+                secure.warm_level_kernels(packed, d, F255 if last else FE62, ot_path, r)
+            else:
+                collect.counts_by_pattern(packed, packed, collect.pattern_masks_radix(d, r),
+                                          alive, fr.alive).cpu()
+
     @staticmethod
-    def _prune_args(verb: str, req):
+    def _prune_args(req):
+        """(parent_idx int64[F'], pattern bits bool[F', r, d], n_alive): the
+        wire's ``[F', d]`` (radix 1) or ``[F', r, d]`` (a fused round)."""
         parent = np.asarray(req["parent_idx"], np.int64)
         pat = np.asarray(req["pattern_bits"], bool)
-        if pat.ndim != 2:
-            raise not_ported(f"{verb} with pattern bits shaped {list(pat.shape)}",
-                              "radix-2^k level fusion")
+        if pat.ndim == 2:
+            pat = pat[:, None, :]
+        if pat.ndim != 3:
+            raise ValueError(f"pattern bits shaped {list(pat.shape)}: want [F', d] or "
+                             "[F', r, d]")
         return parent, pat, int(req["n_alive"])
 
     # -- node spans -----------------------------------------------------------
@@ -343,11 +440,12 @@ class CollectorServer:
         if children is not None:
             self._shard_children[shard[0]] = children
 
-    def _assemble_shard_children(self):
-        """The level's child cache from its spans; a missing span raises
-        rather than advance garbage for its nodes."""
+    def _assemble_shard_children(self, radix: int):
+        """The round's child cache from its spans (``2^(radix-1)`` cache
+        rows per frontier slot); a missing span raises rather than advance
+        garbage for its nodes."""
         children = collect.children_cat(list(self._shard_children.items()))
-        got = children.seed.shape[4]
+        got = children.seed.shape[4] >> (radix - 1)
         if got != self.frontier.f_bucket:
             raise RuntimeError(f"sharded crawl incomplete: child caches cover {got} of "
                                f"{self.frontier.f_bucket} frontier slots")
@@ -369,11 +467,12 @@ class CollectorServer:
         view (and in secure mode its equality strings).  Dispatches device
         work and never touches the data plane."""
         frontier = self._frontier_view(shard)
-        packed, children = collect.expand_share_bits(self.keys, frontier, level,
-                                                     want_children=not last)
+        r = self.crawl_radix(level)
+        packed, children = collect.expand_share_bits_radix(self.keys, frontier, level, r,
+                                                           want_children=not last)
         out = {"packed": packed, "children": children, "frontier": frontier}
-        if self.cfg.secure_exchange:
-            strs = secure.child_strings(packed, self.keys.cw_seed.shape[1])
+        if self.cfg.secure_exchange:  # strings of S' = 2·d·r bits
+            strs = secure.child_strings_radix(packed, self.keys.cw_seed.shape[1], r)
             F, C, N, S = strs.shape
             out.update(flat=strs.reshape(F * C * N, S), dims=(F, C, N, S))
             del out["packed"]
@@ -438,7 +537,7 @@ class CollectorServer:
 
     async def _crawl_trusted(self, level: int, last: bool, shard) -> np.ndarray:
         """Swap the packed share bits uint32[F, N] of the frontier (or the
-        span) with the peer and count -> int64[F, 2^d] (ref:
+        span) with the peer and count -> int64[F, 2^(d·r)] (ref:
         collect.rs:945-964)."""
         t0 = time.perf_counter()
         ex = self._expand_stage(level, last, shard)
@@ -452,7 +551,8 @@ class CollectorServer:
                                f"{peer.shape}, this server's {mine.shape}")
         dev_counts = collect.counts_by_pattern(
             packed, words_from_numpy(peer, self.device),
-            collect.pattern_masks(self.keys.cw_seed.shape[1]), self.alive_keys,
+            collect.pattern_masks_radix(self.keys.cw_seed.shape[1], self.crawl_radix(level)),
+            self.alive_keys,
             frontier.alive)
         counts = await asyncio.to_thread(lambda: dev_counts.cpu().numpy())
         self._stash_children(level, shard, ex["children"])

@@ -34,7 +34,7 @@ import torch
 
 from ..ops import gc, otext, otext_cuda, prg
 from ..ops.fields import F255, FE62
-from ..utils import words_from_numpy
+from ..utils import words_from_numpy, words_to_numpy
 
 OT2S_MAX_S = 6  # auto-path ceiling of the 1-of-2^S table (2^S ciphertexts per test)
 _OT2S_DOMAIN = 0x0F4E4F54  # ot_hash tweak domain of the per-test pads
@@ -63,7 +63,38 @@ def _string_positions(d: int) -> np.ndarray:
 
 def child_strings(packed: torch.Tensor, d: int) -> torch.Tensor:
     """int32[F, N] packed share bits -> bool[F, 2^d, N, 2d] strings."""
-    pos = torch.from_numpy(_string_positions(d).astype(np.int32)).to(packed.device)
+    return child_strings_radix(packed, d, 1)
+
+
+def _string_positions_radix(d: int, radix: int) -> np.ndarray:
+    """uint32[2^(radix·d), 2·d·radix] — packed-bit positions of fused child
+    pattern c's string under the radix layout (``collect._radix_positions``):
+    the step-major concatenation of the per-depth strings along c's path,
+    column ``t·2d + j·2 + s`` holding dim j / side s of the depth-(t+1)
+    node reached by steps 0..t.  Equality over the concatenation is the AND
+    of the per-depth equalities.  ``_string_positions`` at radix 1."""
+    if radix == 1:
+        return _string_positions(d)
+    T = (1 << (radix + 1)) - 2  # packed bits per (dim, side)
+    C = 1 << (radix * d)
+    out = np.empty((C, 2 * d * radix), np.uint32)
+    for c in range(C):
+        node = [0] * d
+        k = 0
+        for t in range(radix):
+            base = (2 << t) - 2  # offset of depth-(t+1) nodes in the subtree
+            for j in range(d):
+                node[j] |= ((c >> (t * d + j)) & 1) << t
+                for s in range(2):
+                    out[c, k] = j * 2 * T + s * T + base + node[j]
+                    k += 1
+    return out
+
+
+def child_strings_radix(packed: torch.Tensor, d: int, radix: int) -> torch.Tensor:
+    """int32[F, N] radix-packed share bits -> bool[F, 2^(radix·d), N,
+    2·d·radix] fused strings; :func:`child_strings` at radix 1."""
+    pos = torch.from_numpy(_string_positions_radix(d, radix).astype(np.int32)).to(packed.device)
     return ((packed[:, None, :, None] >> pos[None, :, None, :]) & 1).to(torch.bool)
 
 
@@ -227,3 +258,36 @@ def alive_weight(alive_nodes: torch.Tensor, alive_keys: torch.Tensor, C: int) ->
     """bool[F, C, N] gating weight from the public liveness masks."""
     return (alive_nodes[:, None, None] & alive_keys[None, None, :]).expand(
         alive_nodes.shape[0], C, alive_keys.shape[0])
+
+
+_warm_pairs: dict = {}  # device -> the process's throwaway (OtExtSender, OtExtReceiver)
+
+
+def warm_level_kernels(packed, d: int, field, path: str = "auto", radix: int = 1) -> None:
+    """Run one level's whole secure chain at this shape on a throwaway
+    in-process OT pair, built once per process and device (the JAX
+    package's ``warm_level_kernels``): strings, the Δ-OT extension, the b2a
+    share pair for both garbling signs, the equality message (table or
+    garbled batch, as :func:`ot_path` picks for S' = 2·d·radix), its open
+    and the share sums.  The wire arrays pass through host numpy as on the
+    socket path.  No live session or data plane is touched; the outputs
+    are discarded."""
+    dev = packed.device
+    if dev not in _warm_pairs:
+        _warm_pairs[dev] = otext.inprocess_pair(dev)
+    snd, rcv = _warm_pairs[dev]
+    strs = child_strings_radix(packed, d, radix)
+    F, C, N, S = strs.shape
+    B = F * C * N
+    flat = strs.reshape(B, S)
+    zero = np.zeros(4, np.uint32)
+    gseed, bseed = derive_seed(zero, 1, 0), derive_seed(zero, 2, 0)
+    u, t_rows, idx0 = ev_step1_fused(rcv, flat)
+    u = words_from_numpy(words_to_numpy(u), dev)
+    for g in (0, 1):  # the crawl alternates the garbler: both signs
+        b2a_payload_pair(field, bseed, B, g, dev)
+    msg, _ = gb_step_level(snd, u, flat, gseed, bseed, field, 0, path)
+    msg = words_from_numpy(words_to_numpy(msg), dev)
+    vals = ev_open_level(t_rows, flat, msg, B, S, field, idx0, path)
+    w = torch.ones((F, C, N), dtype=torch.bool, device=dev)
+    node_share_sums(field, vals.reshape((F, C, N) + field.limb_shape), w).cpu()

@@ -5,12 +5,11 @@ reference schema of src/config.rs:5-16 plus the TPU package's knobs), so
 every config file in ``configs/`` parses unchanged.  Fields the port does
 not use yet parse as before and are ignored.  ``secure_exchange: true``
 runs the GC/OT data plane, with ``ot_path`` ("auto", "ot2s" or "gc")
-choosing its equality engine.  Two options select paths that are not
-ported yet; they raise ``NotImplementedError`` naming the missing path,
-instead of silently running another crawl:
-
-- ``crawl_radix_bits > 1``   — radix-2^k level fusion;
-- ``malicious: true``        — the sketch + MPC verification.
+choosing its equality engine.  ``crawl_radix_bits`` (1, 2 or 3) fuses that
+many bit levels per crawl round; where it is used, ``collect.check_radix``
+holds it against ``n_dims``.  ``malicious: true`` selects the sketch + MPC
+verification, which is not ported yet: it raises ``NotImplementedError``
+naming the missing path instead of silently running another crawl.
 """
 
 from __future__ import annotations
@@ -59,11 +58,6 @@ class Config:
     def __post_init__(self):
         if self.ot_path not in ("auto", "ot2s", "gc"):
             raise ValueError(f"ot_path must be auto, ot2s or gc, got {self.ot_path!r}")
-        if self.crawl_radix_bits != 1:
-            raise NotImplementedError(
-                f"crawl_radix_bits={self.crawl_radix_bits}: radix-2^k level "
-                "fusion is not ported to PyTorch yet"
-            )
         if self.malicious:
             raise NotImplementedError(
                 "malicious: the sketch + MPC verification is not ported to "

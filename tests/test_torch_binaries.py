@@ -2,9 +2,13 @@
 ``fuzzyheavyhitters_torch.bin.server`` processes and a ``bin.leader`` with
 ``--device cpu --seed`` on the rides config at 32 clients (the run shape of
 ``tests/test_binaries_e2e.py``), trusted and secure, spawned by
-``chip_smoke.socket_run`` (the card's socket phase) on free ports.  The
+``chip_smoke.socket_run`` (the card's socket phase) on free ports, the
+leader with ``FHH_SUPERVISE=0`` and its default warmup.  The
 leader's heavy-hitter CSV and hitter lines must equal ``bin.mesh.run``'s
-for the same seed; the servers must report their run on SIGTERM and exit 0."""
+for the same seed; the servers must report their run on SIGTERM and exit 0.
+Once more at ``crawl_radix_bits: 2`` with the leader in the test's process
+(``socket_run(warm_buckets=...)``, the card's phase 16), warming the
+buckets given."""
 
 import io
 import os
@@ -42,7 +46,9 @@ def test_socket_binaries_match_mesh(tmp_path, monkeypatch, secure):
     # one intra-op thread per process: three processes beside the suite's
     # other workers would otherwise oversubscribe the cores many times over
     run = chip_smoke.socket_run("socket", cfg, N_REQS, SEED, str(tmp_path),
-                                env={"OMP_NUM_THREADS": "1"})
+                                env={"OMP_NUM_THREADS": "1", "FHH_SUPERVISE": "0"})
+    # the leader warmed both servers (FHH_WARMUP unset runs it) before its crawl
+    assert run["warmup"]["f_buckets"][-1] == CFG["f_max"]
     with open(os.path.join(run["work"], "data", "ride_heavy_hitters.csv")) as f:
         got_csv = f.read()
     got = {e["value"]: e["count"] for e in run["hitters"]}
@@ -68,3 +74,26 @@ def test_socket_binaries_match_mesh(tmp_path, monkeypatch, secure):
     assert exits[0]["data_bytes_sent"] == exits[1]["data_bytes_recv"]
     assert exits[1]["data_bytes_sent"] == exits[0]["data_bytes_recv"]
     assert np.isfinite(list(exits[0]["seconds"].values())).all()
+
+
+def test_socket_leader_in_process_warms_given_buckets(tmp_path, monkeypatch):
+    """``socket_run(warm_buckets=...)``, the card's warmed socket phase: the
+    leader is ``bin.leader.run`` in this process, its warmup over the given
+    buckets only (one shape each on a whole-level crawl), and its hitters
+    those of the processes' leader, so ``bin.mesh.run``'s."""
+    cfg = tconfig.Config(**CFG, crawl_radix_bits=2)
+    monkeypatch.delenv("FHH_WARMUP", raising=False)
+    run = chip_smoke.socket_run("warm", cfg, N_REQS, SEED, str(tmp_path),
+                                env={"OMP_NUM_THREADS": "1"}, warm_buckets=[1, 4])
+    assert run["warmup"]["f_buckets"] == [1, 4]
+    assert run["warmup"]["shapes"] == [2, 2]
+    (tmp_path / "mesh").mkdir()
+    monkeypatch.chdir(tmp_path / "mesh")
+    res = mesh.run(cfg, N_REQS, device="cpu", seed=SEED, csv_path=str(tmp_path / "mesh.csv"),
+                   out=io.StringIO()).result
+    assert res.paths.shape[0] >= 1
+    assert {e["value"]: e["count"] for e in run["hitters"]} == {
+        str(row.tolist()): int(c) for row, c in zip(res.decode_ints(), res.counts)}
+    with open(os.path.join(run["work"], "data", "ride_heavy_hitters.csv")) as f:
+        assert f.read() == (tmp_path / "mesh.csv").read_text()
+    assert [ex["levels"] for ex in run["exits"]] == [CFG["data_len"] // 2] * 2

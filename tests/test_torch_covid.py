@@ -167,3 +167,26 @@ def test_mesh_binary_cpu_covid(tmp_path):
     assert res.decode_ints().dtype == object
     assert set(tuple(int(v) for v in row) for row in res.decode_ints()) == set(
         _oracle(run.points, 1, 0.01))
+
+
+@pytest.mark.parametrize("L", [16, 62])
+def test_plaintext_recount_paths_agree(L):
+    """``chip_smoke.plaintext_counts`` counts in int64 up to L = 62 and in
+    Python integers past it: both give the same counts on the same points
+    and hitters (the Python-integer path sees them behind 64 - L leading
+    zero bits), and both equal a per-client count of |v - x| <= ball in
+    every dimension, with clients at both ends of the range."""
+    rng = np.random.default_rng(L)
+    n, d, ball, top = 400, 2, 3, (1 << L) - 1
+    vals = rng.integers(0, top, size=(n, d), endpoint=True)
+    vals[:20] = rng.integers(0, ball, size=(20, d), endpoint=True)
+    vals[20:40] = top - rng.integers(0, ball, size=(20, d), endpoint=True)
+    hits = np.clip(vals[rng.choice(n, 60)] + rng.integers(-ball - 1, ball + 1, size=(60, d),
+                                                           endpoint=True), 0, top)
+    bits = lambda v: ((v[..., None] >> np.arange(L - 1, -1, -1)) & 1).astype(bool)
+    pad = lambda b: np.concatenate([np.zeros(b.shape[:-1] + (64 - L,), bool), b], axis=-1)
+    want = (np.abs(vals[None] - hits[:, None]) <= ball).all(-1).sum(1)
+    assert want.max() > 1
+    np.testing.assert_array_equal(chip_smoke.plaintext_counts(bits(vals), ball, bits(hits)), want)
+    np.testing.assert_array_equal(
+        chip_smoke.plaintext_counts(pad(bits(vals)), ball, pad(bits(hits))), want)

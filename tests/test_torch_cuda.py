@@ -121,7 +121,7 @@ def test_ot2s_kernels_equal_plain(cuda, S, W):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("S", [2, 4, 6, 16])
+@pytest.mark.parametrize("S", [2, 4, 6, 8, 16])
 @pytest.mark.parametrize("W", [4, 8])
 def test_gc_kernels_equal_plain(cuda, S, W):
     rng = np.random.default_rng(17 + S + W)
@@ -223,3 +223,39 @@ def test_streamed_crawl_on_the_card_equals_the_cpu(cuda, tmp_path):
     for res in (got, resumed):
         np.testing.assert_array_equal(res.paths, want.paths)
         np.testing.assert_array_equal(res.counts, want.counts)
+
+
+@pytest.mark.parametrize("d,r", [(1, 2), (1, 3), (2, 2)])
+def test_fused_radix_level_on_the_card_equals_the_cpu(cuda, d, r):
+    """A fused level (r passes of the expand kernel) on the card: the radix
+    word and the child cache of the CPU build, r launches; and the fused
+    crawl's hitters equal the CPU's."""
+    from fuzzyheavyhitters_torch.ops import ibdcf
+    from fuzzyheavyhitters_torch.protocol import collect, driver
+
+    rng = np.random.default_rng(d * 10 + r)
+    N, L, F = 333, 7, 5
+    pts = np.zeros((N, d, L), bool)
+    pts[:] = rng.integers(0, 2, size=(4, d, L)).astype(bool)[rng.integers(0, 4, N)]
+    keys = ibdcf.gen_l_inf_ball(pts, 1, np.random.default_rng(1), device="cpu")
+    st = ibdcf.EvalState(seed=_ints(rng, (4, d, 2, F, N)),
+                         bit=torch.from_numpy(rng.integers(0, 2, (d, 2, F, N)).astype(bool)),
+                         y_bit=torch.from_numpy(rng.integers(0, 2, (d, 2, F, N)).astype(bool)))
+    fr = collect.Frontier(states=st, alive=torch.arange(F) < F - 1)
+    on = lambda x: type(x)(*(a.to(cuda) for a in x))
+    want = collect.expand_share_bits_radix(keys[0], fr, 1, r)
+    before = expand_cuda.LAUNCHES
+    got = collect.expand_share_bits_radix(on(keys[0]), collect.Frontier(on(st), fr.alive.to(cuda)),
+                                          1, r)
+    torch.cuda.synchronize()
+    assert expand_cuda.LAUNCHES == before + r
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].seed.cpu(), want[1].seed)
+    assert torch.equal(got[1].flags.cpu(), want[1].flags)
+    lead = lambda ks: driver.Leader(*driver.make_servers(*ks), n_dims=d, data_len=L, f_max=64,
+                                    radix=r)
+    cpu_res = lead(keys).run(N, 0.1)
+    assert cpu_res.paths.shape[0] > 0
+    card_res = lead([on(k) for k in keys]).run(N, 0.1)
+    np.testing.assert_array_equal(card_res.paths, cpu_res.paths)
+    np.testing.assert_array_equal(card_res.counts, cpu_res.counts)

@@ -10,7 +10,8 @@ package, over localhost TCP in one event loop, tolerance zero:
 (c) mixed pairs — a JAX ``CollectorServer`` with a port server, in both
     roles, under both leaders — give the JAX ``driver.Leader``'s hitters,
     trusted and secure, and their ``final_shares`` reconstruct them;
-(d) the refusals: unported verbs, a named collection, unported options.
+(d) the refusals: unported verbs, a named collection, unported options,
+    and the leader's environment read with the JAX leader's defaults.
 
 The node-span crawl is held in ``test_torch_spans.py``.
 
@@ -344,7 +345,9 @@ def test_requests_of_unported_paths_are_refused():
             lead = tleader.RpcLeader(cfg, *clients)
             await lead.upload_keys(k0, k1)
             await lead._both("tree_init", {"root_bucket": 1})
-            with pytest.raises(RuntimeError, match="radix-2\\^k level fusion"):
+            # a fused prune on a server that crawls one bit per round
+            with pytest.raises(RuntimeError, match="prune pattern carries 2 step bit\\(s\\) "
+                               "where this session's level-0 round fuses 1"):
                 await clients[0].call("tree_prune", {
                     "level": 0, "parent_idx": np.zeros(1, np.int32),
                     "pattern_bits": np.zeros((1, 2, 1), bool), "n_alive": 1})
@@ -373,15 +376,26 @@ def test_wire_refuses_tensors_and_binaries_refuse_unported_modes(monkeypatch):
     with pytest.raises(TypeError, match="torch.Tensor"):
         trpc._check_wire((1, {"shares": [np.zeros(2), torch.zeros(2)]}))
     trpc._check_wire(("default", {"keys": (np.zeros(2, np.uint32), b"x", 3)}))
-    tleader_bin.refuse_unported_env()  # nothing set: the unsupervised crawl
-    for var, val in (("FHH_SUPERVISE", "1"), ("FHH_WINDOWS", "4"), ("FHH_WARMUP", "1"),
+    for var in ("FHH_SUPERVISE", "FHH_WINDOWS", "FHH_WARMUP", "FHH_COLLECTION"):
+        monkeypatch.delenv(var, raising=False)
+    # nothing set asks for the JAX leader's default, the supervised crawl
+    with pytest.raises(NotImplementedError, match="FHH_SUPERVISE=1: the supervised crawl "
+                       ".*unsupervised crawl \\(FHH_SUPERVISE=0\\)"):
+        tleader_bin.refuse_unported_env()
+    monkeypatch.setenv("FHH_SUPERVISE", "0")  # the JAX leader's own opt-out
+    tleader_bin.refuse_unported_env()
+    for var, val in (("FHH_SUPERVISE", "1"), ("FHH_WINDOWS", "4"),
                      ("FHH_COLLECTION", "tenant-a")):
         monkeypatch.setenv(var, val)
         with pytest.raises(NotImplementedError, match=f"{var}={val}: .*unsupervised crawl"):
             tleader_bin.refuse_unported_env()
-        monkeypatch.delenv(var)
-    monkeypatch.setenv("FHH_SUPERVISE", "0")
-    tleader_bin.refuse_unported_env()
+        if var == "FHH_SUPERVISE":
+            monkeypatch.setenv(var, "0")
+        else:
+            monkeypatch.delenv(var)
+    for val in ("0", "1"):  # the warmup is ported: either value runs
+        monkeypatch.setenv("FHH_WARMUP", val)
+        tleader_bin.refuse_unported_env()
     tserver_bin.refuse_unported_env()
     for var, path in tserver_bin.UNPORTED_ENV.items():
         monkeypatch.setenv(var, "x")
