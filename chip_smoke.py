@@ -107,14 +107,44 @@ Phases (any failure raises, and the script exits non-zero):
     bucket and launch expand 4 times per shape (a full round with the child
     cache and the tail round, 2 levels each) besides the crawl's 16; the
     hitters must equal phase 14's; the warmup's seconds and the servers'
-    peak memory and crawl seconds beside phase 14's.
+    peak memory and crawl seconds beside phase 14's;
+17. ``rides_socket_supervised``: ``rides_socket`` under the leader's
+    default, the supervised crawl (``FHH_SUPERVISE`` unset,
+    ``FHH_CKPT_EVERY=4``, each server with a ``FHH_CKPT_DIR`` of its own):
+    the hitters of phase 9 and the recount, 3 checkpoints a server (after
+    the rounds ending at levels 4, 8 and 12), no recovery; the leader's
+    seconds (reset, upload and rounds, and the rounds alone), each
+    checkpoint's bytes and write seconds, each server's peak memory;
+18. ``rides_socket_supervised_kill``: phase 17 with server 1 SIGKILLed as
+    soon as its log shows its first checkpoint and started again at once on
+    the same ports and directory: the hitters of phase 17, at least one
+    recovery and one rollback, one restore in the new process at the
+    leader's rollback level, the re-upload all of its 2,622 ``add_keys``
+    chunks and none to server 0, expand launched once per crawl verb in
+    each process (the restored frontier through the kernel); the seconds
+    from the kill to ``resilience.restored``, the new process's start-up,
+    the re-upload and the restore.  Then the restored blob is loaded in
+    this process through ``rpc.CollectorServer.tree_restore`` on the card
+    over rides' keys made again from the seed (``keys_fp`` must match) and
+    expand is held against its plain version on that frontier;
+19. ``rides_secure_socket_supervised_sever``: ``rides_secure`` (ot2s at S =
+    4) at 16,384 clients, supervised as phase 17, the leader's link to
+    server 0 through a ``ChaosProxy`` here that severs the answer of the
+    first crawl verb after the first checkpoint, and server 1 killed and
+    started again as in phase 18: the hitters of the in-process trusted
+    ``driver.Leader`` on the same keys and the recount, server 0's replay
+    dedup hits at least 1, the leader's client to it at epoch 2 or more, a
+    recovery, the sever fired, and in each process one ot2s launch per
+    crawl verb between the verbs it finished and those it began (the
+    re-run levels included).
 
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
 and power limit, every check with its times against its bound, crawl
 figures, the seconds each stage took, a ``{"kernels": [...]}`` line (each
 kernel's launches in the crawl that runs it, its time at that crawl's
-widest checked level; ``max_abs_err`` over every check of the kernel), and
+widest checked level; ``max_abs_err`` over every check of the kernel;
+expand's row also carries its restored-frontier check), and
 as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX.
 """
@@ -195,6 +225,14 @@ RIDES_RADIX_SECURE_CLIENTS = 16384
 # 55 GB per server, two servers on one card; phase 16 warms the buckets its
 # crawl walks
 SOCKET_ENV = {"FHH_WARMUP": "0"}
+# phases 17-19: the supervised crawl (FHH_SUPERVISE unset) banking a checkpoint
+# every 4 levels, after the rounds ending at levels 4, 8 and 12 of rides' 16
+# (the JAX leader's default of 16 banks none there)
+SUPERVISED_ENV = {"FHH_WARMUP": "0", "FHH_CKPT_EVERY": "4"}
+CKPT_EVERY = 4
+# phase 19's cut, for the script's time: rides_secure_socket's 65,536 clients
+# took 51-74 s a stage
+RIDES_SEVER_CLIENTS = 16384
 PLAIN_COMPARE = 1 << 26  # elements per slice of a large kernel-vs-plain comparison
 
 # every kernel of the port: (module, launch counter, source, TPU kernel it replaces)
@@ -510,8 +548,10 @@ def free_ports():
 
 
 def _events(path) -> list:
+    """The JSON event lines of a log (a line still being written is left
+    for the next read)."""
     with open(path) as f:
-        return [json.loads(line) for line in f if line.startswith("{")]
+        return [json.loads(line) for line in f if line.startswith("{") and line.endswith("\n")]
 
 
 def _wait_event(path, event, proc, timeout):
@@ -527,23 +567,66 @@ def _wait_event(path, event, proc, timeout):
     raise AssertionError(f"{path}: no {event} within {timeout} s")
 
 
-def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None):
+def _chaos_proxy(spec, target_port):
+    """A ``resilience.chaos.ChaosProxy`` with the fault ``spec`` in front of
+    localhost ``target_port``, on an event loop of its own in a thread (the
+    leader it serves is another process).  Returns (proxy, stop)."""
+    import asyncio
+    import threading
+
+    from fuzzyheavyhitters_torch.resilience.chaos import ChaosProxy, parse_faults
+
+    box, ready = {}, threading.Event()
+
+    async def serve():
+        box["loop"], box["stop"] = asyncio.get_running_loop(), asyncio.Event()
+        box["proxy"] = await ChaosProxy("127.0.0.1", free_ports()[0], "127.0.0.1", target_port,
+                                        parse_faults(spec), link="ctl0").start()
+        ready.set()
+        await box["stop"].wait()
+        await box["proxy"].stop()
+
+    th = threading.Thread(target=asyncio.run, args=(serve(),), daemon=True)
+    th.start()
+    if not ready.wait(30):
+        raise AssertionError(f"the chaos proxy did not start: {box}")
+
+    def stop():
+        box["loop"].call_soon_threadsafe(box["stop"].set)
+        th.join(30)
+
+    return box["proxy"], stop
+
+
+def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=False,
+               kill=False, ctl0_faults=None):
     """Phase 9: ``bin.server --server_id 1``, ``--server_id 0`` and ``bin.leader
     --seed`` started together as OS processes (on the card unless
     ``cfg.backend`` is ``"cpu"``; server 0 and the leader dial with retries,
     after start-ups at least as long as the servers'), in the working
     directory ``tmp/name``; SIGTERM to the servers after the leader's exit.
-    The leader runs with ``FHH_SUPERVISE=0``, the JAX leader's opt-out of the
-    supervised crawl (not ported); ``env`` adds variables to the processes'
-    environment.  With ``warm_buckets`` the leader is ``bin.leader.run`` in
-    this process once both servers serve, its events written to its log as
-    the process's are, and its warmup over those buckets.  Every process
-    must exit 0 without a traceback inside its timeout; all are killed in a
-    ``finally``.  Returns the leader's and the servers' events and the
-    working directory."""
+    The leader runs with ``FHH_SUPERVISE=0`` (the unsupervised crawl) unless
+    ``supervise``: then the variable is unset, the JAX leader's default,
+    and each server gets a checkpoint directory of its own
+    (``FHH_CKPT_DIR``); ``env`` adds variables to the processes'
+    environment.  With ``kill`` server 1 is SIGKILLed as soon as its log
+    shows its first ``resilience.server_checkpoint`` and started again at
+    once on the same ports and directory; the blob the new process restores
+    is copied aside (``restored_blob``), since later checkpoints prune it.
+    With ``ctl0_faults`` the leader reaches server 0 through a
+    ``ChaosProxy`` with that fault spec, in this process.  With
+    ``warm_buckets`` the leader is ``bin.leader.run`` in this process once
+    both servers serve, in the environment its process would have, its
+    events written to its log as the process's are, and its warmup over
+    those buckets.  Every process must exit 0 without a
+    traceback inside its timeout, but the killed one, which must exit -9;
+    all are killed in a ``finally``.  Returns the leader's and the servers'
+    events and the working directory."""
     import asyncio
     import contextlib
+    import shutil
     import signal
+    import threading
 
     p0, p1 = free_ports()
     work = os.path.join(tmp, name)
@@ -555,25 +638,73 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None):
     repo = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "FHH_SUPERVISE": "0", **(env or {}),
            "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    if supervise:
+        del env["FHH_SUPERVISE"]
+    ckpt = {sid: os.path.join(work, f"ckpt{sid}") for sid in (0, 1)}
     procs, logs = {}, {who: os.path.join(work, f"{who}.log")
                        for who in ("server0", "server1", "leader")}
+    leader_cfg = cfg_path
+    stop_proxy = proxy = None
 
     device = "cpu" if cfg.backend == "cpu" else "cuda"
 
-    def spawn(who, mod, *args):
+    def spawn(who, mod, *args, config=cfg_path, extra=None):
         with open(logs[who], "w") as out:
             procs[who] = subprocess.Popen(
                 [sys.executable, "-m", f"fuzzyheavyhitters_torch.bin.{mod}", "--config",
-                 cfg_path, "--device", device, *args], cwd=work, env=env, stdout=out,
-                stderr=subprocess.STDOUT)
+                 config, "--device", device, *args], cwd=work, env={**env, **(extra or {})},
+                stdout=out, stderr=subprocess.STDOUT)
+        return time.time()
+
+    def spawn_server(sid):
+        extra = {"FHH_CKPT_DIR": ckpt[sid]} if supervise else None
+        return spawn(f"server{sid}", "server", "--server_id", str(sid), extra=extra)
+
+    killed, done = {}, threading.Event()
+
+    def killer():
+        """SIGKILL server 1 at its first checkpoint, start it again, and
+        copy the blob the new process restores."""
+        while not done.is_set():
+            if any(e["event"] == "resilience.server_checkpoint" for e in _events(logs["server1"])):
+                break
+            time.sleep(0.01)
+        else:
+            return
+        old = procs["server1"]
+        old.kill()
+        killed["t_kill"] = time.time()
+        killed["rc"] = old.wait()
+        killed["log"] = os.path.join(work, "server1_killed.log")
+        os.replace(logs["server1"], killed["log"])
+        killed["t_spawn"] = spawn_server(1)
+        while not done.is_set():
+            ev = [e for e in _events(logs["server1"]) if e["event"] == "resilience.server_restore"]
+            if ev:
+                lvl = ev[0]["level"]
+                killed["restored_blob"] = os.path.join(work, f"restored_l{lvl}.npz")
+                shutil.copyfile(os.path.join(ckpt[1], f"fhh_server1_l{lvl}.npz"),
+                                killed["restored_blob"])
+                return
+            time.sleep(0.01)
 
     rcs = {}
+    killer_th = None
     try:
         for sid in (1, 0):
-            spawn(f"server{sid}", "server", "--server_id", str(sid))
+            spawn_server(sid)
+        if ctl0_faults is not None:
+            proxy, stop_proxy = _chaos_proxy(ctl0_faults, p0)
+            leader_cfg = os.path.join(work, "leader.json")
+            with open(leader_cfg, "w") as f:
+                json.dump(dict(dataclasses.asdict(cfg), server0=f"127.0.0.1:{proxy.listen_port}",
+                               server1=f"127.0.0.1:{p1}"), f)
+        if kill:
+            killer_th = threading.Thread(target=killer, daemon=True)
+            killer_th.start()
         t0 = time.perf_counter()
         if warm_buckets is None:
-            spawn("leader", "leader", "-n", str(n), "--seed", str(seed))
+            spawn("leader", "leader", "-n", str(n), "--seed", str(seed), config=leader_cfg)
             rcs["leader"] = procs["leader"].wait(timeout=SOCKET_LEADER_S)
         else:
             import torch
@@ -584,36 +715,64 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None):
             for who in ("server0", "server1"):
                 _wait_event(logs[who], "server.serving", procs[who], SOCKET_START_S)
             t0 = time.perf_counter()
-            here = os.getcwd()
+            here, saved = os.getcwd(), dict(os.environ)
             os.chdir(work)  # the rides CSV lands under the working directory
+            os.environ.clear()  # the environment the leader's process would have
+            os.environ.update(env)
             try:
                 with open(logs["leader"], "w") as out, contextlib.redirect_stdout(out):
-                    asyncio.run(leader.run(configmod.load_config(cfg_path), n,
+                    asyncio.run(leader.run(configmod.load_config(leader_cfg), n,
                                            torch.device(device), seed, warm_buckets))
             finally:
                 os.chdir(here)
+                os.environ.clear()
+                os.environ.update(saved)
             rcs["leader"] = 0
         wall = time.perf_counter() - t0
+        done.set()
+        if killer_th is not None:
+            killer_th.join(60)
         for who in ("server0", "server1"):
             procs[who].send_signal(signal.SIGTERM)
             rcs[who] = procs[who].wait(timeout=60)
     finally:
+        done.set()
+        if stop_proxy is not None:
+            stop_proxy()
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    if kill and killed.get("rc") != -signal.SIGKILL:
+        raise AssertionError(f"{name}: server 1 was not killed at a checkpoint: {killed}")
+    if "log" in killed:
+        with open(killed["log"]) as f:
+            if "Traceback" in f.read():
+                raise AssertionError(f"{name}: the killed server 1 printed a traceback")
     for who, path in logs.items():
         with open(path) as f:
             text = f.read()
         if rcs.get(who) != 0 or "Traceback" in text:
             raise AssertionError(f"{name}: {who} exited {rcs.get(who)}:\n{text[-3000:]}")
     ev = {who: _events(path) for who, path in logs.items()}
+    if "log" in killed:
+        ev["server1_killed"] = _events(killed["log"])
     one = lambda who, event: next((e for e in ev[who] if e["event"] == event), None)
     return {"work": work, "wall_s": wall, "crawl": one("leader", "crawl.done"),
             "warmup": one("leader", "warmup.done"),
             "addkeys": one("leader", "addkeys.done"), "keygen": one("leader", "keygen"),
             "hitters": [e for e in ev["leader"] if e["event"] == "hitter"],
-            "exits": [one(f"server{sid}", "server.exit") for sid in (0, 1)]}
+            "exits": [one(f"server{sid}", "server.exit") for sid in (0, 1)],
+            "events": ev, "killed": killed, "proxy_fired": proxy.fired if proxy else None}
+
+
+def _recount(name, got, cfg, points):
+    """Every hitter count against the plaintext recount from the points."""
+    vals = np.array([json.loads(v) for v in got], np.int64).reshape(len(got), cfg.n_dims)
+    paths = ((vals[..., None] >> np.arange(cfg.data_len - 1, -1, -1)) & 1).astype(bool)
+    want = plaintext_counts(points, cfg.ball_size, paths)
+    if not np.array_equal(np.array(list(got.values())), want):
+        raise AssertionError(f"{name}: counts {list(got.values())} != plaintext {want}")
 
 
 def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_level):
@@ -641,11 +800,7 @@ def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_lev
     got = {e["value"]: e["count"] for e in run["hitters"]}
     if got != mesh_hitters:
         raise AssertionError(f"{name}: socket hitters {got} != bin.mesh's {mesh_hitters}")
-    vals = np.array([json.loads(v) for v in got], np.int64).reshape(len(got), cfg.n_dims)
-    paths = ((vals[..., None] >> np.arange(L - 1, -1, -1)) & 1).astype(bool)
-    want = plaintext_counts(points, cfg.ball_size, paths)
-    if not np.array_equal(np.array(list(got.values())), want):
-        raise AssertionError(f"{name}: counts {list(got.values())} != plaintext {want}")
+    _recount(name, got, cfg, points)
     launches = {}
     verbs = sum(spans)
     passes = sum(n * min(k, L - lv) for n, lv in zip(spans, bases))
@@ -690,6 +845,135 @@ def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_lev
             "data_frame_max": [ex["data_frame_max"] for ex in run["exits"]],
             "max_memory_allocated": [ex["max_memory_allocated"] for ex in run["exits"]],
             "buckets": buckets, "warmup": warm}
+
+
+def check_supervised_run(name, run, cfg, want_hitters, points, per_level=()):
+    """Phases 17-19's checks of a supervised socket run (faults or none):
+    the hitters ``want_hitters`` and the plaintext recount; each server
+    process launched expand once per crawl verb it began and, with
+    ``per_level`` (the ot2s pair), one of the pair per verb between the
+    verbs it finished and the verbs it began (a verb cut on the plane may
+    fail before or after its kernel), no other kernel; after a kill the
+    restarted server 1 restored once, at the leader's restored level, and
+    re-uploads alone: ``add_keys`` chunks of all clients to it, none again
+    to server 0.  Returns the figures."""
+    got = {e["value"]: e["count"] for e in run["hitters"]}
+    if got != want_hitters:
+        raise AssertionError(f"{name}: hitters {got} != {want_hitters}")
+    _recount(name, got, cfg, points)
+    crawl, ev = run["crawl"], run["events"]
+    if not crawl["supervised"]:
+        raise AssertionError(f"{name}: the leader ran the unsupervised crawl")
+    chunks = -(-points.shape[0] // cfg.addkey_batch_size)
+    servers = []
+    for sid, ex in enumerate(run["exits"]):
+        want_l = {kn: 0 for kn in KERNELS}
+        want_l["expand"] = ex["levels"]
+        want_l.update({kn: ex["launches"][kn] for kn in per_level})
+        pair = sum(ex["launches"][kn] for kn in per_level)
+        if ex["launches"] != want_l or (per_level and not
+                                        ex["levels_done"] <= pair <= ex["levels"]):
+            raise AssertionError(f"{name}: server {sid} launched {ex['launches']} over "
+                                 f"{ex['levels']} crawl verbs begun, {ex['levels_done']} done")
+        if ex["add_keys"] != chunks:
+            raise AssertionError(f"{name}: server {sid} took {ex['add_keys']} add_keys "
+                                 f"chunks, want {chunks}")
+        ckpts = [e for e in ev[f"server{sid}"] if e["event"] == "resilience.server_checkpoint"]
+        servers.append({k: ex[k] for k in (
+            "boot_id", "levels", "levels_done", "launches", "dedup_hits", "plane_resets",
+            "ckpt_writes", "ckpt_bytes", "ckpt_write_s", "restores", "restore_s",
+            "data_bytes_sent", "data_bytes_recv", "data_frame_max", "max_memory_allocated")})
+        servers[-1]["checkpoints"] = [{k: e[k] for k in ("level", "bytes", "seconds")}
+                                      for e in ckpts]
+    fig = {"n": int(points.shape[0]), "hitters": len(got), "hitter_map": got,
+           "crawl_s": crawl["seconds"], "seconds_by_part": crawl["seconds_by_part"],
+           "counters": {k: crawl[k] for k in ("recoveries", "levels_rerun", "shards_rerun",
+                                              "crawl_checkpoints", "pipeline_faults")},
+           "epochs": crawl["epochs"], "buckets": crawl["buckets"], "servers": servers,
+           "launches": {f"server{sid}": ex["launches"] for sid, ex in enumerate(run["exits"])},
+           "keygen_s": run["keygen"]["seconds"], "leader_wall_s": run["wall_s"]}
+    killed = run["killed"]
+    if killed:
+        restored = [e for e in ev["leader"] if e["event"] == "resilience.restored"]
+        restores = [e for e in ev["server1"] if e["event"] == "resilience.server_restore"]
+        if len(restores) != 1 or restores[0]["level"] != restored[-1]["level"]:
+            raise AssertionError(f"{name}: the new server 1 restored {restores}, the leader "
+                                 f"rolled back to {restored}")
+        new_ev = {e["event"]: e for e in ev["server1"]}
+        fig["recovery"] = {
+            "restored_level": restored[-1]["level"],
+            "kill_to_restored_s": restored[-1]["t"] - killed["t_kill"],
+            "startup_to_plane_listening_s": new_ev["server.plane_listening"]["t"]
+            - killed["t_spawn"],
+            "startup_to_serving_s": new_ev["server.serving"]["t"] - killed["t_spawn"],
+            "leader_probe_s": restored[-1]["probe_s"],
+            "leader_reupload_s": restored[-1]["reupload_s"],
+            "leader_restore_s": restored[-1]["restore_s"],
+            "server1_restore_s": restores[0]["seconds"],
+            "recover_s": crawl["seconds_by_part"]["recover"]}
+    log(f"supervised {name}: N={points.shape[0]} hitters={len(got)} (as wanted, each = the "
+        f"plaintext recount) crawl_s={crawl['seconds']:.3f} by part="
+        f"{ {k: round(v, 3) for k, v in crawl['seconds_by_part'].items()} } counters="
+        f"{fig['counters']} epochs={crawl['epochs']} recovery={fig.get('recovery')}")
+    for sid, sv in enumerate(servers):
+        log(f"supervised {name} server{sid}: " + " ".join(
+            f"{k}={sv[k]}" for k in ("levels", "levels_done", "launches", "dedup_hits",
+                                     "plane_resets", "ckpt_writes", "ckpt_bytes",
+                                     "ckpt_write_s", "restores", "restore_s", "data_bytes_sent",
+                                     "max_memory_allocated", "checkpoints")))
+    return fig
+
+
+def restored_expand_check(name, run, cfg, n, seed, ex, collect, prg, torch):
+    """Phase 18's check of the restored route into the expand kernel: the
+    blob server 1 restored, loaded in this process through
+    ``rpc.CollectorServer.tree_restore`` on the card over rides' keys made
+    again from the seed (its ``keys_fp`` must equal the blob's), then
+    expand held against its plain version on that frontier at the round
+    the crawl resumed with."""
+    import asyncio
+
+    from fuzzyheavyhitters_torch.bin import leader
+    from fuzzyheavyhitters_torch.protocol import rpc
+
+    blob = run["killed"]["restored_blob"]
+    with np.load(blob) as z:
+        level, blob_fp = int(z["level"]), z["keys_fp"]
+    _, _, keys1, _ = leader.client_keys(cfg, n, torch.device("cuda"), seed)
+    ckdir = os.path.join(os.path.dirname(blob), "restored_check")
+    os.makedirs(ckdir)
+    os.link(blob, os.path.join(ckdir, f"fhh_server1_l{level}.npz"))
+    srv = rpc.CollectorServer(1, cfg, "cuda", ckpt_dir=ckdir)
+
+    async def restore():
+        await srv.add_keys({"keys": tuple(keys1), "sketch": None})
+        return await srv.tree_restore({"level": level})
+
+    asyncio.run(restore())
+    if not np.array_equal(srv._keys_fp(), blob_fp):
+        raise AssertionError(f"{name}: the regenerated keys' keys_fp != the blob's")
+    nxt = level + srv.crawl_radix(level)
+    last = nxt + srv.crawl_radix(nxt) == cfg.data_len
+    st = srv.frontier.states
+    if st.seed.device.type != "cuda":
+        raise AssertionError(f"{name}: the restored frontier is on {st.seed.device}")
+    d, _, F, N = st.bit.shape
+    d2, B = 2 * d, F * N
+    cws, cwf = collect.level_cw_planar(srv.keys, nxt)
+    args = (st.seed.reshape(4, d2, B), st.bit.reshape(d2, B), st.y_bit.reshape(d2, B), cws, cwf)
+    err, ms, plain_ms = expand_check(ex, args, not last, prg.DERIVED_BITS, torch)
+    b_ms, b_by = expand_bound(B, N, d2, not last, prg.DERIVED_BITS)
+    check = {"kind": "restored", "restored_level": level, "level": nxt, "F": F, "N": N,
+             "d2": d2, "B": B, "want_children": not last, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "blob_bytes": os.path.getsize(blob)}
+    log(f"expand {name} restored from the level-{level} blob ({check['blob_bytes']} B, keys_fp = "
+        f"the blob's), level={nxt} F={F} N={N} d2={d2} want_children={not last}: kernel == "
+        f"plain, max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by})")
+    del srv, keys1
+    torch.cuda.empty_cache()
+    return check
 
 
 def check_keygen_chunks(kg, torch, rng):
@@ -1546,6 +1830,74 @@ def main() -> int:
             f"{[rep['launches'][w]['expand'] for w in ('server0', 'server1')]}")
         report["sockets"][name] = rep
         stage(f"{name} socket run")
+        # phase 17: rides_socket under the supervised crawl, no fault
+        name, rides_cfg = "rides_socket_supervised", cells["rides"][0]
+        run = socket_run(name, rides_cfg, RIDES_CLIENTS, args.seed, tmp, SUPERVISED_ENV,
+                         supervise=True)
+        sup = check_supervised_run(name, run, rides_cfg, report["sockets"]["rides_socket"][
+            "hitter_map"], points["rides"])
+        want_ck = len([lv for lv in range(CKPT_EVERY, rides_cfg.data_len, CKPT_EVERY)])
+        if sup["counters"]["recoveries"] or any(sv["ckpt_writes"] != want_ck
+                                                for sv in sup["servers"]):
+            raise AssertionError(f"{name}: {sup['counters']}, checkpoints "
+                                 f"{[sv['ckpt_writes'] for sv in sup['servers']]}, want "
+                                 f"{want_ck} each and no recovery")
+        base = report["sockets"]["rides_socket"]
+        log(f"supervised {name}: crawl_s={sup['crawl_s']:.3f} (reset, upload and rounds; "
+            f"rides_socket: rounds {base['crawl_s']:.3f}, upload {base['addkeys_s']:.3f}) "
+            f"rounds_s={sup['seconds_by_part']['levels']:.3f} checkpoints a server={want_ck}")
+        report["sockets"][name] = sup
+        stage(f"{name} socket run")
+        # phase 18: phase 17 with server 1 killed at its first checkpoint
+        name = "rides_socket_supervised_kill"
+        run = socket_run(name, rides_cfg, RIDES_CLIENTS, args.seed, tmp, SUPERVISED_ENV,
+                         supervise=True, kill=True)
+        rep = check_supervised_run(name, run, rides_cfg, sup["hitter_map"], points["rides"])
+        if rep["counters"]["recoveries"] < 1 or rep["counters"]["levels_rerun"] < 1:
+            raise AssertionError(f"{name}: counters {rep['counters']} after a kill")
+        stage(f"{name} socket run")
+        rep["restored_check"] = restored_expand_check(name, run, rides_cfg, RIDES_CLIENTS,
+                                                      args.seed, expand_cuda, collect, prg,
+                                                      torch)
+        errs["expand"].append(rep["restored_check"]["max_abs_err"])
+        report["sockets"][name] = rep
+        stage(f"{name} restored check")
+        # phase 19: secure rides (ot2s at S = 4), the leader's link to server 0
+        # severed in the answer's direction at level CKPT_EVERY's crawl verb, and
+        # server 1 killed at its first checkpoint
+        name = "rides_secure_socket_supervised_sever"
+        cfg = cells["rides_secure"][0]
+        chunks = -(-RIDES_SEVER_CLIENTS // cfg.addkey_batch_size)
+        # frames to the leader: hello, reset, the chunks, tree_init, a crawl and
+        # a prune a level, the checkpoint after the round ending at CKPT_EVERY
+        at = chunks + 3 + 2 * CKPT_EVERY + 2
+        run = socket_run(name, cfg, RIDES_SEVER_CLIENTS, args.seed, tmp, SUPERVISED_ENV,
+                         supervise=True, kill=True, ctl0_faults=f"ctl0:sever@msg={at},dir=s2c")
+        from fuzzyheavyhitters_torch.bin import leader as leader_bin
+        from fuzzyheavyhitters_torch.protocol import driver
+
+        trusted = dataclasses.replace(cfg, secure_exchange=False)
+        pts, k0, k1, _ = leader_bin.client_keys(trusted, RIDES_SEVER_CLIENTS,
+                                                torch.device("cuda"), args.seed)
+        lead = driver.Leader(*driver.make_servers(
+            *(ibdcf.keys_from_numpy(k, "cuda") for k in (k0, k1))), n_dims=cfg.n_dims,
+            data_len=cfg.data_len, f_max=cfg.f_max)
+        res = lead.run(nreqs=RIDES_SEVER_CLIENTS, threshold=cfg.threshold)
+        want_h = {str(row.tolist()): int(c) for row, c in zip(res.decode_ints(), res.counts)}
+        del lead, res, k0, k1
+        torch.cuda.empty_cache()
+        rep = check_supervised_run(name, run, cfg, want_h, pts, OT2S)
+        s0 = rep["servers"][0]
+        if (s0["dedup_hits"] < 1 or rep["epochs"][0] < 2 or rep["counters"]["recoveries"] < 1
+                or run["proxy_fired"] != [("sever", "s2c", at)]):
+            raise AssertionError(f"{name}: dedup_hits={s0['dedup_hits']} epochs={rep['epochs']} "
+                                 f"counters={rep['counters']} fired={run['proxy_fired']}")
+        rep["sever_at"] = at
+        log(f"supervised {name}: sever at ctl0 s2c frame {at} fired, server 0 dedup_hits="
+            f"{s0['dedup_hits']}, leader epochs={rep['epochs']}, hitters = driver.Leader's "
+            f"(trusted, same keys); data_bytes_sent={[sv['data_bytes_sent'] for sv in rep['servers']]}")
+        report["sockets"][name] = rep
+        stage(f"{name} socket run")
     for name in points:
         kg = measure_keygen(name, points[name], cells[name][0], keygen_cuda, ibdcf, torch, rng)
         report["crawls"][name]["keygen_check"] = kg
@@ -1590,10 +1942,12 @@ def main() -> int:
                                    "ms", "kernel_ms", "plain_ms", "bound_ms")}
                 for c in report["crawls"]["config4_zipf_radix3"]["radix_checks"]]
             rows[-1]["radix_launches"] = launches["config4_zipf_radix3"][kn]
+            rows[-1]["restored_check"] = report["sockets"]["rides_socket_supervised_kill"][
+                "restored_check"]
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, nine crawls, a resume "
-        "and seven socket runs)")
+        "and ten socket runs)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -8,14 +8,23 @@ Server 1 listens for its peer on its own port + 1 and server 0 dials it;
 only then does each bind its leader-facing port (server.rs:344-354).  It
 runs on ``cuda`` unless ``--device`` names another device or the config
 says ``"backend": "cpu"``; on the card it builds its kernels and starts its
-CUDA context before it listens.  Events are JSON lines on standard output:
-``server.plane_listening`` (server 1, once its peer may dial),
-``server.serving`` once the leader may connect, and on SIGTERM or SIGINT
-``server.exit`` with the seconds per
-phase, the bytes of each plane, the largest data-plane frame, the
-launches of each kernel in this process and, on the card, its peak
-``torch.cuda.max_memory_allocated``.  The JAX binary's checkpoint directory, fleet registration and
-multi-card options are not ported: their variables are refused.
+CUDA context before it listens.  With ``FHH_CKPT_DIR`` set (made if
+missing) it answers the supervising leader's ``tree_checkpoint`` and
+``tree_restore`` with blobs in that directory; a server started again on
+the same ports and directory after a crash rejoins the crawl there.
+Events are JSON lines on standard output, each with its wall clock
+``t``: ``server.plane_listening`` (server 1, once its peer may dial),
+``server.serving`` once the leader may connect, the recovery events
+(``resilience.server_checkpoint`` with the blob's bytes and seconds,
+``resilience.server_restore``, ``resilience.plane_reset``,
+``resilience.plane_break``) and on SIGTERM or SIGINT ``server.exit`` with
+the seconds per phase, the bytes of each plane, the largest data-plane
+frame, the crawl verbs begun and finished, the ``add_keys`` chunks,
+replays answered from the dedup cache, plane resets, checkpoints written
+and restored, the launches of each kernel in this process and, on the
+card, its peak ``torch.cuda.max_memory_allocated``.  The JAX binary's
+fleet registration and multi-card options are not ported: their
+variables are refused.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import json
 import os
 import signal
 import sys
+import time
 
 import torch
 
@@ -35,7 +45,6 @@ from ..utils import resolve_device
 
 # the JAX binary's environment knobs, each with the path it selects
 UNPORTED_ENV = {
-    "FHH_CKPT_DIR": "checkpoint/restore of the crawl",
     "FHH_DATA_DEVICES": "a collector server sharded over several cards",
     "FHH_MESH_FAULTS": "the device-loss drills of the multi-card server",
     "FHH_FLEET": "fleet registration",
@@ -43,7 +52,7 @@ UNPORTED_ENV = {
 
 
 def emit(event: str, **kw) -> None:
-    print(json.dumps({"event": event, **kw}), flush=True)
+    print(json.dumps({"event": event, "t": time.time(), **kw}), flush=True)
 
 
 def split_addr(addr: str) -> tuple[str, int]:
@@ -71,7 +80,10 @@ async def amain(cfg, server_id: int, device) -> None:
     host1, port1 = split_addr(cfg.server1)
     my_host, my_port = (host0, port0) if server_id == 0 else (host1, port1)
     peer_host = host1 if server_id == 0 else my_host
-    server = CollectorServer(server_id, cfg, device)
+    ckpt_dir = os.environ.get("FHH_CKPT_DIR") or None
+    if ckpt_dir is not None:
+        os.makedirs(ckpt_dir, exist_ok=True)
+    server = CollectorServer(server_id, cfg, device, ckpt_dir=ckpt_dir, emit=emit)
     if server.device.type == "cuda":  # kernels and CUDA context before the first verb
         from ..ops import cuda_build
 
@@ -90,13 +102,8 @@ async def amain(cfg, server_id: int, device) -> None:
     finally:
         await server.aclose()
         emit("server.exit", server=server_id, device=str(server.device),
-             seconds=server.stats["seconds"], levels=server.stats["levels"],
-             data_bytes_sent=server.stats["data_bytes_sent"],
-             data_bytes_recv=server.stats["data_bytes_recv"],
-             data_frame_max=server.stats["data_frame_max"],
-             control_bytes_sent=server.stats["control_bytes_sent"],
-             control_bytes_recv=server.stats["control_bytes_recv"],
-             launches=launch_counts(), max_memory_allocated=(
+             boot_id=server.boot_id, **server.stats, launches=launch_counts(),
+             max_memory_allocated=(
                  torch.cuda.max_memory_allocated(server.device)
                  if server.device.type == "cuda" else 0))
 

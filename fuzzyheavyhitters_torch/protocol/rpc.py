@@ -54,16 +54,32 @@ whole secure chain on a throwaway in-process OT pair), touching no live
 state: the port compiles no XLA, so this is what the JAX verb's compile
 pass becomes.
 
+Recovery (the supervised crawl's server half): ``status`` (boot id,
+dedup hits, plane resets, checkpoint levels on disk), ``tree_checkpoint``
+/ ``tree_restore`` (the frontier as one npz blob a level, in the JAX
+package's format, either layout restoring into the other) under the
+server's ``ckpt_dir``, and ``plane_reset`` / ``plane_break`` (server 0
+redials the data plane, server 1 re-accepts it; every new transport is
+re-keyed by the next data-plane verb: the coin flip and, secure, fresh
+base-OT sessions).  Every verb runs at most once per (leader session,
+request id): ``__hello__`` binds the connection to its leader's session,
+a replay of a finished request is answered from the session's bounded
+cache (errors too), a replay of one still running awaits that execution.
+:class:`CollectorClient` redials after a lost transport and resends under
+the same request id.
+
 Not ported (they answer ``NotImplementedError`` naming the missing path,
-never "unknown verb"): the other verbs of the JAX server, multi-tenant
-collections, and the client's reconnect-and-replay with the server's
-replay-dedup cache — a lost transport fails the call loudly.
+never "unknown verb"): the other verbs of the JAX server and multi-tenant
+collections.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
+import hashlib
 import logging
+import os
 import pickle
 import secrets
 import socket
@@ -76,7 +92,8 @@ import torch
 from ..ops import baseot, ibdcf, otext
 from ..ops.fields import F255, FE62
 from ..resilience import policy as respolicy
-from ..utils import resolve_device, words_from_numpy, words_to_numpy
+from ..ops.ibdcf import EvalState
+from ..utils import resolve_device, tensor_from_numpy, words_from_numpy, words_to_numpy
 from ..utils.config import Config
 from . import collect, secure, sessions
 from .driver import PhaseClock
@@ -154,14 +171,61 @@ UNPORTED_VERBS = {
     "submit_keys": "streaming ingestion",
     "window_seal": "streaming ingestion",
     "window_load": "streaming ingestion",
-    "status": "the status probe of the operating plane",
-    "tree_checkpoint": "checkpoint/restore of the crawl",
-    "tree_restore": "checkpoint/restore of the crawl",
-    "plane_reset": "data-plane recovery",
-    "plane_break": "data-plane recovery",
     "session_export": "collection-session migration",
     "session_import": "collection-session migration",
 }
+
+# replay-dedup bounds (the JAX package's): the cache must cover every request
+# a client could still replay — its in-flight window (the key upload's 256)
+# and slack — and is bounded by bytes too, since crawl answers are share
+# arrays; sessions are bounded so that reconnecting leaders cannot grow it
+_SESSION_CACHE_CAP = 1024
+_SESSION_CACHE_BYTES = 128 << 20
+_SESSION_CAP = 8
+
+
+def _resp_nbytes(resp) -> int:
+    """Approximate retained size of a cached response."""
+    if isinstance(resp, np.ndarray):
+        return resp.nbytes + 64
+    if isinstance(resp, dict):
+        return 64 + sum(_resp_nbytes(v) for v in resp.values())
+    if isinstance(resp, (list, tuple)):
+        return 64 + sum(_resp_nbytes(v) for v in resp)
+    return 64
+
+
+class _Session:
+    """One leader session's replay state: responses already sent
+    (``cache``) and verbs still running (``inflight``)."""
+
+    __slots__ = ("cache", "sizes", "bytes_total", "inflight", "last_seen")
+
+    def __init__(self):
+        self.cache: collections.OrderedDict = collections.OrderedDict()
+        self.sizes: dict = {}
+        self.bytes_total = 0
+        self.inflight: dict = {}
+        self.last_seen = time.monotonic()
+
+    def put(self, req_id, resp) -> None:
+        """Cache a response under the count and byte bounds; the newest
+        entry survives even alone over the byte bound (its own replay needs
+        it)."""
+        nb = _resp_nbytes(resp)
+        self.cache[req_id] = resp
+        self.sizes[req_id] = nb
+        self.bytes_total += nb
+        while len(self.cache) > 1 and (len(self.cache) > _SESSION_CACHE_CAP
+                                       or self.bytes_total > _SESSION_CACHE_BYTES):
+            old, _ = self.cache.popitem(last=False)
+            self.bytes_total -= self.sizes.pop(old, 0)
+
+
+def _load_npz(path: str) -> dict:
+    with np.load(path) as npz:
+        return {k: npz[k] for k in npz.files}
+
 
 # the run report's phases: host-clock spans of every level (the JAX server's
 # fss, gc_ot, field), then the secure exchange's steps, spans of the device
@@ -173,12 +237,18 @@ class CollectorServer:
     """One collector server (ref: server.rs:44-172) holding one party's key
     share, its own OT secrets and its own crawl state on ``device``; only
     wire frames cross to the peer.  ``server_id`` 0 dials the peer, 1
-    listens."""
+    listens.  ``ckpt_dir`` (the binary's ``FHH_CKPT_DIR``) holds the
+    checkpoint blobs; without it ``tree_checkpoint`` and ``tree_restore``
+    refuse.  ``emit(event, **fields)`` receives the recovery events
+    (``resilience.server_checkpoint``, ``resilience.server_restore``,
+    ``resilience.plane_reset``, ``resilience.plane_break``)."""
 
     VERBS = ("reset", "add_keys", "tree_init", "tree_crawl", "tree_crawl_last",
-             "tree_prune", "tree_prune_last", "final_shares", "warmup")
+             "tree_prune", "tree_prune_last", "final_shares", "warmup", "status",
+             "tree_checkpoint", "tree_restore", "plane_reset", "plane_break")
 
-    def __init__(self, server_id: int, cfg: Config, device=None):
+    def __init__(self, server_id: int, cfg: Config, device=None, *, ckpt_dir=None,
+                 emit=None):
         if server_id not in (0, 1):
             raise ValueError(f"server_id must be 0 or 1, got {server_id}")
         if cfg.server_data_devices > 1:
@@ -188,12 +258,22 @@ class CollectorServer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.boot_id = secrets.token_hex(8)
+        self.ckpt_dir = ckpt_dir
+        self.emit = emit or (lambda event, **kw: None)
         # run report: seconds per phase, bytes per plane and the largest
-        # data-plane frame, crawl verbs served
+        # data-plane frame, crawl verbs begun and finished, add_keys chunks,
+        # replays answered from the cache, plane resets, checkpoints written
+        # (bytes, seconds) and restored (seconds)
         self.stats = {"seconds": dict.fromkeys(PHASES, 0.0),
                       "data_bytes_sent": 0, "data_bytes_recv": 0, "data_frame_max": 0,
-                      "control_bytes_sent": 0, "control_bytes_recv": 0, "levels": 0}
-        self._verb_lock = asyncio.Lock()  # every verb but add_keys runs under it
+                      "control_bytes_sent": 0, "control_bytes_recv": 0, "levels": 0,
+                      "levels_done": 0, "add_keys": 0, "dedup_hits": 0, "plane_resets": 0,
+                      "ckpt_writes": 0, "ckpt_bytes": 0, "ckpt_write_s": 0.0, "restores": 0,
+                      "restore_s": 0.0}
+        # every verb but add_keys and plane_break runs under it
+        self._verb_lock = asyncio.Lock()
+        self._sessions: dict = {}  # leader session id -> _Session
+        self._peer_addr = None  # server 0: where it dials the plane
         self._peer_reader = self._peer_writer = None
         self._rpc_srv = self._peer_srv = None
         self._ctl_writers: set = set()
@@ -230,6 +310,7 @@ class CollectorServer:
 
     async def reset(self, _req) -> bool:
         self._clear()
+        self._ckpt_clear()  # a new collection must not resume an old one's
         if self._ot_snd is not None:  # fresh GC/b2a randomness per collection
             self._sec_seed = np.frombuffer(secrets.token_bytes(16), "<u4").copy()
         return True
@@ -238,6 +319,7 @@ class CollectorServer:
         """Append one key chunk: the five leaves of a [B, d, 2] batch."""
         if req.get("sketch") is not None:
             raise not_ported("add_keys", "the malicious sketch material")
+        self.stats["add_keys"] += 1
         self.keys_parts.append(tuple(np.asarray(a) for a in req["keys"]))
         return True
 
@@ -254,6 +336,16 @@ class CollectorServer:
         if not 1 <= d <= collect.MAX_DIMS:
             raise ValueError(f"n_dims={d}: supported 1..{collect.MAX_DIMS}")
         collect.check_radix(d, self.cfg.crawl_radix_bits)
+
+    def _keys_fp(self) -> np.ndarray:
+        """uint8[32]: SHA-256 over ``key_idx`` then ``root_seed`` in their
+        wire dtypes, byte for byte the JAX server's ``keys_fp``: did the
+        leader re-upload the batch this checkpoint was written under (an
+        operational check, not a cryptographic one)."""
+        h = hashlib.sha256()
+        h.update(np.ascontiguousarray(self.keys.key_idx.cpu().numpy()))
+        h.update(np.ascontiguousarray(words_to_numpy(self.keys.root_seed)))
+        return np.frombuffer(h.digest(), np.uint8)
 
     def crawl_radix(self, level: int) -> int:
         """Bit levels of the crawl round based at ``level``: the server's
@@ -400,6 +492,206 @@ class CollectorServer:
                 collect.counts_by_pattern(packed, packed, collect.pattern_masks_radix(d, r),
                                           alive, fr.alive).cpu()
 
+    # -- recovery verbs (no reference analogue: its only recovery verb is
+    # reset, server.rs:64-69) ------------------------------------------------
+
+    async def status(self, _req) -> dict:
+        """The supervising leader's probe: the boot id tells it whether this
+        is the process it knew (replay is safe) or a restart (state gone:
+        restore), the dedup hits that no verb ran twice.  The JAX server's
+        sections of unported layers (ingest, sessions, fleet, slo, alerts)
+        are left out; ``mesh`` is None, as on a one-card JAX server."""
+        return {"boot_id": self.boot_id, "collection": DEFAULT_COLLECTION,
+                "clock": round(time.time(), 6),
+                "has_keys": self.keys is not None or bool(self.keys_parts),
+                "has_frontier": self.frontier is not None,
+                "dedup_hits": self.stats["dedup_hits"],
+                "plane_resets": self.stats["plane_resets"],
+                "ckpt_levels": self._ckpt_levels(), "mesh": None}
+
+    async def tree_checkpoint(self, req) -> dict:
+        """Persist the crawl state after the round based at ``level``: the
+        frontier (plane-major: ``planar`` True), node and client liveness,
+        stamped with the key fingerprint, the level, the collection
+        (``sess``) and the crawl radix — the JAX server's blob, field for
+        field.  Keys are not in it: the leader re-uploads them to a
+        restarted server.  Written to a temporary file and renamed, so a
+        crash mid-write leaves the previous checkpoint whole; the two
+        newest levels are kept."""
+        if self.ckpt_dir is None:
+            raise RuntimeError("tree_checkpoint: no checkpoint dir configured "
+                               "(start the server with FHH_CKPT_DIR set)")
+        if self.frontier is None:
+            raise RuntimeError("tree_checkpoint before tree_init")
+        level = int(req["level"])
+        t0 = time.perf_counter()
+        st = self.frontier.states
+        as_np = lambda t: t.cpu().numpy()
+        blob = {"seed": words_to_numpy(st.seed), "bit": as_np(st.bit),
+                "y_bit": as_np(st.y_bit), "alive": as_np(self.frontier.alive),
+                "alive_keys": as_np(self.alive_keys), "planar": np.bool_(True),
+                "keys_fp": self._keys_fp(), "level": np.int64(level),
+                "sess": np.str_(DEFAULT_COLLECTION),
+                "radix": np.int64(self.cfg.crawl_radix_bits)}
+        path = self._ckpt_path(level)
+        tmp = f"{path}.tmp{os.getpid()}"
+
+        def write():
+            with open(tmp, "wb") as f:
+                np.savez(f, **blob)
+            os.replace(tmp, path)
+            self._ckpt_prune()
+
+        await asyncio.to_thread(write)
+        dt = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        self.stats["ckpt_writes"] += 1
+        self.stats["ckpt_bytes"] += nbytes
+        self.stats["ckpt_write_s"] += dt
+        self.emit("resilience.server_checkpoint", server=self.server_id,
+                  collection=DEFAULT_COLLECTION, level=level, path=path, bytes=nbytes,
+                  seconds=dt)
+        return {"level": level}
+
+    async def tree_restore(self, req) -> dict:
+        """Reload the :meth:`tree_checkpoint` of the level the leader names
+        and return it (the crawl goes on at the round after it).  Needs the
+        keys: still held, or re-uploaded after a restart.  Every check runs
+        before any state changes — a missing, corrupt or truncated file,
+        another collection's or crawl radix's stamp, missing fields, another
+        key batch, a file renamed to another level, a level past the tree,
+        another client count — and a refusal leaves the live state as it
+        was.  A blob of the interleaved layout (``planar`` False, a JAX
+        server on the XLA engine) is carried to the plane-major one."""
+        if self.ckpt_dir is None:
+            raise RuntimeError("tree_restore: no checkpoint dir configured")
+        want = int(req["level"])
+        path = self._ckpt_path(want)
+        if not os.path.exists(path):
+            raise RuntimeError(f"tree_restore: no checkpoint at {path}")
+        t0 = time.perf_counter()
+        try:  # a torn write surfaces as BadZipFile, ValueError or EOFError
+            z = await asyncio.to_thread(_load_npz, path)
+        except Exception as e:  # every load failure is the same refusal
+            raise RuntimeError(f"tree_restore: corrupt or truncated checkpoint at {path} "
+                               f"({type(e).__name__}: {e})") from e
+        if "sess" in z and str(z["sess"]) != DEFAULT_COLLECTION:
+            raise RuntimeError(f"tree_restore: checkpoint at {path} is stamped for collection "
+                               f"{str(z['sess'])!r}, not {DEFAULT_COLLECTION!r} (renamed across "
+                               "session namespaces?)")
+        saved_radix = int(z["radix"]) if "radix" in z else 1  # unstamped blobs are radix 1
+        if saved_radix != self.cfg.crawl_radix_bits:
+            raise RuntimeError(f"tree_restore: checkpoint at {path} was written under "
+                               f"crawl_radix_bits={saved_radix}; this session runs "
+                               f"crawl_radix_bits={self.cfg.crawl_radix_bits} — its level grid "
+                               "never visits the blob's frontier depth")
+        if "ing_only" in z or "sk_root" in z:
+            raise not_ported(f"tree_restore of {path}", "streaming ingestion" if "ing_only" in z
+                             else "the malicious sketch material")
+        self._concat_keys("tree_restore")
+        required = {"seed", "bit", "y_bit", "alive", "alive_keys", "level", "planar",
+                    "keys_fp"}
+        missing = required - set(z)
+        if missing:
+            raise RuntimeError(f"tree_restore: checkpoint at {path} is missing fields "
+                               f"{sorted(missing)} (truncated write?)")
+        if not np.array_equal(z["keys_fp"], self._keys_fp()):
+            raise RuntimeError("tree_restore: checkpoint was written under a different key "
+                               "batch — re-upload the original keys")
+        level = int(z["level"])
+        L, n = self.keys.cw_seed.shape[-2], self.keys.cw_seed.shape[0]
+        if level != want:
+            raise RuntimeError(f"tree_restore: checkpoint at {path} is stamped level {want} "
+                               f"but records level {level} (renamed or tampered file)")
+        if level >= L - 1:
+            raise RuntimeError(f"tree_restore: checkpoint level {level} is deeper than this "
+                               f"key batch's tree (data_len={L}) — wrong collection")
+        if z["alive_keys"].shape[0] != n:
+            raise RuntimeError("tree_restore: checkpoint client count != key batch")
+        # -- every check passed: mutate
+        dev = self.device
+        as_bool = lambda a: tensor_from_numpy(a, dev, bool)
+        if bool(z["planar"]):
+            states = EvalState(seed=words_from_numpy(z["seed"], dev), bit=as_bool(z["bit"]),
+                               y_bit=as_bool(z["y_bit"]))
+        else:
+            states = collect.states_from_numpy(
+                EvalState(seed=z["seed"], bit=z["bit"], y_bit=z["y_bit"]), dev)
+        self.alive_keys = as_bool(z["alive_keys"])
+        self.frontier = collect.Frontier(states=states, alive=as_bool(z["alive"]))
+        self.children = self.last_shares = None
+        self._clear_spans()
+        dt = time.perf_counter() - t0
+        self.stats["restores"] += 1
+        self.stats["restore_s"] += dt
+        self.emit("resilience.server_restore", server=self.server_id,
+                  collection=DEFAULT_COLLECTION, level=level, seconds=dt,
+                  planar=bool(z["planar"]))
+        return {"level": level}
+
+    async def plane_reset(self, _req) -> bool:
+        """Re-establish the data plane after a peer loss: server 0 drops its
+        transport and redials under ``DIAL_POLICY``; server 1 re-accepts on
+        its listener, which is still bound.  The next data-plane verb on
+        each side re-keys the new transport."""
+        if self.server_id != 0:
+            return True
+        if self._peer_writer is not None and not self._peer_writer.is_closing():
+            self._peer_writer.close()
+        await self._dial_peer()
+        self.stats["plane_resets"] += 1
+        self.emit("resilience.plane_reset", server=self.server_id)
+        return True
+
+    async def plane_break(self, _req) -> bool:
+        """Close this server's end of the data plane without redialing: the
+        pipelined leader's quiesce.  Dispatched outside the verb lock, so it
+        can break a verb wedged on a plane recv while holding that lock (a
+        span that reached one server only): the recv fails, the verb answers
+        its error, and the leader's ``plane_reset`` follows."""
+        w = self._peer_writer
+        if w is not None and not w.is_closing():
+            w.close()
+        self.emit("resilience.plane_break", server=self.server_id)
+        return True
+
+    # -- the checkpoint namespace (the JAX default collection's names) --------
+
+    def _ckpt_prefix(self) -> str:
+        return f"fhh_server{self.server_id}_l"
+
+    def _ckpt_path(self, level: int) -> str:
+        # level-stamped: a torn round (one server wrote level k, the other
+        # died first) leaves both able to restore the same earlier level
+        return os.path.join(self.ckpt_dir, f"{self._ckpt_prefix()}{level}.npz")
+
+    def _ckpt_found(self) -> list:
+        """[(level, file name)] of this server's checkpoints, in numeric
+        level order (a string sort puts l10 before l9)."""
+        if self.ckpt_dir is None or not os.path.isdir(self.ckpt_dir):
+            return []
+        prefix, found = self._ckpt_prefix(), []
+        for name in os.listdir(self.ckpt_dir):
+            if name.startswith(prefix) and name.endswith(".npz"):
+                try:
+                    found.append((int(name[len(prefix):-4]), name))
+                except ValueError:
+                    continue
+        return sorted(found)
+
+    def _ckpt_levels(self) -> list:
+        return [lvl for lvl, _ in self._ckpt_found()]
+
+    def _ckpt_prune(self, keep: int = 2) -> None:
+        """Drop all but the newest ``keep`` checkpoint levels (``keep`` 0:
+        all of them)."""
+        found = self._ckpt_found()
+        for _, name in found[:len(found) - keep] if keep else found:
+            os.remove(os.path.join(self.ckpt_dir, name))
+
+    def _ckpt_clear(self) -> None:
+        self._ckpt_prune(keep=0)
+
     @staticmethod
     def _prune_args(req):
         """(parent_idx int64[F'], pattern bits bool[F', r, d], n_alive): the
@@ -516,9 +808,12 @@ class CollectorServer:
         field = F255 if last else FE62
         self.stats["levels"] += 1
         if self.cfg.secure_exchange:
-            return await self._crawl_secure(level, field, last, int(req.get("garbler", 0)),
-                                            req.get("ot_path"), shard)
+            shares = await self._crawl_secure(level, field, last, int(req.get("garbler", 0)),
+                                              req.get("ot_path"), shard)
+            self.stats["levels_done"] += 1
+            return shares
         counts = await self._crawl_trusted(level, last, shard)
+        self.stats["levels_done"] += 1
         # trusted mode: both servers hold these counts; the shared mask is a
         # wire-format shim for the leader's v0 - v1, not a secret
         F, C = counts.shape
@@ -630,8 +925,10 @@ class CollectorServer:
         return peer
 
     async def _ensure_plane(self) -> None:
-        """Key the data plane once: the coin flip, then in secure mode the
-        base-OT sessions (rpc.py:3144-3216 of the JAX package)."""
+        """Key the current data plane once: the coin flip, then in secure
+        mode the base-OT sessions (rpc.py:3144-3216 of the JAX package).  A
+        new transport (:meth:`_attach_plane`) is keyed anew by the next
+        data-plane verb on each side."""
         if self._plane_keyed:
             return
         # the coin flip seeds the JAX server's sketch challenge; the port has
@@ -665,16 +962,18 @@ class CollectorServer:
 
     # -- serving --------------------------------------------------------------
 
-    async def _dispatch(self, verb: str, req):
-        """Run one verb; every failure is a response.  ``add_keys`` runs
-        without the verb lock (it appends and never suspends)."""
+    async def _run_verb(self, verb: str, req):
+        """Run one verb; every failure is a response.  ``add_keys`` (it
+        appends and never suspends) and ``plane_break`` (it must reach a
+        verb wedged on the plane while holding the lock) run without the
+        verb lock."""
         try:
             if verb in UNPORTED_VERBS:
                 raise not_ported(verb, UNPORTED_VERBS[verb])
             if verb not in self.VERBS:
                 raise ValueError(f"unknown verb {verb!r}")
-            if verb == "add_keys":
-                return await self.add_keys(req)
+            if verb in ("add_keys", "plane_break"):
+                return await getattr(self, verb)(req)
             self._maybe_pre_expand(verb, req)
             async with self._verb_lock:
                 return await getattr(self, verb)(req)
@@ -682,6 +981,38 @@ class CollectorServer:
             _log.warning("server %d: verb %s failed: %s: %s", self.server_id, verb,
                          type(e).__name__, e)
             return {"__error__": f"{type(e).__name__}: {e}"}
+
+    async def _dispatch(self, sess: _Session | None, req_id, verb: str, req):
+        """Run one verb at most once per (session, request id): a replay of
+        a finished request is answered from the session's cache, a replay of
+        one still running awaits the same execution.  Errors are responses
+        too, so a rejection replays as the same rejection.  A connection
+        that never said hello has no session and no dedup."""
+        if sess is not None:
+            sess.last_seen = time.monotonic()
+            if req_id in sess.cache:
+                self.stats["dedup_hits"] += 1
+                sess.cache.move_to_end(req_id)
+                return sess.cache[req_id]
+            live = sess.inflight.get(req_id)
+            if live is not None:
+                self.stats["dedup_hits"] += 1
+                return await asyncio.shield(live)
+            done = sess.inflight[req_id] = asyncio.get_running_loop().create_future()
+        try:
+            resp = await self._run_verb(verb, req)
+        except asyncio.CancelledError:  # release any replay awaiting this execution
+            if sess is not None:
+                sess.inflight.pop(req_id, None)
+                if not done.done():
+                    done.cancel()
+            raise
+        if sess is not None:
+            sess.put(req_id, resp)
+            sess.inflight.pop(req_id, None)
+            if not done.done():
+                done.set_result(resp)
+        return resp
 
     def _hello(self, req) -> dict:
         coll = (req or {}).get("collection") or DEFAULT_COLLECTION
@@ -692,16 +1023,34 @@ class CollectorServer:
         return {"boot_id": self.boot_id, "server_id": self.server_id,
                 "collection": DEFAULT_COLLECTION, "clock": round(time.time(), 6)}
 
+    def _bind_session(self, req) -> _Session | None:
+        """Create or attach the leader session a ``__hello__`` names; the
+        oldest idle one makes room past ``_SESSION_CAP``."""
+        sid = (req or {}).get("session")
+        if sid is None:
+            return None
+        sess = self._sessions.get(sid)
+        if sess is None:
+            while len(self._sessions) >= _SESSION_CAP:
+                del self._sessions[min(self._sessions,
+                                       key=lambda k: self._sessions[k].last_seen)]
+            sess = self._sessions[sid] = _Session()
+        sess.last_seen = time.monotonic()
+        return sess
+
     async def _handle_leader(self, reader, writer) -> None:
         """Control-plane serve loop: every request runs as its own task, so
         many ``add_keys`` chunks are in flight at once; responses carry the
-        request id.  On disconnect the verbs in flight finish (a verb
-        mid-exchange must not leave the peer's frame unread)."""
+        request id.  A ``__hello__`` binds the connection to its leader's
+        session (:meth:`_dispatch`).  On disconnect the verbs in flight
+        finish (a verb mid-exchange must not leave the peer's frame unread)
+        and their answers stay in the session's cache for the replay on
+        the next connection."""
         write_lock = asyncio.Lock()
         self._ctl_writers.add(writer)
+        sess = None
 
-        async def handle(req_id, verb, req):
-            resp = self._hello(req) if verb == "__hello__" else await self._dispatch(verb, req)
+        async def respond(req_id, resp):
             try:
                 async with write_lock:
                     await _send(writer, (req_id, resp), count=self._count("control_bytes_sent"))
@@ -711,11 +1060,20 @@ class CollectorServer:
                 if not writer.is_closing():  # asyncio's write on a closing transport
                     raise
 
+        async def handle(sess, req_id, verb, req):
+            await respond(req_id, await self._dispatch(sess, req_id, verb, req))
+
         tasks: set = set()
         try:
             while True:
                 req_id, verb, req = await _recv(reader, count=self._count("control_bytes_recv"))
-                t = asyncio.create_task(handle(req_id, verb, req))
+                if verb == "__hello__":
+                    resp = self._hello(req)
+                    if "__error__" not in resp:
+                        sess = self._bind_session(req)
+                    await respond(req_id, resp)
+                    continue
+                t = asyncio.create_task(handle(sess, req_id, verb, req))
                 tasks.add(t)
                 t.add_done_callback(tasks.discard)
         except (asyncio.IncompleteReadError, ConnectionResetError):
@@ -727,22 +1085,45 @@ class CollectorServer:
             self._ctl_writers.discard(writer)
 
     def _attach_plane(self, reader, writer) -> None:
+        """Bind a new peer transport (closing the one it replaces): the next
+        data-plane verb keys it anew, the coin flip and in secure mode fresh
+        base-OT sessions (a survivor that kept its old OT extension with a
+        restarted peer would break the 2PC)."""
+        old = self._peer_writer
+        if old is not None and old is not writer and not old.is_closing():
+            old.close()
         self._peer_reader, self._peer_writer = reader, writer
         _keepalive(writer)
+        self._plane_keyed = False
+        self._ot_snd = self._ot_rcv = None
+
+    async def _dial_peer(self) -> None:
+        """Server 0: dial the peer's data plane under ``DIAL_POLICY``."""
+        peer_host, peer_port = self._peer_addr
+
+        async def dial():
+            return await asyncio.wait_for(asyncio.open_connection(peer_host, peer_port),
+                                          respolicy.DIAL_TIMEOUT_S)
+
+        try:
+            r, w = await respolicy.retry_async(dial, respolicy.DIAL_POLICY)
+        except respolicy.TRANSIENT_ERRORS as e:
+            raise ConnectionError(
+                f"peer data plane unreachable at {peer_host}:{peer_port}: {e!r}") from e
+        self._attach_plane(r, w)
 
     async def start(self, host: str, port: int, peer_host: str, peer_port: int,
                     on_plane_listen=None):
         """Bring up the data plane first (server.rs:344-354: server 1
         listens on ``peer_port``, server 0 dials it under ``DIAL_POLICY``),
         then listen for the leader.  ``on_plane_listen`` is called once
-        server 1 listens for its peer.  Returns the leader-facing server."""
+        server 1 listens for its peer; a later dial (``plane_reset``)
+        replaces its plane.  Returns the leader-facing server."""
+        self._peer_addr = (peer_host, peer_port)
         if self.server_id == 1:
             ready = asyncio.Event()
 
             async def on_peer(reader, writer):
-                if self._peer_writer is not None:  # one data plane per server
-                    writer.close()
-                    return
                 self._attach_plane(reader, writer)
                 ready.set()
 
@@ -751,16 +1132,7 @@ class CollectorServer:
                 on_plane_listen()
             await ready.wait()  # as long as the peer takes to come up
         else:
-            async def dial():
-                return await asyncio.wait_for(asyncio.open_connection(peer_host, peer_port),
-                                              respolicy.DIAL_TIMEOUT_S)
-
-            try:
-                r, w = await respolicy.retry_async(dial, respolicy.DIAL_POLICY)
-            except respolicy.TRANSIENT_ERRORS as e:
-                raise ConnectionError(
-                    f"peer data plane unreachable at {peer_host}:{peer_port}: {e!r}") from e
-            self._attach_plane(r, w)
+            await self._dial_peer()
         self._rpc_srv = await asyncio.start_server(self._handle_leader, host, port)
         return self._rpc_srv
 
@@ -777,31 +1149,49 @@ class CollectorServer:
                 await srv.wait_closed()
 
 
-class CollectorClient:
-    """The leader's stub of one server: request ids, so any number of calls
-    ride one connection (a reader task resolves them by id); the
-    ``__hello__`` handshake on connect; ``__error__`` responses raise
-    ``RuntimeError``.  No reconnect: a lost transport fails every call in
-    flight with ``ConnectionError``."""
+class ServerRestartedError(ConnectionError):
+    """The reconnect found another server process (a new boot id): its
+    in-memory state is gone, so a replay is unsafe; the supervising leader
+    restores instead (re-upload the keys, ``tree_restore``).  A
+    ``ConnectionError``, so unsupervised callers see a lost connection."""
 
-    def __init__(self, host: str, port: int):
+
+class CollectorClient:
+    """The leader's stub of one server, reconnecting.  Request ids let any
+    number of calls ride one connection (a reader task resolves them by
+    id); ``__error__`` responses raise ``RuntimeError``.
+
+    The client keeps one session id for its life and says ``__hello__
+    {session, epoch}`` on every connect (``epoch`` counts connects).  A
+    call keeps one request id for its life: after a transport loss it
+    redials under ``dial_policy`` (one redial per epoch; calls that failed
+    together ride it) and resends the same frame, which the server answers
+    from its dedup cache if the verb already ran.  Two ways out besides an
+    answer: the verb's budget (``budgets``) runs out (``TimeoutError``),
+    or the hello finds a new boot id (:class:`ServerRestartedError`)."""
+
+    def __init__(self, host: str, port: int, *, dial_policy=None, budgets=None):
         self._host, self._port = host, port
         self._r = self._w = None
         self._send_lock = asyncio.Lock()
+        self._conn_lock = asyncio.Lock()
         self._pending: dict = {}
         self._next_id = 0
         self._reader_task = None
         self._dead: ConnectionError | None = None
         self.collection = DEFAULT_COLLECTION
         self.session_id = secrets.token_hex(8)
-        self.boot_id = self.server_id = None  # from the hello
-        self.budgets = respolicy.VerbBudgets()
-        self.stats = {"control_bytes_sent": 0, "control_bytes_recv": 0}
+        self.epoch = 0  # connects so far; above 1 the client has reconnected
+        self.boot_id = self.server_id = None  # from the last hello
+        self.dial_policy = dial_policy or respolicy.DIAL_POLICY
+        self.budgets = budgets or respolicy.VerbBudgets()
+        self.stats = {"control_bytes_sent": 0, "control_bytes_recv": 0, "reconnects": 0,
+                      "call_retries": 0}
 
     @classmethod
-    async def connect(cls, host: str, port: int) -> "CollectorClient":
-        c = cls(host, port)
-        await c._connect()
+    async def connect(cls, host: str, port: int, **kw) -> "CollectorClient":
+        c = cls(host, port, **kw)
+        await c._ensure_connected(0)
         return c
 
     def _count(self, key: str):
@@ -809,22 +1199,52 @@ class CollectorClient:
             self.stats[key] += n
         return add
 
-    async def _connect(self) -> None:
-        async def dial():
-            return await asyncio.wait_for(asyncio.open_connection(self._host, self._port),
-                                          respolicy.DIAL_TIMEOUT_S)
+    def _fail_pending(self, err: ConnectionError) -> None:
+        for fut in self._pending.values():
+            if not fut.done():
+                fut.set_exception(err)
+        self._pending.clear()
 
-        try:
-            self._r, self._w = await respolicy.retry_async(dial, respolicy.DIAL_POLICY)
-        except respolicy.TRANSIENT_ERRORS as e:
-            raise ConnectionError(f"server {self._host}:{self._port} unreachable: {e!r}") from e
-        self._reader_task = asyncio.ensure_future(self._read_loop(self._r))
-        hello = await self._roundtrip(
-            "__hello__", {"session": self.session_id, "epoch": 1, "collection": self.collection},
-            self.budgets.deadline("__hello__"))
-        if isinstance(hello, dict) and "__error__" in hello:
-            raise RuntimeError(f"hello refused by {self._host}:{self._port}: {hello['__error__']}")
-        self.boot_id, self.server_id = hello.get("boot_id"), hello.get("server_id")
+    async def _ensure_connected(self, seen_epoch: int) -> None:
+        """(Re)dial unless another call already did since ``seen_epoch``,
+        then say hello on the new connection."""
+        if self._dead is not None:
+            raise self._dead
+        async with self._conn_lock:
+            if self.epoch > seen_epoch and self._w is not None and not self._w.is_closing():
+                return  # a concurrent call reconnected already
+
+            async def dial():
+                return await asyncio.wait_for(asyncio.open_connection(self._host, self._port),
+                                              respolicy.DIAL_TIMEOUT_S)
+
+            try:
+                r, w = await respolicy.retry_async(dial, self.dial_policy)
+            except respolicy.TRANSIENT_ERRORS as e:
+                err = ConnectionError(f"server {self._host}:{self._port} unreachable: {e!r}")
+                self._fail_pending(err)
+                raise err from e
+            if self._reader_task is not None:
+                self._reader_task.cancel()
+            if self._w is not None and not self._w.is_closing():
+                self._w.close()  # the superseded transport
+            # a call still waiting on the old transport never gets its answer
+            # there: fail it, so that it replays on the new one
+            self._fail_pending(ConnectionError("transport replaced by reconnect"))
+            self._r, self._w = r, w
+            self.epoch += 1
+            self._reader_task = asyncio.ensure_future(self._read_loop(r))
+            self._next_id += 1
+            hello = await self._roundtrip(
+                self._next_id, "__hello__",
+                {"session": self.session_id, "epoch": self.epoch, "collection": self.collection},
+                self.budgets.deadline("__hello__"))
+            if isinstance(hello, dict) and "__error__" in hello:
+                raise RuntimeError(f"hello refused by {self._host}:{self._port}: "
+                                   f"{hello['__error__']}")
+            self.boot_id, self.server_id = hello.get("boot_id"), hello.get("server_id")
+            if self.epoch > 1:
+                self.stats["reconnects"] += 1
 
     async def _read_loop(self, reader) -> None:
         try:
@@ -834,20 +1254,14 @@ class CollectorClient:
                 if fut is not None and not fut.done():
                     fut.set_result(resp)
         except Exception as e:  # reader death fails every call in flight
-            self._fail(ConnectionError(f"connection to {self._host}:{self._port} lost: {e!r}"))
+            self._fail_pending(ConnectionError(
+                f"connection to {self._host}:{self._port} lost: {e!r}"))
 
-    def _fail(self, err: ConnectionError) -> None:
-        self._dead = err
-        for fut in self._pending.values():
-            if not fut.done():
-                fut.set_exception(err)
-        self._pending.clear()
-
-    async def _roundtrip(self, verb: str, req, deadline: respolicy.Deadline):
-        if self._dead is not None:
-            raise self._dead
-        self._next_id += 1
-        req_id = self._next_id
+    async def _roundtrip(self, req_id, verb: str, req, deadline: respolicy.Deadline):
+        """One send and its answer on the current transport, no retry."""
+        if (self._w is None or self._w.is_closing() or self._reader_task is None
+                or self._reader_task.done()):
+            raise ConnectionError("transport down")  # fail fast into the redial
         fut = asyncio.get_running_loop().create_future()
         self._pending[req_id] = fut
         try:
@@ -859,15 +1273,39 @@ class CollectorClient:
             self._pending.pop(req_id, None)
 
     async def call(self, verb: str, req=None):
-        """One verb under its wall-clock budget; a server error raises."""
-        resp = await self._roundtrip(verb, req, self.budgets.deadline(verb))
+        """One verb, at most once, under its wall-clock budget: transient
+        transport failures redial and resend the same request id; a server
+        error raises ``RuntimeError``."""
+        if self._dead is not None:
+            raise self._dead
+        deadline = self.budgets.deadline(verb)
+        first_boot = self.boot_id
+        self._next_id += 1
+        req_id = self._next_id  # one id for the call's life: the server dedups replays
+        while True:
+            seen_epoch = self.epoch
+            try:
+                resp = await self._roundtrip(req_id, verb, req, deadline)
+                break
+            except respolicy.TRANSIENT_ERRORS as e:
+                if deadline.expired():
+                    raise TimeoutError(f"verb {verb!r} exceeded its "
+                                       f"{self.budgets.budget(verb):g}s budget (last error: "
+                                       f"{type(e).__name__}: {e})") from e
+                self.stats["call_retries"] += 1
+                await self._ensure_connected(seen_epoch)
+                if first_boot is not None and self.boot_id != first_boot:
+                    raise ServerRestartedError(
+                        f"server {self._host}:{self._port} restarted while {verb!r} was in "
+                        "flight — state lost, replay unsafe") from e
         if isinstance(resp, dict) and "__error__" in resp:
             raise RuntimeError(f"server error on {verb}: {resp['__error__']}")
         return resp
 
     async def aclose(self) -> None:
+        self._dead = ConnectionError("client closed")
         if self._reader_task is not None:
             self._reader_task.cancel()
         if self._w is not None and not self._w.is_closing():
             self._w.close()
-        self._fail(ConnectionError("client closed"))
+        self._fail_pending(self._dead)

@@ -1,11 +1,16 @@
 """Retry and deadline policy: the port's copy of the JAX package's
-``resilience/policy.py``, as far as dialing and verb budgets need it.
+``resilience/policy.py``, as far as dialing, the client's replay loop,
+verb budgets and the leader's span retry need it.
 
 - **Full jitter**: the k-th delay is ``uniform(0, min(cap, base·factor^k))``,
   so two dialers of one server do not retry in lockstep.
+- **Deadlines compose with retries**: a :class:`Deadline` is one
+  wall-clock budget shared by every attempt of a call (dial, resend,
+  response), not a per-attempt timeout.
 - **Classification**: transport-shaped failures (reset, EOF, refused,
-  timeout, a torn frame) are transient and redialed; anything else is
-  fatal to a retry loop.
+  timeout, a torn frame) are transient and redialed or replayed; anything
+  else (a server's ``__error__`` response, a refused request) is fatal to
+  a retry loop.
 """
 
 from __future__ import annotations
@@ -42,6 +47,10 @@ class Deadline:
             return None
         return max(0.0, self.budget_s - (time.monotonic() - self._t0))
 
+    def expired(self) -> bool:
+        rem = self.remaining()
+        return rem is not None and rem <= 0.0
+
     async def wait_for(self, aw):
         """``asyncio.wait_for`` bounded by what is left of this budget."""
         return await asyncio.wait_for(aw, self.remaining())
@@ -70,11 +79,15 @@ class VerbBudgets:
 
     default_s: float = 1800.0
     per_verb: dict = field(
-        default_factory=lambda: {"reset": 300.0, "__hello__": 60.0}
+        default_factory=lambda: {"reset": 300.0, "__hello__": 60.0, "status": 60.0,
+                                 "plane_reset": 600.0}
     )
 
+    def budget(self, verb: str) -> float:
+        return float(self.per_verb.get(verb, self.default_s))
+
     def deadline(self, verb: str) -> Deadline:
-        return Deadline(float(self.per_verb.get(verb, self.default_s)))
+        return Deadline(self.budget(verb))
 
 
 async def retry_async(fn, policy: RetryPolicy):
@@ -95,3 +108,8 @@ DIAL_POLICY = RetryPolicy(base_s=0.05, cap_s=2.0, factor=2.0, attempts=10)
 
 # one TCP connect attempt: a localhost/LAN dial not done in 5 s is dead
 DIAL_TIMEOUT_S = 5.0
+
+# the leader's per-span retry (``leader_rpc.RpcLeader._shard_call``): few
+# attempts, since each rides the client's own redial and replay, and a span
+# that fails three times is the supervised crawl's rollback to handle
+SHARD_POLICY = RetryPolicy(base_s=0.05, cap_s=1.0, factor=2.0, attempts=3)

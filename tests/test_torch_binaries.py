@@ -8,7 +8,10 @@ leader's heavy-hitter CSV and hitter lines must equal ``bin.mesh.run``'s
 for the same seed; the servers must report their run on SIGTERM and exit 0.
 Once more at ``crawl_radix_bits: 2`` with the leader in the test's process
 (``socket_run(warm_buckets=...)``, the card's phase 16), warming the
-buckets given."""
+buckets given.  And under the leader's default, the supervised crawl, with
+a checkpoint directory a server, server 1 SIGKILLed at its first
+checkpoint and started again (``socket_run(supervise=True, kill=True)``,
+the card's phase 18)."""
 
 import io
 import os
@@ -97,3 +100,34 @@ def test_socket_leader_in_process_warms_given_buckets(tmp_path, monkeypatch):
     with open(os.path.join(run["work"], "data", "ride_heavy_hitters.csv")) as f:
         assert f.read() == (tmp_path / "mesh.csv").read_text()
     assert [ex["levels"] for ex in run["exits"]] == [CFG["data_len"] // 2] * 2
+
+
+def test_socket_binaries_supervised_by_default_survive_a_kill(tmp_path, monkeypatch):
+    """``FHH_SUPERVISE`` unset: the leader checkpoints both servers (each
+    with its ``FHH_CKPT_DIR``) every 4 levels; server 1's process is
+    SIGKILLed at its first checkpoint and started again on its ports and
+    directory, restores, and the hitters are ``bin.mesh.run``'s."""
+    import chip_smoke as cs
+
+    cfg = tconfig.Config(**CFG)
+    monkeypatch.delenv("FHH_SUPERVISE", raising=False)
+    run = cs.socket_run("supervised", cfg, N_REQS, SEED, str(tmp_path),
+                        env={"OMP_NUM_THREADS": "1", **cs.SUPERVISED_ENV}, supervise=True,
+                        kill=True)
+    (tmp_path / "mesh").mkdir()
+    monkeypatch.chdir(tmp_path / "mesh")
+    res = mesh.run(cfg, N_REQS, device="cpu", seed=SEED, csv_path=str(tmp_path / "mesh.csv"),
+                   out=io.StringIO()).result
+    assert res.paths.shape[0] >= 1
+    assert {e["value"]: e["count"] for e in run["hitters"]} == {
+        str(row.tolist()): int(c) for row, c in zip(res.decode_ints(), res.counts)}
+    crawl = run["crawl"]
+    assert crawl["supervised"] and crawl["crawl_checkpoints"] == 3
+    assert crawl["recoveries"] >= 1 and crawl["levels_rerun"] >= 1
+    assert run["killed"]["rc"] == -9 and os.path.exists(run["killed"]["restored_blob"])
+    s0, s1 = run["exits"]  # s1: the process started again
+    assert s0["ckpt_writes"] == 3 and s0["add_keys"] == s1["add_keys"] == 2
+    assert s1["restores"] == 1 and s1["levels_done"] == CFG["data_len"] - 4
+    assert s0["boot_id"] != s1["boot_id"]
+    restored = [e for e in run["events"]["leader"] if e["event"] == "resilience.restored"]
+    assert [e["level"] for e in restored] == [3]

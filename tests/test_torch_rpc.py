@@ -332,7 +332,7 @@ def test_requests_of_unported_paths_are_refused():
         c.collection = "tenant-a"
         with pytest.raises(RuntimeError, match="hello refused.*NotImplementedError: __hello__ "
                            "for collection 'tenant-a': the multi-tenant collection layer"):
-            await c._connect()
+            await c._ensure_connected(0)
         await c.aclose()
         clients = [await trpc.CollectorClient.connect("127.0.0.1", p) for p in (p0, p1)]
         try:
@@ -376,27 +376,28 @@ def test_wire_refuses_tensors_and_binaries_refuse_unported_modes(monkeypatch):
     with pytest.raises(TypeError, match="torch.Tensor"):
         trpc._check_wire((1, {"shares": [np.zeros(2), torch.zeros(2)]}))
     trpc._check_wire(("default", {"keys": (np.zeros(2, np.uint32), b"x", 3)}))
-    for var in ("FHH_SUPERVISE", "FHH_WINDOWS", "FHH_WARMUP", "FHH_COLLECTION"):
+    for var in ("FHH_SUPERVISE", "FHH_WINDOWS", "FHH_WARMUP", "FHH_COLLECTION",
+                "FHH_CKPT_EVERY"):
         monkeypatch.delenv(var, raising=False)
-    # nothing set asks for the JAX leader's default, the supervised crawl
-    with pytest.raises(NotImplementedError, match="FHH_SUPERVISE=1: the supervised crawl "
-                       ".*unsupervised crawl \\(FHH_SUPERVISE=0\\)"):
-        tleader_bin.refuse_unported_env()
-    monkeypatch.setenv("FHH_SUPERVISE", "0")  # the JAX leader's own opt-out
+    # nothing set asks for the JAX leader's default, the supervised crawl: ported
     tleader_bin.refuse_unported_env()
-    for var, val in (("FHH_SUPERVISE", "1"), ("FHH_WINDOWS", "4"),
-                     ("FHH_COLLECTION", "tenant-a")):
+    for val in ("1", "0"):  # supervised, and the JAX leader's own opt-out
+        monkeypatch.setenv("FHH_SUPERVISE", val)
+        tleader_bin.refuse_unported_env()
+    for var, val in (("FHH_WINDOWS", "4"), ("FHH_COLLECTION", "tenant-a")):
         monkeypatch.setenv(var, val)
-        with pytest.raises(NotImplementedError, match=f"{var}={val}: .*unsupervised crawl"):
+        with pytest.raises(NotImplementedError, match=f"{var}={val}: .*one bulk upload"):
             tleader_bin.refuse_unported_env()
-        if var == "FHH_SUPERVISE":
-            monkeypatch.setenv(var, "0")
-        else:
-            monkeypatch.delenv(var)
+        monkeypatch.delenv(var)
     for val in ("0", "1"):  # the warmup is ported: either value runs
         monkeypatch.setenv("FHH_WARMUP", val)
         tleader_bin.refuse_unported_env()
     tserver_bin.refuse_unported_env()
+    # the server's checkpoint directory is ported
+    assert "FHH_CKPT_DIR" not in tserver_bin.UNPORTED_ENV
+    monkeypatch.setenv("FHH_CKPT_DIR", "ckpt")
+    tserver_bin.refuse_unported_env()
+    monkeypatch.delenv("FHH_CKPT_DIR")
     for var, path in tserver_bin.UNPORTED_ENV.items():
         monkeypatch.setenv(var, "x")
         with pytest.raises(NotImplementedError, match=f"{var}: {path} is not ported"):
