@@ -37,7 +37,7 @@ Phases (any failure raises, and the script exits non-zero):
    ``rides_secure_gc`` (``configs/config.json`` with ``secure_exchange`` and
    ``ot_path: "gc"``, S = 4, the garbled-circuit kernels, N = 262,144) and
    ``rides_secure`` (that config with ``ot_path: "auto"``, S = 4 on the
-   ot2s kernels, N = 65,536: the engine a user of the config gets).
+   ot2s kernels, N = 32,768: the engine a user of the config gets).
    Launches must be one per level of the path's two kernels and none of the
    other path's; every hitter count must equal the plaintext recount;
 7. after each secure crawl, its kernels held bit-exact against their plain
@@ -52,7 +52,7 @@ Phases (any failure raises, and the script exits non-zero):
    localhost ports (server 0 and the leader dial with retries),
    for ``rides_socket`` (``configs/config.json``, trusted, N = 262,144) and
    ``rides_secure_socket`` (the same config with ``secure_exchange``, ot2s at
-   S = 4, N = 65,536, whose in-process crawl ``rides_secure`` phase 6 runs
+   S = 4, N = 32,768, whose in-process crawl ``rides_secure`` phase 6 runs
    through ``bin.mesh.run``).  The leaders run with ``FHH_SUPERVISE=0`` and
    ``FHH_WARMUP=0`` (``SOCKET_ENV``).  Each hitter count must equal the plaintext
    recount, the hitters must equal ``bin.mesh.run``'s for the same config,
@@ -136,7 +136,37 @@ Phases (any failure raises, and the script exits non-zero):
     dedup hits at least 1, the leader's client to it at epoch 2 or more, a
     recovery, the sever fired, and in each process one ot2s launch per
     crawl verb between the verbs it finished and those it began (the
-    re-run levels included).
+    re-run levels included);
+20. ``secure_malicious_socket``: ``configs/secure.json`` as shipped (zipf
+    over 1,000 sites, data_len 32, n_dims 1, ball 4, threshold 0.01, f_max
+    256, ot2s at S = 2, ``malicious``) at N = 16,384, two ``bin.server``
+    processes supervised as phase 17, the leader ``RpcLeader.run_supervised``
+    in this process on the keys of ``bin.leader.client_keys``, 18 clients'
+    sketch keys forged (:func:`forge_clients`): the liveness the leader
+    returns must exclude exactly those 18, ``sketch.leaf_forgery`` must
+    count the 4 leaf forgers, every hitter count must equal the plaintext
+    recount over the clients alive before the leaf check; each server 32
+    ``sketch_verify`` verbs (level 0, levels 2-31, the leaf), one expand per
+    level, one ot2s encrypt per level it garbled and one decrypt per level
+    it evaluated, no GC, and the init checkpoint (level -1) with its
+    periodic ones.  Expand is then held against its plain version on the
+    widest checkpoint blob's frontier, restored through ``tree_restore``
+    with the sketch keys; the ot2s kernels at the config's widest FE62 level
+    and its F255 leaf, in process on the same ibDCF keys with ``malicious``
+    off (``secure_malicious_replay``, phases 6-7's route);
+21. ``zipf_malicious_socket``: the same config on the trusted exchange at
+    N = 100,000 (BASELINE.json:9's sketch batch), all three processes, the
+    leader ``bin.leader`` making its own sketch keys, supervised at its
+    default cadence (the init blob and level 15's): all clients alive in
+    both servers' ``server.exit`` and in ``crawl.done``, every hitter count
+    the plaintext recount, 32 ``sketch_verify`` verbs a server; then keygen
+    held at its K = 200,000 x L = 32 in both PRG bit modes.  Its
+    semi-honest twin (``zipf_semi_honest_socket``, ``malicious`` off,
+    supervised alike) must give the same hitters; the ratio of the two
+    leaders' rounds is the sketch's overhead.  Phases 20-21
+    report each server's ``sketch`` seconds and their share of the rounds,
+    the data-plane bytes, the leader's ``sketch_gen`` seconds, the sketch
+    bytes uploaded to each server and the servers' peak memory.
 
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
@@ -144,7 +174,8 @@ and power limit, every check with its times against its bound, crawl
 figures, the seconds each stage took, a ``{"kernels": [...]}`` line (each
 kernel's launches in the crawl that runs it, its time at that crawl's
 widest checked level; ``max_abs_err`` over every check of the kernel;
-expand's row also carries its restored-frontier check), and
+expand's row also carries its restored-frontier checks, keygen's its
+data_len-32 check, the ot2s rows their phase-20 checks), and
 as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX.
 """
@@ -199,8 +230,9 @@ COVID = dict(
 COVID_CLIENTS = 65536
 # the secure socket cell's cut is forced by the wire: at the last level (F =
 # 32, F255) the 1-of-16 table is 512 B a test, 4.3 GB a frame at 65,536
-# clients, 17 GB at 262,144, held three or four times over in host memory
-RIDES_SECURE_CLIENTS = 65536
+# clients, 17 GB at 262,144, held three or four times over in host memory;
+# 32,768 (with its in-process and node-span twins) makes room for phases 20-21
+RIDES_SECURE_CLIENTS = 32768
 SOCKET_START_S = 240  # seconds for a server to listen (torch import, CUDA init)
 SOCKET_LEADER_S = 420  # seconds for a leader's whole run
 KEYGEN_CHUNKS = ((4096 * 2, 512), (8191, 509))  # keys, levels
@@ -234,6 +266,16 @@ CKPT_EVERY = 4
 # took 51-74 s a stage
 RIDES_SEVER_CLIENTS = 16384
 PLAIN_COMPARE = 1 << 26  # elements per slice of a large kernel-vs-plain comparison
+# phase 20: configs/secure.json as shipped (ot2s at S = 2, malicious) over
+# sockets, its leader in this process forging keys; cut from the 100,000
+# clients of BASELINE.json:9's sketch batch for the script's time (the ot2s
+# wire moves 0.24-0.28 GB/s)
+MALICIOUS_CLIENTS = 16384
+# phase 21: the same config on the trusted exchange, at BASELINE.json:9's and
+# the config's sketch_batch_size, uncut
+SKETCH_CLIENTS = 100000
+FORGED_LEVELS = (0, 1, 2, 7, 15, 23)  # phase 20's cw_val forgeries, lanes 0 and 1
+SITE_BITS = 24  # a zipf point is its site's 24 bits and 8 random ones (AUG_LEN)
 
 # every kernel of the port: (module, launch counter, source, TPU kernel it replaces)
 KERNELS = {
@@ -599,12 +641,14 @@ def _chaos_proxy(spec, target_port):
 
 
 def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=False,
-               kill=False, ctl0_faults=None):
+               kill=False, ctl0_faults=None, leader_coro=None, keep_blobs=False):
     """Phase 9: ``bin.server --server_id 1``, ``--server_id 0`` and ``bin.leader
     --seed`` started together as OS processes (on the card unless
     ``cfg.backend`` is ``"cpu"``; server 0 and the leader dial with retries,
-    after start-ups at least as long as the servers'), in the working
-    directory ``tmp/name``; SIGTERM to the servers after the leader's exit.
+    after start-ups at least as long as the servers'; on the CPU, where the
+    start-ups contend for the cores, one after another: server 0 once
+    server 1 listens for its plane, the leader once both serve), in the
+    working directory ``tmp/name``; SIGTERM to the servers after the leader's exit.
     The leader runs with ``FHH_SUPERVISE=0`` (the unsupervised crawl) unless
     ``supervise``: then the variable is unset, the JAX leader's default,
     and each server gets a checkpoint directory of its own
@@ -618,7 +662,11 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
     ``warm_buckets`` the leader is ``bin.leader.run`` in this process once
     both servers serve, in the environment its process would have, its
     events written to its log as the process's are, and its warmup over
-    those buckets.  Every process must exit 0 without a
+    those buckets; with ``leader_coro`` the leader is the coroutine
+    ``leader_coro(config)`` there instead (its return value is the run's
+    ``leader_result``).  With ``keep_blobs`` every checkpoint blob a server
+    writes is hard-linked into ``blobs/`` as it appears (the servers keep
+    only their two newest).  Every process must exit 0 without a
     traceback inside its timeout, but the killed one, which must exit -9;
     all are killed in a ``finally``.  Returns the leader's and the servers'
     events and the working directory."""
@@ -688,11 +736,41 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
                 return
             time.sleep(0.01)
 
+    blobs = os.path.join(work, "blobs")
+
+    def keeper():
+        """Hard-link each new checkpoint blob into ``blobs``."""
+        os.makedirs(blobs)
+        while not done.is_set():
+            for sid in (0, 1):
+                names = os.listdir(ckpt[sid]) if os.path.isdir(ckpt[sid]) else []
+                for nm in names:
+                    dst = os.path.join(blobs, nm)
+                    if nm.endswith(".npz") and not os.path.exists(dst):
+                        with contextlib.suppress(FileNotFoundError):
+                            os.link(os.path.join(ckpt[sid], nm), dst)
+            time.sleep(0.01)
+
     rcs = {}
-    killer_th = None
+    killer_th = keeper_th = None
+    result = None
+    if warm_buckets is not None:
+        import torch
+
+        from fuzzyheavyhitters_torch.bin import leader
+
+        leader_coro = functools.partial(leader.run, nreqs=n, dev=torch.device(device),
+                                        seed=seed, warm_buckets=warm_buckets)
     try:
-        for sid in (1, 0):
-            spawn_server(sid)
+        spawn_server(1)
+        if device == "cpu":  # start-ups contend for the cores: a dial budget must
+            # not run out during a peer's start-up (server 0's to server 1's plane)
+            _wait_event(logs["server1"], "server.plane_listening", procs["server1"],
+                        SOCKET_START_S)
+        spawn_server(0)
+        if keep_blobs:
+            keeper_th = threading.Thread(target=keeper, daemon=True)
+            keeper_th.start()
         if ctl0_faults is not None:
             proxy, stop_proxy = _chaos_proxy(ctl0_faults, p0)
             leader_cfg = os.path.join(work, "leader.json")
@@ -703,13 +781,13 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
             killer_th = threading.Thread(target=killer, daemon=True)
             killer_th.start()
         t0 = time.perf_counter()
-        if warm_buckets is None:
+        if leader_coro is None:
+            if device == "cpu":  # and the leader's to server 0
+                for who in ("server0", "server1"):
+                    _wait_event(logs[who], "server.serving", procs[who], SOCKET_START_S)
             spawn("leader", "leader", "-n", str(n), "--seed", str(seed), config=leader_cfg)
             rcs["leader"] = procs["leader"].wait(timeout=SOCKET_LEADER_S)
         else:
-            import torch
-
-            from fuzzyheavyhitters_torch.bin import leader
             from fuzzyheavyhitters_torch.utils import config as configmod
 
             for who in ("server0", "server1"):
@@ -721,8 +799,8 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
             os.environ.update(env)
             try:
                 with open(logs["leader"], "w") as out, contextlib.redirect_stdout(out):
-                    asyncio.run(leader.run(configmod.load_config(leader_cfg), n,
-                                           torch.device(device), seed, warm_buckets))
+                    result = asyncio.run(asyncio.wait_for(
+                        leader_coro(configmod.load_config(leader_cfg)), SOCKET_LEADER_S))
             finally:
                 os.chdir(here)
                 os.environ.clear()
@@ -730,8 +808,9 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
             rcs["leader"] = 0
         wall = time.perf_counter() - t0
         done.set()
-        if killer_th is not None:
-            killer_th.join(60)
+        for th in (killer_th, keeper_th):
+            if th is not None:
+                th.join(60)
         for who in ("server0", "server1"):
             procs[who].send_signal(signal.SIGTERM)
             rcs[who] = procs[who].wait(timeout=60)
@@ -743,17 +822,19 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    # a process that failed is the first thing to report: a kill that never
+    # came is then its consequence
+    for who, path in logs.items():
+        with open(path) as f:
+            text = f.read()
+        if rcs.get(who) != 0 or "Traceback" in text:
+            raise AssertionError(f"{name}: {who} exited {rcs.get(who)}:\n{text[-3000:]}")
     if kill and killed.get("rc") != -signal.SIGKILL:
         raise AssertionError(f"{name}: server 1 was not killed at a checkpoint: {killed}")
     if "log" in killed:
         with open(killed["log"]) as f:
             if "Traceback" in f.read():
                 raise AssertionError(f"{name}: the killed server 1 printed a traceback")
-    for who, path in logs.items():
-        with open(path) as f:
-            text = f.read()
-        if rcs.get(who) != 0 or "Traceback" in text:
-            raise AssertionError(f"{name}: {who} exited {rcs.get(who)}:\n{text[-3000:]}")
     ev = {who: _events(path) for who, path in logs.items()}
     if "log" in killed:
         ev["server1_killed"] = _events(killed["log"])
@@ -763,7 +844,8 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
             "addkeys": one("leader", "addkeys.done"), "keygen": one("leader", "keygen"),
             "hitters": [e for e in ev["leader"] if e["event"] == "hitter"],
             "exits": [one(f"server{sid}", "server.exit") for sid in (0, 1)],
-            "events": ev, "killed": killed, "proxy_fired": proxy.fired if proxy else None}
+            "events": ev, "killed": killed, "proxy_fired": proxy.fired if proxy else None,
+            "leader_result": result, "blobs": blobs if keep_blobs else None}
 
 
 def _recount(name, got, cfg, points):
@@ -924,29 +1006,26 @@ def check_supervised_run(name, run, cfg, want_hitters, points, per_level=()):
     return fig
 
 
-def restored_expand_check(name, run, cfg, n, seed, ex, collect, prg, torch):
-    """Phase 18's check of the restored route into the expand kernel: the
-    blob server 1 restored, loaded in this process through
-    ``rpc.CollectorServer.tree_restore`` on the card over rides' keys made
-    again from the seed (its ``keys_fp`` must equal the blob's), then
-    expand held against its plain version on that frontier at the round
-    the crawl resumed with."""
+def restored_expand_check(name, blob, cfg, keys1, ex, collect, prg, torch, sketch1=None):
+    """Phases 18's and 20's check of the restored route into the expand
+    kernel: a blob of server 1, loaded in this process through
+    ``rpc.CollectorServer.tree_restore`` on the card over the keys made
+    again from the seed (``keys1``, its ``keys_fp`` must equal the blob's;
+    a sketch blob also needs the sketch keys ``sketch1``), then expand held
+    against its plain version on that frontier at the round after it."""
     import asyncio
 
-    from fuzzyheavyhitters_torch.bin import leader
     from fuzzyheavyhitters_torch.protocol import rpc
 
-    blob = run["killed"]["restored_blob"]
     with np.load(blob) as z:
         level, blob_fp = int(z["level"]), z["keys_fp"]
-    _, _, keys1, _ = leader.client_keys(cfg, n, torch.device("cuda"), seed)
-    ckdir = os.path.join(os.path.dirname(blob), "restored_check")
+    ckdir = os.path.join(os.path.dirname(blob), f"restored_check_l{level}")
     os.makedirs(ckdir)
     os.link(blob, os.path.join(ckdir, f"fhh_server1_l{level}.npz"))
     srv = rpc.CollectorServer(1, cfg, "cuda", ckpt_dir=ckdir)
 
     async def restore():
-        await srv.add_keys({"keys": tuple(keys1), "sketch": None})
+        await srv.add_keys({"keys": tuple(keys1), "sketch": sketch1})
         return await srv.tree_restore({"level": level})
 
     asyncio.run(restore())
@@ -971,9 +1050,230 @@ def restored_expand_check(name, run, cfg, n, seed, ex, collect, prg, torch):
         f"the blob's), level={nxt} F={F} N={N} d2={d2} want_children={not last}: kernel == "
         f"plain, max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
         f"({b_by})")
-    del srv, keys1
+    del srv
     torch.cuda.empty_cache()
     return check
+
+
+def forge_clients(cfg, ck):
+    """Phase 20's forgeries on copies of the leader's sketch keys (both
+    parties' copies altered alike, as ``tests/test_sketch.py`` does): 12
+    clients of the most popular site with ``cw_val[c, 0, j, lane]`` off by
+    one, one per (j, lane) for j in FORGED_LEVELS and lanes 0 and 1 (every
+    prefix of that site through depth 24 survives, so each is checked); 2
+    clients with an inconsistent ``mac_key2`` share (party 0's, + 1: check
+    2 fails at level 0); 4 clients with their leaf MAC lane
+    (``cw_val_last[c, 0, 1]``) forged, among the clients whose point is a
+    hitter leaf of the plaintext recount without the 14 others (their leaves
+    survive to the leaf check).  -> (sk0, sk1, {"inner", "mac2", "leaf"}:
+    client indices)."""
+    from fuzzyheavyhitters_torch.ops.fields import FE62
+
+    n, L = ck.points.shape[0], cfg.data_len
+    site = np.array(_ints(ck.points[:, 0, :SITE_BITS]), np.int64)
+    sites, counts = np.unique(site, return_counts=True)
+    top = sites[np.argmax(counts)]
+    inner = np.nonzero(site == top)[0][:2 * len(FORGED_LEVELS)]
+    mac2 = np.nonzero(site != top)[0][:2]
+    keep = np.ones(n, bool)
+    keep[inner] = keep[mac2] = False
+    point = np.array(_ints(ck.points[:, 0]), np.int64)
+    cand = np.unique(point[keep])
+    paths = ((cand[:, None] >> np.arange(L - 1, -1, -1)) & 1).astype(bool)[:, None, :]
+    hit = set(cand[plaintext_counts(ck.points[keep], cfg.ball_size, paths)
+                   >= max(1, int(cfg.threshold * n))].tolist())
+    leaf = np.array([c for c in np.nonzero(keep)[0] if point[c] in hit][:4])
+    if len(inner) < 12 or len(leaf) < 4:
+        raise AssertionError(f"phase 20 found {len(inner)} clients at the top site and "
+                             f"{len(leaf)} at hitter leaves")
+    sk = [list(ck.sketch0), list(ck.sketch1)]
+    for p in (0, 1):
+        for i in (4, 5, 7):  # cw_val, cw_val_last, mac_key2: copies of their own
+            sk[p][i] = sk[p][i].copy()
+        for k, c in enumerate(inner):
+            j, lane = FORGED_LEVELS[k // 2], k % 2
+            sk[p][4][c, 0, j, lane] = (int(sk[p][4][c, 0, j, lane]) + 1) % FE62.P
+        for c in leaf:
+            sk[p][5][c, 0, 1, 0] ^= 3
+    sk[0][7][mac2] = FE62.np_add(sk[0][7][mac2], np.uint64(1))
+    return sk[0], sk[1], {"inner": inner.tolist(), "mac2": mac2.tolist(),
+                          "leaf": leaf.tolist()}
+
+
+def _sketch_figures(name, run, crawl_s):
+    """The report of a malicious socket run, per server: the ``sketch``
+    seconds (the verbs) and the prunes' sketch advance seconds, each with
+    its share of the leader's rounds, the sketch verbs, the
+    data-plane bytes (the sketch swaps included), checkpoints, peak card
+    memory."""
+    out = []
+    for sid, ex in enumerate(run["exits"]):
+        sk_s = ex["seconds"]["sketch"]
+        out.append({"sketch_s": sk_s, "sketch_share_of_crawl": sk_s / crawl_s,
+                    "sketch_advance_s": ex["sketch_advance_s"],
+                    "sketch_advance_share_of_crawl": ex["sketch_advance_s"] / crawl_s,
+                    "sketch_verifies": ex["sketch_verifies"],
+                    "alive_clients": ex["alive_clients"], "levels": ex["levels"],
+                    "launches": ex["launches"], "data_bytes_sent": ex["data_bytes_sent"],
+                    "data_bytes_recv": ex["data_bytes_recv"],
+                    "data_frame_max": ex["data_frame_max"], "ckpt_writes": ex["ckpt_writes"],
+                    "ckpt_bytes": ex["ckpt_bytes"], "phase_s": ex["seconds"],
+                    "max_memory_allocated": ex["max_memory_allocated"]})
+        log(f"malicious {name} server{sid}: " + " ".join(
+            f"{k}={v}" for k, v in out[-1].items() if k != "phase_s")
+            + f" phase_s={ {k: round(v, 3) for k, v in ex['seconds'].items()} }")
+    return out
+
+
+def check_malicious_run(name, run, cfg, points, alive, per_level, ckpt_levels):
+    """Phases 20's and 21's checks of a supervised malicious socket run:
+    ``alive`` (bool[N]) is the liveness each server reports and the
+    leader's ``crawl.done`` counts; every hitter count is the plaintext
+    recount over the clients alive before the leaf check; each server ran
+    one ``sketch_verify`` a round but level 1's, and the leaf's (data_len
+    in all), one expand launch per crawl verb, with ``per_level`` (the ot2s
+    pair) one encrypt per level it garbled (level % 2 = its id) and one
+    decrypt per level it evaluated, no other kernel; and wrote its
+    checkpoints at ``ckpt_levels`` (-1 the init blob).  -> the figures."""
+    L = cfg.data_len
+    got = {e["value"]: e["count"] for e in run["hitters"]}
+    if not got:
+        raise AssertionError(f"{name}: no hitters")
+    _recount(name, got, cfg, points)
+    crawl = run["crawl"]
+    if not crawl["supervised"] or crawl["alive"] != int(alive.sum()):
+        raise AssertionError(f"{name}: crawl.done {crawl}")
+    for sid, ex in enumerate(run["exits"]):
+        want_l = {kn: 0 for kn in KERNELS}
+        want_l["expand"] = L
+        if per_level:
+            mine = sum(1 for lv in range(L) if lv % 2 == sid)
+            want_l.update({per_level[0]: mine, per_level[1]: L - mine})
+        ck = [e["level"] for e in run["events"][f"server{sid}"]
+              if e["event"] == "resilience.server_checkpoint"]
+        if (ex["launches"] != want_l or ex["levels"] != L or ex["sketch_verifies"] != L
+                or ex["alive_clients"] != int(alive.sum()) or ck != list(ckpt_levels)):
+            raise AssertionError(f"{name}: server {sid} launched {ex['launches']} (want "
+                                 f"{want_l}) over {ex['levels']} crawl verbs, "
+                                 f"{ex['sketch_verifies']} sketch verbs, "
+                                 f"{ex['alive_clients']} clients alive, checkpoints at {ck}")
+    return got
+
+
+def malicious_forged_run(name, cfg, n, seed, tmp, ex, collect, prg, torch):
+    """Phase 20: configs/secure.json over two ``bin.server`` processes,
+    supervised (a checkpoint every CKPT_EVERY levels, each server its own
+    directory), its leader ``RpcLeader.run_supervised`` in this process on
+    the keys ``bin.leader.client_keys`` makes, forged by
+    :func:`forge_clients`; then expand held against its plain version on
+    the widest checkpoint blob's frontier (restored through
+    ``tree_restore``).  -> the figures."""
+    from fuzzyheavyhitters_torch.bin import leader as leader_bin
+    from fuzzyheavyhitters_torch.bin.server import split_addr
+    from fuzzyheavyhitters_torch.protocol.leader_rpc import RpcLeader
+    from fuzzyheavyhitters_torch.protocol.rpc import CollectorClient
+
+    for kn in KERNELS:
+        setattr(*_counter(kn), 0)
+    ck = leader_bin.client_keys(cfg, n, torch.device("cuda"), seed)
+    keygen_launches = getattr(*_counter("keygen"))
+    sk0, sk1, forged = forge_clients(cfg, ck)
+    upload = sum(a.nbytes for a in sk0)
+
+    async def lead_forged(lcfg):
+        c0 = await CollectorClient.connect(*split_addr(lcfg.server0))
+        c1 = await CollectorClient.connect(*split_addr(lcfg.server1))
+        try:
+            lead = RpcLeader(lcfg, c0, c1, emit=leader_bin.emit)
+            t0 = time.perf_counter()
+            res = await lead.run_supervised(n, ck.keys0, ck.keys1, sk0, sk1,
+                                            checkpoint_every=CKPT_EVERY)
+            leader_bin.emit("crawl.done", seconds=time.perf_counter() - t0, supervised=True,
+                            levels=lcfg.data_len, hitters=int(res.paths.shape[0]),
+                            seconds_by_part=lead.seconds, alive=int(lead.alive.sum()),
+                            buckets=lead.buckets, **lead.counters)
+        finally:
+            await c0.aclose()
+            await c1.aclose()
+        for row, c in zip(res.decode_ints(), res.counts):
+            leader_bin.emit("hitter", value=str(row.tolist()), count=int(c))
+        return lead.alive
+
+    run = socket_run(name, cfg, n, seed, tmp, SUPERVISED_ENV, supervise=True,
+                     leader_coro=lead_forged, keep_blobs=True)
+    alive = run["leader_result"]
+    want = np.ones(n, bool)
+    out = forged["inner"] + forged["mac2"] + forged["leaf"]
+    want[out] = False
+    if not np.array_equal(alive, want):
+        raise AssertionError(f"{name}: excluded {np.nonzero(~alive)[0].tolist()}, want "
+                             f"{sorted(out)}")
+    leaf_ev = [e for e in run["events"]["leader"] if e["event"] == "sketch.leaf_forgery"]
+    if [e["new_exclusions"] for e in leaf_ev] != [len(forged["leaf"])]:
+        raise AssertionError(f"{name}: leaf forgery events {leaf_ev}")
+    before_leaf = want.copy()
+    before_leaf[forged["leaf"]] = True
+    L = cfg.data_len
+    ckpts = [-1] + [lv for lv in range(L - 1) if (lv + 1) % CKPT_EVERY == 0]
+    got = check_malicious_run(name, run, cfg, ck.points[before_leaf], want, OT2S, ckpts)
+    crawl_s = run["crawl"]["seconds_by_part"]["levels"]
+    fig = {"n": n, "hitters": len(got), "hitter_map": got, "forged": forged,
+           "crawl_s": crawl_s, "seconds_by_part": run["crawl"]["seconds_by_part"],
+           "keygen_s": ck.keygen_s, "sketch_gen_s": ck.sketch_s,
+           "sketch_upload_bytes_per_server": upload, "keygen_launches": keygen_launches,
+           "leaf_forgery": leaf_ev[0]["new_exclusions"], "buckets": run["crawl"]["buckets"],
+           "servers": _sketch_figures(name, run, crawl_s)}
+    fig["launches"] = {f"server{sid}": sv["launches"] for sid, sv in enumerate(fig["servers"])}
+    log(f"malicious {name}: N={n} excluded {sorted(out)} (= the 18 forged: "
+        f"{forged}), leaf_forgery new_exclusions={fig['leaf_forgery']}, hitters={len(got)} "
+        f"(each = the plaintext recount without the 14 caught before the leaf) crawl_s="
+        f"{crawl_s:.3f} by part={ {k: round(v, 3) for k, v in fig['seconds_by_part'].items()} }"
+        f" keygen_s={ck.keygen_s:.3f} sketch_gen_s={ck.sketch_s:.3f} "
+        f"sketch_upload_bytes_per_server={upload} buckets_max={max(fig['buckets'])}")
+    # expand on the widest frontier a checkpoint of server 1 banked
+    widest, wf = None, -1
+    for nm in sorted(os.listdir(run["blobs"])):
+        if nm.startswith("fhh_server1_l"):
+            with np.load(os.path.join(run["blobs"], nm)) as z:
+                if z["bit"].shape[2] > wf:
+                    widest, wf = os.path.join(run["blobs"], nm), z["bit"].shape[2]
+    fig["restored_check"] = restored_expand_check(name, widest, cfg, ck.keys1, ex, collect,
+                                                  prg, torch, sketch1=sk1)
+    del ck, sk0, sk1
+    return fig
+
+
+def malicious_batch_run(name, cfg, n, seed, tmp):
+    """Phase 21: the sketch at its batch size on the trusted exchange, all
+    three processes (``bin.leader`` making its own sketch keys), supervised
+    at the leader's default checkpoint cadence (16) with a directory a
+    server, so the init blob is written: every client stays alive, every
+    hitter count is the plaintext recount.  -> the figures."""
+    from fuzzyheavyhitters_torch.workloads import sample_points
+
+    run = socket_run(name, cfg, n, seed, tmp, SOCKET_ENV, supervise=True)
+    points = sample_points(cfg, n, np.random.default_rng(seed))
+    L = cfg.data_len
+    got = check_malicious_run(name, run, cfg, points, np.ones(n, bool), (),
+                              [-1] + [lv for lv in range(L - 1) if (lv + 1) % 16 == 0])
+    gen = next(e for e in run["events"]["leader"] if e["event"] == "sketch_gen")
+    crawl_s = run["crawl"]["seconds_by_part"]["levels"]
+    fig = {"n": n, "hitters": len(got), "hitter_map": got, "crawl_s": crawl_s,
+           "seconds_by_part": run["crawl"]["seconds_by_part"],
+           "keygen_s": run["keygen"]["seconds"], "sketch_gen_s": gen["seconds"],
+           "sketch_upload_bytes_per_server": gen["bytes_per_server"],
+           "buckets": run["crawl"]["buckets"], "leader_wall_s": run["wall_s"],
+           "servers": _sketch_figures(name, run, crawl_s)}
+    fig["launches"] = {f"server{sid}": sv["launches"] for sid, sv in enumerate(fig["servers"])}
+    log(f"malicious {name}: N={n} all alive, hitters={len(got)} (each = the plaintext "
+        f"recount) rounds_s={crawl_s:.3f} by part="
+        f"{ {k: round(v, 3) for k, v in fig['seconds_by_part'].items()} } keygen_s="
+        f"{fig['keygen_s']:.3f} sketch_gen_s={fig['sketch_gen_s']:.3f} "
+        f"sketch_upload_bytes_per_server={fig['sketch_upload_bytes_per_server']} "
+        f"sketch_share_of_rounds="
+        f"{[round(sv['sketch_share_of_crawl'], 4) for sv in fig['servers']]} "
+        f"buckets_max={max(fig['buckets'])}")
+    return fig, points
 
 
 def check_keygen_chunks(kg, torch, rng):
@@ -1225,9 +1525,10 @@ def measure_radix(name, run, cfg, tail, ex, collect, prg, torch):
     return checks
 
 
-def measure_keygen(name, points, cfg, kg, ibdcf, torch, rng):
+def measure_keygen(name, points, cfg, kg, ibdcf, torch, rng, both_modes=False):
     """Phase 5: keygen at a crawl's shape (all N clients x n_dims x 2 keys
-    x L levels in one call): kernel vs plain, bit-exact, timed."""
+    x L levels in one call): kernel vs plain, bit-exact, timed (with
+    ``both_modes``, also held in the other PRG bit mode)."""
     lo, hi = ibdcf.ball_bounds(points, cfg.ball_size)
     alpha = torch.from_numpy(np.stack([lo, hi], axis=-2).reshape(-1, cfg.data_len)).to("cuda")
     K, L = alpha.shape
@@ -1240,9 +1541,15 @@ def measure_keygen(name, points, cfg, kg, ibdcf, torch, rng):
     box = {}
     plain_ms = cuda_ms(lambda: box.update(w=kg.gen_cw_plain(seeds, alpha, side, derived)), 1)
     err = same(got, box["w"], f"keygen {name}")
+    if both_modes:
+        other = kg.gen_cw(seeds, alpha, side, not derived)
+        err = max(err, same(other, kg.gen_cw_plain(seeds, alpha, side, not derived),
+                            f"keygen {name} (derived_bits={not derived})"))
+        del other
     nbytes = K * 32 + K * L + K + K * L * (16 + 2 + 2)
     b_ms, b_by = bound(nbytes, K * L * 2 * CHACHA8_OPS)
-    log(f"keygen {name} K={K} L={L}: kernel == plain, max_abs_err={err} ms={ms:.4f} "
+    log(f"keygen {name} K={K} L={L}: kernel == plain"
+        f"{' in both PRG bit modes' if both_modes else ''}, max_abs_err={err} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
     return {"K": K, "L": L, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by}
@@ -1856,9 +2163,14 @@ def main() -> int:
         if rep["counters"]["recoveries"] < 1 or rep["counters"]["levels_rerun"] < 1:
             raise AssertionError(f"{name}: counters {rep['counters']} after a kill")
         stage(f"{name} socket run")
-        rep["restored_check"] = restored_expand_check(name, run, rides_cfg, RIDES_CLIENTS,
-                                                      args.seed, expand_cuda, collect, prg,
-                                                      torch)
+        from fuzzyheavyhitters_torch.bin import leader as leader_bin
+
+        keys1 = leader_bin.client_keys(rides_cfg, RIDES_CLIENTS, torch.device("cuda"),
+                                       args.seed).keys1
+        rep["restored_check"] = restored_expand_check(name, run["killed"]["restored_blob"],
+                                                      rides_cfg, keys1, expand_cuda, collect,
+                                                      prg, torch)
+        del keys1
         errs["expand"].append(rep["restored_check"]["max_abs_err"])
         report["sockets"][name] = rep
         stage(f"{name} restored check")
@@ -1873,12 +2185,11 @@ def main() -> int:
         at = chunks + 3 + 2 * CKPT_EVERY + 2
         run = socket_run(name, cfg, RIDES_SEVER_CLIENTS, args.seed, tmp, SUPERVISED_ENV,
                          supervise=True, kill=True, ctl0_faults=f"ctl0:sever@msg={at},dir=s2c")
-        from fuzzyheavyhitters_torch.bin import leader as leader_bin
         from fuzzyheavyhitters_torch.protocol import driver
 
         trusted = dataclasses.replace(cfg, secure_exchange=False)
-        pts, k0, k1, _ = leader_bin.client_keys(trusted, RIDES_SEVER_CLIENTS,
-                                                torch.device("cuda"), args.seed)
+        pts, k0, k1 = leader_bin.client_keys(trusted, RIDES_SEVER_CLIENTS,
+                                             torch.device("cuda"), args.seed)[:3]
         lead = driver.Leader(*driver.make_servers(
             *(ibdcf.keys_from_numpy(k, "cuda") for k in (k0, k1))), n_dims=cfg.n_dims,
             data_len=cfg.data_len, f_max=cfg.f_max)
@@ -1898,6 +2209,56 @@ def main() -> int:
             f"(trusted, same keys); data_bytes_sent={[sv['data_bytes_sent'] for sv in rep['servers']]}")
         report["sockets"][name] = rep
         stage(f"{name} socket run")
+        # phase 20: configs/secure.json, malicious, its leader in this process
+        # forging 18 clients' sketch keys
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs", "secure.json")) as f:
+            secure_cfg = configmod.Config(**json.load(f))
+        name = "secure_malicious_socket"
+        fig = malicious_forged_run(name, secure_cfg, MALICIOUS_CLIENTS, args.seed, tmp,
+                                   expand_cuda, collect, prg, torch)
+        errs["expand"].append(fig["restored_check"]["max_abs_err"])
+        report["sockets"][name] = fig
+        stage(f"{name} socket run")
+        # its ot2s kernels at its widest FE62 level and its F255 leaf: the
+        # same ibDCF keys (sketch keys do not touch them) in process, the
+        # malicious flag off
+        name = "secure_malicious_replay"
+        cfg = dataclasses.replace(secure_cfg, malicious=False)
+        run, launches[name], rfig = run_main_path(name, cfg, MALICIOUS_CLIENTS, args.seed,
+                                                  tmp, OT2S, mesh_run, 1)
+        rfig["secure_checks"] = measure_secure(name, run, cfg, OT2S, torch)
+        for c in rfig["secure_checks"]:
+            errs[c["kernel"]].append(c["max_abs_err"])
+        report["crawls"][name] = rfig
+        del run
+        torch.cuda.empty_cache()
+        stage(f"{name} secure checks")
+        # phase 21: the same config on the trusted exchange at the sketch batch
+        name = "zipf_malicious_socket"
+        cfg21 = dataclasses.replace(secure_cfg, secure_exchange=False)
+        fig, pts21 = malicious_batch_run(name, cfg21, SKETCH_CLIENTS, args.seed, tmp)
+        report["sockets"][name] = fig
+        stage(f"{name} socket run")
+        # its semi-honest twin (malicious off, supervised alike): the sketch's
+        # overhead, bench.py:1096 bench_sketch's malicious_overhead_vs_semi_honest
+        twin = "zipf_semi_honest_socket"
+        run = socket_run(twin, dataclasses.replace(cfg21, malicious=False), SKETCH_CLIENTS,
+                         args.seed, tmp, SOCKET_ENV, supervise=True)
+        rep = check_supervised_run(twin, run, cfg21, fig["hitter_map"], pts21)
+        fig["semi_honest_rounds_s"] = rep["seconds_by_part"]["levels"]
+        fig["malicious_overhead_vs_semi_honest"] = fig["crawl_s"] / fig["semi_honest_rounds_s"]
+        log(f"malicious {name}: rounds {fig['crawl_s']:.3f} s against {twin}'s "
+            f"{fig['semi_honest_rounds_s']:.3f} s (hitters equal): "
+            f"malicious_overhead_vs_semi_honest={fig['malicious_overhead_vs_semi_honest']:.3f}")
+        report["sockets"][twin] = rep
+        stage(f"{twin} socket run")
+        kg = measure_keygen(name, pts21, cfg21, keygen_cuda, ibdcf, torch, rng,
+                            both_modes=True)
+        fig["keygen_check"] = kg
+        errs["keygen"].append(kg["max_abs_err"])
+        del pts21
+        stage(f"{name} keygen check")
     for name in points:
         kg = measure_keygen(name, points[name], cells[name][0], keygen_cuda, ibdcf, torch, rng)
         report["crawls"][name]["keygen_check"] = kg
@@ -1944,10 +2305,19 @@ def main() -> int:
             rows[-1]["radix_launches"] = launches["config4_zipf_radix3"][kn]
             rows[-1]["restored_check"] = report["sockets"]["rides_socket_supervised_kill"][
                 "restored_check"]
+            rows[-1]["malicious_restored_check"] = report["sockets"][
+                "secure_malicious_socket"]["restored_check"]
+        if kn == "keygen":  # data_len 32, at phase 21's K
+            rows[-1]["malicious_keygen_check"] = report["sockets"]["zipf_malicious_socket"][
+                "keygen_check"]
+        if kn in OT2S:
+            rows[-1]["malicious_checks"] = [
+                c for c in report["crawls"]["secure_malicious_replay"]["secure_checks"]
+                if c["kernel"] == kn]
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
-    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, nine crawls, a resume "
-        "and ten socket runs)")
+    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, ten crawls, a resume "
+        "and thirteen socket runs)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -4,7 +4,8 @@
     python -m fuzzyheavyhitters_torch.bin.leader --config configs/config.json -n 1000
 
 Start both ``bin.server`` processes first.  Flow (leader.rs:300-440): keygen
-report, client sampling, keygen, connect, ``reset``, batched key upload,
+report, client sampling, keygen (in malicious mode the clients' sketch keys
+too, ``sketch_gen``), connect, ``reset``, batched key upload,
 the warmup (``FHH_WARMUP=0`` skips it, as in the JAX leader), the crawl in
 rounds of ``crawl_radix_bits`` levels (``crawl.done``), one ``hitter``
 line per heavy hitter and, for the rides workload, the heavy-hitter CSV
@@ -39,11 +40,14 @@ import argparse
 import asyncio
 import os
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops import ibdcf
+from ..ops.fields import F255, FE62
+from ..protocol import sketch
 from ..protocol.leader_rpc import RpcLeader
 from ..protocol.rpc import CollectorClient
 from ..utils import config as configmod
@@ -90,10 +94,24 @@ def keygen_report(cfg, rng, dev) -> None:
          seconds=round(dt, 3), sec_per_key=round(dt / n, 6))
 
 
-def client_keys(cfg, nreqs: int, dev, seed):
+class ClientKeys(NamedTuple):
+    """What :func:`client_keys` makes for ``N`` clients."""
+
+    points: np.ndarray  # bool[N, d, L]
+    keys0: ibdcf.IbDcfKeyBatch  # wire form (ibdcf.keys_to_numpy)
+    keys1: ibdcf.IbDcfKeyBatch
+    keygen_s: float
+    sketch0: list | None  # malicious mode: 16 wire leaves (sketch.sketch_to_numpy)
+    sketch1: list | None
+    sketch_s: float
+
+
+def client_keys(cfg, nreqs: int, dev, seed) -> ClientKeys:
     """Sampling and keygen from ``default_rng(seed)`` in ``bin.mesh``'s
-    order -> (points, keys0, keys1, keygen seconds), the keys in wire form
-    (``ibdcf.keys_to_numpy``)."""
+    order, the keys in wire form; with ``cfg.malicious`` the sketch keys
+    next, from the same generator as the JAX leader draws them: seeds
+    uint32[N, d, 2, 4], then the client seed uint32[4], into
+    ``sketch.gen`` over the points (JAX bin/leader.py:114-128)."""
     rng = np.random.default_rng(seed)
     pts = sample_points(cfg, nreqs, rng)
     t0 = time.perf_counter()
@@ -101,9 +119,19 @@ def client_keys(cfg, nreqs: int, dev, seed):
     keys0, keys1 = ibdcf.keys_to_numpy(k0), ibdcf.keys_to_numpy(k1)
     dt = time.perf_counter() - t0
     del k0, k1  # the servers hold the keys from here on: free the card
+    sk0 = sk1 = None
+    sk_s = 0.0
+    if cfg.malicious:
+        seeds = rng.integers(0, 2**32, size=(nreqs, cfg.n_dims, 2, 4), dtype=np.uint32)
+        cseed = rng.integers(0, 2**32, size=4, dtype=np.uint32)
+        t0 = time.perf_counter()
+        s0, s1 = sketch.gen(seeds, pts, FE62, F255, cseed, device=dev)
+        sk0, sk1 = sketch.sketch_to_numpy(s0), sketch.sketch_to_numpy(s1)
+        sk_s = time.perf_counter() - t0
+        del s0, s1
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return pts, keys0, keys1, dt
+    return ClientKeys(pts, keys0, keys1, dt, sk0, sk1, sk_s)
 
 
 async def run(cfg, nreqs: int, dev, seed, warm_buckets=None) -> None:
@@ -112,8 +140,13 @@ async def run(cfg, nreqs: int, dev, seed, warm_buckets=None) -> None:
     ``f_max``)."""
     keygen_report(cfg, np.random.default_rng(), dev)
     emit("sampling", distribution=cfg.distribution, n=nreqs, device=str(dev))
-    _, keys0, keys1, dt = client_keys(cfg, nreqs, dev, seed)
-    emit("keygen", seconds=dt, n_keys=nreqs)
+    ck = client_keys(cfg, nreqs, dev, seed)
+    keys0, keys1, sk0, sk1 = ck.keys0, ck.keys1, ck.sketch0, ck.sketch1
+    emit("keygen", seconds=ck.keygen_s, n_keys=nreqs)
+    if sk0 is not None:
+        emit("sketch_gen", seconds=ck.sketch_s, n_keys=nreqs,
+             bytes_per_server=sum(a.nbytes for a in sk0))
+    del ck
     warm = os.environ.get("FHH_WARMUP", "1") != "0"
     supervise = os.environ.get("FHH_SUPERVISE", "1") != "0"
     c0 = await CollectorClient.connect(*split_addr(cfg.server0))
@@ -123,13 +156,14 @@ async def run(cfg, nreqs: int, dev, seed, warm_buckets=None) -> None:
         t0 = time.perf_counter()
         if supervise:  # the keys stay for a restarted server's re-upload
             res = await lead.run_supervised(
-                nreqs, keys0, keys1, checkpoint_every=int(os.environ.get("FHH_CKPT_EVERY", "16")),
+                nreqs, keys0, keys1, sk0, sk1,
+                checkpoint_every=int(os.environ.get("FHH_CKPT_EVERY", "16")),
                 warmup=warm, warm_buckets=warm_buckets)
             extra = {"seconds_by_part": lead.seconds, **lead.counters}
         else:
             await asyncio.gather(c0.call("reset"), c1.call("reset"))
-            await lead.upload_keys(keys0, keys1)
-            del keys0, keys1
+            await lead.upload_keys(keys0, keys1, sk0, sk1)
+            del keys0, keys1, sk0, sk1
             emit("addkeys.done", seconds=time.perf_counter() - t0)
             if warm:
                 t0 = time.perf_counter()
@@ -144,6 +178,7 @@ async def run(cfg, nreqs: int, dev, seed, warm_buckets=None) -> None:
              levels=cfg.data_len, radix=cfg.crawl_radix_bits, rounds=len(lead.buckets),
              hitters=int(res.paths.shape[0]), secure=cfg.secure_exchange,
              buckets=lead.buckets, pipeline=lead.pipeline, epochs=[c0.epoch, c1.epoch],
+             alive=None if lead.alive is None else int(lead.alive.sum()),
              control_bytes={"server0": c0.stats, "server1": c1.stats}, **extra)
     finally:
         await c0.aclose()

@@ -20,7 +20,10 @@ radix, it crawls one bit per level whatever ``crawl_radix_bits`` says:
 fused rounds run in ``driver.Leader(radix=k)`` and the socket deployment,
 and its ``crawl.done`` line counts the levels it crawled.  The
 multi-process and multi-card options of the JAX binary are refused
-(``NotImplementedError``): that path is not ported yet.
+(``NotImplementedError``): that path is not ported yet.  Malicious mode is
+refused as the JAX binary refuses it: the mesh holds both parties in one
+trust domain, so the sketch would add no security; the socket binaries run
+it.
 """
 
 from __future__ import annotations
@@ -40,6 +43,13 @@ from ..protocol import driver
 from ..utils import config as configmod
 from ..utils import resolve_device
 from ..workloads import OUTPUT_CSV, rides, sample_points
+
+
+MALICIOUS_REFUSAL = (
+    "mesh binary: malicious mode refused — the mesh co-locates both "
+    "parties in one trust domain, so sketch verification adds no "
+    "security there; use the socket binaries (bin/server.py x2 + "
+    "bin/leader.py), which run the full sketch+MPC path.")
 
 
 @dataclass
@@ -62,6 +72,8 @@ def run(cfg: configmod.Config, n: int, device=None, seed: int | None = None,
     ``secure`` holds the OT sessions of a secure crawl).  ``session`` is the
     secure crawl's base-OT material (``driver.session_material``); None
     runs the base OT from system randomness."""
+    if cfg.malicious:
+        raise SystemExit(MALICIOUS_REFUSAL)
     out = sys.stdout if out is None else out
     dev = resolve_device(device)
 

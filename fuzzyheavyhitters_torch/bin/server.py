@@ -21,7 +21,10 @@ Events are JSON lines on standard output, each with its wall clock
 the seconds per phase, the bytes of each plane, the largest data-plane
 frame, the crawl verbs begun and finished, the ``add_keys`` chunks,
 replays answered from the dedup cache, plane resets, checkpoints written
-and restored, the launches of each kernel in this process and, on the
+and restored, the ``sketch_verify`` verbs and their seconds (phase
+``sketch``), the prunes' sketch advance seconds (``sketch_advance_s``), the
+clients still alive (``alive_clients``; null before a
+``tree_init``), the launches of each kernel in this process and, on the
 card, its peak ``torch.cuda.max_memory_allocated``.  The JAX binary's
 fleet registration and multi-card options are not ported: their
 variables are refused.
@@ -103,6 +106,8 @@ async def amain(cfg, server_id: int, device) -> None:
         await server.aclose()
         emit("server.exit", server=server_id, device=str(server.device),
              boot_id=server.boot_id, **server.stats, launches=launch_counts(),
+             alive_clients=(None if server.alive_keys is None
+                            else int(server.alive_keys.sum())),
              max_memory_allocated=(
                  torch.cuda.max_memory_allocated(server.device)
                  if server.device.type == "cuda" else 0))

@@ -1,18 +1,19 @@
-"""Prime fields of the secure exchange, as plain PyTorch (the port's copy).
+"""Prime fields, as plain PyTorch (the port's copy).
 
-The surface of ``fuzzyheavyhitters_tpu/ops/fields.py`` that the secure
-crawl uses, bit for bit:
+The surface of ``fuzzyheavyhitters_tpu/ops/fields.py``, bit for bit:
 
 - ``FE62``: p = 2^62 - 2^30 - 1 on ``int64`` tensors holding the JAX
   package's ``uint64`` bit patterns, with its lazy bit-reduction
   representation (ref: src/fastfield.rs:24-107);
 - ``F255``: p = 2^255 - 19 on ``int32[..., 8]`` little-endian limb tensors
-  (uint32 bit patterns), kept canonical (ref: src/field.rs:19).
+  (uint32 bit patterns), kept canonical (ref: src/field.rs:19);
+- ``U63``: p = 2^63 - 25 on ``int64`` (uint64 bit patterns), canonical,
+  and ``Dummy``, the no-op group (field.rs:25-126).
 
 Every right shift the JAX package applies to ``uint32``/``uint64`` is a
 logical shift; on int32/int64 PyTorch shifts arithmetically, so each one
 here is masked (``_shr``).  Adds and products wrap mod 2^64 exactly as the
-unsigned ones do.  Both classes take the device of their tensor inputs;
+unsigned ones do.  The classes take the device of their tensor inputs;
 ``from_int`` and ``zeros`` take a ``device``.  The ``np_*`` methods are
 their NumPy twins on the wire forms (FE62 ``uint64``, F255 ``uint32[..., 8]``)
 for the little host-side arithmetic of the socket deployment: the trusted
@@ -109,6 +110,24 @@ class FE62:
         r = cls._bit_reduce(r + (h0 << 30))
         r = cls._bit_reduce(r + (h1 << 30))
         return cls._bit_reduce(r + h1)
+
+    @classmethod
+    def pow_const(cls, a, e: int):
+        """a^e for a Python-int exponent (square-and-multiply, LSB first)."""
+        return _pow(cls, a, e)
+
+    @classmethod
+    def recip(cls, a):
+        """Inverse by Fermat, a^(p-2) (fastfield.rs:154); recip(0) = 0."""
+        return cls.pow_const(a, cls.P - 2)
+
+    @classmethod
+    def ge(cls, a, b):
+        return cls.canon(a) >= cls.canon(b)
+
+    @classmethod
+    def eq(cls, a, b):
+        return cls.canon(a) == cls.canon(b)
 
     @classmethod
     def to_blocks(cls, v):
@@ -277,8 +296,69 @@ class F255:
         return cls.add(a, cls.neg(b))
 
     @classmethod
+    def mul(cls, a, b):
+        """Schoolbook 8x8 limb product and the 2^256 === 38 fold, as the JAX
+        package computes it: each 64-bit partial product splits into lo/hi
+        column words (its high half by a logical shift: the product wraps
+        past 2^63 in int64), 16 product limbs, the fold, two re-folds of the
+        carry and two conditional subtractions of p (canonical out)."""
+        la, lb = cls._limbs(a), cls._limbs(b)
+        lo, hi = [0] * 17, [0] * 17
+        for i in range(8):
+            for j in range(8):
+                p = la[i] * lb[j]
+                lo[i + j] = lo[i + j] + (p & _M32)
+                hi[i + j + 1] = hi[i + j + 1] + _shr(p, 32)
+        limbs16, carry = [], 0
+        for k in range(16):
+            s = lo[k] + hi[k] + carry
+            limbs16.append(s & _M32)
+            carry = s >> 32
+        out, carry = [], 0
+        for k in range(8):  # product = L + 2^256 H === L + 38 H (mod p)
+            s = limbs16[k] + limbs16[k + 8] * 38 + carry
+            out.append(s & _M32)
+            carry = s >> 32
+        for _ in range(2):  # carry < 103: the second re-fold cannot carry
+            c2, limbs = carry * 38, []
+            for k in range(8):
+                s = out[k] + c2
+                limbs.append(s & _M32)
+                c2 = s >> 32
+            out, carry = limbs, c2
+        return cls._pack(cls._settle(cls._settle(out)))
+
+    @classmethod
+    def pow_const(cls, a, e: int):
+        """a^e for a Python-int exponent (square-and-multiply, LSB first)."""
+        return _pow(cls, a, e)
+
+    @classmethod
+    def recip(cls, a):
+        """Inverse by Fermat, a^(p-2); recip(0) = 0."""
+        return cls.pow_const(a, cls.P - 2)
+
+    @classmethod
     def canon(cls, a):
         return a
+
+    @classmethod
+    def ge(cls, a, b):
+        """a >= b on canonical values: limbwise, most significant first,
+        compared as unsigned words."""
+        la, lb = cls._limbs(a), cls._limbs(b)
+        ge = torch.ones_like(la[0], dtype=torch.bool)
+        decided = torch.zeros_like(ge)
+        for i in reversed(range(8)):
+            gt = ~decided & (la[i] > lb[i])
+            lt = ~decided & (la[i] < lb[i])
+            ge = torch.where(lt, False, torch.where(gt, True, ge))
+            decided = decided | gt | lt
+        return ge
+
+    @classmethod
+    def eq(cls, a, b):
+        return (a == b).all(dim=-1)
 
     @classmethod
     def sample(cls, words):
@@ -378,3 +458,135 @@ class F255:
         out = np.array([sum(int(r[i]) << (32 * i) for i in range(8)) for r in flat],
                        dtype=object)
         return out.reshape(limbs.shape[:-1])
+
+
+def _pow(field, a, e: int):
+    """Square-and-multiply over the bits of ``e``, least significant first
+    (the JAX package's ``_pow_scan``, whose selects here are branches on
+    the public exponent)."""
+    batch = a.shape[:a.dim() - len(field.limb_shape)]
+    one = field.from_int(1, a.device).expand(batch + field.limb_shape).clone()
+    if e == 0:
+        return one
+    result, base = one, a
+    for i in range(e.bit_length()):
+        if (e >> i) & 1:
+            result = field.mul(result, base)
+        base = field.mul(base, base)
+    return result
+
+
+_P63 = (1 << 63) - 25
+_M63 = (1 << 63) - 1
+
+
+class U63:
+    """p = 2^63 - 25 on int64 bit patterns of the JAX package's uint64
+    values, canonical: the reference's ``Group`` for u64 (field.rs:25-26,
+    128-188).  Values at or past 2^63 are negative int64s; every shift of
+    one is logical (``_shr``) and the only comparison runs after two folds,
+    below 2^63, where signed and unsigned order agree."""
+
+    P = _P63
+    limb_shape = ()
+
+    @staticmethod
+    def _reduce63(v):
+        # 2^63 === 25 (mod p)
+        return (v & _M63) + 25 * _shr(v, 63)
+
+    @classmethod
+    def canon(cls, v):
+        v = cls._reduce63(cls._reduce63(v))  # < 2^63 now
+        return torch.where(v >= cls.P, v - cls.P, v)
+
+    @classmethod
+    def zeros(cls, shape, device=None):
+        return torch.zeros(shape, dtype=torch.int64, device=device)
+
+    @classmethod
+    def from_int(cls, x: int, device=None):
+        return torch.tensor(x % cls.P, dtype=torch.int64, device=device)
+
+    @classmethod
+    def add(cls, a, b):
+        return cls.canon(a + b)  # wraps mod 2^64 like the uint64 add
+
+    @classmethod
+    def neg(cls, a):
+        return cls.canon(cls.P - a)
+
+    @classmethod
+    def sub(cls, a, b):
+        return cls.add(a, cls.neg(b))
+
+    @classmethod
+    def mul(cls, a, b):
+        """126-bit product via the 32-bit split, folded with 2^64 === 50."""
+        a, b = cls.canon(a), cls.canon(b)
+        a0, a1 = a & _M32, _shr(a, 32)
+        b0, b1 = b & _M32, _shr(b, 32)
+        t0 = a0 * b0
+        t1 = a0 * b1 + a1 * b0
+        t2 = a1 * b1
+        t1 = t1 + _shr(t0, 32)
+        t2 = t2 + _shr(t1, 32)
+        t_low = (t0 & _M32) | ((t1 & _M32) << 32)  # the product mod 2^64
+        t2l, t2h = t2 & _M32, _shr(t2, 32)
+        u = 50 * t2h
+        ul, uh = u & _M32, _shr(u, 32)
+        r = cls._reduce63(cls._reduce63(t_low))
+        r = cls.add(r, cls.canon(50 * t2l))
+        r = cls.add(r, cls.canon(ul << 32))
+        return cls.add(r, 50 * uh)
+
+    @classmethod
+    def eq(cls, a, b):
+        return cls.canon(a) == cls.canon(b)
+
+    @classmethod
+    def sample(cls, words):
+        """uniform int32[..., 4] -> near-uniform field elements."""
+        w = _u64(words)
+        lo = (w[..., 0] | (w[..., 1] << 32)) & _M63
+        hi = w[..., 2] | (w[..., 3] << 32)
+        return cls.add(cls._reduce63(lo),
+                       cls.mul(cls.canon(hi), cls.from_int(1 << 32, words.device)))
+
+    @classmethod
+    def sum(cls, v, *, dim):
+        v = cls.canon(v)
+        lo = (v & _M32).sum(dim=dim)
+        hi = _shr(v, 32).sum(dim=dim)
+        return cls.add(cls.canon(lo), cls.mul(cls.canon(hi), cls.from_int(1 << 32, v.device)))
+
+    @classmethod
+    def to_numpy_ints(cls, v) -> np.ndarray:
+        return cls.canon(v).cpu().numpy().astype(np.uint64)
+
+
+class Dummy:
+    """The reference's no-op group (field.rs:44-126): every op returns zero;
+    it stubs a field slot out of a generic protocol."""
+
+    P = 1
+    limb_shape = ()
+
+    zeros = staticmethod(lambda shape, device=None: torch.zeros(shape, dtype=torch.int32,
+                                                                device=device))
+    from_int = staticmethod(lambda x, device=None: torch.tensor(0, dtype=torch.int32,
+                                                                device=device))
+    canon = staticmethod(lambda v: torch.zeros_like(v))
+    add = staticmethod(lambda a, b: torch.zeros_like(a))
+    sub = staticmethod(lambda a, b: torch.zeros_like(a))
+    neg = staticmethod(lambda a: torch.zeros_like(a))
+    mul = staticmethod(lambda a, b: torch.zeros_like(a))
+    eq = staticmethod(lambda a, b: torch.ones(a.shape, dtype=torch.bool, device=a.device))
+    sample = staticmethod(lambda words: torch.zeros(words.shape[:-1], dtype=torch.int32,
+                                                    device=words.device))
+
+    @staticmethod
+    def sum(v, *, dim):
+        shape = list(v.shape)
+        del shape[dim]
+        return torch.zeros(shape, dtype=torch.int32, device=v.device)

@@ -49,6 +49,15 @@ bit-identically.  ``counters`` keeps ``recoveries``, ``levels_rerun``,
 ``shards_rerun``, ``crawl_checkpoints`` and ``pipeline_faults``; ``emit``
 receives ``resilience.recover`` and ``resilience.restored``.
 
+Malicious mode (the sketch keys ride the upload): each round but the one
+based at level 1 opens with ``sketch_verify`` on both servers, so a
+failing client's liveness flips before the round's counts are taken, and
+the crawl ends with the F255 leaf check, which emits
+``sketch.leaf_forgery`` with the clients it newly excludes; ``alive``
+keeps server 0's last liveness vector.  Supervised, it banks an init
+checkpoint (level -1) before any Beaver slab opens and refuses, before
+touching a server, to start a sketch crawl over from scratch.
+
 ``server_data_devices > 1`` (servers sharded over several cards) raises
 ``NotImplementedError``; streaming windows are not ported.
 """
@@ -96,6 +105,8 @@ class RpcLeader:
         # rounds (re-runs and recoveries included), recoveries alone
         self.seconds = {"upload": 0.0, "warmup": 0.0, "levels": 0.0, "recover": 0.0}
         self._boot_ids: dict = {}  # last known server boot ids
+        self.has_sketch = False  # the uploaded keys carry sketch keys (malicious mode)
+        self.alive = None  # server 0's client liveness after the latest sketch_verify
 
     @staticmethod
     async def _all(*coros):
@@ -116,26 +127,32 @@ class RpcLeader:
         return await self._all(self.c0.call(verb, req), self.c1.call(verb, req))
 
     async def upload_keys(self, keys0: ibdcf.IbDcfKeyBatch, keys1: ibdcf.IbDcfKeyBatch,
-                          which: int | None = None):
+                          sketch0=None, sketch1=None, which: int | None = None):
         """Upload both parties' keys in ``addkey_batch_size`` chunks, at most
         ``UPLOAD_WINDOW`` in flight, refilled as each completes.  Keys are
-        the wire form (``ibdcf.keys_to_numpy``).  ``which`` (0 or 1)
-        uploads to that server only: recovery re-seeding a restarted one."""
+        the wire form (``ibdcf.keys_to_numpy``); in malicious mode each
+        party's sketch keys (``sketch.sketch_to_numpy``, 16 leaves) ride the
+        same chunks.  ``which`` (0 or 1) uploads to that server only:
+        recovery re-seeding a restarted one."""
         n = keys0.cw_seed.shape[0]
         bs = max(1, self.cfg.addkey_batch_size)
+        if which is None:
+            self.has_sketch = sketch0 is not None
         sem = asyncio.Semaphore(UPLOAD_WINDOW)
-        targets = [(i, c, k) for i, c, k in ((0, self.c0, keys0), (1, self.c1, keys1))
+        targets = [(i, c, k, sk) for i, c, k, sk in ((0, self.c0, keys0, sketch0),
+                                                     (1, self.c1, keys1, sketch1))
                    if which in (None, i)]
 
-        async def send_one(client, keys, sl):
+        async def send_one(client, keys, sketch, sl):
             async with sem:  # the chunk is cut and pickled inside the window
-                await client.call("add_keys", {"keys": tuple(leaf[sl] for leaf in keys),
-                                               "sketch": None})
+                await client.call("add_keys", {
+                    "keys": tuple(leaf[sl] for leaf in keys),
+                    "sketch": None if sketch is None else [leaf[sl] for leaf in sketch]})
 
         # cancel on the first failure: an orphaned add_keys replay landing
         # after a recovery's reset would append a chunk twice
-        await self._all(*(send_one(c, k, slice(lo, min(lo + bs, n)))
-                          for lo in range(0, n, bs) for _, c, k in targets))
+        await self._all(*(send_one(c, k, sk, slice(lo, min(lo + bs, n)))
+                          for lo in range(0, n, bs) for _, c, k, sk in targets))
 
     async def warmup(self, f_buckets=None) -> dict:
         """Ask both servers to warm every bucket shape (``rpc.CollectorServer.
@@ -267,14 +284,42 @@ class RpcLeader:
                           error=f"{type(err).__name__}: {err}")
                 await asyncio.sleep(pol.delay(attempt - 1))
 
+    async def _sketch_gate(self, level: int):
+        """Malicious mode: ``sketch_verify`` on both servers before a
+        round's crawl, so failing clients' liveness flips before its counts
+        are taken — at level 0 the full depth-1 check, at every other round
+        base but 1 the depths the last prune stored (depth 1 is the level-0
+        check's).  -> the liveness vector, or None when nothing ran."""
+        if not self.has_sketch or level == 1:
+            return None
+        a0, _ = await self._both("sketch_verify", {"level": level})
+        self.alive = np.asarray(a0)
+        return self.alive
+
+    async def _leaf_check(self, alive_before_leaf) -> None:
+        """Malicious mode, after the crawl: the F255 leaf-payload check of
+        the surviving leaves; ``sketch.leaf_forgery`` counts the clients it
+        newly excludes (one caught earlier is no leaf forgery).  data_len 1
+        skips it: the level-0 check was the leaf check."""
+        if not self.has_sketch or self.cfg.data_len <= 1:
+            return
+        a0, _ = await self._both("sketch_verify", {"level": self.cfg.data_len})
+        a0 = np.asarray(a0)
+        prev = alive_before_leaf if alive_before_leaf is not None else np.ones_like(a0)
+        if np.any(prev & ~a0):
+            self.emit("sketch.leaf_forgery", new_exclusions=int(np.sum(prev & ~a0)))
+        self.alive = a0
+
     async def _run_one_level(self, level: int, nreqs: int, thresh: int):
-        """One crawl -> reconstruct -> threshold -> prune round over bit
-        levels ``[level, level + r)``; returns the surviving nodes' counts,
-        or None when the crawl died out."""
+        """One verify -> crawl -> reconstruct -> threshold -> prune round
+        over bit levels ``[level, level + r)``; returns (the surviving nodes'
+        counts, or None when the crawl died out; the liveness after this
+        round's sketch check, or None)."""
         cfg = self.cfg
         d, L = cfg.n_dims, cfg.data_len
         r = min(cfg.crawl_radix_bits, L - level)
         last = level + r == L
+        alive = await self._sketch_gate(level)
         s0, s1 = await self._crawl_level(level, last)
         if last:
             v = F255.np_sub(s0, s1)
@@ -292,7 +337,7 @@ class RpcLeader:
         keep[self.n_nodes:, :] = False
         parent, rank, n_alive = collect.compact_survivors(keep, cfg.f_max)
         if n_alive == 0:
-            return None
+            return None, alive
         pattern = order[rank]
         if not last:
             self.buckets.append(int(parent.shape[0]))  # the next round's span plan
@@ -307,7 +352,7 @@ class RpcLeader:
         self.paths = np.concatenate(
             [self.paths[parent[:n_alive]], pat_bits[:n_alive].transpose(0, 2, 1)], axis=-1)
         self.n_nodes = n_alive
-        return counts[parent[:n_alive], pattern[:n_alive]]
+        return counts[parent[:n_alive], pattern[:n_alive]], alive
 
     async def _start_tree(self) -> None:
         await self._both("tree_init", {"root_bucket": 1})
@@ -323,11 +368,15 @@ class RpcLeader:
         self.pipeline = {"depth": 0, "overlap_s": 0.0, "stalls": 0}
         thresh = max(1, int(cfg.threshold * nreqs))
         k = cfg.crawl_radix_bits
+        alive_before_leaf = None  # the liveness after the latest sketch check
         for level in range(0, L, k):
-            kept = await self._run_one_level(level, nreqs, thresh)
+            kept, alive = await self._run_one_level(level, nreqs, thresh)
+            if alive is not None:
+                alive_before_leaf = alive
             if kept is None:
                 return CrawlResult(paths=np.zeros((0, d, min(L, level + k)), bool),
                                    counts=np.zeros(0, np.uint32))
+        await self._leaf_check(alive_before_leaf)
         # the crawl-time counts only pruned: the result is reconstructed from
         # the re-served leaf shares, which must agree with them
         f0, f1 = await self._both("final_shares")
@@ -366,13 +415,21 @@ class RpcLeader:
             self._boot_ids[i] = st["boot_id"]
         return restarted
 
-    async def _recover(self, keys0, keys1, stash) -> int:
+    async def _recover(self, keys0, keys1, sketch0, sketch1, stash) -> int:
         """Bring both servers back to one state after a control-plane,
         data-plane or server loss; returns the next round's base level.
-        With a stash: re-key the plane, re-upload the keys of a restarted
-        server only (no reset: it would delete the very checkpoints), and
-        ``tree_restore`` both to the stash level.  Without one: reset,
-        upload, and start the tree again."""
+        With a stash: re-key the plane, re-upload the keys (and sketch keys)
+        of a restarted server only (no reset: it would delete the very
+        checkpoints), and ``tree_restore`` both to the stash level; the
+        sketch's init stash (level -1) resumes at level 0.  Without one:
+        reset, upload, and start the tree again — refused, before any
+        server is touched, for a sketch crawl: re-uploading the same Beaver
+        slabs under a fresh coin flip would leak ``<r - r', x>``."""
+        if stash is None and sketch0 is not None:
+            raise ValueError(
+                "sketch crawl cannot restart from scratch: re-opening the same Beaver slabs "
+                "under a fresh challenge root would leak <r - r', x> — configure FHH_CKPT_DIR "
+                "so recovery can roll back, or rerun with fresh sketch keys")
         t0 = time.perf_counter()
         restarted = await self._reprobe_and_reset()
         if stash is None:
@@ -384,7 +441,7 @@ class RpcLeader:
         level = stash["level"]
         t1 = time.perf_counter()
         for i in restarted:
-            await self.upload_keys(keys0, keys1, which=i)
+            await self.upload_keys(keys0, keys1, sketch0, sketch1, which=i)
         t2 = time.perf_counter()
         r0, r1 = await self._both("tree_restore", {"level": level})
         if int(r0["level"]) != level or int(r1["level"]) != level:
@@ -397,29 +454,40 @@ class RpcLeader:
         self.emit("resilience.restored", level=level, restarted_servers=restarted,
                   probe_s=t1 - t0, reupload_s=t2 - t1, restore_s=t3 - t2)
         # a checkpoint banks the state after the round based at ``level``
+        if level < 0:  # the sketch's init checkpoint
+            return 0
         return level + min(self.cfg.crawl_radix_bits, self.cfg.data_len - level)
 
     async def run_supervised(self, nreqs: int, keys0: ibdcf.IbDcfKeyBatch,
-                             keys1: ibdcf.IbDcfKeyBatch, *, checkpoint_every: int = 8,
-                             warmup: bool = False, warm_buckets=None) -> CrawlResult:
+                             keys1: ibdcf.IbDcfKeyBatch, sketch0=None, sketch1=None, *,
+                             checkpoint_every: int = 8, warmup: bool = False,
+                             warm_buckets=None) -> CrawlResult:
         """The fault-tolerant twin of :meth:`run`, owning the whole crawl
         (``reset``, upload, the optional warmup over ``warm_buckets``, the
         rounds, the final shares), since recovery needs the keys (the wire
-        form).  After each round ending on a multiple of
-        ``checkpoint_every`` levels both servers checkpoint; a server that
-        cannot (no checkpoint directory) turns checkpointing off, and a
-        recovery then starts over.  Any transport loss, restart or verb
-        failure rolls both back (:meth:`_recover`, at most
-        ``MAX_RECOVERIES`` times) and re-runs the lost rounds: the result is
-        bit-identical to a fault-free crawl's."""
+        form, and in malicious mode the sketch keys ``sketch0``/``sketch1``).
+        After each round ending on a multiple of ``checkpoint_every`` levels
+        both servers checkpoint; a server that cannot (no checkpoint
+        directory) turns checkpointing off, and a recovery then starts over.
+        Any transport loss, restart or verb failure rolls both back
+        (:meth:`_recover`, at most ``MAX_RECOVERIES`` times) and re-runs the
+        lost rounds: the result is bit-identical to a fault-free crawl's.
+        A sketch crawl banks an init checkpoint (level -1) after
+        ``tree_init``, before any Beaver slab opens, since it may never
+        start over: a re-run level then replays its ratcheted challenge."""
         cfg = self.cfg
         d, L, k = cfg.n_dims, cfg.data_len, cfg.crawl_radix_bits
+        if cfg.malicious and sketch0 is None:
+            # refused before any server is touched: uploading keys without
+            # their sketch keys would run a malicious collection semi-honest
+            raise ValueError("run_supervised in malicious mode needs the sketch key batches "
+                             "(pass sketch0/sketch1)")
         thresh = max(1, int(cfg.threshold * nreqs))
         self.counters = dict.fromkeys(COUNTERS, 0)
         self.pipeline = {"depth": 0, "overlap_s": 0.0, "stalls": 0}
         t0 = time.perf_counter()
         await self._both("reset")
-        await self.upload_keys(keys0, keys1)
+        await self.upload_keys(keys0, keys1, sketch0, sketch1)
         self.seconds["upload"] = time.perf_counter() - t0
         if warmup:
             t0 = time.perf_counter()
@@ -430,12 +498,23 @@ class RpcLeader:
         self._boot_ids = {0: self.c0.boot_id, 1: self.c1.boot_id}
         stash = None  # the leader's bookkeeping at the last checkpoint
         kept = np.zeros(0, np.uint32)
+        alive_before_leaf = None  # the liveness after the latest sketch check
         ckpt_enabled = True
+        if sketch0 is not None:
+            try:
+                await self._both("tree_checkpoint", {"level": -1})
+                stash = {"level": -1, "paths": self.paths.copy(), "n_nodes": 1,
+                         "counts": kept.copy(), "buckets": list(self.buckets), "alive": None}
+            except RuntimeError as e:  # no FHH_CKPT_DIR: a fault then ends the crawl
+                ckpt_enabled = False
+                self.emit("resilience.checkpoint_disabled", error=str(e))
         level = 0
         while level < L:
             r = min(k, L - level)
             try:
-                kept = await self._run_one_level(level, nreqs, thresh)
+                kept, alive = await self._run_one_level(level, nreqs, thresh)
+                if alive is not None:
+                    alive_before_leaf = alive
                 if kept is None:
                     self.seconds["levels"] = time.perf_counter() - t_levels
                     return CrawlResult(paths=np.zeros((0, d, level + r), bool),
@@ -445,7 +524,9 @@ class RpcLeader:
                         await self._both("tree_checkpoint", {"level": level})
                         stash = {"level": level, "paths": self.paths.copy(),
                                  "n_nodes": self.n_nodes, "counts": kept.copy(),
-                                 "buckets": list(self.buckets)}
+                                 "buckets": list(self.buckets),
+                                 "alive": None if alive_before_leaf is None
+                                 else alive_before_leaf.copy()}
                         self.counters["crawl_checkpoints"] += 1
                     except RuntimeError as e:  # no FHH_CKPT_DIR: supervise without
                         ckpt_enabled = False
@@ -461,13 +542,16 @@ class RpcLeader:
                     if attempt > MAX_RECOVERIES:
                         raise err
                     try:
-                        level = await self._recover(keys0, keys1, stash)
+                        level = await self._recover(keys0, keys1, sketch0, sketch1, stash)
                         break
                     except (ConnectionError, TimeoutError, RuntimeError) as e2:
                         err = e2  # the recovery failed: another round of it
                 kept = stash["counts"].copy() if stash is not None else np.zeros(0, np.uint32)
+                alive_before_leaf = (None if stash is None or stash["alive"] is None
+                                     else stash["alive"].copy())
                 self.counters["levels_rerun"] += 1
                 self.seconds["recover"] += time.perf_counter() - t_rec
+        await self._leaf_check(alive_before_leaf)
         self.seconds["levels"] = time.perf_counter() - t_levels
         # the final reconstruction, as in run() (final_shares is read-only:
         # the client's replay covers a transient loss here)

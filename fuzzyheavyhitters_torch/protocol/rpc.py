@@ -22,9 +22,9 @@ shares, bool bits, int32 indices), Python scalars, dicts, tuples and bytes —
 never a ``torch.Tensor`` (:func:`_send` refuses one) — so a JAX server can
 pair with a port server, and either package's leader can drive either pair.
 
-Per plane, once: a 16-byte coin flip (sent in trusted mode too, because a
-JAX peer sends it), then in secure mode the two base-OT sessions, one per
-garbling direction.  Per level, trusted: the packed share bits are swapped
+Per plane, once: a 16-byte coin flip (the XOR of both sides' halves is the
+plane's sketch seed; sent in every mode, because a JAX peer sends it), then
+in secure mode the two base-OT sessions, one per garbling direction.  Per level, trusted: the packed share bits are swapped
 in role order and both servers count; counts go to the leader masked by
 the shared stream of ``protocol/sessions.py``.  Per level, secure: the
 whole-level 2PC of ``protocol/secure.py`` with the garbler and ``ot_path``
@@ -47,6 +47,14 @@ bit levels ``[level, level + r)``, ``r = min(k, data_len - level)``
 (``collect.expand_share_bits_radix``; secure strings of S' = 2·d·r bits),
 answers 2^(d·r) count columns, and the prune takes fused patterns
 ``[F', r, d]`` (``[F', d]`` when r = 1, so k = 1 is byte-identical).
+
+Malicious mode (``protocol/sketch.py``): ``add_keys`` carries each chunk's
+sketch keys, ``tree_init`` commits the challenge ratchet's root (the
+plane's coin flip), every prune advances the frontier-following sketch
+states and absorbs its survivor table into the transcript digest, and
+``sketch_verify`` runs the sketch and Beaver checks over the data plane
+(two swaps a checked depth) and ANDs the verdicts into the client
+liveness that gates every count; checkpoints carry the sketch state.
 
 ``warmup`` runs, for each requested frontier bucket and each span size it
 implies, the expansions a crawl at that bucket runs (and the count, or the
@@ -89,13 +97,14 @@ import time
 import numpy as np
 import torch
 
-from ..ops import baseot, ibdcf, otext
+from ..ops import baseot, dpf, ibdcf, otext
 from ..ops.fields import F255, FE62
 from ..resilience import policy as respolicy
 from ..ops.ibdcf import EvalState
 from ..utils import resolve_device, tensor_from_numpy, words_from_numpy, words_to_numpy
 from ..utils.config import Config
-from . import collect, secure, sessions
+from . import collect, mpc, secure, sessions
+from . import sketch as sketchmod
 from .driver import PhaseClock
 from .sessions import DEFAULT_COLLECTION
 
@@ -167,7 +176,6 @@ def not_ported(what: str, path: str) -> NotImplementedError:
 
 # the JAX server's other verbs, each with the path it belongs to
 UNPORTED_VERBS = {
-    "sketch_verify": "the malicious sketch verification",
     "submit_keys": "streaming ingestion",
     "window_seal": "streaming ingestion",
     "window_load": "streaming ingestion",
@@ -229,8 +237,9 @@ def _load_npz(path: str) -> dict:
 
 # the run report's phases: host-clock spans of every level (the JAX server's
 # fss, gc_ot, field), then the secure exchange's steps, spans of the device
-# stream on the card (driver.PhaseClock)
-PHASES = ("fss", "gc_ot", "field", "otext", "b2a", "garble", "eval")
+# stream on the card (driver.PhaseClock), then the sketch_verify verbs' host
+# seconds (the JAX server's "sketch" span)
+PHASES = ("fss", "gc_ot", "field", "otext", "b2a", "garble", "eval", "sketch")
 
 
 class CollectorServer:
@@ -245,7 +254,7 @@ class CollectorServer:
 
     VERBS = ("reset", "add_keys", "tree_init", "tree_crawl", "tree_crawl_last",
              "tree_prune", "tree_prune_last", "final_shares", "warmup", "status",
-             "tree_checkpoint", "tree_restore", "plane_reset", "plane_break")
+             "tree_checkpoint", "tree_restore", "plane_reset", "plane_break", "sketch_verify")
 
     def __init__(self, server_id: int, cfg: Config, device=None, *, ckpt_dir=None,
                  emit=None):
@@ -263,13 +272,14 @@ class CollectorServer:
         # run report: seconds per phase, bytes per plane and the largest
         # data-plane frame, crawl verbs begun and finished, add_keys chunks,
         # replays answered from the cache, plane resets, checkpoints written
-        # (bytes, seconds) and restored (seconds)
+        # (bytes, seconds) and restored (seconds), sketch_verify verbs and
+        # the host seconds the prunes spent advancing the sketch states
         self.stats = {"seconds": dict.fromkeys(PHASES, 0.0),
                       "data_bytes_sent": 0, "data_bytes_recv": 0, "data_frame_max": 0,
                       "control_bytes_sent": 0, "control_bytes_recv": 0, "levels": 0,
                       "levels_done": 0, "add_keys": 0, "dedup_hits": 0, "plane_resets": 0,
                       "ckpt_writes": 0, "ckpt_bytes": 0, "ckpt_write_s": 0.0, "restores": 0,
-                      "restore_s": 0.0}
+                      "restore_s": 0.0, "sketch_verifies": 0, "sketch_advance_s": 0.0}
         # every verb but add_keys and plane_break runs under it
         self._verb_lock = asyncio.Lock()
         self._sessions: dict = {}  # leader session id -> _Session
@@ -281,6 +291,7 @@ class CollectorServer:
         self._ot_snd = self._ot_rcv = None  # extension sender (garbler) / receiver
         self._sec_seed = None  # per-level GC and b2a seeds
         self._crawl_ctr = 0
+        self._sketch_seed = None  # this data plane's coin flip: uint32[4]
         self._clear()
 
     def _clear(self) -> None:
@@ -291,6 +302,20 @@ class CollectorServer:
         self.children = None  # the child cache of this level's crawl
         self.last_shares = None  # surviving leaves' F255 shares
         self._clear_spans()
+        # the malicious sketch (JAX sessions.py:351-369): uploaded chunks, the
+        # key batch on the device, the frontier-following DPF states [F, N,
+        # d], the dedup table of each slot's per-dim prefix int32[F, d], the
+        # depth they stand at, the stored pair shares awaiting the next
+        # sketch_verify ([(pairs, depth, field)], one a fused bit level), the
+        # ratchet's committed root and its transcript digest
+        self._sketch_parts: list = []
+        self._sketch = None
+        self._sketch_states = None
+        self._sketch_pids = None
+        self._sketch_depth = 0
+        self._sketch_pairs = None
+        self._sketch_root = None
+        self._ratchet_digest = None
 
     def _clear_spans(self) -> None:
         self._shard_children: dict = {}  # span lo -> child cache of this level
@@ -316,12 +341,27 @@ class CollectorServer:
         return True
 
     async def add_keys(self, req) -> bool:
-        """Append one key chunk: the five leaves of a [B, d, 2] batch."""
-        if req.get("sketch") is not None:
-            raise not_ported("add_keys", "the malicious sketch material")
+        """Append one key chunk: the five leaves of a [B, d, 2] batch, and in
+        malicious mode the 16 leaves of the same clients' sketch keys
+        (``sketch``, :func:`sketch.sketch_leaves` order)."""
+        sk = req.get("sketch")
+        if sk is not None and len(sk) != 16:
+            raise ValueError(f"add_keys: a sketch chunk has 16 leaves, got {len(sk)}")
         self.stats["add_keys"] += 1
         self.keys_parts.append(tuple(np.asarray(a) for a in req["keys"]))
+        if sk is not None:
+            self._sketch_parts.append(tuple(np.asarray(a) for a in sk))
         return True
+
+    def _has_sketch(self) -> bool:
+        return bool(self._sketch_parts) or self._sketch is not None
+
+    def _concat_sketch(self) -> None:
+        """The uploaded sketch chunks as one key batch on the device."""
+        if self._sketch_parts:
+            leaves = [np.concatenate(p) for p in zip(*self._sketch_parts)]
+            self._sketch_parts = []
+            self._sketch = sketchmod.sketch_from_numpy(leaves, self.device)
 
     def _concat_keys(self, verb: str) -> None:
         """The uploaded chunks as one key batch on the device, checked
@@ -362,7 +402,155 @@ class CollectorServer:
         self.frontier = collect.tree_init(self.keys, int((req or {}).get("root_bucket", 1)))
         self.children = self.last_shares = None
         self._clear_spans()
+        if self._has_sketch():
+            self._concat_sketch()
+            root = dpf.eval_init(self._sketch.key)  # [N, d]
+            self._sketch_states = dpf.DpfEvalState(seed=root.seed[None], t=root.t[None])
+            self._sketch_pids = np.zeros((1, root.t.shape[1]), np.int32)
+            self._sketch_depth = 0
+            self._sketch_pairs = None
+            # commit the ratchet: the root is this plane's coin flip (the
+            # clients committed their keys before it), the transcript empty;
+            # both are checkpointed, so later plane resets and restarts
+            # cannot move any level's challenge
+            self._sketch_root = np.asarray(self._sketch_seed, np.uint32).copy()
+            self._ratchet_digest = sketchmod.transcript_init()
         return True
+
+    def challenge_seed(self, level: int) -> np.ndarray:
+        """This level's sketch challenge: the ratchet of the committed root,
+        the level and the transcript digest (the plane's raw coin flip only
+        before any ``tree_init`` committed a root)."""
+        if self._sketch_root is None:
+            return self._sketch_seed
+        return sketchmod.ratchet_seed(self._sketch_root, level, self._ratchet_digest)
+
+    def advance_sketch(self, level: int, parent: np.ndarray, pat: np.ndarray,
+                       n_alive: int) -> None:
+        """Advance the frontier-following sketch states with the prune's
+        survivor table (dim j's direction is pattern bit j), r steps for a
+        fused ``pat`` [F', r, d], storing each new depth's pair shares gated
+        by per-dim prefix dedup: two frontier slots that share a dim-j
+        prefix are one node of dim j's 1-D sketch tree and count once (the
+        first slot keeps it).  The dedup table comes from the public
+        survivor table, so both servers gate alike (JAX sessions.py:552-628)."""
+        L = self.keys.cw_seed.shape[-2]
+        k = self._sketch.key  # batch [N, d]
+        d = k.root_seed.shape[1]
+        r = pat.shape[1]
+        par = torch.from_numpy(np.asarray(parent, np.int64)).to(self.device)
+        st = dpf.DpfEvalState(seed=self._sketch_states.seed[par], t=self._sketch_states.t[par])
+        F2 = parent.shape[0]
+        parent_pid = self._sketch_pids[parent[:n_alive]]  # [n_alive, d]
+        pids = self._sketch_pids
+        entries = []
+        for t in range(r):
+            bl = level + t  # this step's absolute bit level
+            last = bl == L - 1
+            fld = F255 if last else FE62
+            direction = torch.from_numpy(np.ascontiguousarray(pat[:, t, :])).to(
+                self.device)[:, None, :]
+            cw = tuple(a[None] for a in dpf.level_cw(k, bl))  # [1, N, d, ...]
+            cwv = (k.cw_val[..., bl, :] if not last else k.cw_val_last)[None]
+            st, pair = dpf.eval_bit(cw, st, direction, cwv, k.key_idx[None], fld,
+                                    sketchmod.LANES)  # pair [F2, N, d, LANES(, limbs)]
+            # this depth's dedup key: the parent's prefix id and the step
+            # bits through step t
+            pids = np.zeros((F2, d), np.int32)
+            keep = np.zeros((F2, d), bool)
+            for j in range(d):
+                key_j = np.stack([parent_pid[:, j]] + [pat[:n_alive, u, j].astype(np.int32)
+                                                       for u in range(t + 1)], 1)
+                _, inv = np.unique(key_j, axis=0, return_inverse=True)
+                inv = inv.reshape(-1)
+                pids[:n_alive, j] = inv
+                _, first = np.unique(inv, return_index=True)
+                keep[first, j] = True
+            gate = torch.from_numpy(keep.reshape((F2, 1, d) + (1,) * (pair.dim() - 3))).to(
+                self.device)
+            entries.append((torch.where(gate, pair, 0), bl + 1, fld))
+        self._sketch_states = st
+        self._sketch_pids = pids  # the final depth's table seeds the next prune
+        self._sketch_depth = level + r
+        self._sketch_pairs = entries
+
+    def _advance_and_absorb(self, level: int, parent, pat, n_alive: int) -> None:
+        """A prune's sketch half: advance the states, then fold the survivor
+        table into the transcript digest."""
+        t0 = time.perf_counter()
+        self.advance_sketch(level, parent, pat, n_alive)
+        self._ratchet_digest = sketchmod.transcript_absorb(self._ratchet_digest, level, parent,
+                                                           pat, n_alive)
+        self.stats["sketch_advance_s"] += time.perf_counter() - t0
+
+    async def sketch_verify(self, req) -> np.ndarray:
+        """The malicious-security check (JAX rpc.py:541-696): sketch inner
+        products and Beaver verification over the data plane, per (client,
+        dim); a client fails if any dim fails, and its liveness flag flips
+        before the gated counts are taken.  ``level`` 0 verifies the full
+        depth-1 level (both children of every dim's root) and must come
+        before any prune; ``level`` >= 2 verifies each depth the last prune
+        stored, under its own ratcheted challenge and its own Beaver slab,
+        with two swaps a depth (the cor stack, then the out shares).  Level
+        1 is refused: the level-0 check consumed depth 1's triples, and a
+        second opening under another challenge would leak ``<r - r', x>``;
+        so is every level past 0 when data_len is 1.  -> a copy of the
+        client liveness vector, bool[N]."""
+        if self._sketch is None:
+            raise RuntimeError("sketch_verify without sketch keys")
+        await self._ensure_plane()
+        t0 = time.perf_counter()
+        level = int(req["level"])
+        k = self._sketch.key
+        L = k.data_len
+        n, d = k.root_seed.shape[0], k.root_seed.shape[1]
+        if level == 0:
+            if self._sketch_depth != 0:
+                raise RuntimeError("level-0 full check called after the tree advanced")
+            last = L == 1
+            fld = F255 if last else FE62
+            st = dpf.DpfEvalState(seed=self._sketch_states.seed[0], t=self._sketch_states.t[0])
+            cw = dpf.level_cw(k, 0)
+            cwv = k.cw_val[..., 0, :] if not last else k.cw_val_last
+            sides = [dpf.eval_bit(cw, st, torch.full((n, d), c, device=self.device), cwv,
+                                  k.key_idx, fld, sketchmod.LANES)[1] for c in (False, True)]
+            checks = [(torch.stack(sides), 0, fld, 0)]  # [2, N, d, LANES(, limbs)]
+        else:
+            if L == 1:
+                raise RuntimeError("data_len=1: the leaf check is the level-0 full check")
+            if level == 1:
+                raise RuntimeError("depth 1 is covered by the level-0 full check; "
+                                   "re-verifying it would re-open its Beaver triples")
+            if self._sketch_pairs is None or self._sketch_pairs[-1][1] != level:
+                raise RuntimeError(f"no stored sketch shares for depth {level}")
+            # one stored entry per fused bit level, depth 1 dropped (the
+            # level-0 check opened its slab)
+            checks = [(p, dep - 1, f, dep) for (p, dep, f) in self._sketch_pairs if dep >= 2]
+        sk = self._sketch
+        ok_all = None
+        for pairs, dpf_level, fld, depth in checks:
+            if fld is F255:
+                trip, mk, mk2 = sk.triples_last, sk.mac_key_last, sk.mac_key2_last
+            else:
+                trip, mk, mk2 = mpc.level_slab(sk.triples, dpf_level), sk.mac_key, sk.mac_key2
+            cor, state = sketchmod.cor_state(fld, pairs, trip, mk, mk2,
+                                             self.challenge_seed(depth), depth)
+            peer_cor = await self._swap(await asyncio.to_thread(sketchmod.wire, cor))
+            o = sketchmod.out_shares(fld, state, cor, peer_cor, bool(self.server_id))
+            del state, cor
+            peer_o = await self._swap(await asyncio.to_thread(sketchmod.wire, o))
+            ok = sketchmod.verdicts(fld, o, peer_o)
+            ok_all = ok if ok_all is None else ok_all & ok
+        if ok_all is not None:
+            self.alive_keys &= ok_all
+        if level != 0:
+            # each stored depth opens once; a re-run after a recovery reloads
+            # the pairs from the checkpoint and replays the same challenge
+            self._sketch_pairs = None
+        out = await asyncio.to_thread(lambda: self.alive_keys.cpu().numpy().copy())
+        self.stats["sketch_verifies"] += 1
+        self._phases(sketch=time.perf_counter() - t0)
+        return out
 
     async def tree_crawl(self, req) -> np.ndarray:
         """-> FE62 shares uint64[F, 2^d] of the per-child counts (rpc.rs:60)."""
@@ -408,6 +596,8 @@ class CollectorServer:
             children, torch.from_numpy(parent).to(dev), torch.from_numpy(pat).to(dev),
             n_alive, r)
         self.children = None
+        if self._sketch is not None:  # the sketch states follow the same survivors
+            self._advance_and_absorb(level, parent, pat, n_alive)
         return True
 
     async def tree_prune_last(self, req) -> bool:
@@ -434,6 +624,8 @@ class CollectorServer:
         shift = np.arange(r)[:, None] * d + np.arange(d)[None, :]
         child = (pat[:n_alive].astype(np.int64) << shift).sum(axis=(1, 2))
         self.last_shares = self.last_shares[parent[:n_alive], child]
+        if self._sketch is not None:  # once more, for the F255 leaf payloads
+            self._advance_and_absorb(base, parent, pat, n_alive)
         return True
 
     async def final_shares(self, _req) -> dict:
@@ -463,6 +655,9 @@ class CollectorServer:
                 self._warm_bucket(fb, L, ot_path)
                 shapes += 1
                 await asyncio.sleep(0)  # the control plane keeps answering
+        # a malicious session warms the same crawl shapes: the JAX server's
+        # _warm_sketch pre-compiles the sketch verify's XLA programs, and
+        # PyTorch compiles nothing, so there is nothing more to warm
         if self.device.type == "cuda":  # the peer process shares the card
             torch.cuda.empty_cache()
         return {"shapes": shapes, "ladder_hits": 0}
@@ -513,9 +708,11 @@ class CollectorServer:
         """Persist the crawl state after the round based at ``level``: the
         frontier (plane-major: ``planar`` True), node and client liveness,
         stamped with the key fingerprint, the level, the collection
-        (``sess``) and the crawl radix — the JAX server's blob, field for
-        field.  Keys are not in it: the leader re-uploads them to a
-        restarted server.  Written to a temporary file and renamed, so a
+        (``sess``) and the crawl radix, and in malicious mode the sketch
+        state (:meth:`_sketch_blob`) — the JAX server's blob, field for
+        field.  A sketch crawl banks one at level -1 too, after
+        ``tree_init``, before any Beaver slab opens.  Keys are not in it:
+        the leader re-uploads them to a restarted server.  Written to a temporary file and renamed, so a
         crash mid-write leaves the previous checkpoint whole; the two
         newest levels are kept."""
         if self.ckpt_dir is None:
@@ -533,6 +730,8 @@ class CollectorServer:
                 "keys_fp": self._keys_fp(), "level": np.int64(level),
                 "sess": np.str_(DEFAULT_COLLECTION),
                 "radix": np.int64(self.cfg.crawl_radix_bits)}
+        if self._sketch is not None:
+            blob.update(self._sketch_blob())
         path = self._ckpt_path(level)
         tmp = f"{path}.tmp{os.getpid()}"
 
@@ -553,6 +752,71 @@ class CollectorServer:
                   seconds=dt)
         return {"level": level}
 
+    def _sketch_blob(self) -> dict:
+        """The sketch's share of a checkpoint (JAX rpc.py:2092-2128): the
+        frontier-following DPF states, the stored pairs not yet opened (one
+        ``sk_pairs_{i}`` a fused depth, with their depths and fields), the
+        dedup table, the depth, the committed root and the transcript digest
+        — all a re-run needs to replay each level's challenge."""
+        st = self._sketch_states
+        blob = {"sk_state_seed": words_to_numpy(st.seed), "sk_state_t": st.t.cpu().numpy(),
+                "sk_pids": np.asarray(self._sketch_pids), "sk_depth": np.int64(self._sketch_depth),
+                "sk_root": np.asarray(self._sketch_root, np.uint32),
+                "sk_digest": np.frombuffer(self._ratchet_digest, np.uint8)}
+        if self._sketch_pairs is not None:
+            for i, (p, _, _) in enumerate(self._sketch_pairs):
+                blob[f"sk_pairs_{i}"] = sketchmod.wire(p)
+            blob["sk_pairs_depth"] = np.asarray([dep for _, dep, _ in self._sketch_pairs],
+                                                np.int64)
+            blob["sk_pairs_last"] = np.asarray([f is F255 for _, _, f in self._sketch_pairs],
+                                               bool)
+        return blob
+
+    def _check_sketch_blob(self, z: dict, path: str) -> None:
+        """Refuse a blob whose sketch presence differs from the session's,
+        or whose ``sk_*`` fields are torn, before any state changes (JAX
+        rpc.py:2265-2284; the per-depth ``sk_pairs_{i}`` are held to their
+        count as well)."""
+        has = self._has_sketch()
+        if has != ("sk_root" in z):
+            raise RuntimeError("tree_restore: sketch material mismatch — the checkpoint "
+                               + ("lacks" if has else "carries")
+                               + " sketch state relative to the uploaded keys")
+        if not has:
+            return
+        need = {"sk_state_seed", "sk_state_t", "sk_pids", "sk_depth", "sk_digest"}
+        if "sk_pairs" in z or "sk_pairs_0" in z:
+            need |= {"sk_pairs_depth", "sk_pairs_last"}
+        if "sk_pairs_0" in z and "sk_pairs_depth" in z:
+            need |= {f"sk_pairs_{i}" for i in range(np.atleast_1d(z["sk_pairs_depth"]).size)}
+        missing = need - set(z)
+        if missing:
+            raise RuntimeError(f"tree_restore: checkpoint at {path} is missing sketch fields "
+                               f"{sorted(missing)} (truncated write?)")
+
+    def _restore_sketch(self, z: dict) -> None:
+        """Load the sketch state of a checked blob: per-depth ``sk_pairs_{i}``
+        entries, or the older single ``sk_pairs``."""
+        self._concat_sketch()
+        dev = self.device
+        self._sketch_states = dpf.DpfEvalState(seed=words_from_numpy(z["sk_state_seed"], dev),
+                                               t=tensor_from_numpy(z["sk_state_t"], dev, bool))
+        self._sketch_pids = np.asarray(z["sk_pids"])
+        self._sketch_depth = int(z["sk_depth"])
+        self._sketch_root = np.asarray(z["sk_root"], np.uint32).copy()
+        self._ratchet_digest = np.asarray(z["sk_digest"], np.uint8).tobytes()
+        field = lambda last: F255 if bool(last) else FE62
+        if "sk_pairs_0" in z:
+            depths = np.atleast_1d(z["sk_pairs_depth"])
+            lasts = np.atleast_1d(z["sk_pairs_last"])
+            self._sketch_pairs = [(sketchmod.from_wire(z[f"sk_pairs_{i}"], dev), int(depths[i]),
+                                   field(lasts[i])) for i in range(len(depths))]
+        elif "sk_pairs" in z:
+            self._sketch_pairs = [(sketchmod.from_wire(z["sk_pairs"], dev),
+                                   int(z["sk_pairs_depth"]), field(z["sk_pairs_last"]))]
+        else:
+            self._sketch_pairs = None
+
     async def tree_restore(self, req) -> dict:
         """Reload the :meth:`tree_checkpoint` of the level the leader names
         and return it (the crawl goes on at the round after it).  Needs the
@@ -560,8 +824,9 @@ class CollectorServer:
         before any state changes — a missing, corrupt or truncated file,
         another collection's or crawl radix's stamp, missing fields, another
         key batch, a file renamed to another level, a level past the tree,
-        another client count — and a refusal leaves the live state as it
-        was.  A blob of the interleaved layout (``planar`` False, a JAX
+        another client count, sketch state where the session has none (or
+        none where it has), torn ``sk_*`` fields — and a refusal leaves the
+        live state as it was.  A blob of the interleaved layout (``planar`` False, a JAX
         server on the XLA engine) is carried to the plane-major one."""
         if self.ckpt_dir is None:
             raise RuntimeError("tree_restore: no checkpoint dir configured")
@@ -585,9 +850,8 @@ class CollectorServer:
                                f"crawl_radix_bits={saved_radix}; this session runs "
                                f"crawl_radix_bits={self.cfg.crawl_radix_bits} — its level grid "
                                "never visits the blob's frontier depth")
-        if "ing_only" in z or "sk_root" in z:
-            raise not_ported(f"tree_restore of {path}", "streaming ingestion" if "ing_only" in z
-                             else "the malicious sketch material")
+        if "ing_only" in z:
+            raise not_ported(f"tree_restore of {path}", "streaming ingestion")
         self._concat_keys("tree_restore")
         required = {"seed", "bit", "y_bit", "alive", "alive_keys", "level", "planar",
                     "keys_fp"}
@@ -608,6 +872,7 @@ class CollectorServer:
                                f"key batch's tree (data_len={L}) — wrong collection")
         if z["alive_keys"].shape[0] != n:
             raise RuntimeError("tree_restore: checkpoint client count != key batch")
+        self._check_sketch_blob(z, path)
         # -- every check passed: mutate
         dev = self.device
         as_bool = lambda a: tensor_from_numpy(a, dev, bool)
@@ -621,6 +886,8 @@ class CollectorServer:
         self.frontier = collect.Frontier(states=states, alive=as_bool(z["alive"]))
         self.children = self.last_shares = None
         self._clear_spans()
+        if self._has_sketch():
+            self._restore_sketch(z)
         dt = time.perf_counter() - t0
         self.stats["restores"] += 1
         self.stats["restore_s"] += dt
@@ -931,9 +1198,14 @@ class CollectorServer:
         data-plane verb on each side."""
         if self._plane_keyed:
             return
-        # the coin flip seeds the JAX server's sketch challenge; the port has
-        # no sketch yet, but a JAX peer sends and awaits this frame
-        await self._swap(secrets.token_bytes(16))
+        # the coin flip: the XOR of both sides' 16 bytes is this plane's
+        # sketch seed, uniform if either side is honest and never a public
+        # constant (a client that predicts the challenge forges a pass);
+        # sent in every mode, since a JAX peer sends and awaits it
+        mine = secrets.token_bytes(16)
+        theirs = await self._swap(mine)
+        self._sketch_seed = np.frombuffer(bytes(a ^ b for a, b in zip(mine, theirs)),
+                                          "<u4").copy()
         if self.cfg.secure_exchange:
             await self._setup_secure()
         self._plane_keyed = True

@@ -7,9 +7,8 @@ not use yet parse as before and are ignored.  ``secure_exchange: true``
 runs the GC/OT data plane, with ``ot_path`` ("auto", "ot2s" or "gc")
 choosing its equality engine.  ``crawl_radix_bits`` (1, 2 or 3) fuses that
 many bit levels per crawl round; where it is used, ``collect.check_radix``
-holds it against ``n_dims``.  ``malicious: true`` selects the sketch + MPC
-verification, which is not ported yet: it raises ``NotImplementedError``
-naming the missing path instead of silently running another crawl.
+holds it against ``n_dims``.  ``malicious: true`` runs the sketch + MPC
+verification (``protocol/sketch.py``) on the socket deployment.
 """
 
 from __future__ import annotations
@@ -58,11 +57,6 @@ class Config:
     def __post_init__(self):
         if self.ot_path not in ("auto", "ot2s", "gc"):
             raise ValueError(f"ot_path must be auto, ot2s or gc, got {self.ot_path!r}")
-        if self.malicious:
-            raise NotImplementedError(
-                "malicious: the sketch + MPC verification is not ported to "
-                "PyTorch yet"
-            )
 
 
 def load_config(path: str) -> Config:

@@ -11,7 +11,8 @@ Once more at ``crawl_radix_bits: 2`` with the leader in the test's process
 buckets given.  And under the leader's default, the supervised crawl, with
 a checkpoint directory a server, server 1 SIGKILLed at its first
 checkpoint and started again (``socket_run(supervise=True, kill=True)``,
-the card's phase 18)."""
+the card's phase 18), once more in malicious mode, where that first
+checkpoint is the init blob."""
 
 import io
 import os
@@ -65,10 +66,12 @@ def test_socket_binaries_match_mesh(tmp_path, monkeypatch, secure):
     assert got == {str(row.tolist()): int(c) for row, c in zip(res.decode_ints(), res.counts)}
 
     exits = run["exits"]
-    phases = {"fss", "gc_ot", "field", "otext", "b2a", "garble", "eval"}
+    phases = {"fss", "gc_ot", "field", "otext", "b2a", "garble", "eval", "sketch"}
     for sid, ex in enumerate(exits):
         assert ex["server"] == sid and ex["levels"] == CFG["data_len"]
         assert set(ex["seconds"]) == phases
+        assert ex["seconds"]["sketch"] == 0 and ex["sketch_verifies"] == 0  # not malicious
+        assert ex["alive_clients"] == N_REQS
         assert ex["data_bytes_sent"] > 0 and ex["data_bytes_recv"] > 0
         assert ex["control_bytes_recv"] > 0 and ex["control_bytes_sent"] > 0
         assert set(ex["launches"].values()) == {0}  # the CPU runs the plain versions
@@ -131,3 +134,42 @@ def test_socket_binaries_supervised_by_default_survive_a_kill(tmp_path, monkeypa
     assert s0["boot_id"] != s1["boot_id"]
     restored = [e for e in run["events"]["leader"] if e["event"] == "resilience.restored"]
     assert [e["level"] for e in restored] == [3]
+
+
+def test_socket_binaries_malicious_supervised_survive_a_kill(tmp_path, monkeypatch):
+    """``malicious: true`` over the three processes: the leader makes each
+    client's sketch keys after its ibDCF keys (``sketch_gen``), the servers
+    bank the init checkpoint (level -1) before any sketch check, server 1
+    is SIGKILLed at its first checkpoint and started again; every honest
+    client stays alive and the hitters are ``bin.mesh.run``'s on the same
+    config without ``malicious`` (which ``bin.mesh`` refuses).  The first
+    checkpoint is the init blob, so the kill lands before any round and the
+    leader rolls both servers back to level -1 and replays from level 0."""
+    import chip_smoke as cs
+
+    cfg = tconfig.Config(**CFG, malicious=True)
+    monkeypatch.delenv("FHH_SUPERVISE", raising=False)
+    run = cs.socket_run("malicious", cfg, N_REQS, SEED, str(tmp_path),
+                        env={"OMP_NUM_THREADS": "1", **cs.SUPERVISED_ENV}, supervise=True,
+                        kill=True)
+    (tmp_path / "mesh").mkdir()
+    monkeypatch.chdir(tmp_path / "mesh")
+    res = mesh.run(tconfig.Config(**CFG), N_REQS, device="cpu", seed=SEED,
+                   csv_path=str(tmp_path / "mesh.csv"), out=io.StringIO()).result
+    assert {e["value"]: e["count"] for e in run["hitters"]} == {
+        str(row.tolist()): int(c) for row, c in zip(res.decode_ints(), res.counts)}
+    crawl = run["crawl"]
+    assert crawl["supervised"] and crawl["alive"] == N_REQS and crawl["recoveries"] >= 1
+    gen = [e for e in run["events"]["leader"] if e["event"] == "sketch_gen"]
+    assert len(gen) == 1 and gen[0]["n_keys"] == N_REQS and gen[0]["bytes_per_server"] > 0
+    killed_ck = [e["level"] for e in run["events"]["server1_killed"]
+                 if e["event"] == "resilience.server_checkpoint"]
+    assert killed_ck[0] == -1  # the init blob, killed at
+    s0, s1 = run["exits"]
+    assert s0["alive_clients"] == s1["alive_clients"] == N_REQS
+    assert s1["restores"] == 1 and s0["sketch_verifies"] >= CFG["data_len"]
+    assert s0["seconds"]["sketch"] > 0 and s0["sketch_advance_s"] > 0
+    assert [e["level"] for e in run["events"]["leader"]
+            if e["event"] == "resilience.restored"] == [-1]
+    assert [e["level"] for e in run["events"]["server1"]
+            if e["event"] == "resilience.server_restore"] == [-1]

@@ -120,13 +120,23 @@ def test_mesh_binary_cpu_rides(tmp_path, capsys):
 
 @pytest.mark.parametrize("field,value", [
     ("secure_exchange", True), ("malicious", True), ("crawl_radix_bits", 2)])
-def test_config_refuses_later_slices(field, value):
+def test_config_refuses_later_slices(field, value, tmp_path):
+    """Every slice's field parses, malicious included; ``bin.mesh`` refuses a
+    malicious config as the JAX binary does, with its trust-domain
+    message (the socket deployment runs the sketch)."""
     raw = dict(WORKLOADS["zipf"], **{field: value})
-    if field != "malicious":  # ported; with the malicious sketch it still raises
-        assert getattr(tconfig.Config(**raw), field) == value
-        raw["malicious"] = True
-    with pytest.raises(NotImplementedError, match="not ported to PyTorch yet"):
-        tconfig.Config(**raw)
+    assert getattr(tconfig.Config(**raw), field) == value
+    raw["malicious"] = True
+    cfg = tconfig.Config(**raw)
+    assert cfg.malicious and getattr(cfg, field) == value
+    trust = "the mesh co-locates both parties in one trust domain"
+    with pytest.raises(SystemExit, match=trust):
+        tmesh.run(cfg, 10, device="cpu", seed=1, out=io.StringIO())
+    cfg_path = tmp_path / "m.json"
+    cfg_path.write_text(json.dumps(raw))
+    with pytest.raises(SystemExit, match=trust) as exc:
+        tmesh.main(["--config", str(cfg_path), "-n", "10", "--device", "cpu"])
+    assert "not ported" not in str(exc.value)
 
 
 def test_refusals_of_unported_paths(tmp_path, monkeypatch):

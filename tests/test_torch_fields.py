@@ -124,3 +124,118 @@ def test_f255_sum_matches_jax_tree(n):
     got = words_to_numpy(tf.F255.sum(words_from_numpy(v, "cpu"), dim=1))
     np.testing.assert_array_equal(got, want)
     assert tf.F255.to_numpy_ints(words_from_numpy(got, "cpu"))[0] == (n * (P255 - 1)) % P255
+
+
+# -- the sketch's field surface: F255.mul, pow_const, recip, ge, eq, U63, Dummy --
+
+
+def test_f255_mul_matches_jax():
+    """The 8x8 product at the edges (p - 1 squared, products that wrap the
+    int64 partials past 2^63) and on random values."""
+    rng = np.random.default_rng(7)
+    a, b = _f255_values(rng, 48), rng.permutation(_f255_values(rng, 48))
+    a[:2] = _limbs([P255 - 1, P255 - 1])
+    b[:2] = _limbs([P255 - 1, P255 - 2])
+    want = np.asarray(jf.F255.mul(a, b), np.uint32)
+    got = words_to_numpy(tf.F255.mul(words_from_numpy(a, "cpu"), words_from_numpy(b, "cpu")))
+    np.testing.assert_array_equal(got, want)
+    assert tf.F255.to_numpy_ints(words_from_numpy(got[:1], "cpu"))[0] == 1  # (-1)^2
+
+
+@pytest.mark.parametrize("field", ["FE62", "F255"])
+@pytest.mark.parametrize("e", [0, 1, 2, 5, 1000003, "p-2"])
+def test_pow_const_and_recip_match_jax(field, e):
+    rng = np.random.default_rng(8)
+    if field == "FE62":
+        a = _fe62_values(rng, 16)
+        to_t, to_n = _t62, _n62
+    else:
+        a = _f255_values(rng, 16)
+        to_t, to_n = (lambda x: words_from_numpy(x, "cpu")), words_to_numpy
+    jfield, tfield = getattr(jf, field), getattr(tf, field)
+    if e == "p-2":
+        want, got = jfield.recip(a), tfield.recip(to_t(a))
+    else:
+        want, got = jfield.pow_const(a, e), tfield.pow_const(to_t(a), e)
+    np.testing.assert_array_equal(to_n(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("field", ["FE62", "F255"])
+def test_ge_and_eq_match_jax(field):
+    rng = np.random.default_rng(9)
+    if field == "FE62":
+        a = _fe62_values(rng, 40)
+        b = np.concatenate([a[:10], rng.permutation(_fe62_values(rng, 40))[10:]])
+        b[10] = np.uint64((int(a[10]) % P62) + P62)  # the same residue, another word
+        to_t = _t62
+    else:
+        a = _f255_values(rng, 40)
+        b = np.concatenate([a[:10], rng.permutation(_f255_values(rng, 40))[10:]])
+        b[10] = a[10]
+        b[11, :7] = a[11, :7]  # differ in the top limb only
+        to_t = lambda x: words_from_numpy(x, "cpu")
+    jfield, tfield = getattr(jf, field), getattr(tf, field)
+    for op in ("ge", "eq"):
+        np.testing.assert_array_equal(getattr(tfield, op)(to_t(a), to_t(b)).numpy(),
+                                      np.asarray(getattr(jfield, op)(a, b)))
+        np.testing.assert_array_equal(getattr(tfield, op)(to_t(b), to_t(a)).numpy(),
+                                      np.asarray(getattr(jfield, op)(b, a)))
+
+
+P63 = (1 << 63) - 25
+
+
+def _u63_values(rng, n):
+    """Canonical values and raw words at and past 2^63 (sums and pre-fold
+    words reach there)."""
+    edges = [0, 1, 24, 25, P63 - 1, P63, P63 + 1, (1 << 63) - 1, 1 << 63, (1 << 63) + 24,
+             (1 << 63) + 25, (1 << 64) - 1, (1 << 64) - 26]
+    rand = rng.integers(0, 2**64 - 1, size=n - len(edges), dtype=np.uint64, endpoint=True)
+    return np.concatenate([np.array(edges, np.uint64), rand])
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "eq", "canon", "neg", "sample", "sum",
+                                "ints"])
+def test_u63_matches_jax(op):
+    rng = np.random.default_rng(10)
+    a, b = _u63_values(rng, 48), rng.permutation(_u63_values(rng, 48))
+    if op in ("add", "sub", "mul", "eq"):
+        want = np.asarray(getattr(jf.U63, op)(a, b))
+        got = getattr(tf.U63, op)(_t62(a), _t62(b)).numpy()
+    elif op in ("canon", "neg"):
+        want, got = np.asarray(getattr(jf.U63, op)(a)), getattr(tf.U63, op)(_t62(a)).numpy()
+    elif op == "sample":
+        words = rng.integers(0, 2**32, size=(48, 4), dtype=np.uint32)
+        words[:2] = [[0xFFFFFFFF] * 4, [0, 0x80000000, 0xFFFFFFFF, 0xFFFFFFFF]]
+        want = np.asarray(jf.U63.sample(words))
+        got = tf.U63.sample(words_from_numpy(words, "cpu")).numpy()
+    elif op == "sum":
+        v = a.reshape(6, 8)
+        want = np.asarray(jf.U63.sum(v, axis=1))
+        got = tf.U63.sum(_t62(v), dim=1).numpy()
+    else:
+        np.testing.assert_array_equal(tf.U63.to_numpy_ints(_t62(a)), jf.U63.to_numpy_ints(a))
+        assert int(tf.U63.from_int(-1)) == int(jf.U63.from_int(-1))
+        return
+    if got.dtype == np.int64:
+        got = got.view(np.uint64)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_dummy_matches_jax():
+    """Every op of the no-op group gives the JAX package's zeros (and eq's
+    ones) in its shapes."""
+    a = np.arange(12, dtype=np.uint32).reshape(3, 4)
+    ta = words_from_numpy(a, "cpu")
+    for op in ("add", "sub", "mul"):
+        np.testing.assert_array_equal(getattr(tf.Dummy, op)(ta, ta).numpy(),
+                                      np.asarray(getattr(jf.Dummy, op)(a, a)))
+    for op in ("canon", "neg"):
+        np.testing.assert_array_equal(getattr(tf.Dummy, op)(ta).numpy(),
+                                      np.asarray(getattr(jf.Dummy, op)(a)))
+    np.testing.assert_array_equal(tf.Dummy.eq(ta, ta).numpy(), np.asarray(jf.Dummy.eq(a, a)))
+    np.testing.assert_array_equal(tf.Dummy.sample(ta).numpy(), np.asarray(jf.Dummy.sample(a)))
+    np.testing.assert_array_equal(tf.Dummy.sum(ta, dim=1).numpy(),
+                                  np.asarray(jf.Dummy.sum(a, axis=1)))
+    assert tf.Dummy.zeros((2, 3)).shape == jf.Dummy.zeros((2, 3)).shape
+    assert int(tf.Dummy.from_int(5)) == int(jf.Dummy.from_int(5)) == 0

@@ -14,6 +14,14 @@ checkpoint directory, both ways (each package's blob layout restored into
 the other's).  Every drill's hitters, paths and counts equal the
 fault-free JAX pair's.
 
+The malicious sketch, supervised: a sever and a kill, under either
+leader, give the fault-free JAX pair's result and client liveness (the
+forger alone excluded); a fault before the first level checkpoint rolls
+back to the init checkpoint (level -1); a sketch crawl that would have to
+start over is refused before any server is touched; sketch blobs restore
+across packages both ways and in both ``sk_pairs`` layouts, and torn or
+mismatched ones are refused with the state untouched.
+
 Ports come from the OS (``chip_smoke.free_ports``); every drill runs under
 its own ``asyncio.wait_for``.  A killed server is the in-process stand-in
 for a process death: its transports and listeners close, its memory goes,
@@ -37,9 +45,14 @@ from fuzzyheavyhitters_torch.resilience.chaos import ChaosProxy, parse_faults
 from fuzzyheavyhitters_torch.utils import bits as tbits
 from fuzzyheavyhitters_torch.utils import config as tconfig
 
-(jrpc, jleader, jibdcf, jconfig) = torch_ref.reference(
+from fuzzyheavyhitters_torch.ops import fields as tfields
+from fuzzyheavyhitters_torch.protocol import sketch as tsketch
+
+(jrpc, jleader, jibdcf, jconfig, jsketch, jdpf, jmpc) = torch_ref.reference(
     "fuzzyheavyhitters_tpu.protocol.rpc", "fuzzyheavyhitters_tpu.protocol.leader_rpc",
-    "fuzzyheavyhitters_tpu.ops.ibdcf", "fuzzyheavyhitters_tpu.utils.config")
+    "fuzzyheavyhitters_tpu.ops.ibdcf", "fuzzyheavyhitters_tpu.utils.config",
+    "fuzzyheavyhitters_tpu.protocol.sketch", "fuzzyheavyhitters_tpu.ops.dpf",
+    "fuzzyheavyhitters_tpu.protocol.mpc")
 
 L, N = 5, 12
 DRILL_S = 240  # each drill's own limit: a wedged plane fails its test, not the suite
@@ -76,6 +89,39 @@ def _keys(seed=7, n=N):
 
 
 KEYS = _keys()
+FORGER = 2  # a client at 11 whose sketch payload is forged at level 2
+
+
+def _sketch_keys(seed=7):
+    """Both parties' sketch keys (wire leaves) for ``_keys(seed)``'s points,
+    client FORGER's level-2 payload off by one in both copies."""
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([np.full(N - 4, 11), rng.integers(0, 1 << L, size=4)])[:, None]
+    bits = np.array([[tbits.int_to_bits(L, int(v)) for v in row] for row in pts])
+    srng = np.random.default_rng(seed + 100)
+    seeds = srng.integers(0, 2**32, size=(N, 1, 2, 4), dtype=np.uint32)
+    cseed = srng.integers(0, 2**32, size=4, dtype=np.uint32)
+    sk = [tsketch.sketch_to_numpy(s) for s in tsketch.gen(
+        seeds, bits, tfields.FE62, tfields.F255, cseed, device="cpu")]
+    for leaves in sk:
+        leaves[4] = leaves[4].copy()
+        leaves[4][FORGER, 0, 2, 0] = (int(leaves[4][FORGER, 0, 2, 0]) + 1) % tfields.FE62.P
+    return sk
+
+
+SKETCH = _sketch_keys()
+
+
+def _jax_sketch(leaves):
+    return jsketch.SketchKeyBatch(jdpf.DpfKeyBatch(*leaves[:6]), *leaves[6:10],
+                                  jmpc.TripleBatch(*leaves[10:13]),
+                                  jmpc.TripleBatch(*leaves[13:16]))
+
+
+def _alive(server) -> list:
+    if isinstance(server, trpc.CollectorServer):
+        return server.alive_keys.cpu().numpy().tolist()
+    return np.asarray(server._default().alive_keys).tolist()
 
 
 def _result(res):
@@ -128,15 +174,16 @@ def _first_checkpoint(lead):
 
 async def _supervised(kinds, leader, tmp, *, mode="trusted", sever=None, restart_as=None,
                       kill_when=_first_checkpoint, ckpt=True, extra=None, budgets=None,
-                      checkpoint_every=2, keys=KEYS):
+                      checkpoint_every=2, keys=KEYS, sketch=None):
     """One supervised crawl: servers of ``kinds`` (server 0, server 1:
     "port" or "jax") with checkpoint directories under ``tmp`` (none
     without ``ckpt``), the ``leader`` of either package, the fault spec
     ``sever`` on a proxy of its control link to server 0, and with
     ``restart_as`` server 1 killed once ``kill_when(leader)`` (by default
     at the first checkpoint) and a server of that kind started on its ports
-    and directory.  Returns (result, leader, figures)."""
-    cfg_kw = _cfg_kw(**MODES[mode], **(extra or {}))
+    and directory.  With ``sketch`` (both parties' wire leaves) the crawl
+    is malicious.  Returns (result, leader, figures)."""
+    cfg_kw = _cfg_kw(**MODES[mode], **(extra or {}), **({"malicious": True} if sketch else {}))
     ports = chip_smoke.free_ports()
     dirs = (str(tmp / "s0"), str(tmp / "s1")) if ckpt else (None, None)
     for d in dirs:
@@ -154,7 +201,9 @@ async def _supervised(kinds, leader, tmp, *, mode="trusted", sever=None, restart
     clients = [await rpc.CollectorClient.connect("127.0.0.1", p, budgets=budgets)
                for p in (dial0, ports[1])]
     lead = lrpc.RpcLeader(cfgmod.Config(**cfg_kw), *clients)
-    fig = {"boots": [c.boot_id for c in clients]}
+    fig = {"boots": [c.boot_id for c in clients], "events": []}
+    if leader == "port":
+        lead.emit = lambda event, **kw: fig["events"].append((event, kw))
 
     async def assassin():
         while not kill_when(lead):
@@ -167,9 +216,12 @@ async def _supervised(kinds, leader, tmp, *, mode="trusted", sever=None, restart
     try:
         kill = asyncio.ensure_future(assassin()) if restart_as else None
         k0, k1 = (ibdcf.IbDcfKeyBatch(*k) for k in keys)
-        res = await lead.run_supervised(N, k0, k1, checkpoint_every=checkpoint_every)
+        sk = (() if sketch is None else sketch if leader == "port"
+              else tuple(_jax_sketch(x) for x in sketch))
+        res = await lead.run_supervised(N, k0, k1, *sk, checkpoint_every=checkpoint_every)
         if kill is not None:
             await asyncio.wait_for(kill, 30)
+        fig["alive"] = [_alive(live[k]) for k in ("s0", "s1")]
         fig["status"] = [await c.call("status") for c in clients]
         fig["epochs"] = [c.epoch for c in clients]
         fig["fired"] = px.fired if px is not None else []
@@ -194,15 +246,16 @@ def _drill(kinds, leader, tmp, **kw):
 _WANT = {}
 
 
-def _jax_fault_free(tmp, mode="trusted", extra=None):
+def _jax_fault_free(tmp, mode="trusted", extra=None, sketch=None):
     """The reference: the JAX pair under the JAX leader's supervised crawl,
-    no fault."""
-    key = (mode, tuple(sorted((extra or {}).items())))
+    no fault (with ``sketch``: the malicious crawl, and then its client
+    liveness too)."""
+    key = (mode, tuple(sorted((extra or {}).items())), sketch is not None)
     if key not in _WANT:
         res, _, fig = _drill(("jax", "jax"), "jax", tmp / f"ff_{len(_WANT)}", mode=mode,
-                             extra=extra)
+                             extra=extra, sketch=sketch)
         assert fig["levels"]["recoveries"] == 0
-        _WANT[key] = _result(res)
+        _WANT[key] = _result(res) + ((fig["alive"],) if sketch is not None else ())
         assert _WANT[key][0]  # the stacked clients clear the threshold
     return _WANT[key]
 
@@ -554,3 +607,215 @@ def test_cross_package_restore(tmp_path, before, after, leader):
     for level, kind in ((1, before), (3, after)):
         with np.load(tmp_path / "s1" / f"fhh_server1_l{level}.npz") as z:
             assert bool(z["planar"]) == (kind == "port")
+
+
+# -- the malicious sketch, supervised ---------------------------------------------
+
+
+def _want_alive():
+    want = [True] * N
+    want[FORGER] = False
+    return [want, want]
+
+
+@pytest.mark.parametrize("kinds,leader,mode", [
+    (("port", "port"), "port", "trusted"), (("port", "port"), "port", "secure"),
+    (("port", "port"), "jax", "trusted"), (("jax", "port"), "port", "trusted")],
+    ids=["port-pair-port-leader", "port-pair-port-leader-ot2s", "port-pair-jax-leader",
+         "jax0-port1-port-leader"])
+def test_malicious_sever_and_kill_bit_identical(tmp_path, kinds, leader, mode):
+    """The sketch crawl through a severed answer and a killed server 1: the
+    re-run levels replay their ratcheted challenges, so the liveness (the
+    forger alone out) and the hitters equal the fault-free JAX pair's."""
+    budgets = respolicy.VerbBudgets(default_s=60.0, per_verb={})
+    res, lead, fig = _drill(kinds, leader, tmp_path, mode=mode, sever=SEVER,
+                            restart_as=kinds[1], sketch=SKETCH, budgets=budgets)
+    want = _jax_fault_free(tmp_path, mode, sketch=SKETCH)
+    assert want[3] == _want_alive()
+    assert _result(res) + (fig["alive"],) == want
+    assert _counter(lead, "recoveries") >= 1 and fig["epochs"][0] >= 2
+    assert fig["fired"] == [("sever", "s2c", 9)]
+    if leader == "port":
+        assert lead.alive.tolist() == _want_alive()[0]
+
+
+def test_malicious_fault_before_level_2_restores_the_init_checkpoint(tmp_path):
+    """Server 1 killed after level 0's prune, before the first level
+    checkpoint: the leader rolls both back to the init blob (level -1,
+    banked before any Beaver slab opened) and replays from level 0."""
+    res, lead, fig = _drill(("port", "port"), "port", tmp_path, restart_as="port",
+                            kill_when=lambda lead: len(lead.buckets) >= 2, sketch=SKETCH)
+    assert _result(res) + (fig["alive"],) == _jax_fault_free(tmp_path, sketch=SKETCH)
+    restored = [kw for ev, kw in fig["events"] if ev == "resilience.restored"]
+    assert restored and restored[0]["level"] == -1 and restored[0]["restarted_servers"] == [1]
+    assert fig["servers"]["s1"].stats["restores"] == 1
+    assert fig["servers"]["s1"].stats["sketch_verifies"] >= 1
+
+
+def test_malicious_scratch_restart_refused_before_touching_servers(tmp_path):
+    """Without checkpoints a sketch crawl cannot roll back, and starting
+    over would re-open its Beaver slabs under a fresh coin flip: the
+    leader raises before it probes, re-keys or re-uploads anything."""
+    state = {}
+
+    async def flow():
+        ports = chip_smoke.free_ports()
+        cfg_kw = _cfg_kw(malicious=True)
+        live = await _start_pair(("port", "port"), cfg_kw, ports, (None, None))
+        clients = [await trpc.CollectorClient.connect("127.0.0.1", p) for p in ports]
+        lead = tleader.RpcLeader(tconfig.Config(**cfg_kw), *clients)
+        k0, k1 = (tibdcf.IbDcfKeyBatch(*k) for k in KEYS)
+        try:
+            with pytest.raises(ValueError, match="needs the sketch key batches"):
+                await lead.run_supervised(N, k0, k1)
+            assert live["s0"].stats["add_keys"] == 0  # refused before the upload
+
+            async def assassin():
+                while len(lead.buckets) < 2:
+                    await asyncio.sleep(0)
+                await _kill(live["s1"])
+
+            kill = asyncio.ensure_future(assassin())
+            with pytest.raises(ValueError, match="cannot restart from scratch"):
+                await lead.run_supervised(N, k0, k1, *SKETCH)
+            await kill
+            state.update(stats=dict(live["s0"].stats), counters=dict(lead.counters))
+        finally:
+            for c in clients:
+                await c.aclose()
+            await _kill(live["s0"])
+
+    asyncio.run(asyncio.wait_for(flow(), DRILL_S))
+    assert state["counters"]["recoveries"] == 1
+    assert state["stats"]["add_keys"] == 2 and state["stats"]["plane_resets"] == 0
+
+
+@pytest.mark.parametrize("before,after,leader", [("jax", "port", "jax"),
+                                                 ("port", "jax", "port")],
+                         ids=["jax-blob-to-port", "port-blob-to-jax"])
+def test_malicious_cross_package_restore(tmp_path, before, after, leader):
+    """A sketch crawl's server 1 killed and started again as the other
+    package's server on the same checkpoint directory: its sketch states,
+    stored pairs, dedup table, root and digest restore across packages, so
+    the replayed challenges match the peer's."""
+    res, lead, fig = _drill((before, before), leader, tmp_path, restart_as=after,
+                            sketch=SKETCH)
+    assert _result(res) + (fig["alive"],) == _jax_fault_free(tmp_path, sketch=SKETCH)
+    assert _counter(lead, "recoveries") >= 1
+    if after == "port":
+        assert fig["servers"]["s1"].stats["restores"] == 1
+    with np.load(tmp_path / "s1" / "fhh_server1_l3.npz") as z:  # the new server's blob
+        assert "sk_root" in z and int(z["sk_depth"]) == 4
+
+
+def _lone_sketch_server(tmp_path, kind, sketch=True):
+    """A lone server with the keys (and sketch keys) uploaded, its plane
+    counted as keyed under a fixed coin flip."""
+    cfg_kw = _cfg_kw(malicious=True)
+    if kind == "port":
+        s = trpc.CollectorServer(1, tconfig.Config(**cfg_kw), "cpu", ckpt_dir=str(tmp_path))
+        s._plane_keyed = True
+        s._sketch_seed = np.arange(4, dtype=np.uint32)
+    else:
+        s = jrpc.CollectorServer(1, jconfig.Config(**cfg_kw), ckpt_dir=str(tmp_path))
+    asyncio.run(s.add_keys({"keys": tuple(KEYS[1]), "sketch": SKETCH[1] if sketch else None}))
+    return s
+
+
+def _jax_sketch_state(s):
+    cs = s._default()
+    pairs = None if cs._sketch_pairs is None else [
+        (np.asarray(p), dep, f.__name__) for p, dep, f in cs._sketch_pairs]
+    return (np.asarray(cs._sketch_states.seed), np.asarray(cs._sketch_states.t),
+            np.asarray(cs._sketch_pids), cs._sketch_depth, np.asarray(cs._sketch_root),
+            cs._ratchet_digest, pairs)
+
+
+def _port_sketch_state(s):
+    pairs = None if s._sketch_pairs is None else [
+        (tsketch.wire(p), dep, f.__name__) for p, dep, f in s._sketch_pairs]
+    return (tsketch.wire(s._sketch_states.seed), s._sketch_states.t.numpy(),
+            np.asarray(s._sketch_pids), s._sketch_depth, np.asarray(s._sketch_root),
+            s._ratchet_digest, pairs)
+
+
+def _same_state(a, b):
+    for x, y in zip(a[:6], b[:6]):
+        if isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y)
+            assert x.dtype == np.asarray(y).dtype
+        else:
+            assert x == y
+    assert (a[6] is None) == (b[6] is None)
+    for (p, dp, fp), (q, dq, fq) in zip(a[6] or [], b[6] or []):
+        assert p.dtype == q.dtype and p.tobytes() == q.tobytes() and (dp, fp) == (dq, fq)
+
+
+@pytest.mark.parametrize("source", ["port", "jax"])
+@pytest.mark.parametrize("layout", ["per_depth", "single"])
+def test_sketch_blob_layouts_restore_in_both_packages(tmp_path, layout, source):
+    """Server 1's level-1 blob of a port pair's or a JAX pair's sketch crawl
+    (stored depth-2 pairs awaiting the next verify), as written
+    (``sk_pairs_{i}``) or rewritten to the older single ``sk_pairs`` form,
+    restores into a port and a JAX server to the same sketch state, field
+    for field and dtype for dtype."""
+    _drill((source, source), source, tmp_path / "run", sketch=SKETCH)
+    src = tmp_path / "run" / "s1" / "fhh_server1_l1.npz"
+    with np.load(src) as z:
+        blob = {k: z[k] for k in z.files}
+    assert blob["sk_pairs_depth"].tolist() == [2] and blob["sk_pairs_0"].dtype == np.uint64
+    if layout == "single":
+        blob["sk_pairs"] = blob.pop("sk_pairs_0")
+        blob["sk_pairs_depth"] = blob["sk_pairs_depth"][0]
+        blob["sk_pairs_last"] = blob["sk_pairs_last"][0]
+    states = {}
+    for kind in ("port", "jax"):
+        d = tmp_path / kind
+        d.mkdir()
+        with open(d / "fhh_server1_l1.npz", "wb") as f:
+            np.savez(f, **blob)
+        with torch_ref.installed():
+            s = _lone_sketch_server(d, kind)
+            assert asyncio.run(s.tree_restore({"level": 1})) == {"level": 1}
+            states[kind] = (_port_sketch_state if kind == "port" else _jax_sketch_state)(s)
+    _same_state(states["port"], states["jax"])
+    assert states["port"][3] == 2 and states["port"][6][0][1] == 2
+    np.testing.assert_array_equal(states["port"][0], blob["sk_state_seed"])
+
+
+@pytest.mark.parametrize("case", ["torn_digest", "torn_pairs", "blob_lacks_sketch",
+                                  "session_lacks_sketch"])
+def test_torn_or_mismatched_sketch_blob_refused_untouched(tmp_path, case):
+    """A sketch blob with a field torn off, or a sketch presence the session
+    does not share, is refused before any state changes."""
+    s = _lone_sketch_server(tmp_path, "port", sketch=case != "session_lacks_sketch")
+    asyncio.run(s.tree_init({}))
+    asyncio.run(s.tree_checkpoint({"level": -1}))
+    path = s._ckpt_path(-1)
+    with np.load(path) as z:
+        blob = {k: z[k] for k in z.files}
+    want = "missing sketch fields"
+    if case == "torn_digest":
+        del blob["sk_digest"]
+    elif case == "torn_pairs":
+        blob["sk_pairs_depth"] = np.asarray([2, 3], np.int64)
+        blob["sk_pairs_last"] = np.zeros(2, bool)
+        blob["sk_pairs_0"] = np.zeros((1, N, 1, 2), np.uint64)
+    elif case == "blob_lacks_sketch":
+        blob = {k: v for k, v in blob.items() if not k.startswith("sk_")}
+        want = "checkpoint lacks sketch state"
+    else:
+        (tmp_path / "x").mkdir()
+        s2 = _lone_sketch_server(tmp_path / "x", "port")
+        asyncio.run(s2.tree_init({}))
+        asyncio.run(s2.tree_checkpoint({"level": -1}))
+        with np.load(s2._ckpt_path(-1)) as z:
+            blob = {k: z[k] for k in z.files}
+        want = "checkpoint carries sketch state"
+    with open(path, "wb") as f:
+        np.savez(f, **blob)
+    before = (s.frontier, s.alive_keys, s._sketch_states, s._sketch_pairs, s._ratchet_digest)
+    with pytest.raises(RuntimeError, match=want):
+        asyncio.run(s.tree_restore({"level": -1}))
+    after = (s.frontier, s.alive_keys, s._sketch_states, s._sketch_pairs, s._ratchet_digest)
+    assert all(a is b for a, b in zip(after, before)) and s.stats["restores"] == 0

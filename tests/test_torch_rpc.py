@@ -37,6 +37,7 @@ from fuzzyheavyhitters_torch.protocol import driver as tdriver
 from fuzzyheavyhitters_torch.protocol import leader_rpc as tleader
 from fuzzyheavyhitters_torch.protocol import rpc as trpc
 from fuzzyheavyhitters_torch.protocol import sessions as tsessions
+from fuzzyheavyhitters_torch.protocol import sketch as tsketch
 from fuzzyheavyhitters_torch.utils import bits as tbits
 from fuzzyheavyhitters_torch.utils import config as tconfig
 
@@ -337,8 +338,21 @@ def test_requests_of_unported_paths_are_refused():
         clients = [await trpc.CollectorClient.connect("127.0.0.1", p) for p in (p0, p1)]
         try:
             k0, _ = _keys(1)
-            with pytest.raises(RuntimeError, match="add_keys: the malicious sketch"):
+            # a malicious chunk: the keys and the 16 leaves of the same
+            # clients' sketch keys are accepted; a torn sketch chunk is not
+            rng = np.random.default_rng(3)
+            sk0, _ = tsketch.gen(rng.integers(0, 2**32, size=(N, 1, 2, 4), dtype=np.uint32),
+                                 rng.integers(0, 2, size=(N, 1, L)).astype(bool),
+                                 tfields.FE62, tfields.F255,
+                                 rng.integers(0, 2**32, size=4, dtype=np.uint32), "cpu")
+            leaves = tsketch.sketch_to_numpy(sk0)
+            assert await clients[0].call("add_keys", {"keys": tuple(k0), "sketch": leaves})
+            got = servers[0]._sketch_parts
+            assert len(got) == 1 and all(a.tobytes() == b.tobytes()
+                                         for a, b in zip(got[0], leaves))
+            with pytest.raises(RuntimeError, match="a sketch chunk has 16 leaves, got 1"):
                 await clients[0].call("add_keys", {"keys": tuple(k0), "sketch": [k0.key_idx]})
+            assert await clients[0].call("reset") is True and not servers[0]._sketch_parts
             with pytest.raises(RuntimeError, match="tree_crawl before tree_init"):
                 await clients[0].call("tree_crawl", {"level": 0})
             k0, k1 = _keys(1)

@@ -142,7 +142,8 @@ def test_torn_level_raises(last):
             thresh = max(1, int(cfg.threshold * rpct.N))
             level = 0  # crawl on until a level of several spans (the last one)
             while lead.buckets[-1] < 2 or (last and level < L - 1):
-                assert await lead._run_one_level(level, rpct.N, thresh) is not None
+                kept, _ = await lead._run_one_level(level, rpct.N, thresh)
+                assert kept is not None
                 level += 1
             verb = "tree_crawl_last" if level == L - 1 else "tree_crawl"
             spans = tcollect.shard_spans(lead.buckets[-1], 1)
