@@ -167,6 +167,36 @@ Phases (any failure raises, and the script exits non-zero):
     report each server's ``sketch`` seconds and their share of the rounds,
     the data-plane bytes, the leader's ``sketch_gen`` seconds, the sketch
     bytes uploaded to each server and the servers' peak memory.
+22. ``config4_mesh``: ``config4_zipf``'s config, seed and N through
+    ``bin.mesh.run(..., devices=8)``: ``parallel.mesh.MeshRunner`` on a
+    2 x 4 mesh of logical shards on the card.  Its hitters must equal
+    ``config4_zipf``'s and the recount, expand must launch 2 x 4 times a
+    level and keygen once; expand is held against its plain version on
+    shard (0, 0)'s inputs at the widest level and at the last; its seconds
+    and peak memory beside ``config4_zipf``'s;
+23. ``rides_mesh_secure``: ``rides_secure``'s config, seed and N on the
+    same mesh (ot2s at S = 4): the hitters of ``rides_secure`` and the
+    recount, 4 launches of each ot2s kernel a level (the garbler row
+    encrypts, the evaluator row decrypts) and none of GC; the ot2s kernels
+    held on a shard's inputs at the widest FE62 level and the F255 leaf;
+24. ``rides_mesh_secure_gc``: phase 23 with ``secure.EQ_OT4 = False`` set
+    here: the delta garbled circuit through the GC kernels (zero payloads
+    at W = 4) and the b2a round; the same hitters, 4 garble and 4 eval
+    launches a level, no ot2s; both GC kernels held at the widest level;
+25. ``rides_mesh_2proc`` / ``rides_mesh_2proc_secure``: two OS processes of
+    ``bin.mesh --devices 8 --processes 2`` over a gloo group on localhost,
+    one mesh row each on the card, trusted at ``rides``' 262,144 clients
+    and secure at 16,384: both print the hitters of the one-process run
+    (``rides``, and the one-process mesh at 16,384) and the recount, each
+    reports its process-group bytes and its kernel launches (4 expand a
+    level; secure, 4 encrypts a level it garbled, 4 decrypts a level it
+    evaluated);
+26. ``rides_mesh_supervised``: ``MeshLeader.run_supervised`` at rides'
+    262,144 on the in-process mesh, a snapshot every 4 levels, under
+    ``MeshChaos`` (a 200 ms delay at level 1, a dropped shard at 5, a
+    killed participant at 9): ``rides``' hitters, recoveries 2,
+    ``shards_rerun`` 1, ``levels_rerun`` 1, 8 expand launches a level run;
+    the snapshot bytes and the restore's seconds.
 
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
@@ -276,6 +306,13 @@ MALICIOUS_CLIENTS = 16384
 SKETCH_CLIENTS = 100000
 FORGED_LEVELS = (0, 1, 2, 7, 15, 23)  # phase 20's cw_val forgeries, lanes 0 and 1
 SITE_BITS = 24  # a zipf point is its site's 24 bits and 8 random ones (AUG_LEN)
+
+# phases 22-26: the device mesh, 2 x 4 logical shards on the one card
+MESH_DEVICES = 8
+MESH_SHARDS = MESH_DEVICES // 2  # shards a row: kernel launches a level per row
+MESH_2PROC_SECURE_CLIENTS = 16384  # phase 25's secure cut (its table crosses gloo)
+MESH_CKPT_EVERY = 4
+MESH_FAULTS = "mesh:delay@level=1,ms=200;mesh:drop@level=5;mesh:kill@level=9"
 
 # every kernel of the port: (module, launch counter, source, TPU kernel it replaces)
 KERNELS = {
@@ -1885,6 +1922,364 @@ def chunk_checks(torch, seed):
     return checks
 
 
+def _hitter_map(res):
+    return {str(row.tolist()): int(c) for row, c in zip(res.decode_ints(), res.counts)}
+
+
+def _mesh_widths(lead):
+    """The frontier bucket at each level of a MeshLeader's last crawl."""
+    from fuzzyheavyhitters_torch.protocol import collect
+
+    r = lead.r
+    return [r.min_bucket] + [collect.bucket_for(lead.survivors[lv], r.f_max, r.min_bucket)
+                             for lv in range(r.data_len - 1)]
+
+
+def mesh_cell_run(name, cfg, n, seed, tmp):
+    """``bin.mesh.run`` on the card's 2 x 4 mesh of logical shards."""
+    from fuzzyheavyhitters_torch.bin import mesh
+
+    with open(os.path.join(tmp, f"{name}_events.jsonl"), "w") as out:
+        return mesh.run(cfg, n, device="cuda", seed=seed, devices=MESH_DEVICES,
+                        csv_path=os.path.join(tmp, f"{name}_hitters.csv"), out=out)
+
+
+def mesh_main_path(name, cfg, n, seed, tmp, per_level, want_hitters, base):
+    """Phases 22-24: one mesh collection with every kernel count zeroed just
+    before and read just after.  expand must launch 2 x MESH_SHARDS times a
+    level and keygen once, each kernel of ``per_level`` MESH_SHARDS times a
+    level, every other kernel never; the hitters must equal ``want_hitters``
+    (the one-card cell ``base``'s) and the recount.  Returns (run,
+    launches, figures)."""
+    import torch
+
+    from fuzzyheavyhitters_torch.protocol import secure
+
+    torch.cuda.reset_peak_memory_stats()
+    for kn in KERNELS:
+        setattr(*_counter(kn), 0)
+    run = mesh_cell_run(name, cfg, n, seed, tmp)
+    launches = {kn: getattr(*_counter(kn)) for kn in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    lead, res = run.leader, run.result
+    levels = len(lead.timings["level"])
+    want = {kn: (MESH_SHARDS * levels if kn in per_level else 0) for kn in OT2S + GC}
+    want.update(keygen=1, expand=2 * MESH_SHARDS * levels)
+    if levels != cfg.data_len or launches != want:
+        raise AssertionError(f"{name}: {levels} levels, launches {launches}, want {want}")
+    got = _hitter_map(res)
+    if got != want_hitters:
+        raise AssertionError(f"{name}: {len(got)} hitters differ from {base}'s")
+    recount = plaintext_counts(run.points, cfg.ball_size, res.paths)
+    if not np.array_equal(res.counts, recount):
+        raise AssertionError(f"{name}: counts != the plaintext recount")
+    log(f"mesh {name}: N={n} mesh=2x{MESH_SHARDS} on {run.leader.r.mesh.placement()[0][0]} "
+        f"secure={cfg.secure_exchange} eq_ot4={secure.EQ_OT4} levels={levels} "
+        f"hitters={len(got)} (= {base}'s, each = the plaintext recount) "
+        f"seconds={ {k: round(v, 3) for k, v in run.seconds.items()} } "
+        f"max_memory_allocated={peak} launches={launches} "
+        f"buckets_max={max(_mesh_widths(lead))}")
+    return run, launches, {"n": n, "levels": levels, "hitters": len(got),
+                           "seconds": run.seconds, "max_memory_allocated": peak,
+                           "launches": launches}
+
+
+def mesh_expand_checks(name, run, cfg, ex, collect, prg, torch):
+    """Phase 22: replay the mesh crawl (the trusted exchange: the same
+    counts, so the same frontiers) and hold expand against its plain
+    version on shard (0, 0)'s frontier at the widest level with a child
+    cache and at the last level."""
+    lead, r = run.leader, run.leader.r
+    L, n = r.data_len, run.points.shape[0]
+    widths = _mesh_widths(lead)
+    widest = max(range(L - 1), key=lambda lv: (widths[lv], -lv))
+    targets, checks = {widest: "widest", L - 1: "last"}, []
+    secure_flag, r.secure = r.secure, False
+    try:
+        lead._reset()
+        lead._start()
+        for level in range(L):
+            if level in targets:
+                st = r.frontier[0][0].states
+                d, _, F, N = st.bit.shape
+                d2, B = 2 * d, F * N
+                cws, cwf = collect.level_cw_planar(r.keys[0][0], level)
+                args = (st.seed.reshape(4, d2, B), st.bit.reshape(d2, B),
+                        st.y_bit.reshape(d2, B), cws, cwf)
+                last = level == L - 1
+                err, ms, plain_ms = expand_check(ex, args, not last, prg.DERIVED_BITS, torch)
+                b_ms, b_by = expand_bound(B, N, d2, not last, prg.DERIVED_BITS)
+                checks.append({"kind": targets[level], "level": level, "F": F, "N": N,
+                               "want_children": not last, "max_abs_err": err, "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
+                log(f"expand {name} shard (0, 0) level={level} ({targets[level]}) F={F} "
+                    f"N={N} want_children={not last}: kernel == plain, max_abs_err={err} "
+                    f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+            if level < L - 1:
+                lead._run_one_level(level, n, cfg.threshold)
+    finally:
+        r.secure = secure_flag
+    return checks
+
+
+def mesh_secure_checks(name, run, cfg, kns, levels, torch):
+    """Phases 23-24: replay the mesh crawl, secure at ``levels`` (kind by
+    level) and trusted elsewhere, and hold each kernel of ``kns`` against
+    its plain version on the first shard's call at those levels."""
+    lead, r = run.leader, run.leader.r
+    n = run.points.shape[0]
+    orig = {kn: getattr(_ops(WRAPPERS[kn][0]), WRAPPERS[kn][1]) for kn in kns}
+    kept, on = {}, [False]
+
+    def keeping(kn):
+        def call(*a):
+            out = orig[kn](*a)
+            if on[0] and kn not in kept:
+                kept[kn] = (a, out)
+            return out
+        return call
+
+    checks = []
+    widths = _mesh_widths(lead)
+    for kn in kns:
+        setattr(_ops(WRAPPERS[kn][0]), WRAPPERS[kn][1], keeping(kn))
+    try:
+        lead._reset()
+        lead._start()
+        for level in range(r.data_len):
+            r.secure = on[0] = level in levels
+            lead._run_one_level(level, n, cfg.threshold)
+            on[0] = False
+            for kn in kns if level in levels else ():
+                a, out = kept.pop(kn)
+                c = secure_check(kn, a, out, orig[kn], f"{name} shard 0 level={level} "
+                                 f"({levels[level]}, F={widths[level]})")
+                c.update(kernel=kn, level=level, kind=levels[level])
+                checks.append(c)
+                del a, out
+            torch.cuda.empty_cache()
+    finally:
+        r.secure = True
+        for kn in kns:
+            setattr(_ops(WRAPPERS[kn][0]), WRAPPERS[kn][1], orig[kn])
+    return checks
+
+
+def mesh_two_process_run(name, cfg, n, seed, tmp):
+    """Phase 25: two ``bin.mesh --devices 8 --processes 2`` processes on a
+    gloo group at a free localhost port, one mesh row each on the card;
+    both stopped if either outlives SOCKET_LEADER_S.  Returns each
+    process's events."""
+    work = os.path.join(tmp, name)
+    os.makedirs(work)
+    cfg_path = os.path.join(work, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    coord = f"127.0.0.1:{free_ports()[0]}"
+    logs = [os.path.join(work, f"p{pid}.log") for pid in (0, 1)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for pid in (0, 1):
+            with open(logs[pid], "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "fuzzyheavyhitters_torch.bin.mesh", "-c", cfg_path,
+                     "-n", str(n), "--device", "cuda", "--seed", str(seed), "--devices",
+                     str(MESH_DEVICES), "--processes", "2", "--process_id", str(pid),
+                     "--coordinator", coord, "--csv", os.path.join(work, f"hh{pid}.csv")],
+                    cwd=work, env=env, stdout=out, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=max(1.0, SOCKET_LEADER_S - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(logs[pid]) as f:
+                raise AssertionError(f"{name}: process {pid} exited {p.returncode}:\n"
+                                     f"{f.read()[-3000:]}")
+    return [_events(path) for path in logs], time.perf_counter() - t0
+
+
+def check_two_process_run(name, cfg, events, wall_s, want_hitters, points, secure):
+    """Phase 25's checks: each process's hitters = ``want_hitters`` and the
+    recount, its row held alone, its group bytes mirrored by the other's,
+    and its launches: 4 expand a level (keygen once); secure, 4 encrypts a
+    level it garbled (level % 2 == its row) and 4 decrypts a level it
+    evaluated; no GC."""
+    figs = []
+    for pid, ev in enumerate(events):
+        got = {e["value"]: e["count"] for e in ev if e["event"] == "hitter"}
+        if got != want_hitters:
+            raise AssertionError(f"{name}: process {pid}'s {len(got)} hitters differ")
+        _recount(f"{name} p{pid}", got, cfg, points)
+        place = next(e for e in ev if e["event"] == "mesh.placement")
+        done = next(e for e in ev if e["event"] == "crawl.done")
+        L = done["levels"]
+        garbled = len([lv for lv in range(L) if lv % 2 == pid])
+        want = {"keygen": 1, "expand": MESH_SHARDS * L, "gc_garble": 0, "gc_eval": 0,
+                "ot2s_encrypt": MESH_SHARDS * garbled if secure else 0,
+                "ot2s_decrypt": MESH_SHARDS * (L - garbled) if secure else 0}
+        if place["held_rows"] != [pid] or done["launches"] != want or L != cfg.data_len:
+            raise AssertionError(f"{name} p{pid}: rows {place['held_rows']}, {L} levels, "
+                                 f"launches {done['launches']}, want {want}")
+        figs.append({"crawl_s": done["seconds"], "group_bytes": done["group_bytes"],
+                     "launches": done["launches"], "mesh_setup_s": place["seconds"]})
+    if figs[0]["group_bytes"]["sent"] != figs[1]["group_bytes"]["received"]:
+        raise AssertionError(f"{name}: group bytes {[f['group_bytes'] for f in figs]}")
+    log(f"mesh {name}: 2 processes x 1 row of {MESH_SHARDS} shards on the card over gloo, "
+        f"N={points.shape[0]} secure={secure}: both print the one-process hitters "
+        f"({len(want_hitters)}, each = the plaintext recount); crawl_s="
+        f"{[round(f['crawl_s'], 3) for f in figs]} group_bytes="
+        f"{[f['group_bytes'] for f in figs]} launches={[f['launches'] for f in figs]} "
+        f"wall_s={wall_s:.1f}")
+    return {"processes": figs, "wall_s": wall_s, "hitters": len(want_hitters)}
+
+
+def mesh_supervised_run(name, cfg, n, seed, want_hitters, torch):
+    """Phase 26: rides' keys from the seed (``bin.mesh``'s sampling and
+    keygen), ``MeshLeader.run_supervised`` on the 2 x 4 mesh with a
+    snapshot every MESH_CKPT_EVERY levels under MESH_FAULTS, every kernel
+    count zeroed just before and read just after."""
+    from fuzzyheavyhitters_torch.ops import ibdcf
+    from fuzzyheavyhitters_torch.parallel import mesh as meshmod
+    from fuzzyheavyhitters_torch.resilience.chaos import MeshChaos, parse_mesh_faults
+    from fuzzyheavyhitters_torch.workloads import sample_points
+
+    rng = np.random.default_rng(seed)
+    pts = sample_points(cfg, n, rng)
+    k0, k1 = ibdcf.gen_l_inf_ball(pts, cfg.ball_size, rng, device="cuda")
+    runner = meshmod.MeshRunner(meshmod.make_mesh(MESH_DEVICES), k0, k1, cfg.f_max)
+    del k0, k1
+    snaps, restores = [], []
+    snapshot, restore = runner.snapshot, runner.restore
+
+    def timed_snapshot():
+        t0 = time.perf_counter()
+        snap = snapshot()
+        snaps.append((sum(a.nbytes for a in snap.values()), time.perf_counter() - t0))
+        return snap
+
+    def timed_restore(snap):
+        t0 = time.perf_counter()
+        restore(snap)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+
+    runner.snapshot, runner.restore = timed_snapshot, timed_restore
+    chaos = MeshChaos(parse_mesh_faults(MESH_FAULTS))
+    events = []
+    lead = meshmod.MeshLeader(runner, emit=lambda e, **kw: events.append((e, kw)))
+    for kn in KERNELS:
+        setattr(*_counter(kn), 0)
+    t0 = time.perf_counter()
+    res = lead.run_supervised(n, cfg.threshold, checkpoint_every=MESH_CKPT_EVERY, chaos=chaos)
+    torch.cuda.synchronize()
+    crawl_s = time.perf_counter() - t0
+    launches = {kn: getattr(*_counter(kn)) for kn in KERNELS}
+    c = lead.counters
+    runs = c["device_fetches"]  # one fetch per level run, the re-runs included
+    want = dict.fromkeys(KERNELS, 0)
+    want["expand"] = 2 * MESH_SHARDS * runs
+    if (_hitter_map(res) != want_hitters or launches != want
+            or (c["recoveries"], c["shards_rerun"], c["levels_rerun"]) != (2, 1, 1)
+            or sorted(a for a, _ in chaos.fired) != ["delay", "drop", "kill"]):
+        raise AssertionError(f"{name}: counters {c}, fired {chaos.fired}, launches {launches} "
+                             f"(want {want}), hitters equal: {_hitter_map(res) == want_hitters}")
+    recount = plaintext_counts(pts, cfg.ball_size, res.paths)
+    if not np.array_equal(res.counts, recount):
+        raise AssertionError(f"{name}: counts != the plaintext recount")
+    log(f"mesh {name}: N={n} faults {MESH_FAULTS!r} fired {chaos.fired}: hitters = rides' "
+        f"(each = the plaintext recount), counters={c} levels_run={runs} crawl_s={crawl_s:.3f} "
+        f"snapshots (bytes, s)={[(b, round(t, 4)) for b, t in snaps]} "
+        f"restore_s={[round(t, 4) for t in restores]} launches={launches}")
+    return {"n": n, "counters": dict(c), "fired": chaos.fired, "crawl_s": crawl_s,
+            "snapshots": snaps, "restore_s": restores, "launches": launches,
+            "events": [e for e, _ in events]}
+
+
+def mesh_phases(seed, cells, hitters, points, report, launches, errs, tmp, stage):
+    """Phases 22-26 on the one-card cells' hitters and points; figures go to
+    ``report["mesh"]``, launches and errors to ``launches`` and ``errs``."""
+    import torch
+
+    from fuzzyheavyhitters_torch.ops import expand_cuda, prg
+    from fuzzyheavyhitters_torch.protocol import collect
+    from fuzzyheavyhitters_torch.protocol import secure as secure_mod
+
+    mesh_figs = report["mesh"] = {}
+    # phase 22: config4_zipf on the 2 x 4 mesh of logical shards
+    name, cfg4 = "config4_mesh", cells["config4_zipf"][0]
+    run, launches[name], fig = mesh_main_path(name, cfg4, ZIPF_CLIENTS, seed, tmp, (),
+                                              hitters["config4_zipf"], "config4_zipf")
+    base = report["crawls"]["config4_zipf"]
+    log(f"mesh {name}: crawl_s={run.seconds['crawl']:.3f} (config4_zipf: "
+        f"{base['seconds']['crawl']:.3f}) keygen_s={run.seconds['keygen']:.3f} "
+        f"max_memory_allocated={fig['max_memory_allocated']} (config4_zipf: "
+        f"{base['max_memory_allocated']})")
+    stage(f"{name} crawl")
+    fig["expand_checks"] = mesh_expand_checks(name, run, cfg4, expand_cuda, collect, prg,
+                                              torch)
+    errs["expand"] += [c["max_abs_err"] for c in fig["expand_checks"]]
+    mesh_figs[name] = fig
+    del run
+    torch.cuda.empty_cache()
+    stage(f"{name} checks")
+    # phases 23-24: secure rides on the mesh, the 1-of-16 table, then the GC
+    rides_sec = cells["rides_secure"][0]
+    for name, eq_ot4, kns in (("rides_mesh_secure", True, OT2S),
+                              ("rides_mesh_secure_gc", False, GC)):
+        secure_mod.EQ_OT4 = eq_ot4
+        try:
+            run, launches[name], fig = mesh_main_path(
+                name, rides_sec, RIDES_SECURE_CLIENTS, seed, tmp, kns,
+                hitters["rides_secure"], "rides_secure")
+            stage(f"{name} crawl")
+            widths, L = _mesh_widths(run.leader), rides_sec.data_len
+            widest = max(range(L - 1), key=lambda lv: (widths[lv], -lv))
+            levels = {widest: "widest_fe62"}
+            if kns == OT2S:
+                levels[L - 1] = "last_f255"
+            fig["secure_checks"] = mesh_secure_checks(name, run, rides_sec, kns, levels,
+                                                      torch)
+        finally:
+            secure_mod.EQ_OT4 = True
+        for c in fig["secure_checks"]:
+            errs[c["kernel"]].append(c["max_abs_err"])
+        mesh_figs[name] = fig
+        del run
+        torch.cuda.empty_cache()
+        stage(f"{name} secure checks")
+    # phase 25: the mesh in two processes, one row each, over gloo
+    name = "rides_mesh_2proc"
+    ev, wall = mesh_two_process_run(name, cells["rides"][0], RIDES_CLIENTS, seed, tmp)
+    mesh_figs[name] = check_two_process_run(name, cells["rides"][0], ev, wall,
+                                            hitters["rides"], points["rides"], False)
+    stage(f"{name} run")
+    name = "rides_mesh_2proc_secure"
+    one = mesh_cell_run(f"{name}_one", rides_sec, MESH_2PROC_SECURE_CLIENTS, seed, tmp)
+    want_h, one_pts = _hitter_map(one.result), one.points
+    if not np.array_equal(one.result.counts, plaintext_counts(
+            one_pts, rides_sec.ball_size, one.result.paths)):
+        raise AssertionError(f"{name}: the one-process counts != the plaintext recount")
+    del one
+    torch.cuda.empty_cache()
+    ev, wall = mesh_two_process_run(name, rides_sec, MESH_2PROC_SECURE_CLIENTS, seed,
+                                    tmp)
+    mesh_figs[name] = check_two_process_run(name, rides_sec, ev, wall, want_h, one_pts, True)
+    stage(f"{name} run")
+    # phase 26: the supervised mesh crawl under MeshChaos
+    name = "rides_mesh_supervised"
+    mesh_figs[name] = mesh_supervised_run(name, cells["rides"][0], RIDES_CLIENTS, seed,
+                                          hitters["rides"], torch)
+    launches[name] = mesh_figs[name]["launches"]
+    torch.cuda.empty_cache()
+    stage(f"{name} run")
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -2259,6 +2654,7 @@ def main() -> int:
         errs["keygen"].append(kg["max_abs_err"])
         del pts21
         stage(f"{name} keygen check")
+        mesh_phases(args.seed, cells, hitters, points, report, launches, errs, tmp, stage)
     for name in points:
         kg = measure_keygen(name, points[name], cells[name][0], keygen_cuda, ibdcf, torch, rng)
         report["crawls"][name]["keygen_check"] = kg
@@ -2314,10 +2710,25 @@ def main() -> int:
             rows[-1]["malicious_checks"] = [
                 c for c in report["crawls"]["secure_malicious_replay"]["secure_checks"]
                 if c["kernel"] == kn]
+        # phases 22-26: launches on the mesh (per process in phase 25) and
+        # the kernel held on a shard's inputs
+        rows[-1]["mesh_launches"] = {c: launches[c][kn] for c in (
+            "config4_mesh", "rides_mesh_secure", "rides_mesh_secure_gc", "rides_mesh_supervised")}
+        for c in ("rides_mesh_2proc", "rides_mesh_2proc_secure"):
+            rows[-1]["mesh_launches"][c] = [p["launches"][kn]
+                                            for p in report["mesh"][c]["processes"]]
+        rows[-1]["mesh_checks"] = (
+            [{k: c[k] for k in ("kind", "level", "F", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms")}
+             for c in report["mesh"]["config4_mesh"]["expand_checks"]] if kn == "expand" else
+            [{k: c[k] for k in ("kind", "level", "S", "W", "bp", "max_abs_err", "ms",
+                                "plain_ms", "bound_ms")}
+             for cell in ("rides_mesh_secure", "rides_mesh_secure_gc")
+             for c in report["mesh"][cell].get("secure_checks", ()) if c["kernel"] == kn])
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
-    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, ten crawls, a resume "
-        "and thirteen socket runs)")
+    log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, ten crawls, a resume, "
+        "thirteen socket runs and six mesh runs)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -13,12 +13,15 @@ package.  Layout mirrors the reference package's module names:
                 (``secure``), the in-process two-server driver (``driver``)
                 and the socket deployment (``rpc``, ``leader_rpc``,
                 ``sessions``)
-- ``resilience`` dial retries and verb budgets
-- ``bin``       ``mesh`` (one process), ``server`` and ``leader`` (the
-                socket deployment)
+- ``parallel``  the device mesh (``mesh``: the two parties as the rows of
+                a 2 × k mesh of shards, in one process or two)
+- ``resilience`` dial retries, verb budgets, the chaos proxy and the mesh
+                drills
+- ``bin``       ``mesh`` (one process, or two on the mesh), ``server`` and
+                ``leader`` (the socket deployment)
 
-The crawl runs trusted or secure, in one process or as two server
-processes and a leader on the JAX package's wire.  Entry points run on
+The crawl runs trusted or secure, in one process, on the device mesh, or
+as two server processes and a leader on the JAX package's wire.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; with no card and no
 explicit CPU request they raise.
 

@@ -20,6 +20,18 @@ int32 words, pad tests garbled from zero inputs like real ones.  The kernels
 plain versions, :func:`garble_planar_plain` / :func:`eval_planar_plain`
 (the JAX package's ``_garble_packed_planes_xla`` and the packed eval twin),
 run on the CPU.
+
+The test-major surface (a :class:`GarbledEqBatch`, ciphertexts
+``[2, B, W]``) serves the two-round flows: :func:`garble_equality` (every
+label from a seed), :func:`garble_equality_delta` / :func:`eval_equality`
+(evaluator labels from the Δ-OT, no payloads) and the payload pair
+:func:`garble_equality_payload` / :func:`eval_equality_payload`.  At S >= 2
+the last four planarize their inputs (B tests, no pad slots), call the
+kernels' wrappers and unplanarize, so they run the kernels on a card; the
+delta pair passes zero payloads at W = 4 (the kernels are compiled for
+W in {4, 8}) and drops the ciphertexts.  S < 2 takes the plain forms
+(:func:`_garble_equality_payload_plain`, :func:`_eval_equality_payload_plain`,
+the JAX package's XLA twins), as that package's dispatcher does.
 """
 
 from __future__ import annotations
@@ -134,6 +146,15 @@ def _and_tree_eval(wires: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     return wires[..., 0, :]
 
 
+class GarblerSecrets(NamedTuple):
+    """The garbler's output share and the evaluator's label pairs, for an
+    explicit label OT (choice bit = the evaluator's input bit)."""
+
+    mask: torch.Tensor  # bool[B]
+    ev_label0: torch.Tensor  # int32[B, S, 4], labels for y_i = 0
+    ev_label1: torch.Tensor  # int32[B, S, 4], labels for y_i = 1
+
+
 def _carve_label_words(seed: torch.Tensor, B: int, S: int, n_label_sets: int,
                        with_r: bool):
     """Draw [optional R] + ``n_label_sets`` [B, S, 4] label sets + B mask
@@ -163,6 +184,28 @@ def _garble_core(R, X0, Y0, mask, x_bits):
     return GarbledEqBatch(tables=tables, gb_labels=gb_labels, decode=decode), out0
 
 
+def _garble_payload(R, X0, Y0, mask, x_bits, m_v0, m_v1, n_words: int, idx0: int):
+    """:func:`_garble_core` with the payloads under the output labels ->
+    (batch, cts int32[2, B, n_words] indexed by the v = 0 label's lsb):
+    m_v0 / m_v1 under ``ot_hash(out0 [^ R], idx0 + i)``."""
+    batch, out0 = _garble_core(R, X0, Y0, mask, x_bits)
+    c_v0 = m_v0 ^ ot_hash(out0, n_words, idx0)
+    c_v1 = m_v1 ^ ot_hash(out0 ^ R, n_words, idx0)
+    p = _lsb(out0)[:, None]
+    return batch, torch.stack([torch.where(p, c_v1, c_v0), torch.where(p, c_v0, c_v1)])
+
+
+def _eval_equality_payload_plain(batch: GarbledEqBatch, ev_labels, cts, n_words: int,
+                                 idx_offset: int):
+    """Evaluate and open the payload under the output label, test-major
+    (the JAX package's ``_eval_equality_payload_xla``; the plain twin of
+    :func:`eval_equality_payload`) -> (e bool[B], payload int32[B, n_words])."""
+    out = _and_tree_eval(batch.gb_labels ^ ev_labels, batch.tables)
+    s = _lsb(out)
+    ct = torch.where(s[:, None], cts[1], cts[0])
+    return s ^ batch.decode, ct ^ ot_hash(out, n_words, idx_offset)
+
+
 def garble_planar_plain(R, X0, Y0, xb, mask, mv0, mv1, idx0: int):
     """Plain version of the garble kernel on plane-major inputs over n tests:
     R 4 uint32 values, X0/Y0 int32[4S, n], xb int32[S, n] 0/1, mask
@@ -173,16 +216,11 @@ def garble_planar_plain(R, X0, Y0, xb, mask, mv0, mv1, idx0: int):
     S, W = xb.shape[0], mv0.shape[0]
     Rt = words_from_numpy(np.asarray(R, np.uint32), X0.device)
     lab = lambda p: unplanarize(p, n).reshape(n, S, 4)
-    batch, out0 = _garble_core(Rt, lab(X0), lab(Y0), unplanarize(mask, n)[:, 0] != 0,
-                               unplanarize(xb, n) != 0)
-    h0 = ot_hash(out0, W, idx0)
-    h1 = ot_hash(out0 ^ Rt, W, idx0)
-    c_v0 = unplanarize(mv0, n) ^ h0
-    c_v1 = unplanarize(mv1, n) ^ h1
-    p = _lsb(out0)[:, None]
-    cts = torch.stack([torch.where(p, c_v1, c_v0), torch.where(p, c_v0, c_v1)], dim=1)
+    batch, cts = _garble_payload(Rt, lab(X0), lab(Y0), unplanarize(mask, n)[:, 0] != 0,
+                                 unplanarize(xb, n) != 0, unplanarize(mv0, n),
+                                 unplanarize(mv1, n), W, idx0)
     return (planarize(batch.tables, n), planarize(batch.gb_labels, n),
-            planarize(batch.decode, n), planarize(cts, n))
+            planarize(batch.decode, n), planarize(cts.permute(1, 0, 2), n))
 
 
 def eval_planar_plain(gbl, evl, tab, dec, cts, idx0: int):
@@ -190,14 +228,13 @@ def eval_planar_plain(gbl, evl, tab, dec, cts, idx0: int):
     -> (e [1, n] the evaluator's XOR share, pay [W, n] the opened payload)."""
     n = gbl.shape[1]
     S, W = gbl.shape[0] // 4, cts.shape[0] // 2
-    z = unplanarize(gbl, n).reshape(n, S, 4) ^ unplanarize(evl, n).reshape(n, S, 4)
-    out = _and_tree_eval(z, unplanarize(tab, n).reshape(n, S - 1, 2, 4))
-    s = _lsb(out)
-    pad = ot_hash(out, W, idx0)
-    c = unplanarize(cts, n).reshape(n, 2, W)
-    ct = torch.where(s[:, None], c[:, 1], c[:, 0])
-    e = s ^ (unplanarize(dec, n)[:, 0] != 0)
-    return planarize(e, n), planarize(ct ^ pad, n)
+    batch = GarbledEqBatch(tables=unplanarize(tab, n).reshape(n, S - 1, 2, 4),
+                           gb_labels=unplanarize(gbl, n).reshape(n, S, 4),
+                           decode=unplanarize(dec, n)[:, 0] != 0)
+    e, pay = _eval_equality_payload_plain(batch, unplanarize(evl, n).reshape(n, S, 4),
+                                          unplanarize(cts, n).reshape(n, 2, W).permute(1, 0, 2),
+                                          W, idx0)
+    return planarize(e, n), planarize(pay, n)
 
 
 def _split_packed(msg: torch.Tensor, B: int, S: int, W: int):
@@ -244,3 +281,102 @@ def eval_equality_payload_packed(msg, ev_labels, n_words: int, idx_offset: int):
     e, pay = gc_cuda.eval_planar(gbl, planarize(ev_labels, padded_tests(B)), tab, dec,
                                  cts, idx_offset)
     return unplanarize(e, B)[:, 0] != 0, unplanarize(pay, B)
+
+
+# ---------------------------------------------------------------------------
+# Test-major surface: the two-round flows (gc.py:256-391 of the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def garble_equality(seed, x_bits: torch.Tensor):
+    """Garble B equality tests with every label drawn from ``seed``
+    (uint32[4]): R, X0, Y0 and the masks.  Returns (batch,
+    :class:`GarblerSecrets`); ``mask ^ decoded == [x == y]``."""
+    B, S = x_bits.shape
+    R, (X0, Y0), mask = _carve_label_words(words_from_numpy(seed, x_bits.device), B, S, 2,
+                                           with_r=True)
+    batch, _ = _garble_core(R, X0, Y0, mask, x_bits)
+    return batch, GarblerSecrets(mask=mask, ev_label0=Y0, ev_label1=Y0 ^ R)
+
+
+def garble_equality_delta(R, Y0: torch.Tensor, seed, x_bits: torch.Tensor):
+    """Garble with the Δ-OT's labels: R uint32[4] (the OT sender's ``s``,
+    lsb 1), Y0 int32[B, S, 4] (the Q rows), seed uint32[4] for the
+    garbler's own labels and masks, x_bits bool[B, S].  Returns (batch,
+    mask bool[B] — the garbler's XOR share).  At S >= 2 through the garble
+    kernel with zero payloads (its ciphertexts dropped)."""
+    B, S = x_bits.shape
+    if S >= 2:
+        zero = torch.zeros((B, 4), dtype=torch.int32, device=Y0.device)
+        batch, _, mask = garble_equality_payload(R, Y0, seed, x_bits, zero, zero, 4, 0)
+        return batch, mask
+    _, (X0,), mask = _carve_label_words(words_from_numpy(seed, Y0.device), B, S, 1,
+                                        with_r=False)
+    batch, _ = _garble_core(words_from_numpy(R, Y0.device), X0, Y0, mask, x_bits)
+    return batch, mask
+
+
+def eval_equality(batch: GarbledEqBatch, ev_labels: torch.Tensor) -> torch.Tensor:
+    """Evaluate with the evaluator's labels int32[B, S, 4] -> bool[B], its
+    XOR share of each result.  At S >= 2 through the eval kernel with zero
+    ciphertexts (its opened payload dropped)."""
+    B, S = ev_labels.shape[:2]
+    if S >= 2:
+        zero = torch.zeros((2, B, 4), dtype=torch.int32, device=ev_labels.device)
+        return eval_equality_payload(batch, ev_labels, zero, 4, 0)[0]
+    out = _and_tree_eval(batch.gb_labels ^ ev_labels, batch.tables)
+    return _lsb(out) ^ batch.decode
+
+
+def garble_equality_payload(R, Y0: torch.Tensor, seed, x_bits: torch.Tensor, m_v0, m_v1,
+                            n_words: int, idx_offset: int):
+    """:func:`garble_equality_delta` with the b2a payloads under the output
+    labels (m_v0 / m_v1 int32[B, n_words]: what the evaluator learns when
+    the output is 0 / 1, under ``ot_hash(label, idx_offset + i)``).
+    Returns (batch, cts int32[2, B, n_words] indexed by the label's lsb,
+    mask bool[B]).  At S >= 2 the garble kernel's wrapper on planar inputs
+    (``gc_pallas.garble_equality_payload``'s route); S < 2 the plain form."""
+    B, S = x_bits.shape
+    if S < 2:
+        return _garble_equality_payload_plain(R, Y0, seed, x_bits, m_v0, m_v1, n_words,
+                                              idx_offset)
+    from . import gc_cuda
+
+    _, (X0,), mask = _carve_label_words(words_from_numpy(seed, Y0.device), B, S, 1,
+                                        with_r=False)
+    tab, gbl, dec, cts = gc_cuda.garble_planar(
+        [int(r) for r in np.asarray(R, np.uint32)], planarize(X0, B), planarize(Y0, B),
+        planarize(x_bits, B), planarize(mask, B), planarize(m_v0, B), planarize(m_v1, B),
+        idx_offset)
+    batch = GarbledEqBatch(tables=unplanarize(tab, B).reshape(B, S - 1, 2, 4),
+                           gb_labels=unplanarize(gbl, B).reshape(B, S, 4),
+                           decode=unplanarize(dec, B)[:, 0] != 0)
+    return batch, unplanarize(cts, B).reshape(B, 2, n_words).permute(1, 0, 2), mask
+
+
+def eval_equality_payload(batch: GarbledEqBatch, ev_labels: torch.Tensor, cts,
+                          n_words: int, idx_offset: int):
+    """Evaluate and open the output-label payload: -> (e bool[B], the
+    evaluator's XOR share; payload int32[B, n_words]).  At S >= 2 the eval
+    kernel's wrapper on planar inputs; S < 2 the plain form."""
+    B, S = ev_labels.shape[:2]
+    if S < 2:
+        return _eval_equality_payload_plain(batch, ev_labels, cts, n_words, idx_offset)
+    from . import gc_cuda
+
+    e, pay = gc_cuda.eval_planar(planarize(batch.gb_labels, B), planarize(ev_labels, B),
+                                 planarize(batch.tables, B), planarize(batch.decode, B),
+                                 planarize(cts.permute(1, 0, 2), B), idx_offset)
+    return unplanarize(e, B)[:, 0] != 0, unplanarize(pay, B)
+
+
+def _garble_equality_payload_plain(R, Y0, seed, x_bits, m_v0, m_v1, n_words: int,
+                                   idx_offset: int):
+    """Plain twin of :func:`garble_equality_payload` (the JAX package's
+    ``_garble_equality_payload_xla``), test-major throughout."""
+    B, S = x_bits.shape
+    dev = Y0.device
+    _, (X0,), mask = _carve_label_words(words_from_numpy(seed, dev), B, S, 1, with_r=False)
+    batch, cts = _garble_payload(words_from_numpy(R, dev), X0, Y0, mask, x_bits, m_v0, m_v1,
+                                 n_words, idx_offset)
+    return batch, cts, mask

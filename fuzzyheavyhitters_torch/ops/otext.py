@@ -210,6 +210,17 @@ class OtExtSender:
         self.advance(m)
         return q
 
+    def extend_pads(self, m: int, u_msg: torch.Tensor, n_words: int, domain: int = 0):
+        """:meth:`extend` and the chosen-payload pads of its rows: (Q rows
+        int32[m, 4], pad0 = H(j, Q_j), pad1 = H(j, Q_j ^ s), each
+        int32[m, n_words]), the pad index base being this batch's
+        pre-extension ``consumed`` counter."""
+        idx0 = self.consumed
+        q = self.extend(m, u_msg)
+        s = words_from_numpy(self.s_block, q.device)
+        return (q, ot_hash(q, n_words, idx0, domain=domain),
+                ot_hash(q ^ s, n_words, idx0, domain=domain))
+
 
 class OtExtReceiver:
     """Extension receiver: holds both base-seed columns, produces the u
@@ -250,6 +261,15 @@ class OtExtReceiver:
             u[:, r0 // 32: r0 // 32 + uc.shape[1]] = uc
         self.advance(m)
         return u, t
+
+    def extend_pads(self, choices: torch.Tensor, n_words: int, domain: int = 0):
+        """:meth:`extend` and the receiver's chosen pads: (u message, T
+        rows, pad = H(j, T_j) int32[m, n_words]) at the pre-extension
+        ``consumed`` counter, the sender's :meth:`OtExtSender.extend_pads`
+        twin."""
+        idx0 = self.consumed
+        u, t = self.extend(choices)
+        return u, t, ot_hash(t, n_words, idx0, domain=domain)
 
 
 def fresh_s_bits(rng=None) -> np.ndarray:

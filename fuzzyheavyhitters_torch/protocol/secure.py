@@ -23,6 +23,17 @@ extension session's pre-batch ``consumed`` counter on both sides.
 ``phase`` arguments take a context-manager factory ``phase(name)`` that
 the driver uses to time the steps under the socket server's phase names
 (``otext``, ``b2a``, ``garble``, ``eval``).
+
+Beside the whole-level flow sit the JAX package's other sans-IO forms,
+which ``parallel/mesh.py`` and the parity tests use: the two-round flow
+(``ev_step1`` → ``gb_step1`` → ``ev_step2`` → ``ev_step3`` → ``gb_step2``
+→ ``ev_step4``: Δ-OT labels, the garbled batch, the b2a OT under
+chosen-payload pads), the test-major 1-of-2^S table (``ot2s_encrypt`` /
+``ot2s_decrypt``, ``gb_step_ot4`` / ``ev_open_ot4``), the fused flat-wire
+form (``gb_step_fused`` / ``ev_open_fused``) and the wire packing helpers.
+Every equality test among them reaches the kernels' wrappers
+(``otext_cuda``, ``gc_cuda``) at S >= 2.  ``EQ_OT4`` turns the table off
+for ``ot_path="auto"``, as the JAX package's module flag does.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from ..ops import gc, otext, otext_cuda, prg
 from ..ops.fields import F255, FE62
 from ..utils import words_from_numpy, words_to_numpy
 
+EQ_OT4: bool = True  # False: "auto" takes the garbled circuit at every S
 OT2S_MAX_S = 6  # auto-path ceiling of the 1-of-2^S table (2^S ciphertexts per test)
 _OT2S_DOMAIN = 0x0F4E4F54  # ot_hash tweak domain of the per-test pads
 B2A_TESTS = 1 << 22  # tests per b2a pass; a multiple of 4 keeps passes block-aligned
@@ -148,8 +160,9 @@ def b2a_payload_pair(field, b2a_seed, B: int, garbler: int, device):
 
 def ot_path(S: int, override: str = "auto") -> str:
     """``"ot2s"`` (the 1-of-2^S table) or ``"gc"`` (garbled circuit) for
-    strings of S bits: "auto" picks ot2s for 2 <= S <= OT2S_MAX_S; "ot2s"
-    past the ceiling raises; "gc" forces the circuit."""
+    strings of S bits: "auto" picks ot2s for 2 <= S <= OT2S_MAX_S unless
+    ``EQ_OT4`` is off; "ot2s" past the ceiling raises; "gc" forces the
+    circuit."""
     if override == "gc":
         return "gc"
     if override == "ot2s":
@@ -161,7 +174,79 @@ def ot_path(S: int, override: str = "auto") -> str:
         return "ot2s"
     if override != "auto":
         raise ValueError(f"unknown ot_path {override!r}")
-    return "ot2s" if 2 <= S <= OT2S_MAX_S else "gc"
+    return "ot2s" if EQ_OT4 and 2 <= S <= OT2S_MAX_S else "gc"
+
+
+def _ot4_use(S: int) -> bool:
+    """Whether ``"auto"`` skips the garbled circuit at S (the mesh's engine
+    rule: it reads ``EQ_OT4``, never a config's ``ot_path``)."""
+    return ot_path(S) == "ot2s"
+
+
+def _ot2s_offsets(s_block, S: int, device) -> torch.Tensor:
+    """The encrypt kernel's ``offs``: ``gf128_offsets(s, S)`` with the pad
+    domain folded into word 1."""
+    offs = otext.gf128_offsets(words_from_numpy(s_block, device), S)
+    offs[:, 1] ^= _OT2S_DOMAIN
+    return offs
+
+
+def ot2s_encrypt(q_rows, s_block, x_flat, m_v0, m_v1, n_words: int,
+                 idx_offset: int) -> torch.Tensor:
+    """Test-major sender table: q_rows int32[B, S, 4], x_flat bool[B, S],
+    payloads int32[B, n_words] -> cts int32[2^S, B, n_words], slot c (the
+    receiver's string as a little-endian S-bit integer) holding m_v1 where
+    c = x, else m_v0, under the pad of test i at index idx_offset + i.
+    Through the encrypt kernel's wrapper on B planar tests."""
+    B, S = x_flat.shape
+    cts = otext_cuda.enc_planar(gc.planarize(q_rows, B), gc.planarize(x_flat, B),
+                                gc.planarize(m_v0, B), gc.planarize(m_v1, B),
+                                _ot2s_offsets(s_block, S, q_rows.device), idx_offset)
+    return cts.reshape(1 << S, n_words, B).permute(0, 2, 1)
+
+
+def ot2s_decrypt(t_rows, y_flat, cts, n_words: int, idx_offset: int) -> torch.Tensor:
+    """Receiver open, test-major: t_rows int32[B, S, 4], y_flat bool[B, S]
+    (its strings, the extension's choices), cts int32[2^S, B, n_words] ->
+    int32[B, n_words] = m_{[x == y]}.  Through the decrypt kernel's wrapper."""
+    B, S = y_flat.shape
+    tp = gc.planarize(t_rows, B)
+    tp[1] ^= _OT2S_DOMAIN  # row 0, word 1: comb's coefficient there is 1
+    pay = otext_cuda.dec_planar(tp, gc.planarize(y_flat, B),
+                                cts.permute(0, 2, 1).reshape((1 << S) * n_words, B),
+                                idx_offset)
+    return gc.unplanarize(pay, B)
+
+
+ot4_encrypt = ot2s_encrypt  # the JAX package's names, which its mesh calls
+ot4_decrypt = ot2s_decrypt
+
+
+def _b2a_seal(field, pad0, pad1, mask, b2a_seed, garbler: int):
+    """The b2a payload pair (r0, r1 = r0 ± 1) ordered by the garbler's
+    mask (slot 0 carries r0 where the mask is set, collect.rs:439-456) and
+    encrypted under the pads -> (c0, c1 int32[B, W], r1)."""
+    r1, w0, w1 = b2a_payload_pair(field, b2a_seed, mask.shape[0], garbler, pad0.device)
+    m = mask[:, None]
+    return torch.where(m, w0, w1) ^ pad0, torch.where(m, w1, w0) ^ pad1, r1
+
+
+def b2a_encrypt(field, q2_rows, s_block, mask, b2a_seed, idx0: int, garbler: int = 0):
+    """The b2a sender on the b2a extension's Q rows int32[B, 4]: the pair
+    (r0, r1 = r0 ± 1) ordered by ``mask`` and encrypted under ``H(j, Q_j)``
+    / ``H(j, Q_j ^ s)`` from index ``idx0``.  Returns (c0, c1 int32[B, W],
+    r1 — the sender's additive shares)."""
+    W = payload_words(field)
+    pad0 = otext.ot_hash(q2_rows, W, idx0)
+    pad1 = otext.ot_hash(q2_rows ^ words_from_numpy(s_block, q2_rows.device), W, idx0)
+    return _b2a_seal(field, pad0, pad1, mask, b2a_seed, garbler)
+
+
+def b2a_decrypt(field, t2_rows, idx0: int, c0, c1, e_bits) -> torch.Tensor:
+    """The b2a receiver: open the ciphertext its choice ``e_bits`` picks
+    with ``H(j, T_j)`` -> field values (r0 where equal, r1 where not)."""
+    pad = otext.ot_hash(t2_rows, payload_words(field), idx0)
+    return words_to_field(field, torch.where(e_bits[:, None], c1, c0) ^ pad)
 
 
 def ot2s_encrypt_packed(q_rows, s_block, x_flat, m_v0, m_v1, n_words: int,
@@ -171,12 +256,9 @@ def ot2s_encrypt_packed(q_rows, s_block, x_flat, m_v0, m_v1, n_words: int,
     int32[B, n_words] (slot x gets m_v1, every other slot m_v0)."""
     B, S = x_flat.shape
     bp = gc.padded_tests(B)
-    dev = q_rows.device
-    offs = otext.gf128_offsets(words_from_numpy(s_block, dev), S)
-    offs[:, 1] ^= _OT2S_DOMAIN
     cts = otext_cuda.enc_planar(gc.planarize(q_rows, bp), gc.planarize(x_flat, bp),
-                                gc.planarize(m_v0, bp), gc.planarize(m_v1, bp), offs,
-                                idx_offset)
+                                gc.planarize(m_v0, bp), gc.planarize(m_v1, bp),
+                                _ot2s_offsets(s_block, S, q_rows.device), idx_offset)
     return cts.reshape(-1)
 
 
@@ -191,13 +273,81 @@ def ot2s_decrypt_packed(t_rows, y_flat, msg, n_words: int, idx_offset: int) -> t
     return gc.unplanarize(pay, B)
 
 
+# ---------------------------------------------------------------------------
+# The two-round flow (secure.py:163-269 of the JAX package): the evaluator's
+# u message -> the garbled batch -> the b2a u message -> the ciphertext pair
+# ---------------------------------------------------------------------------
+
+
+def ev_step1(rcv: otext.OtExtReceiver, y_flat):
+    """Evaluator: request input labels with its strings bool[B, S] as
+    choices -> (u message, T rows int32[B*S, 4], its labels-to-be)."""
+    B, S = y_flat.shape
+    return rcv.extend(y_flat.reshape(B * S))
+
+
+def gb_step1(snd: otext.OtExtSender, u_msg, x_flat, gc_seed):
+    """Garbler: the evaluator's zero-labels from the extension, then the
+    garbled batch -> (batch to send, mask bool[B] — its XOR shares)."""
+    B, S = x_flat.shape
+    q = snd.extend(B * S, u_msg)
+    return gc.garble_equality_delta(snd.s_block, q.reshape(B, S, 4), gc_seed, x_flat)
+
+
+def ev_step2(batch: gc.GarbledEqBatch, t_rows, B: int, S: int) -> torch.Tensor:
+    """Evaluator: its labels are the T rows; evaluate -> XOR shares bool[B]."""
+    return gc.eval_equality(batch, t_rows.reshape(B, S, 4))
+
+
+def ev_step3(rcv: otext.OtExtReceiver, e_bits):
+    """Evaluator: open the b2a OT with its XOR shares as choices -> (u
+    message, T2 rows, idx0 — the pad index base)."""
+    idx0 = rcv.consumed
+    u2, t2 = rcv.extend(e_bits)
+    return u2, t2, idx0
+
+
+def gb_step2(snd: otext.OtExtSender, u2_msg, mask, b2a_seed, field, garbler: int = 0):
+    """Garbler: extend the b2a OT with its pads (:meth:`OtExtSender.
+    extend_pads`) and encrypt the ordered payload pair -> (c0, c1 int32[B,
+    W], r1 — its additive shares); bit for bit :func:`b2a_encrypt`."""
+    _, pad0, pad1 = snd.extend_pads(mask.shape[0], u2_msg, payload_words(field))
+    return _b2a_seal(field, pad0, pad1, mask, b2a_seed, garbler)
+
+
+def ev_step4(rcv: otext.OtExtReceiver, t2_rows, idx0: int, c0, c1, e_bits, field):
+    """Evaluator: decrypt its chosen payload -> field values [B] (r0 where
+    equal, r1 where not)."""
+    return b2a_decrypt(field, t2_rows, idx0, c0, c1, e_bits)
+
+
+def gb_step_ot4(snd: otext.OtExtSender, u_msg, x_flat, b2a_seed, field, garbler: int = 0):
+    """Garbler level step on the S = 2 table: extend the Δ-OT, derive the
+    b2a pair and encrypt the 1-of-4 table -> (cts int32[4, B, W], r1)."""
+    B, S = x_flat.shape
+    if S != 2:
+        raise ValueError(f"the ot4 step is the S == 2 specialization, got S={S}")
+    idx0 = snd.consumed
+    q = snd.extend(B * S, u_msg)
+    W = payload_words(field)
+    r1, w0, w1 = b2a_payload_pair(field, b2a_seed, B, garbler, q.device)
+    # result 1 (strings equal) -> the receiver learns r0 (collect.rs:439-456)
+    return ot2s_encrypt(q.reshape(B, S, 4), snd.s_block, x_flat, w1, w0, W, idx0), r1
+
+
+def ev_open_ot4(rcv: otext.OtExtReceiver, t_rows, y_flat, msg, B: int, field, idx0: int):
+    """Receiver twin of :func:`gb_step_ot4` -> field values [B]."""
+    W = payload_words(field)
+    w = ot2s_decrypt(t_rows.reshape(B, 2, 4), y_flat, msg.reshape(4, B, W), W, idx0)
+    return words_to_field(field, w)
+
+
 def ev_step1_fused(rcv: otext.OtExtReceiver, y_flat, phase=_no_phase):
     """Evaluator: extend the Δ-OT with its strings bool[B, S] as choices ->
     (u message, T rows int32[B*S, 4], idx0 — the pre-extension counter)."""
-    B, S = y_flat.shape
     with phase("otext"):
         idx0 = rcv.consumed
-        u, t = rcv.extend(y_flat.reshape(B * S))
+        u, t = ev_step1(rcv, y_flat)
     return u, t, idx0
 
 
@@ -239,6 +389,54 @@ def ev_open_level(t_rows, y_flat, msg, B: int, S: int, field, idx0: int,
         _, w = gc.eval_equality_payload_packed(msg, t_rows.reshape(B, S, 4), W, idx0)
     with phase("b2a"):
         return words_to_field(field, w)
+
+
+def gb_step_fused(snd: otext.OtExtSender, u_msg, x_flat, gc_seed, b2a_seed, field,
+                  garbler: int = 0):
+    """Garbler, flat-wire fused form: extend the Δ-OT, garble, and attach
+    the b2a payloads under the output labels (K2) -> (packed message
+    int32[...], r1)."""
+    B, S = x_flat.shape
+    idx0 = snd.consumed
+    q = snd.extend(B * S, u_msg)
+    W = payload_words(field)
+    r1, w0, w1 = b2a_payload_pair(field, b2a_seed, B, garbler, q.device)
+    # v = 1 (strings equal) -> the evaluator learns r0 (collect.rs:439-456)
+    batch, cts, _ = gc.garble_equality_payload(snd.s_block, q.reshape(B, S, 4), gc_seed,
+                                               x_flat, w1, w0, W, idx0)
+    return pack_gc_payload_batch(batch, cts), r1
+
+
+def ev_open_fused(rcv: otext.OtExtReceiver, t_rows, msg, B: int, S: int, field, idx0: int):
+    """Evaluator twin of :func:`gb_step_fused`: evaluate, open the payload
+    under the output label -> field values [B] (r0 where equal, else r1)."""
+    W = payload_words(field)
+    batch, cts = unpack_gc_payload_batch(msg, B, S, W)
+    _, w = gc.eval_equality_payload(batch, t_rows.reshape(B, S, 4), cts, W, idx0)
+    return words_to_field(field, w)
+
+
+def pack_gc_batch(batch: gc.GarbledEqBatch) -> torch.Tensor:
+    """A garbled batch as one int32 buffer: tables | gb_labels | decode."""
+    return torch.cat([batch.tables.reshape(-1), batch.gb_labels.reshape(-1),
+                      batch.decode.reshape(-1).to(torch.int32)])
+
+
+def unpack_gc_batch(buf: torch.Tensor, B: int, S: int) -> gc.GarbledEqBatch:
+    nt, nl = B * (S - 1) * 2 * 4, B * S * 4
+    return gc.GarbledEqBatch(tables=buf[:nt].reshape(B, S - 1, 2, 4),
+                             gb_labels=buf[nt:nt + nl].reshape(B, S, 4),
+                             decode=buf[nt + nl:] != 0)
+
+
+def pack_gc_payload_batch(batch: gc.GarbledEqBatch, cts: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_gc_batch` followed by the ciphertexts [2, B, W]."""
+    return torch.cat([pack_gc_batch(batch), cts.reshape(-1)])
+
+
+def unpack_gc_payload_batch(buf: torch.Tensor, B: int, S: int, W: int):
+    base = B * (S - 1) * 2 * 4 + B * S * 4 + B
+    return unpack_gc_batch(buf[:base], B, S), buf[base:].reshape(2, B, W)
 
 
 def node_share_sums(field, vals, weight) -> torch.Tensor:

@@ -35,15 +35,19 @@ Actions:
 
 Frame ordinals count per connection and per direction, but the clauses are
 consumed by the proxy as a whole: a sever that fired does not re-arm on
-the redial.  The JAX package's mesh and host drills (``MeshChaos``,
-``HostChaos``) belong to the multi-card server and the fleet, not ported
-yet.
+the redial.
+
+The mesh drills (:class:`MeshChaos`) inject faults into the device-mesh
+crawl of ``parallel/mesh.py`` at the level boundaries its leader crosses,
+with their own grammar (below).  The JAX package's host drills
+(``HostChaos``) belong to the fleet, not ported yet.
 """
 
 from __future__ import annotations
 
 import asyncio
 import struct
+import time
 from dataclasses import dataclass
 
 _HDR = struct.Struct("<Q")  # protocol/rpc.py's framing
@@ -207,3 +211,115 @@ class ChaosProxy:
                 await writer.drain()
         except (ConnectionError, asyncio.IncompleteReadError, OSError):
             self._sever_pair(pair)
+
+
+# ---------------------------------------------------------------------------
+# Mesh chaos: fault injection for parallel/mesh.py
+#
+# The mesh has no socket to proxy: its exchange is collectives between the
+# shards.  Faults fire at the level boundaries that MeshLeader.run_supervised
+# crosses anyway (it asks the injector before each level), as surrogates of
+# the real failures:
+#
+# - ``drop``:  a dropped data-parallel shard.  The level's collective result
+#   cannot be trusted, the device state can: re-run the level.
+# - ``kill``:  a participant killed mid-collective.  The injector clobbers
+#   the runner's frontier and child cache (the participant's memory is
+#   gone), so only a checkpoint restore recovers.
+# - ``delay``: a slow participant.  The level stalls ``ms`` milliseconds and
+#   completes; no recovery may follow.
+#
+# Grammar (``FHH_MESH_FAULTS``): ``mesh:<action>@level=<N>[,ms=M]``,
+# ';'-separated, each clause consumed once like the proxy's.
+# ---------------------------------------------------------------------------
+
+_MESH_ACTIONS = ("drop", "kill", "delay")
+
+
+class MeshFaultError(RuntimeError):
+    """An injected (or detected) mesh fault; ``state_lost`` tells the
+    supervisor whether the device-resident frontier survived (drop: re-run
+    the level) or not (kill: restore a checkpoint)."""
+
+    def __init__(self, msg: str, state_lost: bool = False):
+        super().__init__(msg)
+        self.state_lost = state_lost
+
+
+@dataclass(frozen=True)
+class MeshFaultSpec:
+    action: str
+    at_level: int
+    ms: int = 200
+
+    def __post_init__(self):
+        if self.action not in _MESH_ACTIONS:
+            raise ValueError(f"unknown mesh chaos action {self.action!r}")
+        if self.at_level < 0:
+            raise ValueError("level= trigger must be >= 0")
+
+
+def parse_mesh_faults(spec: str | None) -> list[MeshFaultSpec]:
+    """Parse an ``FHH_MESH_FAULTS`` spec (grammar above).  A blank spec is
+    no fault; a malformed clause raises ValueError."""
+    out: list[MeshFaultSpec] = []
+    for clause in (spec or "").split(";"):
+        clause = clause.strip()
+        if not clause:
+            continue
+        try:
+            head, args = clause.split("@", 1)
+            link, action = head.split(":", 1)
+        except ValueError:
+            raise ValueError(f"bad mesh chaos clause {clause!r} "
+                             "(want mesh:action@level=N[,ms=M])") from None
+        if link.strip() != "mesh":
+            raise ValueError(f"mesh chaos clause {clause!r} must target 'mesh'")
+        kw: dict = {}
+        for part in args.split(","):
+            k, _, v = part.partition("=")
+            k, v = k.strip(), v.strip()
+            if k == "level":
+                kw["at_level"] = int(v)
+            elif k == "ms":
+                kw["ms"] = int(v)
+            else:
+                raise ValueError(f"unknown mesh chaos arg {k!r} in {clause!r}")
+        if "at_level" not in kw:
+            raise ValueError(f"mesh chaos clause {clause!r} missing level=")
+        out.append(MeshFaultSpec(action=action.strip(), **kw))
+    return out
+
+
+class MeshChaos:
+    """Consumed-once mesh fault schedule.  :meth:`before_level` is the hook
+    ``MeshLeader.run_supervised`` calls at each level's entry; a clause
+    whose ``at_level`` has been reached fires exactly once (a re-run level
+    does not trigger it again, so the recovery makes progress).  ``emit``
+    receives ``resilience.mesh_chaos_fired`` events."""
+
+    def __init__(self, faults: list | None = None, emit=None):
+        self._armed: list[MeshFaultSpec] = list(faults or [])
+        self.fired: list[tuple[str, int]] = []  # (action, level)
+        self.emit = emit or (lambda event, **kw: None)
+
+    def before_level(self, runner, level: int) -> None:
+        for f in list(self._armed):
+            if level < f.at_level:
+                continue
+            self._armed.remove(f)
+            self.fired.append((f.action, level))
+            self.emit("resilience.mesh_chaos_fired", action=f.action, level=level)
+            if f.action == "delay":
+                time.sleep(f.ms / 1000.0)
+                continue
+            if f.action == "kill":
+                # the participant's memory is gone: clobber the frontier so
+                # any recovery short of a checkpoint restore fails loudly
+                runner.frontier = None
+                runner._children = None
+                raise MeshFaultError(
+                    f"mesh participant killed mid-collective at level {level}",
+                    state_lost=True)
+            raise MeshFaultError(f"data-parallel shard dropped at level {level}",
+                                 state_lost=False)

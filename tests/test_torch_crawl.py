@@ -139,7 +139,7 @@ def test_config_refuses_later_slices(field, value, tmp_path):
     assert "not ported" not in str(exc.value)
 
 
-def test_refusals_of_unported_paths(tmp_path, monkeypatch):
+def test_refusals_of_unported_paths(tmp_path, monkeypatch, capsys):
     # covid is ported: the JAX package's sampler on the caller's seed
     covid_raw = dict(WORKLOADS["rides"], distribution="covid", data_len=64)
     pts = tworkloads.sample_points(tconfig.Config(**covid_raw), 4, np.random.default_rng(0))
@@ -153,8 +153,13 @@ def test_refusals_of_unported_paths(tmp_path, monkeypatch):
             np.random.default_rng(0))
     cfg_path = tmp_path / "z.json"
     cfg_path.write_text(json.dumps(WORKLOADS["zipf"]))
-    with pytest.raises(NotImplementedError, match="multi-process and multi-card"):
-        tmesh.main(["--config", str(cfg_path), "-n", "4", "--processes", "2"])
+    # the mesh flags are ported: two processes without a coordinator, and the
+    # JAX backend pin, are refused by name
+    for argv, what in ((["--processes", "2"], "--coordinator"),
+                       (["--platform", "cpu"], "--platform")):
+        with pytest.raises(SystemExit):
+            tmesh.main(["--config", str(cfg_path), "-n", "4", *argv])
+        assert what in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()

@@ -259,3 +259,108 @@ def test_fused_radix_level_on_the_card_equals_the_cpu(cuda, d, r):
     card_res = lead([on(k) for k in keys]).run(N, 0.1)
     np.testing.assert_array_equal(card_res.paths, cpu_res.paths)
     np.testing.assert_array_equal(card_res.counts, cpu_res.counts)
+
+
+@pytest.mark.parametrize("S", [2, 4, 6])
+@pytest.mark.parametrize("W", [4, 8])
+def test_test_major_ot2s_entry_equals_plain(cuda, S, W):
+    """``secure.ot2s_encrypt`` / ``ot2s_decrypt`` (the mesh's 1-of-2^S
+    entries, planar through the kernels) on the card against the test-major
+    plain versions on the CPU; one launch of each kernel."""
+    from fuzzyheavyhitters_torch.protocol import secure
+
+    rng = np.random.default_rng(31 + S + W)
+    B, idx0 = 5000, 2**32 - 700
+    s = rng.integers(0, 2**32, size=4, dtype=np.uint32)
+    s[0] |= 1
+    q = _ints(rng, (B, S, 4))
+    x = torch.from_numpy(rng.integers(0, 2, size=(B, S)).astype(bool))
+    y = x.clone()
+    y[::3] = torch.from_numpy(rng.integers(0, 2, size=y[::3].shape).astype(bool))
+    mv0, mv1 = _ints(rng, (B, W)), _ints(rng, (B, W))
+    t = q ^ torch.where(y[..., None], torch.from_numpy(s.view(np.int32)), 0)
+    offs = secure._ot2s_offsets(s, S, "cpu")
+    want = otext_cuda.ot2s_encrypt(q, offs, x, mv0, mv1, W, idx0)
+    before = (otext_cuda.ENC_LAUNCHES, otext_cuda.DEC_LAUNCHES)
+    got = secure.ot2s_encrypt(q.to(cuda), s, x.to(cuda), mv0.to(cuda), mv1.to(cuda), W, idx0)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    tf = t.clone()
+    tf[:, 0, 1] ^= secure._OT2S_DOMAIN  # the plain decrypt takes the domain folded
+    want_pay = otext_cuda.ot2s_decrypt(tf, y, want, W, idx0)
+    pay = secure.ot2s_decrypt(t.to(cuda), y.to(cuda), got, W, idx0)
+    torch.cuda.synchronize()
+    assert (otext_cuda.ENC_LAUNCHES, otext_cuda.DEC_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(pay.cpu(), want_pay)
+    eq = (x == y).all(1)[:, None]
+    assert torch.equal(want_pay, torch.where(eq, mv1, mv0))
+
+
+@pytest.mark.parametrize("S", [2, 4, 8])
+@pytest.mark.parametrize("W", [4, 8])
+def test_k2_and_delta_gc_entries_equal_plain(cuda, S, W):
+    """K2 (``gc.garble_equality_payload`` / ``eval_equality_payload``) and
+    the mesh's delta pair on the card against the plain test-major twins
+    on the CPU; one garble and one eval launch each."""
+    rng = np.random.default_rng(41 + S + W)
+    B, idx0 = 4000, 2**32 - 300
+    R = rng.integers(0, 2**32, size=4, dtype=np.uint32)
+    R[0] |= 1
+    seed = rng.integers(0, 2**32, size=4, dtype=np.uint32)
+    Y0 = _ints(rng, (B, S, 4))
+    x = torch.from_numpy(rng.integers(0, 2, size=(B, S)).astype(bool))
+    y = x.clone()
+    y[::4] = ~y[::4]
+    evl = Y0 ^ torch.where(y[..., None], torch.from_numpy(R.view(np.int32)), 0)
+    mv0, mv1 = _ints(rng, (B, W)), _ints(rng, (B, W))
+    on = lambda *a: [t.to(cuda) for t in a]
+    wb, wcts, wmask = gc._garble_equality_payload_plain(R, Y0, seed, x, mv0, mv1, W, idx0)
+    we, wpay = gc._eval_equality_payload_plain(wb, evl, wcts, W, idx0)
+    before = (gc_cuda.GARBLE_LAUNCHES, gc_cuda.EVAL_LAUNCHES)
+    Yc, xc, m0c, m1c, evc = on(Y0, x, mv0, mv1, evl)
+    b, cts, mask = gc.garble_equality_payload(R, Yc, seed, xc, m0c, m1c, W, idx0)
+    e, pay = gc.eval_equality_payload(b, evc, cts, W, idx0)
+    torch.cuda.synchronize()
+    assert (gc_cuda.GARBLE_LAUNCHES, gc_cuda.EVAL_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    for got, want in zip((*b, cts, mask, e, pay), (*wb, wcts, wmask, we, wpay)):
+        assert torch.equal(got.cpu(), want)
+    db, dmask = gc.garble_equality_delta(R, Yc, seed, xc)
+    de = gc.eval_equality(db, evc)
+    torch.cuda.synchronize()
+    assert (gc_cuda.GARBLE_LAUNCHES, gc_cuda.EVAL_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    for got, want in zip((*db, dmask, de), (*wb, wmask, we)):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("secure", [False, True])
+def test_mesh_on_logical_card_shards_equals_the_cpu(cuda, secure):
+    """A 2 × 4 mesh of logical shards on the card: the hitters of the same
+    mesh on CPU shards, 8 expand launches a level and, secure, 4 launches
+    of each ot2s kernel a level."""
+    import random
+
+    from fuzzyheavyhitters_torch.ops import ibdcf
+    from fuzzyheavyhitters_torch.parallel import mesh as meshmod
+    from fuzzyheavyhitters_torch.protocol import driver
+
+    rng = np.random.default_rng(5)
+    N, L, d = 400, 8, 2
+    pts = rng.integers(0, 2, size=(6, d, L)).astype(bool)[rng.integers(0, 6, N)]
+    keys = ibdcf.gen_l_inf_ball(pts, 1, np.random.default_rng(2), device="cpu")
+    mat = driver.session_material(random.Random(4)) if secure else None
+
+    def crawl(dev, ks):
+        r = meshmod.MeshRunner(meshmod.make_mesh(devices=[dev] * 8), *ks, f_max=64,
+                               secure_exchange=secure, session=mat)
+        return meshmod.MeshLeader(r).run(N, 0.05)
+
+    want = crawl(torch.device("cpu"), keys)
+    assert want.paths.shape[0] > 0
+    before = (expand_cuda.LAUNCHES, otext_cuda.ENC_LAUNCHES, otext_cuda.DEC_LAUNCHES)
+    on = lambda k: type(k)(*(a.to(cuda) for a in k))
+    got = crawl(cuda, [on(k) for k in keys])
+    np.testing.assert_array_equal(got.paths, want.paths)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    after = (expand_cuda.LAUNCHES, otext_cuda.ENC_LAUNCHES, otext_cuda.DEC_LAUNCHES)
+    k = 4 if secure else 0
+    assert [a - b for a, b in zip(after, before)] == [8 * L, k * L, k * L]
