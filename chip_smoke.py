@@ -197,13 +197,43 @@ Phases (any failure raises, and the script exits non-zero):
     killed participant at 9): ``rides``' hitters, recoveries 2,
     ``shards_rerun`` 1, ``levels_rerun`` 1, 8 expand launches a level run;
     the snapshot bytes and the restore's seconds.
+27. ``rides_socket_sharded``: ``rides_socket`` with both servers at
+    ``FHH_DATA_DEVICES=4`` (``parallel/server_mesh.py``: four logical data
+    shards of the card a server, N/4 clients each): the hitters of phase 9
+    and the recount, each server's data-plane bytes and largest frame
+    equal to phase 9's (the wire is byte-identical), ``server.exit``'s
+    ``mesh`` section at 4 shards of 65,536 clients, 64 expand launches a
+    server (4 × 16);
+28. ``rides_secure_socket_sharded``: the same for ``rides_secure_socket``
+    (ot2s at S = 4, 32,768): every level on the row-sharded kernel stage
+    (``kernel_shards_max`` 4, ``kernel_gathers`` 0), 4 × the ot2s launches.
+    Then K3 held in this process on the cell's own strings (its keys made
+    again from the seed, crawled on the trusted exchange to the level) at
+    the widest FE62 level and the F255 leaf: ``kernel_shard.run_level_pair``
+    at k = 4 gives the u matrix, the frame and the b2a values of the
+    whole-level path (k = 1), and each shard's kernel call equals its plain
+    version, timed beside its bound;
+29. ``rides_secure_socket_radix2_sharded``: the same for phase 15 (GC at
+    S' = 8, 16,384), 16 + 16 GC launches a server; K3 at its widest round;
+30. ``zipf_malicious_socket_sharded``: phase 21 with four shards a server:
+    all 100,000 clients alive, phase 21's hitters, sketch verbs and
+    data-plane bytes, the sketch check on 4 shards (``sketch_shards``);
+31. ``rides_socket_sharded_device_kill``: phase 27 supervised
+    (``SUPERVISED_ENV``, checkpoints after levels 3, 7 and 11), server 1
+    with ``FHH_MESH_FAULTS=mesh:kill@level=8``: it re-shards from the level-7
+    blob inside the crawl verb (``mesh.faults`` 1, ``reshards`` 1, one
+    ``resilience.mesh_reshard``), the leader sees no fault (``levels_rerun``
+    0, ``recoveries`` 0, no ``resilience.loss_classified``), phase 27's
+    hitters, and server 1's expand launches 64 or, with a pre-expanded
+    dispatch dropped, up to 4 more (the line says which).
 
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
 and power limit, every check with its times against its bound, crawl
 figures, the seconds each stage took, a ``{"kernels": [...]}`` line (each
 kernel's launches in the crawl that runs it, its time at that crawl's
-widest checked level; ``max_abs_err`` over every check of the kernel;
+widest checked level; ``max_abs_err`` over every check of the kernel, K3's
+per-shard checks of phases 28-29 included;
 expand's row also carries its restored-frontier checks, keygen's its
 data_len-32 check, the ot2s rows their phase-20 checks), and
 as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -313,6 +343,13 @@ MESH_SHARDS = MESH_DEVICES // 2  # shards a row: kernel launches a level per row
 MESH_2PROC_SECURE_CLIENTS = 16384  # phase 25's secure cut (its table crosses gloo)
 MESH_CKPT_EVERY = 4
 MESH_FAULTS = "mesh:delay@level=1,ms=200;mesh:drop@level=5;mesh:kill@level=9"
+
+# phases 27-31: the socket deployment with four data shards a server, four
+# logical shards of the card (parallel/server_mesh.py wraps them)
+SHARDS = 4
+SHARD_ENV = {"FHH_DATA_DEVICES": str(SHARDS)}
+MESH_KILL_LEVEL = 8  # phase 31: the level after the checkpoint of round 7
+MESH_KILL = f"mesh:kill@level={MESH_KILL_LEVEL}"
 
 # every kernel of the port: (module, launch counter, source, TPU kernel it replaces)
 KERNELS = {
@@ -678,7 +715,8 @@ def _chaos_proxy(spec, target_port):
 
 
 def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=False,
-               kill=False, ctl0_faults=None, leader_coro=None, keep_blobs=False):
+               kill=False, ctl0_faults=None, leader_coro=None, keep_blobs=False,
+               server_env=None):
     """Phase 9: ``bin.server --server_id 1``, ``--server_id 0`` and ``bin.leader
     --seed`` started together as OS processes (on the card unless
     ``cfg.backend`` is ``"cpu"``; server 0 and the leader dial with retries,
@@ -690,12 +728,14 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
     ``supervise``: then the variable is unset, the JAX leader's default,
     and each server gets a checkpoint directory of its own
     (``FHH_CKPT_DIR``); ``env`` adds variables to the processes'
-    environment.  With ``kill`` server 1 is SIGKILLed as soon as its log
+    environment, ``server_env`` ({server id: variables}) one server's.
+    With ``kill`` server 1 is SIGKILLed as soon as its log
     shows its first ``resilience.server_checkpoint`` and started again at
     once on the same ports and directory; the blob the new process restores
     is copied aside (``restored_blob``), since later checkpoints prune it.
     With ``ctl0_faults`` the leader reaches server 0 through a
-    ``ChaosProxy`` with that fault spec, in this process.  With
+    ``ChaosProxy`` with that fault spec, in this process, and starts once
+    both servers serve.  With
     ``warm_buckets`` the leader is ``bin.leader.run`` in this process once
     both servers serve, in the environment its process would have, its
     events written to its log as the process's are, and its warmup over
@@ -742,7 +782,8 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
         return time.time()
 
     def spawn_server(sid):
-        extra = {"FHH_CKPT_DIR": ckpt[sid]} if supervise else None
+        extra = {"FHH_CKPT_DIR": ckpt[sid]} if supervise else {}
+        extra.update((server_env or {}).get(sid, {}))
         return spawn(f"server{sid}", "server", "--server_id", str(sid), extra=extra)
 
     killed, done = {}, threading.Event()
@@ -819,7 +860,10 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
             killer_th.start()
         t0 = time.perf_counter()
         if leader_coro is None:
-            if device == "cpu":  # and the leader's to server 0
+            # and the leader's to server 0; through the chaos proxy too, which
+            # accepts the leader before server 0 listens and drops it when its
+            # own dial fails, past the reach of the leader's dial retries
+            if device == "cpu" or ctl0_faults is not None:
                 for who in ("server0", "server1"):
                     _wait_event(logs[who], "server.serving", procs[who], SOCKET_START_S)
             spawn("leader", "leader", "-n", str(n), "--seed", str(seed), config=leader_cfg)
@@ -894,7 +938,7 @@ def _recount(name, got, cfg, points):
         raise AssertionError(f"{name}: counts {list(got.values())} != plaintext {want}")
 
 
-def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_level):
+def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_level, shards=1):
     """Phase 9's (and 12's, 14's, 15's) checks: the hitters equal
     ``bin.mesh.run``'s and every count the plaintext recount; each server
     ran one crawl verb per round (of ``crawl_radix_bits`` levels) or per
@@ -904,7 +948,9 @@ def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_lev
     once per verb of a round it evaluated; no other kernel.  After a
     (trusted) warmup each server must also report one shape per warmed
     bucket and span size, and launch expand once per level of the rounds
-    ``rpc.CollectorServer._warm_bucket`` runs at each shape."""
+    ``rpc.CollectorServer._warm_bucket`` runs at each shape.  With
+    ``shards`` data shards a server (``FHH_DATA_DEVICES``) every count is
+    that many times as large: each shard runs its own launch."""
     from fuzzyheavyhitters_torch.protocol import collect
 
     L, k = cfg.data_len, cfg.crawl_radix_bits
@@ -937,9 +983,10 @@ def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_lev
     for sid, ex in enumerate(run["exits"]):
         garbled = sum(n for i, n in enumerate(spans) if i % 2 == sid)
         want_l = {kn: 0 for kn in KERNELS}
-        want_l["expand"] = passes
+        want_l["expand"] = passes * shards
         if per_level:
-            want_l.update({per_level[0]: garbled, per_level[1]: verbs - garbled})
+            want_l.update({per_level[0]: garbled * shards,
+                           per_level[1]: (verbs - garbled) * shards})
         if ex["launches"] != want_l or ex["levels"] != verbs:
             raise AssertionError(f"{name}: server {sid} launched {ex['launches']} over "
                                  f"{ex['levels']} crawl verbs, want {want_l} over {verbs}")
@@ -966,7 +1013,8 @@ def check_socket_run(name, run, cfg, points, mesh_hitters, mesh_crawl_s, per_lev
             "buckets": buckets, "warmup": warm}
 
 
-def check_supervised_run(name, run, cfg, want_hitters, points, per_level=()):
+def check_supervised_run(name, run, cfg, want_hitters, points, per_level=(), shards=1,
+                         rerun_slack=0):
     """Phases 17-19's checks of a supervised socket run (faults or none):
     the hitters ``want_hitters`` and the plaintext recount; each server
     process launched expand once per crawl verb it began and, with
@@ -975,7 +1023,9 @@ def check_supervised_run(name, run, cfg, want_hitters, points, per_level=()):
     fail before or after its kernel), no other kernel; after a kill the
     restarted server 1 restored once, at the leader's restored level, and
     re-uploads alone: ``add_keys`` chunks of all clients to it, none again
-    to server 0.  Returns the figures."""
+    to server 0.  With ``shards`` data shards a server each launch count is
+    that many times as large, and expand may run ``rerun_slack`` launches
+    more (a level re-run inside its verb).  Returns the figures."""
     got = {e["value"]: e["count"] for e in run["hitters"]}
     if got != want_hitters:
         raise AssertionError(f"{name}: hitters {got} != {want_hitters}")
@@ -987,11 +1037,14 @@ def check_supervised_run(name, run, cfg, want_hitters, points, per_level=()):
     servers = []
     for sid, ex in enumerate(run["exits"]):
         want_l = {kn: 0 for kn in KERNELS}
-        want_l["expand"] = ex["levels"]
+        want_l["expand"] = ex["levels"] * shards
         want_l.update({kn: ex["launches"][kn] for kn in per_level})
+        got_l = dict(ex["launches"])
+        if want_l["expand"] <= got_l["expand"] <= want_l["expand"] + rerun_slack:
+            got_l["expand"] = want_l["expand"]
         pair = sum(ex["launches"][kn] for kn in per_level)
-        if ex["launches"] != want_l or (per_level and not
-                                        ex["levels_done"] <= pair <= ex["levels"]):
+        if got_l != want_l or (per_level and not ex["levels_done"] * shards <= pair
+                               <= ex["levels"] * shards):
             raise AssertionError(f"{name}: server {sid} launched {ex['launches']} over "
                                  f"{ex['levels']} crawl verbs begun, {ex['levels_done']} done")
         if ex["add_keys"] != chunks:
@@ -1002,6 +1055,7 @@ def check_supervised_run(name, run, cfg, want_hitters, points, per_level=()):
             "boot_id", "levels", "levels_done", "launches", "dedup_hits", "plane_resets",
             "ckpt_writes", "ckpt_bytes", "ckpt_write_s", "restores", "restore_s",
             "data_bytes_sent", "data_bytes_recv", "data_frame_max", "max_memory_allocated")})
+        servers[-1]["mesh"] = ex.get("mesh")
         servers[-1]["checkpoints"] = [{k: e[k] for k in ("level", "bytes", "seconds")}
                                       for e in ckpts]
     fig = {"n": int(points.shape[0]), "hitters": len(got), "hitter_map": got,
@@ -1155,14 +1209,15 @@ def _sketch_figures(name, run, crawl_s):
                     "data_bytes_recv": ex["data_bytes_recv"],
                     "data_frame_max": ex["data_frame_max"], "ckpt_writes": ex["ckpt_writes"],
                     "ckpt_bytes": ex["ckpt_bytes"], "phase_s": ex["seconds"],
-                    "max_memory_allocated": ex["max_memory_allocated"]})
+                    "max_memory_allocated": ex["max_memory_allocated"],
+                    "mesh": ex.get("mesh")})
         log(f"malicious {name} server{sid}: " + " ".join(
             f"{k}={v}" for k, v in out[-1].items() if k != "phase_s")
             + f" phase_s={ {k: round(v, 3) for k, v in ex['seconds'].items()} }")
     return out
 
 
-def check_malicious_run(name, run, cfg, points, alive, per_level, ckpt_levels):
+def check_malicious_run(name, run, cfg, points, alive, per_level, ckpt_levels, shards=1):
     """Phases 20's and 21's checks of a supervised malicious socket run:
     ``alive`` (bool[N]) is the liveness each server reports and the
     leader's ``crawl.done`` counts; every hitter count is the plaintext
@@ -1171,7 +1226,8 @@ def check_malicious_run(name, run, cfg, points, alive, per_level, ckpt_levels):
     in all), one expand launch per crawl verb, with ``per_level`` (the ot2s
     pair) one encrypt per level it garbled (level % 2 = its id) and one
     decrypt per level it evaluated, no other kernel; and wrote its
-    checkpoints at ``ckpt_levels`` (-1 the init blob).  -> the figures."""
+    checkpoints at ``ckpt_levels`` (-1 the init blob); ``shards`` data shards
+    a server multiply the launches.  -> the figures."""
     L = cfg.data_len
     got = {e["value"]: e["count"] for e in run["hitters"]}
     if not got:
@@ -1182,10 +1238,10 @@ def check_malicious_run(name, run, cfg, points, alive, per_level, ckpt_levels):
         raise AssertionError(f"{name}: crawl.done {crawl}")
     for sid, ex in enumerate(run["exits"]):
         want_l = {kn: 0 for kn in KERNELS}
-        want_l["expand"] = L
+        want_l["expand"] = L * shards
         if per_level:
             mine = sum(1 for lv in range(L) if lv % 2 == sid)
-            want_l.update({per_level[0]: mine, per_level[1]: L - mine})
+            want_l.update({per_level[0]: mine * shards, per_level[1]: (L - mine) * shards})
         ck = [e["level"] for e in run["events"][f"server{sid}"]
               if e["event"] == "resilience.server_checkpoint"]
         if (ex["launches"] != want_l or ex["levels"] != L or ex["sketch_verifies"] != L
@@ -1280,19 +1336,22 @@ def malicious_forged_run(name, cfg, n, seed, tmp, ex, collect, prg, torch):
     return fig
 
 
-def malicious_batch_run(name, cfg, n, seed, tmp):
+def malicious_batch_run(name, cfg, n, seed, tmp, env=SOCKET_ENV, shards=1):
     """Phase 21: the sketch at its batch size on the trusted exchange, all
     three processes (``bin.leader`` making its own sketch keys), supervised
     at the leader's default checkpoint cadence (16) with a directory a
     server, so the init blob is written: every client stays alive, every
-    hitter count is the plaintext recount.  -> the figures."""
+    hitter count is the plaintext recount.  ``env`` is the processes'
+    environment, ``shards`` the data shards it gives each server (phase
+    30).  -> the figures."""
     from fuzzyheavyhitters_torch.workloads import sample_points
 
-    run = socket_run(name, cfg, n, seed, tmp, SOCKET_ENV, supervise=True)
+    run = socket_run(name, cfg, n, seed, tmp, env, supervise=True)
     points = sample_points(cfg, n, np.random.default_rng(seed))
     L = cfg.data_len
     got = check_malicious_run(name, run, cfg, points, np.ones(n, bool), (),
-                              [-1] + [lv for lv in range(L - 1) if (lv + 1) % 16 == 0])
+                              [-1] + [lv for lv in range(L - 1) if (lv + 1) % 16 == 0],
+                              shards)
     gen = next(e for e in run["events"]["leader"] if e["event"] == "sketch_gen")
     crawl_s = run["crawl"]["seconds_by_part"]["levels"]
     fig = {"n": n, "hitters": len(got), "hitter_map": got, "crawl_s": crawl_s,
@@ -2280,6 +2339,262 @@ def mesh_phases(seed, cells, hitters, points, report, launches, errs, tmp, stage
     torch.cuda.empty_cache()
     stage(f"{name} run")
 
+def _shard_flats(flat, ks, Sharded, torch):
+    """A whole level's strings bool[B, S] as the kernel shards' slices of
+    ``bloc`` tests (zero past B), on their devices."""
+    pad = torch.zeros((ks.bp, flat.shape[1]), dtype=torch.bool, device=flat.device)
+    pad[:flat.shape[0]] = flat
+    return Sharded([pad[j * ks.bloc:(j + 1) * ks.bloc].to(dev)
+                    for j, dev in enumerate(ks.devices)], 0)
+
+
+def k3_check(name, kind, level, flats, field, path, garbler, seed, torch):
+    """K3 at one level: (a) ``kernel_shard.run_level_pair`` over SHARDS logical
+    shards of the card gives the u matrix, the frame and both parties' b2a
+    values of the whole-level path (k = 1) on the same OT material; (b) each
+    shard's kernel call equals its plain version on that shard's inputs; (c)
+    each is timed beside its bound (:func:`secure_check`).  ``flats`` are the
+    two servers' strings bool[F, C, N, S].  -> the per-shard checks."""
+    import random
+
+    from fuzzyheavyhitters_torch.ops import otext
+    from fuzzyheavyhitters_torch.parallel import kernel_shard
+    from fuzzyheavyhitters_torch.parallel.server_mesh import Sharded
+    from fuzzyheavyhitters_torch.protocol import secure
+    from fuzzyheavyhitters_torch.utils import words_from_numpy, words_to_numpy
+
+    dev = torch.device("cuda")
+    F, C, N, S = flats[0].shape
+    B = F * C * N
+    fs, fr = (f.reshape(B, S) for f in flats)
+    base = np.arange(1, 5, dtype=np.uint32)
+    gseed, bseed = secure.derive_seed(base, 1, level), secure.derive_seed(base, 2, level)
+    snd1, rcv1 = otext.inprocess_pair(dev, rng=random.Random(seed))
+    snd4, rcv4 = otext.inprocess_pair(dev, rng=random.Random(seed))
+    t0 = time.perf_counter()
+    u, t_rows, idx0 = secure.ev_step1_fused(rcv1, fr)
+    u1 = words_to_numpy(u)
+    msg, vs1 = secure.gb_step_level(snd1, words_from_numpy(u1, dev), fs, gseed, bseed, field,
+                                    garbler, path)
+    m1 = words_to_numpy(msg)
+    vr1 = secure.ev_open_level(t_rows, fr, msg, B, S, field, idx0, path)
+    del u, t_rows, msg
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    ks = kernel_shard.bind((dev,) * SHARDS, B, S, SHARDS)
+    if ks is None or ks.k != SHARDS:
+        raise AssertionError(f"{name}: level {level} binds {ks} kernel shards, want {SHARDS}")
+    kns = OT2S if path == "ot2s" else GC
+    orig = {kn: getattr(_ops(WRAPPERS[kn][0]), WRAPPERS[kn][1]) for kn in kns}
+    kept = []
+
+    def keeping(kn):
+        def call(*a):
+            out = orig[kn](*a)
+            kept.append((kn, a, out))
+            return out
+        return call
+
+    for kn in kns:
+        setattr(_ops(WRAPPERS[kn][0]), WRAPPERS[kn][1], keeping(kn))
+    try:
+        t0 = time.perf_counter()
+        u4, m4, vs4, vr4 = kernel_shard.run_level_pair(
+            ks, snd4, rcv4, _shard_flats(fs, ks, Sharded, torch),
+            _shard_flats(fr, ks, Sharded, torch), gseed, bseed, field, garbler, path)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+    finally:
+        for kn in kns:
+            setattr(_ops(WRAPPERS[kn][0]), WRAPPERS[kn][1], orig[kn])
+    what = f"{name} K3 level={level} ({kind}, F={F}, B={B}, S={S}, k={SHARDS})"
+    if not (np.array_equal(u1, u4) and np.array_equal(m1, m4)):
+        raise AssertionError(f"{what}: the sharded wire differs from the whole level's")
+    for a, b, who in ((vs1, vs4, "sender"), (vr1, vr4, "receiver")):
+        if not torch.equal(a, torch.cat(list(b))[:B]):
+            raise AssertionError(f"{what}: the {who}'s b2a values differ")
+    log(f"k3 {what}: u ({u1.nbytes} B) and frame ({m1.nbytes} B) byte-equal to k = 1, b2a "
+        f"values equal; whole level {whole_s:.3f} s, sharded {sharded_s:.3f} s (both roles)")
+    del vs1, vr1, vs4, vr4
+    if len(kept) != 2 * SHARDS:
+        raise AssertionError(f"{what}: {len(kept)} kernel calls, want {2 * SHARDS}")
+    checks = []
+    for i, (kn, a, out) in enumerate(kept):
+        c = secure_check(kn, a, out, orig[kn], f"{what} shard={i % SHARDS}")
+        c.update(kernel=kn, level=level, kind=kind, shard=i % SHARDS, B=B)
+        checks.append(c)
+    del kept, m1, m4
+    torch.cuda.empty_cache()
+    return checks
+
+
+def k3_checks(name, cfg, n, seed, with_last, torch):
+    """Phases 28-29's K3 checks on the socket cell's own inputs: its keys
+    made again from the seed (``bin.leader.client_keys``), crawled in this
+    process on the trusted exchange (the same counts, so the same
+    frontiers) in rounds of the cell's radix; at the widest inner round and,
+    ``with_last``, the F255 last round, both servers' strings go through
+    :func:`k3_check`, the garbler that round's."""
+    from fuzzyheavyhitters_torch.bin import leader as leader_bin
+    from fuzzyheavyhitters_torch.ops import ibdcf
+    from fuzzyheavyhitters_torch.ops.fields import F255, FE62
+    from fuzzyheavyhitters_torch.protocol import collect, driver, secure
+
+    dev = torch.device("cuda")
+    trusted = dataclasses.replace(cfg, secure_exchange=False)
+    k0, k1 = leader_bin.client_keys(trusted, n, dev, seed)[1:3]
+    lead = driver.Leader(*driver.make_servers(*(ibdcf.keys_from_numpy(k, dev) for k in (k0, k1))),
+                         n_dims=cfg.n_dims, data_len=cfg.data_len, f_max=cfg.f_max,
+                         radix=cfg.crawl_radix_bits)
+    del k0, k1
+    lead.run(nreqs=n, threshold=cfg.threshold)
+    L, k, d = cfg.data_len, cfg.crawl_radix_bits, cfg.n_dims
+    bases = list(range(0, L, k))
+    inner = lead.buckets[:-1]
+    targets = {bases[inner.index(max(inner))]: "widest_fe62"}
+    if with_last:
+        targets[bases[-1]] = "last_f255"
+    checks = []
+    lead.tree_init()
+    try:
+        for i, level in enumerate(bases):
+            if level in targets:
+                r = min(k, L - level)
+                flats = [secure.child_strings_radix(collect.expand_share_bits_radix(
+                    s.keys, s.frontier, level, r, want_children=False)[0], d, r)
+                    for s in (lead.server0, lead.server1)]
+                last = level + r == L
+                checks += k3_check(name, targets[level], level, flats, F255 if last else FE62,
+                                   secure.ot_path(2 * d * r, cfg.ot_path), i % 2, seed, torch)
+                del flats
+                if len(checks) == 2 * SHARDS * len(targets):
+                    break
+            lead.run_level(level, n, cfg.threshold)
+    finally:
+        for s in (lead.server0, lead.server1):
+            s.frontier = s.children = None
+        del lead
+        torch.cuda.empty_cache()
+    return checks
+
+
+def check_sharded(name, rep, base, n, secure):
+    """Phases 27-29's checks beside :func:`check_socket_run`'s: the hitters
+    and every server's data-plane bytes and largest frame equal the
+    unsharded cell ``base``'s (the wire is byte-identical), and each
+    server's ``mesh`` section shows SHARDS data shards of n / SHARDS
+    clients; secure, every level ran the kernel stage on SHARDS shards, none
+    gathered.  -> the figures."""
+    if rep["hitter_map"] != base["hitter_map"]:
+        raise AssertionError(f"{name}: hitters differ from the unsharded cell's")
+    for sid, (ex, bx) in enumerate(zip(rep["servers"], base["servers"])):
+        for key in ("data_bytes_sent", "data_bytes_recv", "data_frame_max"):
+            if ex[key] != bx[key]:
+                raise AssertionError(f"{name}: server {sid} {key} {ex[key]} != the unsharded "
+                                     f"cell's {bx[key]}")
+        m = ex["mesh"]
+        if (m is None or m["data_shards"] != SHARDS
+                or m["shard_clients"] != [n // SHARDS] * SHARDS):
+            raise AssertionError(f"{name}: server {sid} mesh {m}")
+        if secure and (m["kernel_shards_max"] != SHARDS or m["kernel_gathers"] != 0
+                       or m["kernel_shards"] != SHARDS):
+            raise AssertionError(f"{name}: server {sid} kernel stage {m}")
+    log(f"sharded {name}: hitters, data-plane bytes and largest frames = the unsharded "
+        f"cell's; crawl_s={rep['crawl_s']:.3f} (unsharded {base['crawl_s']:.3f}) mesh="
+        f"{[ex['mesh'] for ex in rep['servers']]} max_memory_allocated="
+        f"{rep['max_memory_allocated']} (unsharded {base['max_memory_allocated']})")
+    rep["mesh"] = [ex["mesh"] for ex in rep["servers"]]
+    return rep
+
+
+def sharded_phases(seed, cells, hitters, points, secure_cfg, report, errs, tmp, stage, torch):
+    """Phases 27-31: the socket deployment with SHARDS data shards a server
+    (``FHH_DATA_DEVICES``), against the unsharded cells of the same config,
+    seed and N, then the device-kill drill."""
+    from fuzzyheavyhitters_torch.workloads import sample_points
+
+    sock = report["sockets"]
+    env = {**SOCKET_ENV, **SHARD_ENV}
+    rides_cfg = cells["rides"][0]
+    # phase 27: trusted rides
+    name = "rides_socket_sharded"
+    run = socket_run(name, rides_cfg, RIDES_CLIENTS, seed, tmp, env)
+    rep = check_socket_run(name, run, rides_cfg, points["rides"], hitters["rides"],
+                           report["crawls"]["rides"]["seconds"]["crawl"], (), shards=SHARDS)
+    sock[name] = check_sharded(name, rep, sock["rides_socket"], RIDES_CLIENTS, False)
+    stage(f"{name} socket run")
+    # phases 28-29: secure rides (ot2s at S = 4; GC at S' = 8, radix 2)
+    secure_cells = {
+        "rides_secure_socket_sharded": (cells["rides_secure"][0], RIDES_SECURE_CLIENTS, OT2S,
+                                        "rides_secure_socket", True),
+        "rides_secure_socket_radix2_sharded": (
+            dataclasses.replace(rides_cfg, secure_exchange=True, ot_path="auto",
+                                crawl_radix_bits=RIDES_RADIX),
+            RIDES_RADIX_SECURE_CLIENTS, GC, "rides_secure_socket_radix2", False)}
+    for name, (cfg, n, per_level, base, with_last) in secure_cells.items():
+        run = socket_run(name, cfg, n, seed, tmp, env)
+        pts = sample_points(cfg, n, np.random.default_rng(seed))
+        rep = check_socket_run(name, run, cfg, pts, sock[base]["hitter_map"],
+                               sock[base]["mesh_crawl_s"], per_level, shards=SHARDS)
+        sock[name] = check_sharded(name, rep, sock[base], n, True)
+        stage(f"{name} socket run")
+        sock[name]["k3_checks"] = k3_checks(name, cfg, n, seed, with_last, torch)
+        for c in sock[name]["k3_checks"]:
+            errs[c["kernel"]].append(c["max_abs_err"])
+        stage(f"{name} K3 checks")
+    # phase 30: the malicious sketch at its batch, trusted exchange
+    name, base = "zipf_malicious_socket_sharded", sock["zipf_malicious_socket"]
+    cfg30 = dataclasses.replace(secure_cfg, secure_exchange=False)
+    fig, _ = malicious_batch_run(name, cfg30, SKETCH_CLIENTS, seed, tmp, env, SHARDS)
+    if fig["hitter_map"] != base["hitter_map"]:
+        raise AssertionError(f"{name}: hitters differ from zipf_malicious_socket's")
+    for sid, (sv, bv) in enumerate(zip(fig["servers"], base["servers"])):
+        m = sv["mesh"]
+        if (sv["sketch_verifies"] != bv["sketch_verifies"] or m is None
+                or m["sketch_shards"] != SHARDS or m["data_shards"] != SHARDS
+                or any(sv[k] != bv[k] for k in ("data_bytes_sent", "data_bytes_recv",
+                                                "data_frame_max"))):
+            raise AssertionError(f"{name}: server {sid} {sv} against {bv}")
+    log(f"sharded {name}: all {SKETCH_CLIENTS} alive, hitters, sketch verbs and data-plane "
+        f"bytes = zipf_malicious_socket's; rounds_s={fig['crawl_s']:.3f} (unsharded "
+        f"{base['crawl_s']:.3f}) mesh={[sv['mesh'] for sv in fig['servers']]}")
+    sock[name] = fig
+    stage(f"{name} socket run")
+    # phase 31: phase 27 supervised, server 1 losing a device at MESH_KILL_LEVEL
+    name = "rides_socket_sharded_device_kill"
+    L = rides_cfg.data_len
+    ck_levels = [lv for lv in range(L - 1) if (lv + 1) % CKPT_EVERY == 0]
+    if MESH_KILL_LEVEL - 1 not in ck_levels:
+        raise AssertionError(f"{name}: level {MESH_KILL_LEVEL} follows no checkpoint "
+                             f"({ck_levels})")
+    run = socket_run(name, rides_cfg, RIDES_CLIENTS, seed, tmp, {**SUPERVISED_ENV, **SHARD_ENV},
+                     supervise=True, server_env={1: {"FHH_MESH_FAULTS": MESH_KILL}})
+    rep = check_supervised_run(name, run, rides_cfg, sock["rides_socket_sharded"]["hitter_map"],
+                               points["rides"], shards=SHARDS, rerun_slack=SHARDS)
+    s0, s1 = rep["servers"]
+    ev = run["events"]
+    reshard = [e for e in ev["server1"] if e["event"] == "resilience.mesh_reshard"]
+    classified = [e for e in ev["leader"] if e["event"] == "resilience.loss_classified"]
+    m0, m1 = s0["mesh"], s1["mesh"]
+    if (m1["faults"] != 1 or m1["reshards"] != 1 or len(reshard) != 1
+            or reshard[0]["level"] != MESH_KILL_LEVEL or m0["faults"] != 0
+            or rep["counters"]["levels_rerun"] or rep["counters"]["recoveries"] or classified):
+        raise AssertionError(f"{name}: server 1 mesh {m1}, reshard events {reshard}, server 0 "
+                             f"mesh {m0}, counters {rep['counters']}, {classified}")
+    extra = s1["launches"]["expand"] - s1["levels"] * SHARDS
+    rep["reshard"] = {"level": MESH_KILL_LEVEL, "restored_level": MESH_KILL_LEVEL - 1,
+                      "server1_restore_s": s1["restore_s"], "extra_expand_launches": extra}
+    log(f"sharded {name}: server 1 lost a device at level {MESH_KILL_LEVEL}, re-sharded "
+        f"from the level-{MESH_KILL_LEVEL - 1} blob inside the verb (restore "
+        f"{s1['restore_s']:.3f} s), the leader saw no fault (levels_rerun 0, recoveries 0, "
+        f"no loss_classified); hitters = rides_socket_sharded's; server 1 expand launches "
+        f"{s1['launches']['expand']} = {s1['levels']} verbs x {SHARDS} + {extra} "
+        f"({'a pre-expanded dispatch dropped and run again' if extra else 'no pre-expanded dispatch: the fault fired before the level expanded'}); "
+        f"crawl_s={rep['crawl_s']:.3f}")
+    sock[name] = rep
+    stage(f"{name} socket run")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -2655,6 +2970,8 @@ def main() -> int:
         del pts21
         stage(f"{name} keygen check")
         mesh_phases(args.seed, cells, hitters, points, report, launches, errs, tmp, stage)
+        sharded_phases(args.seed, cells, hitters, points, secure_cfg, report, errs, tmp, stage,
+                       torch)
     for name in points:
         kg = measure_keygen(name, points[name], cells[name][0], keygen_cuda, ibdcf, torch, rng)
         report["crawls"][name]["keygen_check"] = kg
@@ -2725,10 +3042,23 @@ def main() -> int:
                                 "plain_ms", "bound_ms")}
              for cell in ("rides_mesh_secure", "rides_mesh_secure_gc")
              for c in report["mesh"][cell].get("secure_checks", ()) if c["kernel"] == kn])
+        # phases 27-31: launches per server process with four data shards, and
+        # K3 (the row-sharded kernel stage) held per shard at phases 28-29
+        rows[-1]["sharded_launches"] = {
+            c: [report["sockets"][c]["launches"][w][kn] for w in ("server0", "server1")]
+            for c in ("rides_socket_sharded", "rides_secure_socket_sharded",
+                      "rides_secure_socket_radix2_sharded", "zipf_malicious_socket_sharded",
+                      "rides_socket_sharded_device_kill")}
+        if kn not in ("keygen", "expand"):
+            rows[-1]["k3_checks"] = [
+                {k: c[k] for k in ("kind", "level", "shard", "S", "W", "bp", "max_abs_err",
+                                   "ms", "plain_ms", "bound_ms", "bound_by")}
+                for cell in ("rides_secure_socket_sharded", "rides_secure_socket_radix2_sharded")
+                for c in report["sockets"][cell]["k3_checks"] if c["kernel"] == kn]
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, ten crawls, a resume, "
-        "thirteen socket runs and six mesh runs)")
+        "eighteen socket runs and six mesh runs)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

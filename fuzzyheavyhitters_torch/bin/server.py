@@ -25,15 +25,20 @@ and restored, the ``sketch_verify`` verbs and their seconds (phase
 ``sketch``), the prunes' sketch advance seconds (``sketch_advance_s``), the
 clients still alive (``alive_clients``; null before a
 ``tree_init``), the launches of each kernel in this process and, on the
-card, its peak ``torch.cuda.max_memory_allocated``.  The JAX binary's
-fleet registration and multi-card options are not ported: their
-variables are refused.
+card, its peak ``torch.cuda.max_memory_allocated`` and the data shards'
+``mesh`` section (null without them).  ``FHH_DATA_DEVICES`` overrides the
+config's ``server_data_devices`` (N > 1: N data shards, wrapped onto the
+visible cards, or logical CPU shards with ``--device cpu``) and
+``FHH_MESH_FAULTS`` arms the device-loss drills (``mesh:kill@level=N``,
+the grammar of ``resilience.chaos.parse_mesh_faults``).  The JAX binary's
+fleet registration is not ported: its variable is refused.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import os
 import signal
@@ -43,13 +48,12 @@ import time
 import torch
 
 from ..protocol.rpc import CollectorServer, not_ported
+from ..resilience.chaos import MeshChaos, parse_mesh_faults
 from ..utils import config as configmod
 from ..utils import resolve_device
 
 # the JAX binary's environment knobs, each with the path it selects
 UNPORTED_ENV = {
-    "FHH_DATA_DEVICES": "a collector server sharded over several cards",
-    "FHH_MESH_FAULTS": "the device-loss drills of the multi-card server",
     "FHH_FLEET": "fleet registration",
 }
 
@@ -86,7 +90,15 @@ async def amain(cfg, server_id: int, device) -> None:
     ckpt_dir = os.environ.get("FHH_CKPT_DIR") or None
     if ckpt_dir is not None:
         os.makedirs(ckpt_dir, exist_ok=True)
-    server = CollectorServer(server_id, cfg, device, ckpt_dir=ckpt_dir, emit=emit)
+    # data shards: FHH_DATA_DEVICES overrides the config, FHH_MESH_FAULTS
+    # arms the consumed-once device-loss schedule (JAX bin/server.py:100-116)
+    dd = os.environ.get("FHH_DATA_DEVICES")
+    if dd is not None:
+        cfg = dataclasses.replace(cfg, server_data_devices=int(dd))
+    faults = os.environ.get("FHH_MESH_FAULTS")
+    chaos = MeshChaos(parse_mesh_faults(faults), emit=emit) if faults else None
+    server = CollectorServer(server_id, cfg, device, ckpt_dir=ckpt_dir, emit=emit,
+                             mesh_chaos=chaos)
     if server.device.type == "cuda":  # kernels and CUDA context before the first verb
         from ..ops import cuda_build
 
@@ -108,6 +120,7 @@ async def amain(cfg, server_id: int, device) -> None:
              boot_id=server.boot_id, **server.stats, launches=launch_counts(),
              alive_clients=(None if server.alive_keys is None
                             else int(server.alive_keys.sum())),
+             mesh=server.mesh_status(),
              max_memory_allocated=(
                  torch.cuda.max_memory_allocated(server.device)
                  if server.device.type == "cuda" else 0))

@@ -174,6 +174,32 @@ def _carve_label_words(seed: torch.Tensor, B: int, S: int, n_label_sets: int,
     return R, sets, mask
 
 
+def _carve_label_words_shard(seed: torch.Tensor, B: int, S: int, t0: int, bloc: int):
+    """Tests ``[t0, t0 + bloc)`` of the single-set draw (``with_r`` False) of
+    :func:`_carve_label_words`, without the rest of the stream: the
+    row-sharded kernel stage's slice of the garbler's labels and mask bits
+    (``parallel/kernel_shard.py``).  The label region seeks to block
+    ``t0·S·4/16``, the mask region (from word ``M0 = B·S·4``) to block
+    ``(M0 - M0 % 16)/16 + t0/512`` with ``M0 % 16`` words to skip; both
+    seeks are Python ints, so no product wraps at 32 bits (the JAX package
+    computes them in int64).  ``t0`` is a multiple of 512.  Tests at or
+    past ``B`` carve to zero, as the whole draw's planar padding does.
+    Returns (X0 int32[bloc, S, 4], mask bool[bloc])."""
+    dev = seed.device
+    live = torch.arange(t0, t0 + bloc, device=dev) < B
+    X0 = prg.stream_blocks(seed, bloc * S * 4 // 16, t0 * S * 4 // 16).reshape(bloc, S, 4)
+    X0 = torch.where(live[:, None, None], X0, 0)
+    m0 = B * S * 4
+    intra = m0 % 16
+    cw = (bloc + 31) // 32
+    nb = -(-(intra + cw) // 16)
+    words = prg.stream_blocks(seed, nb, (m0 - intra) // 16 + t0 // 512).reshape(nb * 16)
+    words = words[intra:intra + cw]
+    i = torch.arange(bloc, device=dev)
+    mask = ((words[i // 32] >> (i % 32).to(torch.int32)) & 1).to(torch.bool)
+    return X0, mask & live
+
+
 def _garble_core(R, X0, Y0, mask, x_bits):
     """Labels + offset -> (batch, output zero-labels out0)."""
     B = x_bits.shape[0]

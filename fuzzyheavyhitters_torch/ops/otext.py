@@ -193,6 +193,13 @@ class OtExtSender:
         """Per-column stream position in ChaCha blocks."""
         return self._off
 
+    @property
+    def shard_state(self) -> tuple:
+        """(seeds, s_bits) — the extension state a row-sharded extend
+        (:func:`sender_extend_rows`, ``parallel/kernel_shard.py``) reads;
+        it then calls :meth:`advance` as :meth:`extend` would."""
+        return self._seeds, self._s_dev
+
     def advance(self, m: int) -> None:
         self._off += _stream_blocks(m)
         self._sent += m
@@ -242,6 +249,12 @@ class OtExtReceiver:
     @property
     def stream_offset(self) -> int:
         return self._off
+
+    @property
+    def shard_state(self) -> tuple:
+        """(seeds0, seeds1) for a row-sharded extend
+        (:func:`receiver_extend_rows`, ``parallel/kernel_shard.py``)."""
+        return self._seeds0, self._seeds1
 
     def advance(self, m: int) -> None:
         self._off += _stream_blocks(m)

@@ -58,8 +58,11 @@ keeps server 0's last liveness vector.  Supervised, it banks an init
 checkpoint (level -1) before any Beaver slab opens and refuses, before
 touching a server, to start a sketch crawl over from scratch.
 
-``server_data_devices > 1`` (servers sharded over several cards) raises
-``NotImplementedError``; streaming windows are not ported.
+Servers with data shards (``server_data_devices``) answer as unsharded
+ones do; a recovery tells a device loss from a server loss by the growth
+of a server's ``mesh.faults`` under the same boot id and emits
+``resilience.loss_classified`` when it found either.  Streaming windows
+are not ported.
 """
 
 from __future__ import annotations
@@ -77,7 +80,7 @@ from ..resilience import policy as respolicy
 from ..utils.config import Config
 from . import collect
 from .driver import CrawlResult
-from .rpc import CollectorClient, ServerRestartedError, not_ported
+from .rpc import CollectorClient, ServerRestartedError
 
 UPLOAD_WINDOW = 256  # add_keys chunks in flight per upload (leader.rs:340-364 keeps 1000)
 
@@ -90,9 +93,6 @@ MAX_RECOVERIES = 4  # rollbacks a supervised crawl survives (the JAX leader's de
 class RpcLeader:
     def __init__(self, cfg: Config, client0: CollectorClient, client1: CollectorClient,
                  emit=None):
-        if cfg.server_data_devices > 1:
-            raise not_ported(f"server_data_devices={cfg.server_data_devices}",
-                              "a collector server sharded over several cards")
         self.cfg = cfg
         self.c0, self.c1 = client0, client1
         self.emit = emit or (lambda event, **kw: None)
@@ -105,6 +105,7 @@ class RpcLeader:
         # rounds (re-runs and recoveries included), recoveries alone
         self.seconds = {"upload": 0.0, "warmup": 0.0, "levels": 0.0, "recover": 0.0}
         self._boot_ids: dict = {}  # last known server boot ids
+        self._mesh_faults: dict = {}  # last seen mesh.faults count per server
         self.has_sketch = False  # the uploaded keys carry sketch keys (malicious mode)
         self.alive = None  # server 0's client liveness after the latest sketch_verify
 
@@ -413,6 +414,20 @@ class RpcLeader:
             if known is not None and st["boot_id"] != known:
                 restarted.append(i)
             self._boot_ids[i] = st["boot_id"]
+        # device loss against server loss (JAX leader_rpc.py:613-632): a
+        # server of the same boot whose mesh fault count grew since the last
+        # look lost a data device, not itself — it re-sharded in place, or
+        # escalated for want of a checkpoint; the counts are cumulative per
+        # boot, so only the growth counts
+        device_loss = []
+        for i, st in enumerate((st0, st1)):
+            f = int((st.get("mesh") or {}).get("faults") or 0)
+            if i not in restarted and f > self._mesh_faults.get(i, 0):
+                device_loss.append(i)
+            self._mesh_faults[i] = f
+        if restarted or device_loss:
+            self.emit("resilience.loss_classified", server_loss=restarted,
+                      device_loss=device_loss)
         return restarted
 
     async def _recover(self, keys0, keys1, sketch0, sketch1, stash) -> int:

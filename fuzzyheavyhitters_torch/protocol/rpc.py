@@ -76,6 +76,25 @@ cache (errors too), a replay of one still running awaits that execution.
 :class:`CollectorClient` redials after a lost transport and resends under
 the same request id.
 
+Data shards (``Config.server_data_devices``, the binary's
+``FHH_DATA_DEVICES``; ``parallel/server_mesh.py``): a server with k > 1
+shards splits its key batch, frontier and child cache along the client
+axis, N/k clients a shard, and expands each shard through the expand
+kernel on its own slice.  The trusted count is taken per shard and summed
+before the wire; the secure kernel stage runs row-sharded, its field share
+sums folded over shards (``parallel/kernel_shard.py``,
+``Config.secure_kernel_shards``; a level that fills one planar block
+gathers its share bits onto the first shard instead and runs the
+whole-level path there, counted in ``kernel_gathers``) and the sketch check per
+client slice (``parallel/sketch_shard.py``, ``Config.sketch_shards``).
+Every wire frame is the unsharded server's byte for byte, so neither the
+peer nor the leader can tell.  A device fault (``MeshChaos`` at a crawl
+verb's entry, the binary's ``FHH_MESH_FAULTS``) re-shards inside the verb
+from the checkpoint of the level before and re-runs it; with no such
+checkpoint the server breaks its data plane and answers the error, and
+the supervising leader's recovery takes over.  ``status`` reports the
+shards in its ``mesh`` section.
+
 Not ported (they answer ``NotImplementedError`` naming the missing path,
 never "unknown verb"): the other verbs of the JAX server and multi-tenant
 collections.
@@ -99,6 +118,10 @@ import torch
 
 from ..ops import baseot, dpf, ibdcf, otext
 from ..ops.fields import F255, FE62
+from ..parallel import kernel_shard, sketch_shard
+from ..parallel import server_mesh as smesh
+from ..parallel.server_mesh import Sharded
+from ..resilience import chaos as reschaos
 from ..resilience import policy as respolicy
 from ..ops.ibdcf import EvalState
 from ..utils import resolve_device, tensor_from_numpy, words_from_numpy, words_to_numpy
@@ -250,22 +273,26 @@ class CollectorServer:
     checkpoint blobs; without it ``tree_checkpoint`` and ``tree_restore``
     refuse.  ``emit(event, **fields)`` receives the recovery events
     (``resilience.server_checkpoint``, ``resilience.server_restore``,
-    ``resilience.plane_reset``, ``resilience.plane_break``)."""
+    ``resilience.plane_reset``, ``resilience.plane_break``,
+    ``resilience.mesh_reshard``, ``warmup.shard_mismatch``).  Data shards
+    come from ``cfg.server_data_devices`` (``parallel/server_mesh.py``);
+    ``mesh_chaos`` (a ``resilience.chaos.MeshChaos``) injects device faults
+    at each crawl verb's entry."""
 
     VERBS = ("reset", "add_keys", "tree_init", "tree_crawl", "tree_crawl_last",
              "tree_prune", "tree_prune_last", "final_shares", "warmup", "status",
              "tree_checkpoint", "tree_restore", "plane_reset", "plane_break", "sketch_verify")
 
     def __init__(self, server_id: int, cfg: Config, device=None, *, ckpt_dir=None,
-                 emit=None):
+                 emit=None, mesh_chaos=None):
         if server_id not in (0, 1):
             raise ValueError(f"server_id must be 0 or 1, got {server_id}")
-        if cfg.server_data_devices > 1:
-            raise not_ported(f"server_data_devices={cfg.server_data_devices}",
-                              "a collector server sharded over several cards")
         self.server_id = server_id
         self.cfg = cfg
         self.device = resolve_device(device)
+        k = smesh.resolve_data_devices(cfg.server_data_devices, self.device)
+        self._mesh = smesh.ServerMesh(k, self.device) if k > 1 else None
+        self._mesh_chaos = mesh_chaos
         self.boot_id = secrets.token_hex(8)
         self.ckpt_dir = ckpt_dir
         self.emit = emit or (lambda event, **kw: None)
@@ -273,13 +300,23 @@ class CollectorServer:
         # data-plane frame, crawl verbs begun and finished, add_keys chunks,
         # replays answered from the cache, plane resets, checkpoints written
         # (bytes, seconds) and restored (seconds), sketch_verify verbs and
-        # the host seconds the prunes spent advancing the sketch states
+        # the host seconds the prunes spent advancing the sketch states; the
+        # crawl's device readbacks (k a sharded one), and with data shards the
+        # seconds of the per-shard reductions, the levels that gathered their
+        # share bits, the device faults, re-shards and re-runs inside a verb
         self.stats = {"seconds": dict.fromkeys(PHASES, 0.0),
                       "data_bytes_sent": 0, "data_bytes_recv": 0, "data_frame_max": 0,
                       "control_bytes_sent": 0, "control_bytes_recv": 0, "levels": 0,
                       "levels_done": 0, "add_keys": 0, "dedup_hits": 0, "plane_resets": 0,
                       "ckpt_writes": 0, "ckpt_bytes": 0, "ckpt_write_s": 0.0, "restores": 0,
-                      "restore_s": 0.0, "sketch_verifies": 0, "sketch_advance_s": 0.0}
+                      "restore_s": 0.0, "sketch_verifies": 0, "sketch_advance_s": 0.0,
+                      "device_fetches": 0, "ici_reduce_s": 0.0, "kernel_gathers": 0,
+                      "kernel_gather_s": 0.0, "mesh_faults": 0, "mesh_reshards": 0,
+                      "shards_rerun": 0}
+        # the last value of the data shards' per-level gauges (None before
+        # any), and the kernel stage's widest
+        self._gauges = {"kernel_shards": None, "kernel_shards_max": None,
+                        "sketch_shards": None}
         # every verb but add_keys and plane_break runs under it
         self._verb_lock = asyncio.Lock()
         self._sessions: dict = {}  # leader session id -> _Session
@@ -295,8 +332,14 @@ class CollectorServer:
         self._clear()
 
     def _clear(self) -> None:
-        self.keys_parts: list = []  # uploaded numpy key chunks
-        self.keys = None  # IbDcfKeyBatch [N, d, 2] on the device
+        # the uploaded numpy key chunks; with data shards they are kept after
+        # concatenation, for a re-shard after a device loss rebuilds the keys
+        # from them
+        self.keys_parts: list = []
+        self._keys_stale = False  # chunks arrived since the keys were built
+        # IbDcfKeyBatch [N, d, 2] on the device; with data shards one per
+        # shard, and so for the frontier and the child cache
+        self.keys = None
         self.alive_keys = None
         self.frontier = None
         self.children = None  # the child cache of this level's crawl
@@ -349,6 +392,7 @@ class CollectorServer:
             raise ValueError(f"add_keys: a sketch chunk has 16 leaves, got {len(sk)}")
         self.stats["add_keys"] += 1
         self.keys_parts.append(tuple(np.asarray(a) for a in req["keys"]))
+        self._keys_stale = True
         if sk is not None:
             self._sketch_parts.append(tuple(np.asarray(a) for a in sk))
         return True
@@ -364,42 +408,79 @@ class CollectorServer:
             self._sketch = sketchmod.sketch_from_numpy(leaves, self.device)
 
     def _concat_keys(self, verb: str) -> None:
-        """The uploaded chunks as one key batch on the device, checked
-        against the crawl radix."""
+        """The uploaded chunks as one key batch on the device (with data
+        shards, bound to the batch and split per shard), checked against
+        the crawl radix.  With data shards the chunks are kept."""
         if not self.keys_parts and self.keys is None:
             raise RuntimeError(f"{verb} before add_keys")
-        if self.keys_parts:
+        if self.keys is None or self._keys_stale:
             leaves = [np.concatenate(p) for p in zip(*self.keys_parts)]
-            self.keys_parts = []
-            self.keys = ibdcf.keys_from_numpy(ibdcf.IbDcfKeyBatch(*leaves), self.device)
-        d = self.keys.cw_seed.shape[1]
+            if self._mesh is not None:
+                self._mesh.bind(leaves[0].shape[0])
+                self.keys = self._mesh.shard_keys(leaves)
+            else:
+                self.keys_parts = []  # only a re-shard reads them again
+                self.keys = ibdcf.keys_from_numpy(ibdcf.IbDcfKeyBatch(*leaves), self.device)
+            self._keys_stale = False
+        d = self._kb().cw_seed.shape[1]
         if not 1 <= d <= collect.MAX_DIMS:
             raise ValueError(f"n_dims={d}: supported 1..{collect.MAX_DIMS}")
         collect.check_radix(d, self.cfg.crawl_radix_bits)
+
+    # -- data shards: one code path, a list of one part without them ---------
+
+    def _shards(self, x) -> list:
+        """The per-shard parts of ``x`` (keys, a frontier, a child cache)."""
+        return x if self._mesh is not None else [x]
+
+    def _one(self, parts: list):
+        """:meth:`_shards`' inverse."""
+        return parts if self._mesh is not None else parts[0]
+
+    def _kb(self) -> ibdcf.IbDcfKeyBatch:
+        """A key batch to read the key shapes from (the first shard's)."""
+        return self._shards(self.keys)[0]
+
+    def _n_clients(self) -> int:
+        return self._mesh.n_clients if self._mesh is not None else self.keys.cw_seed.shape[0]
+
+    def _data_len(self) -> int:
+        return self._kb().cw_seed.shape[-2]
+
+    def _f_bucket(self) -> int:
+        return self._shards(self.frontier)[0].f_bucket
+
+    def _gauge(self, name: str, value: int) -> None:
+        self._gauges[name] = value
+        if name == "kernel_shards":
+            self._gauges["kernel_shards_max"] = max(self._gauges["kernel_shards_max"] or 0,
+                                                    value)
 
     def _keys_fp(self) -> np.ndarray:
         """uint8[32]: SHA-256 over ``key_idx`` then ``root_seed`` in their
         wire dtypes, byte for byte the JAX server's ``keys_fp``: did the
         leader re-upload the batch this checkpoint was written under (an
         operational check, not a cryptographic one)."""
+        keys = self._shards(self.keys)
         h = hashlib.sha256()
-        h.update(np.ascontiguousarray(self.keys.key_idx.cpu().numpy()))
-        h.update(np.ascontiguousarray(words_to_numpy(self.keys.root_seed)))
+        h.update(np.ascontiguousarray(np.concatenate([k.key_idx.cpu().numpy() for k in keys])))
+        h.update(np.ascontiguousarray(np.concatenate([words_to_numpy(k.root_seed)
+                                                      for k in keys])))
         return np.frombuffer(h.digest(), np.uint8)
 
     def crawl_radix(self, level: int) -> int:
         """Bit levels of the crawl round based at ``level``: the server's
         radix, clipped at the tail of the key batch's data_len."""
-        return min(self.cfg.crawl_radix_bits, self.keys.cw_seed.shape[-2] - int(level))
+        return min(self.cfg.crawl_radix_bits, self._data_len() - int(level))
 
     async def tree_init(self, req) -> bool:
         if not self.keys_parts and self.keys is None:
             raise RuntimeError("tree_init before add_keys")
         await self._ensure_plane()
         self._concat_keys("tree_init")
-        n = self.keys.cw_seed.shape[0]
-        self.alive_keys = torch.ones(n, dtype=torch.bool, device=self.device)
-        self.frontier = collect.tree_init(self.keys, int((req or {}).get("root_bucket", 1)))
+        self.alive_keys = torch.ones(self._n_clients(), dtype=torch.bool, device=self.device)
+        rb = int((req or {}).get("root_bucket", 1))
+        self.frontier = self._one([collect.tree_init(k, rb) for k in self._shards(self.keys)])
         self.children = self.last_shares = None
         self._clear_spans()
         if self._has_sketch():
@@ -434,7 +515,7 @@ class CollectorServer:
         prefix are one node of dim j's 1-D sketch tree and count once (the
         first slot keeps it).  The dedup table comes from the public
         survivor table, so both servers gate alike (JAX sessions.py:552-628)."""
-        L = self.keys.cw_seed.shape[-2]
+        L = self._data_len()
         k = self._sketch.key  # batch [N, d]
         d = k.root_seed.shape[1]
         r = pat.shape[1]
@@ -527,19 +608,26 @@ class CollectorServer:
             # level-0 check opened its slab)
             checks = [(p, dep - 1, f, dep) for (p, dep, f) in self._sketch_pairs if dep >= 2]
         sk = self._sketch
+        # with data shards the check batch splits along its clients
+        # (parallel/sketch_shard.py): the same wire, assembled by position
+        ss = self._sketch_bind(n, d)
+        if self._mesh is not None:
+            self._gauge("sketch_shards", 1 if ss is None else ss.k)
+        fetches = 1 if ss is None else ss.k
         ok_all = None
         for pairs, dpf_level, fld, depth in checks:
             if fld is F255:
                 trip, mk, mk2 = sk.triples_last, sk.mac_key_last, sk.mac_key2_last
             else:
                 trip, mk, mk2 = mpc.level_slab(sk.triples, dpf_level), sk.mac_key, sk.mac_key2
-            cor, state = sketchmod.cor_state(fld, pairs, trip, mk, mk2,
-                                             self.challenge_seed(depth), depth)
-            peer_cor = await self._swap(await asyncio.to_thread(sketchmod.wire, cor))
-            o = sketchmod.out_shares(fld, state, cor, peer_cor, bool(self.server_id))
+            cor, state = sketch_shard.cor_state(ss, fld, pairs, trip, mk, mk2,
+                                                self.challenge_seed(depth), depth)
+            peer_cor = await self._swap(await asyncio.to_thread(sketch_shard.wire, cor))
+            o = sketch_shard.out_shares(ss, fld, state, cor, peer_cor, bool(self.server_id))
             del state, cor
-            peer_o = await self._swap(await asyncio.to_thread(sketchmod.wire, o))
-            ok = sketchmod.verdicts(fld, o, peer_o)
+            peer_o = await self._swap(await asyncio.to_thread(sketch_shard.wire, o))
+            ok = sketch_shard.verdicts(ss, fld, o, peer_o)
+            self.stats["device_fetches"] += 2 * fetches
             ok_all = ok if ok_all is None else ok_all & ok
         if ok_all is not None:
             self.alive_keys &= ok_all
@@ -551,6 +639,16 @@ class CollectorServer:
         self.stats["sketch_verifies"] += 1
         self._phases(sketch=time.perf_counter() - t0)
         return out
+
+    def _sketch_bind(self, n: int, d: int):
+        """The sketch check's shard binding: the data shards under the
+        ``Config.sketch_shards`` budget (0 follows the data shards); None
+        without data shards or when one shard fits."""
+        if self._mesh is None:
+            return None
+        budget = (self._mesh.shards if self.cfg.sketch_shards <= 0
+                  else min(int(self.cfg.sketch_shards), self._mesh.shards))
+        return sketch_shard.bind(self._mesh._active_devices(), n, d, budget)
 
     async def tree_crawl(self, req) -> np.ndarray:
         """-> FE62 shares uint64[F, 2^d] of the per-child counts (rpc.rs:60)."""
@@ -589,12 +687,14 @@ class CollectorServer:
             self.children = self._assemble_shard_children(r)
         children = self.children
         if children is None:
-            _, children = collect.expand_share_bits_radix(self.keys, self.frontier, level, r,
-                                                          want_children=True)
-        dev = self.device
-        self.frontier = collect.advance_from_children_radix(
-            children, torch.from_numpy(parent).to(dev), torch.from_numpy(pat).to(dev),
-            n_alive, r)
+            children = self._one([
+                collect.expand_share_bits_radix(k, f, level, r, want_children=True)[1]
+                for k, f in zip(self._shards(self.keys), self._shards(self.frontier))])
+        par, pt = torch.from_numpy(parent), torch.from_numpy(pat)
+        self.frontier = self._one([
+            collect.advance_from_children_radix(c, par.to(c.seed.device), pt.to(c.seed.device),
+                                                n_alive, r)
+            for c in self._shards(children)])
         self.children = None
         if self._sketch is not None:  # the sketch states follow the same survivors
             self._advance_and_absorb(level, parent, pat, n_alive)
@@ -606,9 +706,9 @@ class CollectorServer:
         self._expand_ready.clear()
         if self.last_shares is None and self._shard_last:
             whole = np.concatenate([p for _, p in sorted(self._shard_last.items())], axis=0)
-            if whole.shape[0] != self.frontier.f_bucket:
+            if whole.shape[0] != self._f_bucket():
                 raise RuntimeError(f"sharded last crawl incomplete: shares cover "
-                                   f"{whole.shape[0]} of {self.frontier.f_bucket} slots")
+                                   f"{whole.shape[0]} of {self._f_bucket()} slots")
             self.last_shares = whole
             self._shard_last.clear()
         if self.last_shares is None:
@@ -616,7 +716,7 @@ class CollectorServer:
         self.children = None
         parent, pat, n_alive = self._prune_args(req)
         _, r, d = pat.shape
-        base = self.keys.cw_seed.shape[-2] - r
+        base = self._data_len() - r
         if r != self.crawl_radix(base):
             raise RuntimeError(f"leaf prune pattern carries {r} step bit(s) where this "
                                f"session's tail round fuses {self.crawl_radix(base)}")
@@ -638,15 +738,26 @@ class CollectorServer:
         secure crawl unless ``secure_spans``), what a crawl at that bucket
         runs (:meth:`_warm_bucket`), with the leader's ``ot_path``.  Touches
         no live state: neither the frontier, nor the OT sessions, nor the
-        data plane.  -> ``{"shapes", "ladder_hits"}`` (the hits of the JAX
-        server's tenant ladder, always 0: tenancy is not ported)."""
+        data plane.  A leader whose ``data_shards`` resolves to another shard
+        count than this server's gets a ``warmup.shard_mismatch`` event (the
+        server's own shards are warmed).  -> ``{"shapes", "ladder_hits"}``
+        (the hits of the JAX server's tenant ladder, always 0: tenancy is
+        not ported)."""
         self._concat_keys("warmup")
         req = req or {}
         buckets = sorted({int(b) for b in req.get("f_buckets", []) if int(b) > 0})
         ot_path = req.get("ot_path") or self.cfg.ot_path
         whole = (self.cfg.secure_exchange and self.cfg.secure_whole_level
                  and not req.get("secure_spans"))
-        L = self.keys.cw_seed.shape[-2]
+        want = req.get("data_shards")
+        have = 1 if self._mesh is None else self._mesh.shards
+        if want is not None and int(want) > 0:
+            want_shards = smesh._largest_divisor_leq(
+                self._n_clients(), smesh.resolve_data_devices(int(want), self.device))
+            if want_shards != have:
+                self.emit("warmup.shard_mismatch", server=self.server_id,
+                          leader_data_shards=want_shards, server_data_shards=have)
+        L = self._data_len()
         shapes = 0
         for b in buckets:
             sizes = set() if whole else {
@@ -667,25 +778,43 @@ class CollectorServer:
         crawl runs: the full-radix round with the child cache and the tail
         round without (one round when it is the whole crawl); then the
         count, or in secure mode the level's whole 2PC chain
-        (``secure.warm_level_kernels``) in FE62 or, for the tail, F255."""
-        d = self.keys.cw_seed.shape[1]
+        (``secure.warm_level_kernels``, or its row-sharded twin where the
+        live level binds the kernel stage to the data shards) in FE62 or,
+        for the tail, F255.  With data shards every stage runs per shard,
+        as the live crawl does."""
+        mesh = self._mesh
+        keys = self._shards(self.keys)
+        d, N = keys[0].cw_seed.shape[1], self._n_clients()
         k = self.cfg.crawl_radix_bits
-        fr = collect.tree_init(self.keys, fb)
+        frs = [collect.tree_init(kb, fb) for kb in keys]
         base_last = k * ((L - 1) // k)
         steps = ([(min(k, L), True)] if base_last == 0
                  else [(k, False), (L - base_last, True)])
         alive = self.alive_keys
         if alive is None:
-            alive = torch.ones(self.keys.cw_seed.shape[0], dtype=torch.bool, device=self.device)
+            alive = torch.ones(N, dtype=torch.bool, device=self.device)
         for r, last in steps:
             # the child cache is dropped at once: the tail round is built without it
-            packed = collect.expand_share_bits_radix(
-                self.keys, fr, base_last if last else 0, r, want_children=not last)[0]
+            packed = [collect.expand_share_bits_radix(kb, fr, base_last if last else 0, r,
+                                                      want_children=not last)[0]
+                      for kb, fr in zip(keys, frs)]
+            field = F255 if last else FE62
             if self.cfg.secure_exchange:
-                secure.warm_level_kernels(packed, d, F255 if last else FE62, ot_path, r)
+                ks = (None if mesh is None else
+                      mesh.kernel_bind(fb * (1 << (d * r)) * N, 2 * d * r,
+                                       self.cfg.secure_kernel_shards))
+                if ks is not None:
+                    secure.warm_level_kernels_sharded(ks, packed, d, fb, N, field, ot_path, r)
+                else:
+                    whole = packed[0] if mesh is None else mesh.gather(Sharded(packed, 1))
+                    secure.warm_level_kernels(whole, d, field, ot_path, r)
+            elif mesh is not None:
+                mesh.counts_by_pattern(packed, packed, collect.pattern_masks_radix(d, r),
+                                       alive, frs[0].alive).cpu()
             else:
-                collect.counts_by_pattern(packed, packed, collect.pattern_masks_radix(d, r),
-                                          alive, fr.alive).cpu()
+                collect.counts_by_pattern(packed[0], packed[0],
+                                          collect.pattern_masks_radix(d, r), alive,
+                                          frs[0].alive).cpu()
 
     # -- recovery verbs (no reference analogue: its only recovery verb is
     # reset, server.rs:64-69) ------------------------------------------------
@@ -693,16 +822,39 @@ class CollectorServer:
     async def status(self, _req) -> dict:
         """The supervising leader's probe: the boot id tells it whether this
         is the process it knew (replay is safe) or a restart (state gone:
-        restore), the dedup hits that no verb ran twice.  The JAX server's
+        restore), the dedup hits that no verb ran twice, and the data
+        shards' health (:meth:`mesh_status`; its ``faults`` tells the
+        leader a device loss from a server loss).  The JAX server's
         sections of unported layers (ingest, sessions, fleet, slo, alerts)
-        are left out; ``mesh`` is None, as on a one-card JAX server."""
+        are left out."""
         return {"boot_id": self.boot_id, "collection": DEFAULT_COLLECTION,
                 "clock": round(time.time(), 6),
                 "has_keys": self.keys is not None or bool(self.keys_parts),
                 "has_frontier": self.frontier is not None,
                 "dedup_hits": self.stats["dedup_hits"],
                 "plane_resets": self.stats["plane_resets"],
-                "ckpt_levels": self._ckpt_levels(), "mesh": None}
+                "ckpt_levels": self._ckpt_levels(), "mesh": self.mesh_status()}
+
+    def mesh_status(self) -> dict | None:
+        """The data shards in the JAX server's ``mesh`` section (None
+        without them): devices in the budget, shards bound and clients per
+        shard, the per-shard reductions' seconds, device faults and
+        re-shards, the secure kernel stage's last and widest shard count
+        (None before a secure level), the levels that gathered their share
+        bits and the seconds of those gathers, and the last sketch check's
+        shard count (None before one)."""
+        if self._mesh is None:
+            return None
+        st = self.stats
+        return {"data_devices": self._mesh.n_devices, "data_shards": self._mesh.shards,
+                "shard_clients": self._mesh.occupancy(),
+                "ici_reduce_seconds": round(st["ici_reduce_s"], 6),
+                "reshards": st["mesh_reshards"], "faults": st["mesh_faults"],
+                "kernel_shards": self._gauges["kernel_shards"],
+                "kernel_shards_max": self._gauges["kernel_shards_max"],
+                "kernel_gathers": st["kernel_gathers"],
+                "kernel_gather_seconds": round(st["kernel_gather_s"], 6),
+                "sketch_shards": self._gauges["sketch_shards"]}
 
     async def tree_checkpoint(self, req) -> dict:
         """Persist the crawl state after the round based at ``level``: the
@@ -722,10 +874,11 @@ class CollectorServer:
             raise RuntimeError("tree_checkpoint before tree_init")
         level = int(req["level"])
         t0 = time.perf_counter()
-        st = self.frontier.states
+        fr = self.frontier if self._mesh is None else self._mesh.gather_frontier(self.frontier)
+        st = fr.states
         as_np = lambda t: t.cpu().numpy()
         blob = {"seed": words_to_numpy(st.seed), "bit": as_np(st.bit),
-                "y_bit": as_np(st.y_bit), "alive": as_np(self.frontier.alive),
+                "y_bit": as_np(st.y_bit), "alive": as_np(fr.alive),
                 "alive_keys": as_np(self.alive_keys), "planar": np.bool_(True),
                 "keys_fp": self._keys_fp(), "level": np.int64(level),
                 "sess": np.str_(DEFAULT_COLLECTION),
@@ -863,7 +1016,7 @@ class CollectorServer:
             raise RuntimeError("tree_restore: checkpoint was written under a different key "
                                "batch — re-upload the original keys")
         level = int(z["level"])
-        L, n = self.keys.cw_seed.shape[-2], self.keys.cw_seed.shape[0]
+        L, n = self._data_len(), self._n_clients()
         if level != want:
             raise RuntimeError(f"tree_restore: checkpoint at {path} is stamped level {want} "
                                f"but records level {level} (renamed or tampered file)")
@@ -873,8 +1026,10 @@ class CollectorServer:
         if z["alive_keys"].shape[0] != n:
             raise RuntimeError("tree_restore: checkpoint client count != key batch")
         self._check_sketch_blob(z, path)
-        # -- every check passed: mutate
-        dev = self.device
+        # -- every check passed: mutate.  With data shards the frontier is
+        # split again from the host blob: a lost device is recovered by
+        # placement, not by a restart
+        dev = self.device if self._mesh is None else torch.device("cpu")
         as_bool = lambda a: tensor_from_numpy(a, dev, bool)
         if bool(z["planar"]):
             states = EvalState(seed=words_from_numpy(z["seed"], dev), bit=as_bool(z["bit"]),
@@ -882,8 +1037,10 @@ class CollectorServer:
         else:
             states = collect.states_from_numpy(
                 EvalState(seed=z["seed"], bit=z["bit"], y_bit=z["y_bit"]), dev)
-        self.alive_keys = as_bool(z["alive_keys"])
-        self.frontier = collect.Frontier(states=states, alive=as_bool(z["alive"]))
+        self.alive_keys = tensor_from_numpy(z["alive_keys"], self.device, bool)
+        frontier = collect.Frontier(states=states, alive=as_bool(z["alive"]))
+        self.frontier = (frontier if self._mesh is None
+                         else self._mesh.shard_frontier(frontier))
         self.children = self.last_shares = None
         self._clear_spans()
         if self._has_sketch():
@@ -982,7 +1139,7 @@ class CollectorServer:
     def _frontier_view(self, shard):
         if shard is None:
             return self.frontier
-        return collect.frontier_slice(self.frontier, *shard)
+        return self._one([collect.frontier_slice(f, *shard) for f in self._shards(self.frontier)])
 
     def _stash_children(self, level: int, shard, children) -> None:
         """Bank one crawl's child cache for the prune: the whole level's,
@@ -1003,18 +1160,21 @@ class CollectorServer:
         """The round's child cache from its spans (``2^(radix-1)`` cache
         rows per frontier slot); a missing span raises rather than advance
         garbage for its nodes."""
-        children = collect.children_cat(list(self._shard_children.items()))
-        got = children.seed.shape[4] >> (radix - 1)
-        if got != self.frontier.f_bucket:
+        items = list(self._shard_children.items())
+        n = len(self._shards(self.frontier))
+        children = self._one([collect.children_cat([(lo, self._shards(c)[j]) for lo, c in items])
+                              for j in range(n)])
+        got = self._shards(children)[0].seed.shape[4] >> (radix - 1)
+        if got != self._f_bucket():
             raise RuntimeError(f"sharded crawl incomplete: child caches cover {got} of "
-                               f"{self.frontier.f_bucket} frontier slots")
+                               f"{self._f_bucket()} frontier slots")
         self._shard_children.clear()
         return children
 
     def _mask_rows(self, level: int, shard, C: int, f255: bool) -> np.ndarray:
         """The trusted answer's mask rows of one (level, span): the whole
         level's stream sliced to the span's nodes (one-entry cache)."""
-        F = self.frontier.f_bucket
+        F = self._f_bucket()
         key = (level, F, f255)
         if self._mask_cache is None or self._mask_cache[0] != key:
             self._mask_cache = (key, sessions.mask_rows(level, F, C, f255))
@@ -1023,15 +1183,32 @@ class CollectorServer:
 
     def _do_expand(self, level: int, last: bool, shard) -> dict:
         """The device half of one crawl verb: the expansion of the frontier
-        view (and in secure mode its equality strings).  Dispatches device
-        work and never touches the data plane."""
+        view, per data shard on its clients (and in secure mode its
+        equality strings: row-sharded over the kernel stage's shards, or
+        gathered onto the first shard when the level binds one).
+        Dispatches device work and never touches the data plane."""
         frontier = self._frontier_view(shard)
         r = self.crawl_radix(level)
-        packed, children = collect.expand_share_bits_radix(self.keys, frontier, level, r,
-                                                           want_children=not last)
-        out = {"packed": packed, "children": children, "frontier": frontier}
+        outs = [collect.expand_share_bits_radix(k, f, level, r, want_children=not last)
+                for k, f in zip(self._shards(self.keys), self._shards(frontier))]
+        packed = self._one([p for p, _ in outs])
+        out = {"packed": packed, "children": self._one([c for _, c in outs]),
+               "frontier": frontier}
         if self.cfg.secure_exchange:  # strings of S' = 2·d·r bits
-            strs = secure.child_strings_radix(packed, self.keys.cw_seed.shape[1], r)
+            d = self._kb().cw_seed.shape[1]
+            if self._mesh is not None:
+                F, N, C = frontier[0].f_bucket, self._mesh.n_clients, 1 << (d * r)
+                ks = self._mesh.kernel_bind(F * C * N, 2 * d * r, self.cfg.secure_kernel_shards)
+                if ks is not None:
+                    out.update(flat=kernel_shard.shard_flat(ks, packed, d, F, N, r),
+                               dims=(F, C, N, 2 * d * r), kernel=ks)
+                    del out["packed"]
+                    return out
+                t0 = time.perf_counter()
+                packed = self._mesh.gather(Sharded(packed, 1))
+                self.stats["kernel_gathers"] += 1
+                self.stats["kernel_gather_s"] += time.perf_counter() - t0
+            strs = secure.child_strings_radix(packed, d, r)
             F, C, N, S = strs.shape
             out.update(flat=strs.reshape(F * C * N, S), dims=(F, C, N, S))
             del out["packed"]
@@ -1051,7 +1228,7 @@ class CollectorServer:
         shard = self._parse_shard(req)
         if shard is None or self.keys is None or self.frontier is None:
             return
-        if shard[1] > self.frontier.f_bucket:
+        if shard[1] > self._f_bucket():
             return
         key = (verb == "tree_crawl_last", int(req["level"]), shard)
         if key in self._expand_ready or len(self._expand_ready) >= 32:
@@ -1075,11 +1252,11 @@ class CollectorServer:
         field = F255 if last else FE62
         self.stats["levels"] += 1
         if self.cfg.secure_exchange:
-            shares = await self._crawl_secure(level, field, last, int(req.get("garbler", 0)),
-                                              req.get("ot_path"), shard)
+            shares = await self._mesh_guard(level, lambda: self._crawl_secure(
+                level, field, last, int(req.get("garbler", 0)), req.get("ot_path"), shard))
             self.stats["levels_done"] += 1
             return shares
-        counts = await self._crawl_trusted(level, last, shard)
+        counts = await self._mesh_guard(level, lambda: self._crawl_trusted(level, last, shard))
         self.stats["levels_done"] += 1
         # trusted mode: both servers hold these counts; the shared mask is a
         # wire-format shim for the leader's v0 - v1, not a secret
@@ -1097,6 +1274,50 @@ class CollectorServer:
         for k, v in seconds.items():
             self.stats["seconds"][k] += v
 
+    async def _mesh_guard(self, level: int, thunk):
+        """A crawl verb's level under device-loss containment (JAX
+        rpc.py:1163-1192): the mesh chaos schedule fires first, before any
+        data-plane I/O of the level, and a device fault is recovered in
+        place (:meth:`_mesh_recover`) and the level run again inside the
+        same verb, so the peer exchanges once and the leader sees a slow
+        verb, not a fault.  Without data shards a fault is the verb's
+        error."""
+        try:
+            if self._mesh_chaos is not None:
+                self._mesh_chaos.before_level(self, int(level))
+            return await thunk()
+        except reschaos.MeshFaultError as err:
+            if self._mesh is None:
+                raise
+            await self._mesh_recover(int(level), err)
+            return await thunk()
+
+    async def _mesh_recover(self, level: int, err) -> None:
+        """After a device fault: a lost device (``state_lost``) takes the
+        device state with it, so the keys are rebuilt from the kept chunks
+        and the frontier re-sharded from the checkpoint of level - 1
+        (``tree_restore``); a dropped shard is only re-run.  With no such
+        checkpoint the data plane is closed (the peer's half of the level
+        fails instead of waiting for this one) and the fault goes to the
+        leader."""
+        self.stats["mesh_faults"] += 1
+        self._expand_ready.clear()  # a pre-expanded dispatch is suspect
+        state_lost = bool(getattr(err, "state_lost", False))
+        if state_lost or self.frontier is None:
+            prev = level - 1
+            if self.ckpt_dir is None or prev not in self._ckpt_levels():
+                if self._peer_writer is not None and not self._peer_writer.is_closing():
+                    self._peer_writer.close()
+                raise RuntimeError(f"mesh device lost at level {level} with no level-{prev} "
+                                   "checkpoint to re-shard from") from err
+            self.keys = None  # device-resident: lost with the shard
+            await self.tree_restore({"level": prev})
+            self.stats["mesh_reshards"] += 1
+        self.stats["shards_rerun"] += 1
+        self.emit("resilience.mesh_reshard", server=self.server_id,
+                  collection=DEFAULT_COLLECTION, level=level, state_lost=state_lost,
+                  error=str(err))
+
     async def _crawl_trusted(self, level: int, last: bool, shard) -> np.ndarray:
         """Swap the packed share bits uint32[F, N] of the frontier (or the
         span) with the peer and count -> int64[F, 2^(d·r)] (ref:
@@ -1104,19 +1325,30 @@ class CollectorServer:
         t0 = time.perf_counter()
         ex = self._expand_stage(level, last, shard)
         packed, frontier = ex["packed"], ex["frontier"]
-        mine = await _fetch_words(packed)
+        mesh = self._mesh
+        if mesh is None:
+            mine = await _fetch_words(packed)
+        else:  # per-shard readbacks, assembled by position
+            mine = (await asyncio.to_thread(kernel_shard.assemble, Sharded(packed, 1))).view(
+                np.uint32)
+        self.stats["device_fetches"] += len(self._shards(packed))
         t1 = time.perf_counter()
         peer = await self._swap(mine)
         t2 = time.perf_counter()
         if peer.shape != mine.shape:
             raise RuntimeError(f"level {level}: the peer's share bits are shaped "
                                f"{peer.shape}, this server's {mine.shape}")
-        dev_counts = collect.counts_by_pattern(
-            packed, words_from_numpy(peer, self.device),
-            collect.pattern_masks_radix(self.keys.cw_seed.shape[1], self.crawl_radix(level)),
-            self.alive_keys,
-            frontier.alive)
+        masks = collect.pattern_masks_radix(self._kb().cw_seed.shape[1], self.crawl_radix(level))
+        if mesh is None:
+            dev_counts = collect.counts_by_pattern(packed, words_from_numpy(peer, self.device),
+                                                   masks, self.alive_keys, frontier.alive)
+        else:
+            dev_counts = mesh.counts_by_pattern(packed, words_from_numpy(peer, "cpu"), masks,
+                                                self.alive_keys, frontier[0].alive)
         counts = await asyncio.to_thread(lambda: dev_counts.cpu().numpy())
+        self.stats["device_fetches"] += 1
+        if mesh is not None:
+            self.stats["ici_reduce_s"] += time.perf_counter() - t2
         self._stash_children(level, shard, ex["children"])
         self._phases(fss=t1 - t0, gc_ot=t2 - t1, field=time.perf_counter() - t2)
         return counts
@@ -1131,18 +1363,22 @@ class CollectorServer:
         clock = PhaseClock(dev)
         t0 = time.perf_counter()
         ex = self._expand_stage(level, last, shard)
-        flat = ex["flat"]
+        flat, ks = ex["flat"], ex.get("kernel")
         F, C, N, S = ex["dims"]
         B = F * C * N
-        w = secure.alive_weight(ex["frontier"].alive, self.alive_keys, C)
+        w = secure.alive_weight(self._shards(ex["frontier"])[0].alive, self.alive_keys, C)
         # the crawl counter keeps every garbling's randomness fresh if a leader
         # re-crawls a level without a reset
         self._crawl_ctr += 1
         gseed = secure.derive_seed(self._sec_seed, 1, level, self._crawl_ctr)
         bseed = secure.derive_seed(self._sec_seed, 2, level, self._crawl_ctr)
         path = secure.ot_path(S, ot_path or self.cfg.ot_path)
+        if self._mesh is not None:  # the kernel stage's shards (1: the gather path)
+            self._gauge("kernel_shards", 1 if ks is None else ks.k)
         t1 = time.perf_counter()
-        if self.server_id == garbler:  # garbler = OT-extension sender
+        if ks is not None:  # row-sharded over the data shards: the same wire
+            vals = await self._secure_sharded(ks, flat, gseed, bseed, field, garbler, path, clock)
+        elif self.server_id == garbler:  # garbler = OT-extension sender
             u = words_from_numpy(await self._dp_recv(), dev)
             msg, vals = secure.gb_step_level(self._ot_snd, u, flat, gseed, bseed, field,
                                              garbler, path, phase=clock)
@@ -1157,15 +1393,51 @@ class CollectorServer:
             vals = secure.ev_open_level(t_rows, flat, msg, B, S, field, idx0, path,
                                         phase=clock)
             del t_rows, msg
+        if ks is None:
+            self.stats["device_fetches"] += 1
         del flat, ex["flat"]
         t2 = time.perf_counter()
-        sh = secure.node_share_sums(field, vals.reshape((F, C, N) + field.limb_shape), w)
+        if ks is not None:
+            sh = kernel_shard.share_sums(ks, field, vals, w, F, C, N)
+        else:  # whole values on one device: the gather path too
+            sh = secure.node_share_sums(field, vals.reshape((F, C, N) + field.limb_shape), w)
         del vals
         shares = await asyncio.to_thread(_share_wire, field, sh)
+        self.stats["device_fetches"] += 1
+        if self._mesh is not None:
+            self.stats["ici_reduce_s"] += time.perf_counter() - t2
         self._stash_children(level, shard, ex["children"])
         self._phases(fss=t1 - t0, gc_ot=t2 - t1, field=time.perf_counter() - t2,
                      **clock.settle())
         return shares
+
+    async def _secure_sharded(self, ks, flat, gseed, bseed, field, garbler: int, path: str,
+                              clock):
+        """The row-sharded twin of the whole-level exchange
+        (``parallel/kernel_shard.py``, JAX rpc.py:1023-1110): extension,
+        payload pair and equality kernel per kernel shard; the frames read
+        back per shard and are assembled by position.  -> the additive
+        shares, per shard."""
+        kphase = "b2a" if path == "ot2s" else ("garble" if self.server_id == garbler else "eval")
+        if self.server_id == garbler:
+            u_np = await self._dp_recv()
+            with clock("otext"):
+                q, idx0 = kernel_shard.snd_extend(ks, self._ot_snd, u_np)
+            with clock(kphase):
+                planes, vals = kernel_shard.gb_kernel(ks, self._ot_snd.s_block, q, flat, gseed,
+                                                      bseed, field, garbler, path, idx0)
+            del q
+            self.stats["device_fetches"] += ks.k
+            await self._dp_send(await asyncio.to_thread(kernel_shard.msg_wire, ks, planes))
+            return vals
+        with clock("otext"):
+            u, t_rows, idx0 = kernel_shard.rcv_extend(ks, self._ot_rcv, flat)
+        self.stats["device_fetches"] += ks.k
+        await self._dp_send(await asyncio.to_thread(kernel_shard.u_wire, ks, u))
+        del u
+        msg = await self._dp_recv()
+        with clock(kphase):
+            return kernel_shard.ev_open(ks, t_rows, flat, msg, field, path, idx0)
 
     # -- data plane -----------------------------------------------------------
 

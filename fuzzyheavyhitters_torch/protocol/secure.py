@@ -461,6 +461,12 @@ def alive_weight(alive_nodes: torch.Tensor, alive_keys: torch.Tensor, C: int) ->
 _warm_pairs: dict = {}  # device -> the process's throwaway (OtExtSender, OtExtReceiver)
 
 
+def _warm_pair(dev):
+    if dev not in _warm_pairs:
+        _warm_pairs[dev] = otext.inprocess_pair(dev)
+    return _warm_pairs[dev]
+
+
 def warm_level_kernels(packed, d: int, field, path: str = "auto", radix: int = 1) -> None:
     """Run one level's whole secure chain at this shape on a throwaway
     in-process OT pair, built once per process and device (the JAX
@@ -471,9 +477,7 @@ def warm_level_kernels(packed, d: int, field, path: str = "auto", radix: int = 1
     socket path.  No live session or data plane is touched; the outputs
     are discarded."""
     dev = packed.device
-    if dev not in _warm_pairs:
-        _warm_pairs[dev] = otext.inprocess_pair(dev)
-    snd, rcv = _warm_pairs[dev]
+    snd, rcv = _warm_pair(dev)
     strs = child_strings_radix(packed, d, radix)
     F, C, N, S = strs.shape
     B = F * C * N
@@ -489,3 +493,30 @@ def warm_level_kernels(packed, d: int, field, path: str = "auto", radix: int = 1
     vals = ev_open_level(t_rows, flat, msg, B, S, field, idx0, path)
     w = torch.ones((F, C, N), dtype=torch.bool, device=dev)
     node_share_sums(field, vals.reshape((F, C, N) + field.limb_shape), w).cpu()
+
+
+def warm_level_kernels_sharded(ks, packed, d: int, F: int, N: int, field, path: str = "auto",
+                               radix: int = 1) -> None:
+    """:func:`warm_level_kernels` for a row-sharded kernel level
+    (``parallel/kernel_shard.py``, the JAX package's
+    ``warm_level_kernels_sharded``): the per-shard strings, both roles of
+    the row-sharded extension, the per-shard equality kernels at both
+    garbling signs, the per-shard open and the folded share sums, on the
+    process's throwaway OT pair, the u matrix and the frame through host
+    numpy as on the socket path.  ``packed`` is the expansion's words,
+    whole or per data shard."""
+    from ..parallel import kernel_shard
+
+    dev = ks.devices[0]
+    snd, rcv = _warm_pair(dev)
+    flat = kernel_shard.shard_flat(ks, packed, d, F, N, radix)
+    zero = np.zeros(4, np.uint32)
+    gseed, bseed = derive_seed(zero, 1, 0), derive_seed(zero, 2, 0)
+    p = ot_path(2 * d * radix, path)
+    vals = None
+    for g in (0, 1):  # the crawl alternates the garbler: both signs
+        _, _, _, vals = kernel_shard.run_level_pair(ks, snd, rcv, flat, flat, gseed, bseed,
+                                                    field, g, p)
+    C = 1 << (d * radix)
+    w = torch.ones((F, C, N), dtype=torch.bool, device=dev)
+    kernel_shard.share_sums(ks, field, vals, w, F, C, N).cpu()

@@ -364,8 +364,8 @@ def verify_batch(field, state0: mpc.MulStateBatch, state1: mpc.MulStateBatch) ->
 
 # ---------------------------------------------------------------------------
 # The server's three stages on one card (the single-device programs of the
-# JAX package's parallel/sketch_shard.py; its row-sharded form over several
-# cards is not ported)
+# JAX package's parallel/sketch_shard.py; its row-sharded form over a
+# server's data shards is this port's parallel/sketch_shard.py)
 # ---------------------------------------------------------------------------
 
 

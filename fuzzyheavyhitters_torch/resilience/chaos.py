@@ -39,7 +39,8 @@ the redial.
 
 The mesh drills (:class:`MeshChaos`) inject faults into the device-mesh
 crawl of ``parallel/mesh.py`` at the level boundaries its leader crosses,
-with their own grammar (below).  The JAX package's host drills
+and into a collector server's data shards at each crawl verb's entry
+(``protocol/rpc.py``), with their own grammar (below).  The JAX package's host drills
 (``HostChaos``) belong to the fleet, not ported yet.
 """
 
@@ -293,7 +294,8 @@ def parse_mesh_faults(spec: str | None) -> list[MeshFaultSpec]:
 
 class MeshChaos:
     """Consumed-once mesh fault schedule.  :meth:`before_level` is the hook
-    ``MeshLeader.run_supervised`` calls at each level's entry; a clause
+    ``MeshLeader.run_supervised`` calls at each level's entry, and a
+    collector server at each crawl verb's (its ``runner`` the server); a clause
     whose ``at_level`` has been reached fires exactly once (a re-run level
     does not trigger it again, so the recovery makes progress).  ``emit``
     receives ``resilience.mesh_chaos_fired`` events."""
@@ -314,10 +316,14 @@ class MeshChaos:
                 time.sleep(f.ms / 1000.0)
                 continue
             if f.action == "kill":
-                # the participant's memory is gone: clobber the frontier so
-                # any recovery short of a checkpoint restore fails loudly
+                # the participant's memory is gone: clobber the frontier and
+                # the child cache (a mesh runner's ``_children``, a collector
+                # server's ``children``) so any recovery short of a
+                # checkpoint restore fails loudly
                 runner.frontier = None
-                runner._children = None
+                for cache in ("_children", "children"):
+                    if hasattr(runner, cache):
+                        setattr(runner, cache, None)
                 raise MeshFaultError(
                     f"mesh participant killed mid-collective at level {level}",
                     state_lost=True)

@@ -364,3 +364,59 @@ def test_mesh_on_logical_card_shards_equals_the_cpu(cuda, secure):
     after = (expand_cuda.LAUNCHES, otext_cuda.ENC_LAUNCHES, otext_cuda.DEC_LAUNCHES)
     k = 4 if secure else 0
     assert [a - b for a, b in zip(after, before)] == [8 * L, k * L, k * L]
+
+
+@pytest.mark.parametrize("path", ["ot2s", "gc"])
+@pytest.mark.parametrize("last", [False, True], ids=["fe62", "f255"])
+def test_k3_shards_on_the_card_equal_the_plain_and_the_whole_level(cuda, path, last):
+    """K3 (``parallel/kernel_shard.py``) on four logical shards of the card:
+    each shard's kernels give what their plain versions give on CPU shards
+    (the same u matrix, frame and b2a values), one launch of each of the
+    path's kernels a shard, and the k = 4 wire is the whole-level path's
+    (k = 1) on the card, byte for byte."""
+    from fuzzyheavyhitters_torch.ops import otext
+    from fuzzyheavyhitters_torch.ops.fields import F255, FE62
+    from fuzzyheavyhitters_torch.parallel import kernel_shard
+    from fuzzyheavyhitters_torch.parallel.server_mesh import Sharded
+    from fuzzyheavyhitters_torch.protocol import secure
+    from fuzzyheavyhitters_torch.utils import words_from_numpy, words_to_numpy
+
+    rng = np.random.default_rng(21)
+    B, S = 4 * kernel_shard.BLOCK - 1234, 4
+    field = F255 if last else FE62
+    x = rng.integers(0, 2, (B, S)).astype(bool)
+    y = np.where(rng.random((B, 1)) < 0.5, x, rng.integers(0, 2, (B, S)).astype(bool))
+    s = rng.integers(0, 2, 128).astype(bool)
+    s[0] = True
+    seeds0, seeds1 = (rng.integers(0, 2**32, size=(128, 4), dtype=np.uint32) for _ in range(2))
+    chosen = np.where(s[:, None], seeds1, seeds0)
+    seeds = (np.array([1, 2, 3, 4], np.uint32), np.array([5, 6, 7, 8], np.uint32))
+
+    def pair(dev):
+        return otext.OtExtSender(s, chosen, dev), otext.OtExtReceiver(seeds0, seeds1, dev)
+
+    def sharded(dev):
+        ks = kernel_shard.KernelShard(devices=(dev,) * 4, B=B, S=S)
+        flat = lambda a: Sharded([torch.from_numpy(np.concatenate(
+            [a, np.zeros((ks.bp - B, S), bool)])[j * ks.bloc:(j + 1) * ks.bloc].copy()).to(dev)
+            for j in range(4)], 0)
+        return kernel_shard.run_level_pair(ks, *pair(dev), flat(x), flat(y), *seeds, field, 1,
+                                           path)
+
+    counters = ((otext_cuda, "ENC_LAUNCHES"), (otext_cuda, "DEC_LAUNCHES")) if path == "ot2s" \
+        else ((gc_cuda, "GARBLE_LAUNCHES"), (gc_cuda, "EVAL_LAUNCHES"))
+    want = sharded(torch.device("cpu"))
+    before = [getattr(m, c) for m, c in counters]
+    got = sharded(cuda)
+    torch.cuda.synchronize()
+    assert [getattr(m, c) - b for (m, c), b in zip(counters, before)] == [4, 4]
+    assert np.array_equal(got[0], want[0]) and got[1].tobytes() == want[1].tobytes()
+    for g, w in zip(got[2:], want[2:]):
+        for a, b in zip(g, w):
+            assert torch.equal(a.cpu(), b)
+    snd, rcv = pair(cuda)
+    u, t, idx0 = secure.ev_step1_fused(rcv, torch.from_numpy(y).to(cuda))
+    u_np = words_to_numpy(u)
+    msg, _ = secure.gb_step_level(snd, words_from_numpy(u_np, cuda), torch.from_numpy(x).to(cuda),
+                                  *seeds, field, 1, path)
+    assert np.array_equal(u_np, got[0]) and words_to_numpy(msg).tobytes() == got[1].tobytes()

@@ -10,8 +10,10 @@ package, over localhost TCP in one event loop, tolerance zero:
 (c) mixed pairs — a JAX ``CollectorServer`` with a port server, in both
     roles, under both leaders — give the JAX ``driver.Leader``'s hitters,
     trusted and secure, and their ``final_shares`` reconstruct them;
-(d) the refusals: unported verbs, a named collection, unported options,
-    and the leader's environment read with the JAX leader's defaults.
+(d) the refusals: unported verbs, a named collection, the binaries'
+    unported variables, and the leader's environment read with the JAX
+    leader's defaults; the data-shard options, refused until the sharded
+    server was ported, are taken (``test_torch_multichip.py`` holds them).
 
 The node-span crawl is held in ``test_torch_spans.py``.
 
@@ -376,14 +378,25 @@ def test_requests_of_unported_paths_are_refused():
     asyncio.run(flow())
 
 
+# The name and the id are those of the refusal this test held until the
+# sharded server was ported; it now holds that the option is taken.
 @pytest.mark.parametrize("opt,path", [("server_data_devices", "several cards")])
 def test_unported_options_are_refused(opt, path):
-    cfg = tconfig.Config(**_cfg_kw(1, "trusted"), **{opt: 2})
-    with pytest.raises(NotImplementedError, match=f"{opt}=2: .*{path}"):
-        tleader.RpcLeader(cfg, None, None)
-    if opt == "server_data_devices":
-        with pytest.raises(NotImplementedError, match=path):
-            trpc.CollectorServer(0, cfg, "cpu")
+    """The option is ported and taken, not refused (the name is kept from
+    the refusal): ``opt`` = 2, once refused naming ``path``, now gives a
+    leader that takes the config and a server that binds two logical CPU
+    shards, with the kernel stage's and the sketch's budgets beside."""
+    cfg = tconfig.Config(**_cfg_kw(1, "trusted"), **{opt: 2}, secure_kernel_shards=2,
+                         sketch_shards=2)
+    assert tleader.RpcLeader(cfg, None, None).cfg.server_data_devices == 2
+    s = trpc.CollectorServer(0, cfg, "cpu")
+    assert s._mesh.devices == (torch.device("cpu"),) * 2
+    st = asyncio.run(s.status({}))
+    assert st["mesh"]["data_devices"] == 2 and st["mesh"]["faults"] == 0
+    assert path not in str(st)
+    # one shard asked for is the unsharded server
+    one = trpc.CollectorServer(0, tconfig.Config(**_cfg_kw(1, "trusted"), **{opt: 1}), "cpu")
+    assert one._mesh is None and asyncio.run(one.status({}))["mesh"] is None
 
 
 def test_wire_refuses_tensors_and_binaries_refuse_unported_modes(monkeypatch):
