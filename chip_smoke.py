@@ -225,7 +225,37 @@ Phases (any failure raises, and the script exits non-zero):
     ``resilience.mesh_reshard``), the leader sees no fault (``levels_rerun``
     0, ``recoveries`` 0, no ``resilience.loss_classified``), phase 27's
     hitters, and server 1's expand launches 64 or, with a pre-expanded
-    dispatch dropped, up to 4 more (the line says which).
+    dispatch dropped, up to 4 more (the line says which);
+32. ``rides_socket_windows``: ``rides_socket``'s config and 262,144
+    clients through ``bin.leader`` with ``FHH_WINDOWS=4`` (``SOCKET_ENV``):
+    the clients' key shares submitted through the servers' admission gate
+    (``submit_keys``, 656 submissions a window), each window sealed (an
+    ingest-only checkpoint in each server's ``FHH_CKPT_DIR``) and crawled
+    while the next one fills: each window's hitters the plaintext recount of
+    its 65,536 points, the seal stats equal on both servers, 16 expand
+    launches a window a server (64), no secure kernel; pure-ingest keys/s
+    (window 0), keys/s during a crawl, each window's crawl seconds beside
+    ``rides_socket``'s, and seal-to-hitters seconds;
+33. ``rides_socket_windows_drill``: that config with ``ingest_shed:
+    "reservoir"``, ``ingest_seed`` 7 and ``ingest_window_keys`` half a
+    window's submissions, 65,600 clients in two windows, the leader
+    ``WindowedIngest`` in this process through a ``ChaosProxy`` that
+    delivers the fourth ``submit_keys`` frame to server 0 twice, and server
+    1 SIGKILLed once window 0's crawl is under way (window 1 ingesting) and
+    started again: each window's slot table what the port's own
+    ``AdmissionController`` predicts from the seed and the offer order, its
+    seal ``keys`` the cap, its hitters a batch crawl's (``upload_keys`` and
+    ``run``) over exactly the admitted keys and the recount; at least one
+    replayed submission answered from its recorded verdict, one ingest
+    recovery, one restore, expand once per crawl verb (the re-run crawl's
+    included);
+34. ``zipf_malicious_socket_windows``: phase 21's config and 100,000
+    clients through ``bin.leader`` with ``FHH_WINDOWS=2``, the sketch leaves
+    riding each submission: every client alive after each window, each
+    window's hitters the recount, both servers committing the same
+    ``sketch.window_root`` a window and the two windows' roots apart, 32
+    expand launches and 32 ``sketch_verify`` verbs a window a server; the
+    sketch verbs' seconds a window beside phase 21's.
 
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
@@ -350,6 +380,16 @@ SHARDS = 4
 SHARD_ENV = {"FHH_DATA_DEVICES": str(SHARDS)}
 MESH_KILL_LEVEL = 8  # phase 31: the level after the checkpoint of round 7
 MESH_KILL = f"mesh:kill@level={MESH_KILL_LEVEL}"
+# phases 32-34: streaming ingestion (FHH_WINDOWS) on the socket deployment
+WINDOWS = 4  # phase 32: rides_socket's 262,144 clients in four windows
+# phase 33: two windows of 328 submissions of 100 keys (reservoir shedding
+# takes uniform chunks: 65,536 would leave a 68-key tail a window, which the
+# gate refuses by design), a reservoir of half a window's submissions
+DRILL_CLIENTS = 65600
+DRILL_WINDOWS = 2
+DRILL_SEED = 7  # ingest_seed
+DRILL_FLOOD = "ctl0:flood@msg=6,count=1"  # the 4th submit_keys frame to server 0, twice
+SKETCH_WINDOWS = 2  # phase 34: phase 21's 100,000 clients in two windows
 
 # every kernel of the port: (module, launch counter, source, TPU kernel it replaces)
 KERNELS = {
@@ -716,7 +756,7 @@ def _chaos_proxy(spec, target_port):
 
 def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=False,
                kill=False, ctl0_faults=None, leader_coro=None, keep_blobs=False,
-               server_env=None):
+               server_env=None, ckpt=None):
     """Phase 9: ``bin.server --server_id 1``, ``--server_id 0`` and ``bin.leader
     --seed`` started together as OS processes (on the card unless
     ``cfg.backend`` is ``"cpu"``; server 0 and the leader dial with retries,
@@ -727,12 +767,14 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
     The leader runs with ``FHH_SUPERVISE=0`` (the unsupervised crawl) unless
     ``supervise``: then the variable is unset, the JAX leader's default,
     and each server gets a checkpoint directory of its own
-    (``FHH_CKPT_DIR``); ``env`` adds variables to the processes'
-    environment, ``server_env`` ({server id: variables}) one server's.
-    With ``kill`` server 1 is SIGKILLed as soon as its log
-    shows its first ``resilience.server_checkpoint`` and started again at
-    once on the same ports and directory; the blob the new process restores
-    is copied aside (``restored_blob``), since later checkpoints prune it.
+    (``FHH_CKPT_DIR``; ``ckpt`` True gives them without ``supervise``);
+    ``env`` adds variables to the processes' environment, ``server_env``
+    ({server id: variables}) one server's.  With ``kill`` server 1 is
+    SIGKILLed as soon as its log shows its first
+    ``resilience.server_checkpoint`` (or, ``kill`` a callable, once
+    ``kill(server 1's events)`` is true) and started again at once on the
+    same ports and directory; the blob the new process restores is copied
+    aside (``restored_blob``), since later checkpoints prune it.
     With ``ctl0_faults`` the leader reaches server 0 through a
     ``ChaosProxy`` with that fault spec, in this process, and starts once
     both servers serve.  With
@@ -765,6 +807,7 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
            "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
     if supervise:
         del env["FHH_SUPERVISE"]
+    with_ckpt = supervise if ckpt is None else ckpt
     ckpt = {sid: os.path.join(work, f"ckpt{sid}") for sid in (0, 1)}
     procs, logs = {}, {who: os.path.join(work, f"{who}.log")
                        for who in ("server0", "server1", "leader")}
@@ -782,17 +825,19 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
         return time.time()
 
     def spawn_server(sid):
-        extra = {"FHH_CKPT_DIR": ckpt[sid]} if supervise else {}
+        extra = {"FHH_CKPT_DIR": ckpt[sid]} if with_ckpt else {}
         extra.update((server_env or {}).get(sid, {}))
         return spawn(f"server{sid}", "server", "--server_id", str(sid), extra=extra)
 
     killed, done = {}, threading.Event()
+    kill_now = kill if callable(kill) else (
+        lambda ev: any(e["event"] == "resilience.server_checkpoint" for e in ev))
 
     def killer():
-        """SIGKILL server 1 at its first checkpoint, start it again, and
-        copy the blob the new process restores."""
+        """SIGKILL server 1 at its first checkpoint (or when ``kill`` says),
+        start it again, and copy the blob the new process restores."""
         while not done.is_set():
-            if any(e["event"] == "resilience.server_checkpoint" for e in _events(logs["server1"])):
+            if kill_now(_events(logs["server1"])):
                 break
             time.sleep(0.01)
         else:
@@ -2595,6 +2640,276 @@ def sharded_phases(seed, cells, hitters, points, secure_cfg, report, errs, tmp, 
     stage(f"{name} socket run")
 
 
+def check_window_run(name, run, cfg, points, windows, base_crawl_s, per_window_verbs,
+                     malicious=False):
+    """Phase 32's and 34's checks of a ``FHH_WINDOWS`` socket run: every
+    window's hitters (its own ``hitter`` lines) the plaintext recount over
+    that window's points, none empty; every client admitted; each server
+    sealed each window with the same stats (and, malicious, the same root,
+    the windows' roots apart), ran ``per_window_verbs`` crawl verbs a
+    window and launched expand once per verb, no secure kernel; malicious,
+    every client alive after each window's crawl.  -> the figures: each
+    window's submissions (seconds, keys/s; those of windows that began
+    while the previous window's crawl ran are the during-crawl rate), crawl
+    and seal-to-hitters seconds."""
+    n = points.shape[0]
+    per_w = -(-n // windows)
+    ev = run["events"]["leader"]
+    wins = {e["window"]: e for e in ev if e["event"] == "ingest.window"}
+    done = {e["window"]: e for e in ev if e["event"] == "window.done"}
+    if sorted(wins) != list(range(windows)) or sorted(done) != list(range(windows)):
+        raise AssertionError(f"{name}: windows {sorted(wins)} sealed, {sorted(done)} crawled")
+    hitters = {}
+    for w in range(windows):
+        got = {e["value"]: e["count"] for e in run["hitters"] if e["window"] == w}
+        if not got or done[w]["hitters"] != len(got):
+            raise AssertionError(f"{name}: window {w} hitters {got}, window.done {done[w]}")
+        _recount(f"{name} window {w}", got, cfg, points[w * per_w:(w + 1) * per_w])
+        hitters[w] = got
+        want_keys = min(per_w, n - w * per_w)
+        if wins[w]["keys"] != want_keys or (malicious and done[w]["alive"] != want_keys):
+            raise AssertionError(f"{name}: window {w} {wins[w]} {done[w]}, want {want_keys} "
+                                 "keys, all alive")
+    sealed = [[(e["window"], e["keys"], e["subs"], e["shed"], e["sk_root"])
+               for e in run["events"][f"server{sid}"] if e["event"] == "ingest.window_sealed"]
+              for sid in (0, 1)]
+    roots = [s[4] for s in sealed[0]]
+    if (sealed[0] != sealed[1] or len(sealed[0]) != windows
+            or (malicious and (None in roots or len({tuple(r) for r in roots}) != windows))):
+        raise AssertionError(f"{name}: seals {sealed}")
+    verbs = per_window_verbs * windows
+    for sid, ex in enumerate(run["exits"]):
+        want_l = {kn: 0 for kn in KERNELS}
+        want_l["expand"] = verbs
+        if (ex["launches"] != want_l or ex["levels"] != verbs or ex["windows_sealed"] != windows
+                or ex["pool_admitted_keys"] != n or ex["ckpt_writes"] != windows
+                or (malicious and ex["sketch_verifies"] != verbs)):
+            raise AssertionError(f"{name}: server {sid} launched {ex['launches']} over "
+                                 f"{ex['levels']} crawl verbs (want {want_l} over {verbs}), "
+                                 f"sealed {ex['windows_sealed']}, admitted "
+                                 f"{ex['pool_admitted_keys']}, {ex['ckpt_writes']} checkpoints, "
+                                 f"{ex['sketch_verifies']} sketch verbs")
+    fig = {"n": n, "windows": windows, "hitters": {w: len(h) for w, h in hitters.items()},
+           "pure_ingest_keys_per_s": wins[0]["keys_per_s"],
+           "ingest_during_crawl_keys_per_s": [wins[w]["keys_per_s"] for w in range(1, windows)
+                                              if wins[w]["during_crawl"]],
+           "submit_s": [wins[w]["seconds"] for w in range(windows)],
+           "crawl_s": [done[w]["crawl_s"] for w in range(windows)],
+           "seal_to_hitters_s": [done[w]["seal_to_hitters_s"] for w in range(windows)],
+           "base_crawl_s": base_crawl_s, "leader_s": run["crawl"]["seconds"],
+           "sk_roots": roots if malicious else None,
+           "launches": {f"server{sid}": ex["launches"] for sid, ex in enumerate(run["exits"])},
+           "servers": [{k: ex[k] for k in ("pool_submits", "pool_admitted_keys", "ckpt_writes",
+                                           "ckpt_bytes", "ckpt_write_s", "seal_to_hitters_s",
+                                           "max_memory_allocated", "data_bytes_sent")}
+                       | {"sketch_s": ex["seconds"]["sketch"]} for ex in run["exits"]]}
+    log(f"windows {name}: N={n} in {windows} windows, each window's hitters "
+        f"{fig['hitters']} = its plaintext recount; pure ingest "
+        f"{fig['pure_ingest_keys_per_s']:.1f} keys/s (window 0), during a crawl "
+        f"{[round(x, 1) for x in fig['ingest_during_crawl_keys_per_s']]} keys/s; crawl_s "
+        f"{[round(x, 3) for x in fig['crawl_s']]} (the batch cell: {base_crawl_s:.3f}); "
+        f"seal_to_hitters_s {[round(x, 3) for x in fig['seal_to_hitters_s']]}; seals equal on "
+        f"both servers{'; roots ' + str(roots) if malicious else ''}; launches "
+        f"{fig['launches']}; leader {fig['leader_s']:.3f} s; servers {fig['servers']}")
+    return fig
+
+
+def _slot_table(path, w):
+    """Window ``w``'s pool in an ingest checkpoint blob: each slot's root
+    seeds as bytes (leaf 1 of the entry tuple)."""
+    with np.load(path) as z:
+        i = list(z["ing_windows"]).index(w)
+        lens = z[f"ing{i}_lens"]
+        seeds = z[f"ing{i}_leaf1"]
+    bounds = np.concatenate([[0], np.cumsum(lens)])
+    return [seeds[bounds[e]:bounds[e + 1]].tobytes() for e in range(len(lens))]
+
+
+def window_drill(name, cfg, n, seed, tmp, torch):
+    """Phase 33: rides' config with reservoir shedding (``ingest_window_keys``
+    half a window's submissions), two windows, the leader
+    ``WindowedIngest`` in this process through a ``ChaosProxy`` that floods
+    a ``submit_keys`` frame to server 0; server 1 SIGKILLed once window 0's
+    crawl is under way while window 1 ingests (after window 0's ingest
+    checkpoint) and started again on its ports and directory.  Each window's
+    slot table (read from server 0's ingest checkpoint at its seal) must be
+    what the port's own ``AdmissionController`` predicts from the seed and
+    the offer order, its seal ``keys`` the cap, its hitters those of a batch
+    crawl (``upload_keys`` + ``run``, at the end, same servers) over exactly
+    the admitted keys and their plaintext recount; the restarted server
+    answers at least one replayed submission from its recorded verdicts,
+    the leader counts at least one ingest recovery, and each process
+    launches expand once per crawl verb it began (the re-run crawl
+    included), no secure kernel.  -> the figures."""
+    import asyncio
+
+    from fuzzyheavyhitters_torch.bin import leader as leader_bin
+    from fuzzyheavyhitters_torch.bin.server import split_addr
+    from fuzzyheavyhitters_torch.ops import ibdcf
+    from fuzzyheavyhitters_torch.protocol.leader_rpc import RpcLeader, WindowedIngest
+    from fuzzyheavyhitters_torch.protocol.rpc import CollectorClient
+    from fuzzyheavyhitters_torch.resilience.admission import AdmissionController
+
+    ck = leader_bin.client_keys(cfg, n, torch.device("cuda"), seed)
+    per_w, bs = n // DRILL_WINDOWS, cfg.addkey_batch_size
+    chunks = [[(f"site{i % cfg.num_sites}", slice(lo, lo + bs))
+               for i, lo in enumerate(range(w * per_w, (w + 1) * per_w, bs))]
+              for w in range(DRILL_WINDOWS)]
+    ctl = AdmissionController(max_window_keys=cfg.ingest_window_keys,
+                              client_quota=cfg.ingest_client_quota, shed=cfg.ingest_shed,
+                              seed=cfg.ingest_seed)
+    predicted = []
+    for w in range(DRILL_WINDOWS):
+        wa, table = ctl.window(w), []
+        for client, sl in chunks[w]:
+            v = ctl.admit(wa, client, sl.stop - sl.start)
+            if v.scope is not None:
+                raise AssertionError(f"{name}: the predicted gate refused {client}: {v}")
+            if v.admitted and v.slot is None:
+                table.append(sl)
+            elif v.admitted:
+                table[v.slot] = sl
+        predicted.append(table)
+    blob0 = os.path.join(tmp, name, "ckpt0", "fhh_server0_l-1.npz")
+    state = {"kill": False}
+
+    async def lead_drill(lcfg):
+        c0 = await CollectorClient.connect(*split_addr(lcfg.server0))
+        c1 = await CollectorClient.connect(*split_addr(lcfg.server1))
+        try:
+            lead = RpcLeader(lcfg, c0, c1, emit=leader_bin.emit)
+            await lead._both("reset")
+            wi = WindowedIngest(lead)
+            box, fig = {}, {"tables": [], "seals": [], "submit_s": []}
+
+            async def trigger():  # window 0's crawl under way, window 1 ingesting
+                while "crawl0" not in box or len(lead.buckets) < 2:
+                    await asyncio.sleep(0.001)
+                state["kill"] = True
+                fig["kill_at_round"] = len(lead.buckets)
+
+            trig = None
+            for w in range(DRILL_WINDOWS):
+                if w == 1:
+                    trig = asyncio.ensure_future(trigger())
+                t0 = time.perf_counter()
+                for client, sl in chunks[w]:
+                    await wi.submit(client, tuple(a[sl] for a in ck.keys0),
+                                    tuple(a[sl] for a in ck.keys1))
+                fig["submit_s"].append(time.perf_counter() - t0)
+                fig["seals"].append(await wi.seal_window())
+                fig["tables"].append(_slot_table(blob0, w))
+                if w == 0:
+                    box["crawl0"] = asyncio.ensure_future(wi.crawl_window(0))
+            res = {0: await box["crawl0"], 1: await wi.crawl_window(1)}
+            await trig
+            fig["counters"], fig["windows"] = dict(wi.counters), dict(wi.windows)
+            fig["results"] = {w: _hitter_map(r) for w, r in res.items()}
+            fig["batch"] = {}
+            for w in range(DRILL_WINDOWS):  # the batch crawl over the admitted keys
+                await lead._both("reset")
+                k0, k1 = (ibdcf.IbDcfKeyBatch(*(np.concatenate([a[sl] for sl in predicted[w]])
+                                                for a in k)) for k in (ck.keys0, ck.keys1))
+                await lead.upload_keys(k0, k1)
+                fig["batch"][w] = _hitter_map(await lead.run(k0.cw_seed.shape[0]))
+            fig["epochs"] = [c0.epoch, c1.epoch]
+            return fig
+        finally:
+            await c0.aclose()
+            await c1.aclose()
+
+    run = socket_run(name, cfg, n, seed, tmp, SOCKET_ENV, ckpt=True,
+                     kill=lambda ev: state["kill"], ctl0_faults=DRILL_FLOOD,
+                     leader_coro=lead_drill)
+    fig = run["leader_result"]
+    cap = cfg.ingest_window_keys
+    for w in range(DRILL_WINDOWS):
+        want = [ck.keys0.root_seed[sl].tobytes() for sl in predicted[w]]
+        if fig["tables"][w] != want or len(set(want)) != len(want):
+            raise AssertionError(f"{name}: window {w}'s slot table is not the predicted one")
+        if fig["seals"][w]["keys"] != cap or fig["seals"][w]["shed_keys"] != per_w - cap:
+            raise AssertionError(f"{name}: window {w} sealed {fig['seals'][w]}, want {cap} keys")
+        got, batch = fig["results"][w], fig["batch"][w]
+        if not got or got != batch:
+            raise AssertionError(f"{name}: window {w} hitters {got} != the batch crawl's {batch}")
+        idx = np.concatenate([np.arange(sl.start, sl.stop) for sl in predicted[w]])
+        _recount(f"{name} window {w}", got, cfg, ck.points[idx])
+    s0, s1 = run["exits"]
+    if (run["proxy_fired"] != [("flood", "c2s", int(DRILL_FLOOD.split("msg=")[1].split(",")[0]))]
+            or s0["dedup_hits"] < 1 or s1["pool_dup_submits"] < 1 or s1["restores"] != 1
+            or fig["counters"]["ingest_recoveries"] < 1 or run["killed"].get("rc") != -9):
+        raise AssertionError(f"{name}: fired {run['proxy_fired']}, server 0 dedup_hits "
+                             f"{s0['dedup_hits']}, new server 1 pool_dup_submits "
+                             f"{s1['pool_dup_submits']} restores {s1['restores']}, counters "
+                             f"{fig['counters']}, killed {run['killed']}")
+    for sid, ex in enumerate(run["exits"]):
+        want_l = {kn: 0 for kn in KERNELS}
+        want_l["expand"] = ex["levels"]
+        if ex["launches"] != want_l or ex["levels"] < 4 * cfg.data_len + (sid == 0):
+            raise AssertionError(f"{name}: server {sid} launched {ex['launches']} over "
+                                 f"{ex['levels']} crawl verbs begun")
+    restored = [e for e in run["events"]["server1"] if e["event"] == "resilience.server_restore"]
+    out = {"n": n, "windows": DRILL_WINDOWS, "cap_keys": cap,
+           "hitters": {w: len(h) for w, h in fig["results"].items()},
+           "submit_s": fig["submit_s"], "counters": fig["counters"],
+           "window_crawl": fig["windows"], "kill_at_round": fig["kill_at_round"],
+           "kill_to_spawn_s": run["killed"]["t_spawn"] - run["killed"]["t_kill"],
+           "server1_restore": restored, "epochs": fig["epochs"],
+           "pool_dup_submits": [s0["pool_dup_submits"], s1["pool_dup_submits"]],
+           "dedup_hits": [s0["dedup_hits"], s1["dedup_hits"]],
+           "launches": {"server0": s0["launches"], "server1": s1["launches"]},
+           "levels": [s0["levels"], s1["levels"]], "leader_wall_s": run["wall_s"]}
+    log(f"windows {name}: N={n} in {DRILL_WINDOWS} windows, reservoir cap {cap} keys; slot "
+        f"tables = the port's AdmissionController's prediction, seal keys = the cap, hitters "
+        f"{out['hitters']} = the batch crawls over the admitted keys and the recount; flood "
+        f"fired {run['proxy_fired']}, server 1 killed at round {out['kill_at_round']} of window "
+        f"0's crawl and restored {[(e['level'], e.get('ingest_only')) for e in restored]}; "
+        f"counters {out['counters']}; window crawls {out['window_crawl']}; "
+        f"pool_dup_submits {out['pool_dup_submits']}, dedup_hits {out['dedup_hits']}; "
+        f"crawl verbs {out['levels']}, launches {out['launches']}; epochs {out['epochs']}; "
+        f"submit_s {[round(x, 3) for x in out['submit_s']]}")
+    del ck
+    return out
+
+
+def window_phases(seed, cells, points, secure_cfg, report, tmp, stage, torch):
+    """Phases 32-34: streaming ingestion on the socket deployment."""
+    from fuzzyheavyhitters_torch.workloads import sample_points
+
+    sock = report["sockets"]
+    rides_cfg = cells["rides"][0]
+    # phase 32: rides_socket's clients streamed through the front door
+    name = "rides_socket_windows"
+    run = socket_run(name, rides_cfg, RIDES_CLIENTS, seed, tmp,
+                     {**SOCKET_ENV, "FHH_WINDOWS": str(WINDOWS)}, ckpt=True)
+    sock[name] = check_window_run(name, run, rides_cfg, points["rides"], WINDOWS,
+                                  sock["rides_socket"]["crawl_s"], rides_cfg.data_len)
+    stage(f"{name} socket run")
+    # phase 33: reservoir shedding, a flooded frame and a killed server 1
+    name = "rides_socket_windows_drill"
+    cfg33 = dataclasses.replace(rides_cfg, ingest_shed="reservoir", ingest_seed=DRILL_SEED,
+                                ingest_window_keys=DRILL_CLIENTS // DRILL_WINDOWS // 2)
+    sock[name] = window_drill(name, cfg33, DRILL_CLIENTS, seed, tmp, torch)
+    stage(f"{name} socket run")
+    # phase 34: phase 21's malicious sketch, the sketch leaves riding each submission
+    name = "zipf_malicious_socket_windows"
+    cfg34 = dataclasses.replace(secure_cfg, secure_exchange=False)
+    run = socket_run(name, cfg34, SKETCH_CLIENTS, seed, tmp,
+                     {**SOCKET_ENV, "FHH_WINDOWS": str(SKETCH_WINDOWS)}, ckpt=True)
+    pts = sample_points(cfg34, SKETCH_CLIENTS, np.random.default_rng(seed))
+    base = sock["zipf_malicious_socket"]
+    fig = check_window_run(name, run, cfg34, pts, SKETCH_WINDOWS, base["crawl_s"],
+                           cfg34.data_len, malicious=True)
+    fig["sketch_s_per_window"] = [sv["sketch_s"] / SKETCH_WINDOWS for sv in fig["servers"]]
+    fig["batch_sketch_s"] = [sv["sketch_s"] for sv in base["servers"]]
+    log(f"windows {name}: every client alive in each window; sketch verb seconds a window "
+        f"{[round(x, 3) for x in fig['sketch_s_per_window']]} against phase 21's "
+        f"{[round(x, 3) for x in fig['batch_sketch_s']]} for the whole batch (a window "
+        f"holds 1/{SKETCH_WINDOWS} of its clients)")
+    sock[name] = fig
+    stage(f"{name} socket run")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -2630,6 +2945,12 @@ def main() -> int:
 
     libs = cuda_build.build()
     log(f"built {sorted(libs)}")
+    from fuzzyheavyhitters_torch import native
+
+    # the ingest front door's reservoir (phase 33) and the rides CSV sampler:
+    # the native library built with the host's g++, or its Python twin
+    native_lib = "loaded" if native.available() else "not built (the Python twin serves)"
+    log(f"native reservoir library: {native_lib} ({native.lib_path()})")
     stage("build")
     for name in libs:
         for line in cuda_build.log_path(name).read_text().splitlines():
@@ -2972,6 +3293,7 @@ def main() -> int:
         mesh_phases(args.seed, cells, hitters, points, report, launches, errs, tmp, stage)
         sharded_phases(args.seed, cells, hitters, points, secure_cfg, report, errs, tmp, stage,
                        torch)
+        window_phases(args.seed, cells, points, secure_cfg, report, tmp, stage, torch)
     for name in points:
         kg = measure_keygen(name, points[name], cells[name][0], keygen_cuda, ibdcf, torch, rng)
         report["crawls"][name]["keygen_check"] = kg
@@ -3049,6 +3371,12 @@ def main() -> int:
             for c in ("rides_socket_sharded", "rides_secure_socket_sharded",
                       "rides_secure_socket_radix2_sharded", "zipf_malicious_socket_sharded",
                       "rides_socket_sharded_device_kill")}
+        # phases 32-34: launches per server process of the windowed runs (phase
+        # 33: the new server 1; its crawl verbs include the re-run crawl)
+        rows[-1]["windowed_launches"] = {
+            c: [report["sockets"][c]["launches"][w][kn] for w in ("server0", "server1")]
+            for c in ("rides_socket_windows", "rides_socket_windows_drill",
+                      "zipf_malicious_socket_windows")}
         if kn not in ("keygen", "expand"):
             rows[-1]["k3_checks"] = [
                 {k: c[k] for k in ("kind", "level", "shard", "S", "W", "bp", "max_abs_err",
@@ -3058,7 +3386,7 @@ def main() -> int:
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, ten crawls, a resume, "
-        "eighteen socket runs and six mesh runs)")
+        "twenty-one socket runs and six mesh runs)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -24,10 +24,26 @@ does, and carries each part (``seconds_by_part``) and the recovery
 counters.  ``FHH_SUPERVISE=0`` runs the unsupervised crawl: its upload
 and warmup print ``addkeys.done`` and ``warmup.done``, and its
 ``crawl.done`` times the rounds alone.  Either carries each client's
-reconnect ``epoch``.  Streaming windows (``FHH_WINDOWS`` > 1) and named
-collections (``FHH_COLLECTION``) are not ported; a variable that asks for
-one is refused by name.  Keygen runs on ``cuda`` unless
-``--device`` names another device or the config says ``"backend": "cpu"``.
+reconnect ``epoch``.
+
+``FHH_WINDOWS=N`` (N > 1) streams instead of uploading once, as the JAX
+leader does: the clients' key shares go through the servers' admission
+gate (``submit_keys``, ``addkey_batch_size`` keys a submission, server 0
+deciding and server 1 mirroring) into N tumbling windows of ceil(n / N)
+clients; each window is sealed at its boundary and its frozen pool crawled
+(``protocol.leader_rpc.WindowedIngest``) while the next window's
+submissions land.  Each window prints ``ingest.window`` (its submissions'
+seconds and keys/s, and whether the previous window's crawl was running
+when they began), ``window.done`` (its crawl seconds, seal-to-hitters
+seconds, recoveries, in malicious mode the clients alive) and its own
+``hitter`` lines (``window`` w); ``crawl.done`` closes the run with the
+ingest counters.  No CSV is written and no warmup runs in this mode.
+Named collections (``FHH_COLLECTION``) are not ported and are refused by
+name, as are the observability and sanitizer switches the port does not
+have yet (``bin.refuse_unported_switches``) and ``debug_guards: true`` in
+the config (``utils.config.refuse_debug_guards``).  Keygen runs on
+``cuda`` unless ``--device`` names another device or the config says
+``"backend": "cpu"``.
 With ``--seed s`` sampling and keygen draw from ``default_rng(s)`` in
 ``bin.mesh``'s order, so the keys, and the hitters, equal ``bin.mesh``'s
 for the same config, seed and N; the keygen report draws from a generator
@@ -48,7 +64,8 @@ import torch
 from ..ops import ibdcf
 from ..ops.fields import F255, FE62
 from ..protocol import sketch
-from ..protocol.leader_rpc import RpcLeader
+from . import refuse_unported_switches
+from ..protocol.leader_rpc import RpcLeader, WindowedIngest
 from ..protocol.rpc import CollectorClient
 from ..utils import config as configmod
 from ..utils import resolve_device
@@ -59,17 +76,11 @@ from .server import emit, split_addr
 def refuse_unported_env() -> None:
     """Refuse the JAX leader's variables, read with its defaults, when they
     ask for an unported mode."""
-    asks = {
-        "FHH_WINDOWS": (int(os.environ.get("FHH_WINDOWS", "1")) > 1,
-                        os.environ.get("FHH_WINDOWS"), "streaming ingestion in tumbling windows"),
-        "FHH_COLLECTION": (os.environ.get("FHH_COLLECTION", "default") not in ("", "default"),
-                           os.environ.get("FHH_COLLECTION"), "the multi-tenant collection layer"),
-    }
-    for var, (asked, val, path) in asks.items():
-        if asked:
-            raise NotImplementedError(
-                f"{var}={val}: {path} is not ported to PyTorch yet; this leader crawls one "
-                "collection from one bulk upload")
+    coll = os.environ.get("FHH_COLLECTION", "default")
+    if coll not in ("", "default"):
+        raise NotImplementedError(
+            f"FHH_COLLECTION={coll}: the multi-tenant collection layer is not ported to "
+            "PyTorch yet; this leader crawls the default collection")
 
 
 def _sync(dev: torch.device) -> None:
@@ -149,10 +160,14 @@ async def run(cfg, nreqs: int, dev, seed, warm_buckets=None) -> None:
     del ck
     warm = os.environ.get("FHH_WARMUP", "1") != "0"
     supervise = os.environ.get("FHH_SUPERVISE", "1") != "0"
+    windows = max(1, int(os.environ.get("FHH_WINDOWS", "1")))
     c0 = await CollectorClient.connect(*split_addr(cfg.server0))
     c1 = await CollectorClient.connect(*split_addr(cfg.server1))
     try:
         lead = RpcLeader(cfg, c0, c1, emit=emit)
+        if windows > 1:
+            await run_windows(lead, nreqs, windows, keys0, keys1, sk0, sk1)
+            return
         t0 = time.perf_counter()
         if supervise:  # the keys stay for a restarted server's re-upload
             res = await lead.run_supervised(
@@ -191,12 +206,72 @@ async def run(cfg, nreqs: int, dev, seed, warm_buckets=None) -> None:
         emit("csv.written", path=OUTPUT_CSV, hitters=int(res.paths.shape[0]))
 
 
+def _emit_window(res, window: int) -> None:
+    """A window's own heavy-hitter lines (JAX bin/leader.py:42)."""
+    for row, c in zip(res.decode_ints(), res.counts):
+        emit("hitter", window=window, value=str(row.tolist()), count=int(c))
+
+
+async def run_windows(lead: RpcLeader, nreqs: int, windows: int, keys0, keys1, sk0=None,
+                      sk1=None) -> dict:
+    """The ``FHH_WINDOWS`` flow (JAX bin/leader.py:158-208): ``reset``, then
+    for each window its clients' submissions (one client id per chunk, as
+    the JAX leader names them), the seal, the previous window's hitters, and
+    the crawl of this window started in the background, so that the next
+    window's submissions overlap it.  -> the figures of ``crawl.done``."""
+    cfg = lead.cfg
+    t0 = time.perf_counter()
+    await lead._both("reset")
+    wi = WindowedIngest(lead)
+    per_w = (nreqs + windows - 1) // windows
+    bs = max(1, cfg.addkey_batch_size)
+    crawl_task = None
+    last = None
+
+    async def finish(task, w):
+        res = await task  # the next window's crawl starts after this: lead.alive is w's
+        emit("window.done", window=w, hitters=int(res.paths.shape[0]),
+             alive=None if lead.alive is None else int(lead.alive.sum()), **wi.windows[w])
+        _emit_window(res, w)
+
+    for w in range(windows):
+        lo_w, hi_w = w * per_w, min((w + 1) * per_w, nreqs)
+        overlapped = crawl_task is not None and not crawl_task.done()
+        t_sub = time.perf_counter()
+        for chunk_no, lo in enumerate(range(lo_w, hi_w, bs)):
+            sl = slice(lo, min(lo + bs, hi_w))
+            await wi.submit(f"site{chunk_no % max(1, cfg.num_sites)}",
+                            tuple(leaf[sl] for leaf in keys0), tuple(leaf[sl] for leaf in keys1),
+                            sk0_chunk=None if sk0 is None else [leaf[sl] for leaf in sk0],
+                            sk1_chunk=None if sk1 is None else [leaf[sl] for leaf in sk1])
+        dt = time.perf_counter() - t_sub
+        stats = await wi.seal_window()
+        emit("ingest.window", window=w, keys=int(stats["keys"]), subs=int(stats["subs"]),
+             seconds=dt, keys_per_s=(hi_w - lo_w) / dt if dt > 0 else None,
+             during_crawl=overlapped, sk_root=stats.get("sk_root"))
+        if crawl_task is not None:
+            await finish(crawl_task, last)
+        crawl_task = None
+        if stats["keys"]:
+            crawl_task, last = asyncio.create_task(wi.crawl_window(w)), w
+    if crawl_task is not None:
+        await finish(crawl_task, last)
+    figures = {"seconds": time.perf_counter() - t0, "windows": windows,
+               "secure": cfg.secure_exchange, "malicious": cfg.malicious,
+               "epochs": [lead.c0.epoch, lead.c1.epoch],
+               "alive": None if lead.alive is None else int(lead.alive.sum()),
+               "control_bytes": {"server0": lead.c0.stats, "server1": lead.c1.stats},
+               **wi.counters}
+    emit("crawl.done", **figures)
+    return figures
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         prog="Leader", description="Leader of the socket deployment (PyTorch/CUDA); runs "
         "the supervised crawl (checkpoints every FHH_CKPT_EVERY levels, default 16) unless "
-        "FHH_SUPERVISE=0; FHH_WARMUP=0 skips the warmup; the FHH_WINDOWS and FHH_COLLECTION "
-        "modes are not ported and are refused.")
+        "FHH_SUPERVISE=0; FHH_WARMUP=0 skips the warmup; FHH_WINDOWS=N streams the clients "
+        "into N windows; the FHH_COLLECTION mode is not ported and is refused.")
     p.add_argument("-c", "--config", required=True, help="Location of JSON config file")
     p.add_argument("-n", "--num_requests", type=int, required=True,
                    help="Number of client requests")
@@ -207,7 +282,9 @@ def main(argv=None) -> None:
                    help="seed of the client sampling and keygen randomness")
     args = p.parse_args(argv)
     refuse_unported_env()
+    refuse_unported_switches()
     cfg = configmod.load_config(args.config)
+    configmod.refuse_debug_guards(cfg)
     dev = resolve_device(args.device or ("cpu" if cfg.backend == "cpu" else None))
     asyncio.run(run(cfg, args.num_requests, dev, args.seed))
 

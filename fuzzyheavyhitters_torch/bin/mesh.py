@@ -38,7 +38,9 @@ in the JAX binary, the mesh ignores ``ot_path`` (its engine follows
         --seed 1 --devices 8 --processes 2 --process_id 0 --coordinator 127.0.0.1:29500
 
 It runs on ``cuda`` unless ``--device`` names another device, and raises
-when there is no card.  ``--platform`` (a JAX backend pin) is refused.
+when there is no card.  ``--platform`` (a JAX backend pin) is refused, and
+so are the observability and sanitizer switches the port does not have yet
+(``bin.refuse_unported_switches``).
 Malicious mode is refused as the JAX binary refuses it: the mesh holds both
 parties in one trust domain, so the sketch would add no security; the
 socket binaries run it.
@@ -57,6 +59,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import refuse_unported_switches
 from ..ops import ibdcf
 from ..parallel import mesh as meshmod
 from ..protocol import driver
@@ -241,6 +244,7 @@ def main(argv=None) -> None:
         p.error(f"--processes {args.processes}: the mesh runs in one process or two")
     if args.processes == 2 and (args.coordinator is None or args.process_id not in (0, 1)):
         p.error("--processes 2 needs --coordinator host:port and --process_id 0 or 1")
+    refuse_unported_switches()
     cfg = configmod.load_config(args.config)
     run(cfg, args.num_requests, device=args.device, seed=args.seed, csv_path=args.csv,
         devices=args.devices, processes=args.processes, process_id=args.process_id,

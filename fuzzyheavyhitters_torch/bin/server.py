@@ -31,7 +31,14 @@ config's ``server_data_devices`` (N > 1: N data shards, wrapped onto the
 visible cards, or logical CPU shards with ``--device cpu``) and
 ``FHH_MESH_FAULTS`` arms the device-loss drills (``mesh:kill@level=N``,
 the grammar of ``resilience.chaos.parse_mesh_faults``).  The JAX binary's
-fleet registration is not ported: its variable is refused.
+fleet registration is not ported: its variable is refused, and so are the
+observability and sanitizer switches the port does not have yet
+(``bin.refuse_unported_switches``), and ``debug_guards: true`` in the
+config (``utils.config.refuse_debug_guards``).
+The ingest front door (``submit_keys``, ``window_seal``, ``window_load``)
+reads the config's ``ingest_*`` fields; ``server.exit`` counts its
+submissions (``pool_*``), sealed windows and the last window's seconds from
+seal to final shares (``seal_to_hitters_s``).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import time
 
 import torch
 
+from . import refuse_unported_switches
 from ..protocol.rpc import CollectorServer, not_ported
 from ..resilience.chaos import MeshChaos, parse_mesh_faults
 from ..utils import config as configmod
@@ -137,7 +145,9 @@ def main(argv=None) -> None:
     if args.server_id not in (0, 1):
         raise SystemExit(f"server_id must be 0 or 1, got {args.server_id}")
     refuse_unported_env()
+    refuse_unported_switches()
     cfg = configmod.load_config(args.config)
+    configmod.refuse_debug_guards(cfg)
     device = resolve_device(args.device or ("cpu" if cfg.backend == "cpu" else None))
     asyncio.run(amain(cfg, args.server_id, device))
 

@@ -61,8 +61,15 @@ touching a server, to start a sketch crawl over from scratch.
 Servers with data shards (``server_data_devices``) answer as unsharded
 ones do; a recovery tells a device loss from a server loss by the growth
 of a server's ``mesh.faults`` under the same boot id and emits
-``resilience.loss_classified`` when it found either.  Streaming windows
-are not ported.
+``resilience.loss_classified`` when it found either.
+
+Streaming ingestion (:class:`WindowedIngest`): clients' submissions go
+through server 0's admission gate and are mirrored to server 1 into
+tumbling windows; each sealed window is crawled by :meth:`RpcLeader.run`
+while the next one fills, and a server restart is recovered from the
+ingest-only checkpoint and the leader's journal.  Live migration between
+server pairs (the JAX ``migrate``/``failover_to``) belongs to the fleet and
+is not ported.
 """
 
 from __future__ import annotations
@@ -77,6 +84,7 @@ import numpy as np
 from ..ops import ibdcf
 from ..ops.fields import F255, FE62
 from ..resilience import policy as respolicy
+from ..utils import config as configmod
 from ..utils.config import Config
 from . import collect
 from .driver import CrawlResult
@@ -93,6 +101,7 @@ MAX_RECOVERIES = 4  # rollbacks a supervised crawl survives (the JAX leader's de
 class RpcLeader:
     def __init__(self, cfg: Config, client0: CollectorClient, client1: CollectorClient,
                  emit=None):
+        configmod.refuse_debug_guards(cfg)
         self.cfg = cfg
         self.c0, self.c1 = client0, client1
         self.emit = emit or (lambda event, **kw: None)
@@ -576,3 +585,296 @@ class RpcLeader:
         if v[..., 1:].any() or not np.array_equal(final, kept):
             raise RuntimeError("final share reconstruction mismatch")
         return CrawlResult(paths=self.paths, counts=final)
+
+
+# -- streaming ingest: the leader of the windowed front door (JAX leader_rpc.py:897-1369)
+
+# a client's submit backoff: quick first retries (token refill horizons are
+# sub-second at sane rates) and many attempts: a flooding client spends its
+# time here, sleeping, so it stalls itself and not the crawl
+INGEST_POLICY = respolicy.RetryPolicy(base_s=0.02, cap_s=0.5, factor=2.0, attempts=16)
+
+INGEST_COUNTERS = ("ingest_admitted", "ingest_shed_subs", "ingest_rejected", "ingest_shed",
+                   "ingest_windows", "ingest_recoveries", "ingest_journal_replays")
+
+
+class IngestOverloadedError(RuntimeError):
+    """Every backed-off retry of one submission was answered Overloaded:
+    the caller floods faster than the front door will ever admit.  Not
+    transport-shaped on purpose: retrying the call cannot help, the caller
+    must slow down or drop."""
+
+
+class WindowedIngest:
+    """The leader's side of the streaming front door: ``submit_keys`` into
+    tumbling windows (:meth:`submit`), ``window_seal`` at each boundary
+    (:meth:`seal_window`), and :meth:`crawl_window` running the ordinary
+    round loop (:meth:`RpcLeader.run`) on a sealed window's frozen pool while
+    later submissions keep landing.
+
+    Server 0 is the gate: its verdict (an admitted slot, shed, or
+    Overloaded) comes first and is then mirrored to server 1, so the two
+    pools stay positionally identical whatever order frames arrive in.  An
+    Overloaded verdict backs off under ``policy`` (at least the gate's
+    ``retry_after_s``) and tries again.
+
+    Recovery: every admitted or shed submission is journaled until its
+    window's crawl completes.  After a server restart the leader restores
+    that server's last ingest-only checkpoint (``tree_restore`` of level -1,
+    banked at each seal: pools, recorded verdicts, the reservoir's state),
+    replays the journal in mirror form (the recorded verdicts make it
+    exactly-once), re-seals the sealed windows with their banked roots,
+    and re-runs the window's crawl, whose result equals a batch crawl over
+    the same admitted keys.  A recovery that fails (a restarted server
+    still starting) is tried again at the caller's next attempt, bounded
+    per call, where the JAX ``crawl_window`` gives up at once.
+    ``counters`` keeps ``INGEST_COUNTERS``;
+    ``windows`` each crawled window's crawl seconds, recoveries and
+    seal-to-hitters seconds."""
+
+    def __init__(self, lead: RpcLeader, *, policy=None, checkpoint=True):
+        self.lead = lead
+        self.cfg = lead.cfg
+        self.window = 0
+        self.policy = policy or INGEST_POLICY
+        self.counters = dict.fromkeys(INGEST_COUNTERS, 0)
+        self.windows: dict = {}  # window -> {"crawl_s", "recoveries", "seal_to_hitters_s"}
+        self._journal: dict = {}  # window -> submission records
+        self._journaled: set = set()  # sub_ids already journaled
+        self._sealed: dict = {}  # window -> the gate's seal stats
+        self._n_subs = 0
+        self._ckpt = bool(checkpoint)
+        self._have_ckpt = False
+        # the mirror applies verdicts in the gate's order (pools are
+        # positional), so each gate-and-mirror pair holds this lock; backoff
+        # sleeps happen outside it, so a rejected client stalls only itself
+        self._submit_lock = asyncio.Lock()
+        # one recovery at a time: a submit and a crawl may see one fault
+        self._recover_lock = asyncio.Lock()
+        for i, c in ((0, lead.c0), (1, lead.c1)):  # restart detection's baseline
+            if lead._boot_ids.get(i) is None:
+                lead._boot_ids[i] = getattr(c, "boot_id", None)
+
+    async def submit(self, client_id, k0_chunk, k1_chunk, *, sk0_chunk=None, sk1_chunk=None,
+                     sub_id: str | None = None) -> dict:
+        """Submit one client's key-share chunks (``k0_chunk`` to server 0,
+        ``k1_chunk`` to server 1; wire leaves) into the current window, in
+        malicious mode with the 16 sketch leaves of each party's share
+        (``sk0_chunk``/``sk1_chunk``).  Blocks through Overloaded verdicts
+        under the backoff policy and returns the gate's verdict (admitted or
+        shed); raises :class:`IngestOverloadedError` when every attempt was
+        rejected."""
+        if sub_id is None:
+            # one id per logical submission, reused by transport replays and
+            # recovery re-submissions so the servers' recorded verdicts
+            # dedup them; a backed-off retry that straddles a seal lands in
+            # the new window under the same id
+            self._n_subs += 1
+            sub_id = f"{self.lead.c0.session_id}:{self._n_subs}"
+        k0_chunk = tuple(np.asarray(a) for a in k0_chunk)
+        k1_chunk = tuple(np.asarray(a) for a in k1_chunk)
+        if (sk0_chunk is None) != (sk1_chunk is None):
+            raise ValueError("sketch chunks come in pairs: pass sk0_chunk and sk1_chunk "
+                             "(one per server's share) or neither")
+        if sk0_chunk is not None:
+            sk0_chunk = [np.asarray(a) for a in sk0_chunk]
+            sk1_chunk = [np.asarray(a) for a in sk1_chunk]
+        n_keys = int(k0_chunk[0].shape[0])
+        attempt = faults = 0
+        while True:
+            # the window id is read under the lock: a seal may have advanced
+            # it while this task waited
+            async with self._submit_lock:
+                w = self.window
+                base = {"window": w, "sub_id": sub_id, "client_id": str(client_id)}
+                # the gate and its mirror (and a fault's recovery) under one
+                # hold: nothing, not even a seal, may land between them
+                while True:
+                    try:
+                        r0 = await self.lead.c0.call(
+                            "submit_keys", dict(base, keys=k0_chunk, sketch=sk0_chunk))
+                        if r0.get("overloaded"):
+                            break
+                        rec = {"sub_id": sub_id, "client_id": str(client_id), "window": w,
+                               "slot": r0.get("slot"), "shed": bool(r0.get("shed")),
+                               "k0": k0_chunk, "k1": k1_chunk, "sk0": sk0_chunk,
+                               "sk1": sk1_chunk}
+                        # journal before the mirror: a restart mid-mirror is
+                        # replayed from it, and a retried gate call (a dup)
+                        # must not journal twice
+                        if sub_id not in self._journaled:
+                            self._journal.setdefault(w, []).append(rec)
+                            self._journaled.add(sub_id)
+                        await self.lead.c1.call("submit_keys", dict(
+                            base, keys=k1_chunk, sketch=sk1_chunk,
+                            mirror={"slot": rec["slot"], "shed": rec["shed"]}))
+                        break
+                    except respolicy.TRANSIENT_ERRORS:
+                        # a restart or a lost transport: recover, then the
+                        # same sub_id again (recorded verdicts: exactly once)
+                        faults += 1
+                        if faults > 8:
+                            raise
+                        await self._recover_or_retry()
+            if not r0.get("overloaded"):
+                break
+            self.counters["ingest_rejected"] += 1
+            if r0.get("scope") == "burst":  # no refill horizon ever covers it
+                raise IngestOverloadedError(
+                    f"submission {sub_id} ({n_keys} keys) exceeds the gate's burst allowance "
+                    "— split the chunk or raise ingest_burst_keys")
+            attempt += 1
+            if attempt >= self.policy.attempts:
+                raise IngestOverloadedError(
+                    f"submission {sub_id} rejected {attempt} times (last scope: "
+                    f"{r0.get('scope')}) — client is over the front door's sustained capacity")
+            await asyncio.sleep(max(float(r0.get("retry_after_s", 0.0)),
+                                    self.policy.delay(attempt - 1)))
+        if rec["shed"]:
+            self.counters["ingest_shed_subs"] += 1
+        else:
+            self.counters["ingest_admitted"] += n_keys
+        return r0
+
+    async def seal_window(self) -> dict:
+        """Freeze the current window on both servers, check that their pools
+        agree (keys, submissions, the committed root), bank the ingest-only
+        checkpoint (level -1), and open the next window.  -> the gate's
+        seal stats."""
+        faults = 0
+        while True:
+            # the whole boundary under one hold: it must not race a
+            # half-mirrored submission, and the id read outside the lock
+            # could re-seal a window another boundary already passed
+            async with self._submit_lock:
+                w = self.window
+                try:
+                    r0, r1 = await self.lead._both("window_seal", {"window": w})
+                except respolicy.TRANSIENT_ERRORS:
+                    faults += 1
+                    if faults > 8:
+                        raise
+                    await self._recover_or_retry()
+                    continue
+                # a root mismatch would silently exclude every honest client
+                if (r0["keys"], r0["subs"], r0.get("sk_root")) != (
+                        r1["keys"], r1["subs"], r1.get("sk_root")):
+                    raise RuntimeError(f"window {w} pools diverged at seal: gate {r0} vs "
+                                       f"mirror {r1}")
+                self._sealed[w] = dict(r0, sealed_at=time.time())
+                self.window = w + 1
+                break
+        # the seal stats count the reservoir's replaced occupants too
+        self.counters["ingest_shed"] += int(r0["shed_keys"])
+        self.counters["ingest_windows"] += 1
+        self.lead.emit("ingest.window_boundary", window=w, keys=int(r0["keys"]),
+                       subs=int(r0["subs"]), shed=int(r0["shed_keys"]),
+                       rejected=int(r0["rejected"]))
+        if self._ckpt:
+            try:  # the rollback point of a kill mid-window
+                await self.lead._both("tree_checkpoint", {"level": -1, "ingest_only": True})
+                self._have_ckpt = True
+            except RuntimeError as e:  # no FHH_CKPT_DIR: the journal replay covers it
+                self._ckpt = False
+                self.lead.emit("ingest.checkpoint_disabled", error=str(e))
+        return r0
+
+    async def crawl_window(self, w: int, *, max_recoveries: int = 4) -> CrawlResult:
+        """The ordinary round loop over sealed window ``w``'s frozen pool
+        (``window_load``, then :meth:`RpcLeader.run`); ingest into later
+        windows goes on meanwhile (``submit_keys`` bypasses the servers'
+        verb lock).  On a transport loss, a restart or a verb failure the
+        ingest state is recovered, the window reloaded and its crawl run
+        again: the pool is rebuilt exactly and the crawl is deterministic,
+        so the result is too."""
+        async with self._submit_lock:
+            stats = self._sealed.get(w)
+        if stats is None:
+            raise RuntimeError(f"crawl_window: window {w} is not sealed")
+        nreqs = int(stats["keys"])
+        recoveries = 0
+        t0 = time.perf_counter()
+        while True:
+            try:
+                l0, _ = await self.lead._both("window_load", {"window": w})
+                # a malicious window's crawl runs the sketch gates: the batch
+                # flow learns it at upload, the windowed one from the pool
+                self.lead.has_sketch = bool(l0.get("sketch"))
+                res = await self.lead.run(nreqs)
+                break
+            except (ConnectionError, TimeoutError, RuntimeError) as err:
+                recoveries += 1
+                self.counters["ingest_recoveries"] += 1
+                self.lead.emit("ingest.window_recover", window=w, attempt=recoveries,
+                               error=f"{type(err).__name__}: {err}")
+                if recoveries > max_recoveries:
+                    raise
+                # under the submit lock: the journal replay rebuilds pools
+                # positionally, and a live gate-and-mirror pair landing
+                # between replayed records would part the servers' slot orders
+                async with self._submit_lock:
+                    await self._recover_or_retry()
+        self.windows[w] = {"crawl_s": time.perf_counter() - t0, "recoveries": recoveries,
+                           "seal_to_hitters_s": max(0.0, time.time() - stats["sealed_at"])}
+        # the window is crawled: its journal and seal stats (and any
+        # earlier ones) are done
+        async with self._submit_lock:
+            for old in [k for k in self._journal if k <= w]:
+                for rec in self._journal.pop(old):
+                    self._journaled.discard(rec["sub_id"])
+            for old in [k for k in self._sealed if k <= w]:
+                del self._sealed[old]
+        return res
+
+    async def _recover_or_retry(self) -> None:
+        """:meth:`_recover_ingest`, its failure left to the caller's next
+        attempt: a restarted server may listen only after the data plane's
+        redial ran out (its start-up takes seconds), and the next attempt
+        probes again (each caller bounds its attempts)."""
+        try:
+            await self._recover_ingest()
+        except (ConnectionError, TimeoutError, RuntimeError) as e:
+            self.lead.emit("ingest.recover_failed", error=f"{type(e).__name__}: {e}")
+
+    async def _recover_ingest(self) -> None:
+        """Bring both servers' ingest state back to this leader's view:
+        probe the boot ids and re-key the data plane, then for each
+        restarted server restore its last ingest checkpoint, replay the
+        journal (mirror form, recorded verdicts deduping) and re-seal the
+        sealed windows with their banked roots.  The crawl state is the
+        caller's: it reloads the window and runs the crawl again."""
+        async with self._recover_lock:
+            lead = self.lead
+            restarted = await lead._reprobe_and_reset()
+            for i in restarted:
+                client = lead.c0 if i == 0 else lead.c1
+                if self._have_ckpt:
+                    try:
+                        await client.call("tree_restore", {"level": -1})
+                    except RuntimeError as e:
+                        lead.emit("ingest.restore_failed", server=i, error=str(e))
+                await self._replay_journal(client, i)
+                for w in sorted(self._sealed):
+                    req = {"window": w}
+                    root = self._sealed[w].get("sk_root")
+                    if root is not None:  # never a fresh root for the same slabs
+                        req["sk_root"] = root
+                    await client.call("window_seal", req)
+                lead.emit("ingest.server_reseeded", server=i)
+
+    async def _replay_journal(self, client, which: int) -> None:
+        """Re-submit every journaled record to one server in mirror form (the
+        recorded gate verdicts, no fresh admission): the records the
+        restored checkpoint holds answer as duplicates, the rest rebuild
+        the pool as it was."""
+        replayed = 0
+        for w in sorted(self._journal):
+            for rec in self._journal[w]:
+                await client.call("submit_keys", {
+                    "window": rec["window"], "sub_id": rec["sub_id"],
+                    "client_id": rec["client_id"],
+                    "keys": rec["k0"] if which == 0 else rec["k1"],
+                    "sketch": rec["sk0"] if which == 0 else rec["sk1"],
+                    "mirror": {"slot": rec["slot"], "shed": rec["shed"]}})
+                replayed += 1
+        self.counters["ingest_journal_replays"] += replayed

@@ -95,9 +95,20 @@ checkpoint the server breaks its data plane and answers the error, and
 the supervising leader's recovery takes over.  ``status`` reports the
 shards in its ``mesh`` section.
 
+Streaming ingestion (JAX rpc.py:1442-1660): ``submit_keys`` lands a
+submission in a tumbling window's pool through the admission gate of
+``resilience/admission.py`` (token bucket, quotas, reject or seeded
+reservoir shedding; server 0 decides, server 1 applies its verdict as
+``mirror``), outside the verb lock, idempotent per ``sub_id``;
+``window_seal`` freezes a window (in malicious mode committing
+``sketch.window_root`` as its challenge root); ``window_load`` makes a
+sealed pool the next crawl's key batch.  The pools live in
+``sessions.IngestState``, ride every checkpoint as the JAX blob's ``ing_*``
+fields, and an ``ingest_only`` blob banks them between windows.
+
 Not ported (they answer ``NotImplementedError`` naming the missing path,
-never "unknown verb"): the other verbs of the JAX server and multi-tenant
-collections.
+never "unknown verb"): the session migration verbs of the JAX server and
+multi-tenant collections.
 """
 
 from __future__ import annotations
@@ -125,6 +136,7 @@ from ..resilience import chaos as reschaos
 from ..resilience import policy as respolicy
 from ..ops.ibdcf import EvalState
 from ..utils import resolve_device, tensor_from_numpy, words_from_numpy, words_to_numpy
+from ..utils import config as configmod
 from ..utils.config import Config
 from . import collect, mpc, secure, sessions
 from . import sketch as sketchmod
@@ -199,9 +211,6 @@ def not_ported(what: str, path: str) -> NotImplementedError:
 
 # the JAX server's other verbs, each with the path it belongs to
 UNPORTED_VERBS = {
-    "submit_keys": "streaming ingestion",
-    "window_seal": "streaming ingestion",
-    "window_load": "streaming ingestion",
     "session_export": "collection-session migration",
     "session_import": "collection-session migration",
 }
@@ -281,12 +290,14 @@ class CollectorServer:
 
     VERBS = ("reset", "add_keys", "tree_init", "tree_crawl", "tree_crawl_last",
              "tree_prune", "tree_prune_last", "final_shares", "warmup", "status",
-             "tree_checkpoint", "tree_restore", "plane_reset", "plane_break", "sketch_verify")
+             "tree_checkpoint", "tree_restore", "plane_reset", "plane_break", "sketch_verify",
+             "submit_keys", "window_seal", "window_load")
 
     def __init__(self, server_id: int, cfg: Config, device=None, *, ckpt_dir=None,
                  emit=None, mesh_chaos=None):
         if server_id not in (0, 1):
             raise ValueError(f"server_id must be 0 or 1, got {server_id}")
+        configmod.refuse_debug_guards(cfg)
         self.server_id = server_id
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -303,7 +314,11 @@ class CollectorServer:
         # the host seconds the prunes spent advancing the sketch states; the
         # crawl's device readbacks (k a sharded one), and with data shards the
         # seconds of the per-shard reductions, the levels that gathered their
-        # share bits, the device faults, re-shards and re-runs inside a verb
+        # share bits, the device faults, re-shards and re-runs inside a verb;
+        # the ingest front door's submissions (replays answered from a
+        # recorded verdict among them), admitted and shed keys, Overloaded
+        # answers, sealed windows, and the seconds from the loaded window's
+        # seal to its final shares
         self.stats = {"seconds": dict.fromkeys(PHASES, 0.0),
                       "data_bytes_sent": 0, "data_bytes_recv": 0, "data_frame_max": 0,
                       "control_bytes_sent": 0, "control_bytes_recv": 0, "levels": 0,
@@ -312,7 +327,9 @@ class CollectorServer:
                       "restore_s": 0.0, "sketch_verifies": 0, "sketch_advance_s": 0.0,
                       "device_fetches": 0, "ici_reduce_s": 0.0, "kernel_gathers": 0,
                       "kernel_gather_s": 0.0, "mesh_faults": 0, "mesh_reshards": 0,
-                      "shards_rerun": 0}
+                      "shards_rerun": 0, "pool_submits": 0, "pool_dup_submits": 0,
+                      "pool_admitted_keys": 0, "pool_shed_keys": 0, "pool_rejected": 0,
+                      "windows_sealed": 0, "seal_to_hitters_s": None}
         # the last value of the data shards' per-level gauges (None before
         # any), and the kernel stage's widest
         self._gauges = {"kernel_shards": None, "kernel_shards_max": None,
@@ -329,6 +346,9 @@ class CollectorServer:
         self._sec_seed = None  # per-level GC and b2a seeds
         self._crawl_ctr = 0
         self._sketch_seed = None  # this data plane's coin flip: uint32[4]
+        # the streaming front door: window pools and the admission gate,
+        # which outlive a window's crawl state (reset clears them)
+        self._ingest = sessions.IngestState(cfg)
         self._clear()
 
     def _clear(self) -> None:
@@ -359,6 +379,10 @@ class CollectorServer:
         self._sketch_pairs = None
         self._sketch_root = None
         self._ratchet_digest = None
+        # a loaded window's committed challenge root, which tree_init takes
+        # in place of the coin flip, and its seal instant (None: a bulk upload)
+        self._window_sketch_root = None
+        self._window_seal_ts = None
 
     def _clear_spans(self) -> None:
         self._shard_children: dict = {}  # span lo -> child cache of this level
@@ -378,6 +402,7 @@ class CollectorServer:
 
     async def reset(self, _req) -> bool:
         self._clear()
+        self._ingest._ingest_pools.clear()  # a new collection's front door opens clean
         self._ckpt_clear()  # a new collection must not resume an old one's
         if self._ot_snd is not None:  # fresh GC/b2a randomness per collection
             self._sec_seed = np.frombuffer(secrets.token_bytes(16), "<u4").copy()
@@ -493,8 +518,13 @@ class CollectorServer:
             # commit the ratchet: the root is this plane's coin flip (the
             # clients committed their keys before it), the transcript empty;
             # both are checkpointed, so later plane resets and restarts
-            # cannot move any level's challenge
-            self._sketch_root = np.asarray(self._sketch_seed, np.uint32).copy()
+            # cannot move any level's challenge.  A loaded window commits
+            # its seal-time root instead (sketch.window_root), which its seal
+            # stats and ingest checkpoint carry: a recovered window's re-run
+            # replays the same challenges
+            root = (self._window_sketch_root if self._window_sketch_root is not None
+                    else self._sketch_seed)
+            self._sketch_root = np.asarray(root, np.uint32).copy()
             self._ratchet_digest = sketchmod.transcript_init()
         return True
 
@@ -729,8 +759,153 @@ class CollectorServer:
         return True
 
     async def final_shares(self, _req) -> dict:
-        """The surviving leaves' count shares (ref: rpc.rs:65)."""
+        """The surviving leaves' count shares (ref: rpc.rs:65).  After a
+        loaded window's crawl, the seconds since that window's seal go to
+        ``seal_to_hitters_s``, once a window."""
+        if self._window_seal_ts is not None:
+            self.stats["seal_to_hitters_s"] = max(0.0, time.time() - self._window_seal_ts)
+            self._window_seal_ts = None
         return {"server_id": self.server_id, "shares": self.last_shares}
+
+    # -- the streaming ingest front door (JAX rpc.py:1442-1660): the online
+    # successor of the one-shot add_keys upload --------------------------------
+
+    async def submit_keys(self, req) -> dict:
+        """One submission into the named window's pool: admission-controlled,
+        append-only, idempotent per ``sub_id``.  Runs without the verb lock
+        (as ``add_keys``), so a window fills while the previous one's crawl
+        holds it; the admission arithmetic runs in an executor behind the
+        gate's lock, and after that one suspension the duplicate and seal
+        checks run again before the pool changes.
+
+        Req: ``{window, sub_id, client_id, keys}``, in malicious mode
+        ``sketch`` (the same clients' 16 sketch leaves, :func:`sketch.
+        sketch_leaves` order, riding the entry tuple), and ``mirror`` (the
+        gate server's verdict, which server 1 applies positionally, so the
+        two pools stay identical).  Answers ``{"admitted": True, "slot"}``,
+        ``{"admitted": False, "shed": True}`` (reservoir mode: final), or
+        ``{"admitted": False, "overloaded": True, "scope", "retry_after_s"}``
+        (retryable); a replayed ``sub_id`` answers its recorded verdict with
+        ``dup`` True."""
+        ing = self._ingest
+        window = int(req["window"])
+        sub_id = str(req["sub_id"])
+        chunk = tuple(np.asarray(a) for a in req["keys"])
+        n_keys = int(chunk[0].shape[0])
+        sk = req.get("sketch")
+        if sk is not None:
+            if not self.cfg.malicious:
+                raise RuntimeError("sketch material submitted to a semi-honest collector "
+                                   "(cfg.malicious is off)")
+            if len(sk) != 16:
+                raise ValueError(f"submit_keys: a sketch chunk has 16 leaves, got {len(sk)}")
+            chunk = chunk + tuple(np.asarray(a) for a in sk)
+        elif self.cfg.malicious:
+            raise RuntimeError("malicious mode: submit_keys requires the client's sketch "
+                               "chunk alongside its keys")
+        pool = ing.ingest_pool(window)
+        self.stats["pool_submits"] += 1
+        prev = pool.verdicts.get(sub_id)
+        if prev is not None:  # a replay: the recorded verdict, nothing re-admitted
+            self.stats["pool_dup_submits"] += 1
+            return dict(prev, dup=True)
+        if pool.sealed:
+            raise RuntimeError(f"ingest window {window} is sealed — submit into a later window")
+        mirror = req.get("mirror")
+        if mirror is not None:  # never suspends: applied positionally
+            resp = pool.apply_mirror(sub_id, chunk, mirror, str(req.get("client_id", "")))
+        else:
+            v = await ing._admission.admit_offloaded(pool.wa, str(req.get("client_id", "")),
+                                                     n_keys, gate=ing._adm_gate)
+            # another frame may have replayed this sub_id or sealed the
+            # window during the await
+            prev = pool.verdicts.get(sub_id)
+            if prev is not None:
+                self.stats["pool_dup_submits"] += 1
+                return dict(prev, dup=True)
+            if pool.sealed:
+                raise RuntimeError(f"ingest window {window} sealed during admission — "
+                                   "submit into a later window")
+            resp = pool.apply(sub_id, chunk, v)
+        if resp.get("admitted"):
+            self.stats["pool_admitted_keys"] += n_keys
+        elif resp.get("shed"):
+            self.stats["pool_shed_keys"] += n_keys
+        else:
+            self.stats["pool_rejected"] += 1
+        return resp
+
+    async def window_seal(self, req) -> dict:
+        """Freeze the named window: later submissions name later windows.
+        Idempotent: sealing a sealed window returns the same stats.  In
+        malicious mode the first seal commits the window's challenge root,
+        ``sketch.window_root`` of this plane's coin flip and the window; a
+        recovery re-seal hands back the root banked at the first seal
+        (``sk_root``), which a pool rebuilt from the journal takes and a
+        pool holding another refuses.  -> the pool's stats."""
+        w = int(req["window"])
+        pool = self._ingest._ingest_pools.get(w)
+        if pool is None:
+            pool = self._ingest.ingest_pool(w)  # sealing an idle window is legal
+        want_root = req.get("sk_root")
+        if want_root is not None:
+            want_root = np.array(want_root, np.uint32)
+            if pool.sk_root is None:
+                pool.sk_root = want_root
+            elif not np.array_equal(pool.sk_root, want_root):
+                raise RuntimeError(f"window_seal: window {w} already committed a different "
+                                   "sketch root (recovery replayed stats from another life?)")
+        if not pool.sealed:
+            if self.cfg.malicious and pool.sk_root is None:
+                await self._ensure_plane()
+                pool.sk_root = sketchmod.window_root(self._sketch_seed, w)
+            pool.sealed = True
+            pool.sealed_at = time.time()
+            self.stats["windows_sealed"] += 1
+            self.emit("ingest.window_sealed", server=self.server_id,
+                      collection=DEFAULT_COLLECTION, window=w, keys=pool.keys,
+                      subs=len(pool.entries), shed=pool.shed_keys,
+                      sk_root=None if pool.sk_root is None else pool.sk_root.tolist())
+        return pool.stats()
+
+    async def window_load(self, req) -> dict:
+        """Make a sealed window's frozen pool the crawl's key batch (the
+        streaming twin of the ``add_keys`` upload): the crawl and sketch
+        state clear, the pool's entries become the uploaded chunks in slot
+        order (with data shards they are placed per shard at ``tree_init``
+        and kept for a re-shard, as an upload's), the sketch leaves split
+        back into sketch chunks, the window's root is installed for
+        ``tree_init``, and earlier windows' pools are dropped.  Every
+        refusal comes before any state changes."""
+        w = int(req["window"])
+        pool = self._ingest._ingest_pools.get(w)
+        if pool is None:
+            raise RuntimeError(f"window_load: no ingest pool for window {w}")
+        if not pool.sealed:
+            raise RuntimeError(f"window_load: window {w} is not sealed")
+        if not pool.entries:
+            raise RuntimeError(f"window_load: window {w} admitted no keys")
+        nk = len(ibdcf.IbDcfKeyBatch._fields)
+        has_sketch = len(pool.entries[0]) > nk
+        if self.cfg.malicious and not has_sketch:
+            raise RuntimeError(f"window_load: malicious mode but window {w} carries no "
+                               "sketch material (submitted before cfg.malicious?)")
+        if has_sketch and pool.sk_root is None:
+            raise RuntimeError(f"window_load: window {w} carries sketch material but no "
+                               "committed challenge root (sealed by a pre-sketch server?)")
+        self._clear()
+        self.keys_parts = [tuple(e[:nk]) for e in pool.entries]
+        self._keys_stale = True
+        if has_sketch:
+            self._sketch_parts = [tuple(e[nk:]) for e in pool.entries]
+            self._window_sketch_root = np.array(pool.sk_root, np.uint32)
+        self._window_seal_ts = pool.sealed_at
+        for old in [k for k in self._ingest._ingest_pools if k < w]:
+            del self._ingest._ingest_pools[old]
+        self.emit("ingest.window_loaded", server=self.server_id,
+                  collection=DEFAULT_COLLECTION, window=w, keys=pool.keys, sketch=has_sketch)
+        return {"window": w, "keys": pool.keys, "subs": len(pool.entries),
+                "sketch": has_sketch}
 
     async def warmup(self, req) -> dict:
         """Run, for every requested bucket ``f_buckets`` and every span size
@@ -822,18 +997,20 @@ class CollectorServer:
     async def status(self, _req) -> dict:
         """The supervising leader's probe: the boot id tells it whether this
         is the process it knew (replay is safe) or a restart (state gone:
-        restore), the dedup hits that no verb ran twice, and the data
-        shards' health (:meth:`mesh_status`; its ``faults`` tells the
-        leader a device loss from a server loss).  The JAX server's
-        sections of unported layers (ingest, sessions, fleet, slo, alerts)
-        are left out."""
+        restore), the dedup hits that no verb ran twice, the ingest front
+        door's health (``ingest``: per-window occupancy, the unsealed queue
+        depth, the admit, shed and reject counters), and the data shards'
+        health (:meth:`mesh_status`; its ``faults`` tells the leader a
+        device loss from a server loss).  The JAX server's sections of
+        unported layers (sessions, fleet, slo, alerts) are left out."""
         return {"boot_id": self.boot_id, "collection": DEFAULT_COLLECTION,
                 "clock": round(time.time(), 6),
                 "has_keys": self.keys is not None or bool(self.keys_parts),
                 "has_frontier": self.frontier is not None,
                 "dedup_hits": self.stats["dedup_hits"],
                 "plane_resets": self.stats["plane_resets"],
-                "ckpt_levels": self._ckpt_levels(), "mesh": self.mesh_status()}
+                "ckpt_levels": self._ckpt_levels(), "ingest": self._ingest.ingest_status(),
+                "mesh": self.mesh_status()}
 
     def mesh_status(self) -> dict | None:
         """The data shards in the JAX server's ``mesh`` section (None
@@ -864,27 +1041,40 @@ class CollectorServer:
         state (:meth:`_sketch_blob`) — the JAX server's blob, field for
         field.  A sketch crawl banks one at level -1 too, after
         ``tree_init``, before any Beaver slab opens.  Keys are not in it:
-        the leader re-uploads them to a restarted server.  Written to a temporary file and renamed, so a
-        crash mid-write leaves the previous checkpoint whole; the two
-        newest levels are kept."""
+        the leader re-uploads them to a restarted server.  The ingest pools
+        ride every blob (``ing_*``: entries, recorded verdicts, quota
+        ledgers, the reservoir's state); with ``ingest_only``, or with pools
+        and no frontier (between windows), the blob is ingest-only
+        (``ing_only``), the rollback point of a window's recovery.  Written
+        to a temporary file and renamed, so a crash mid-write leaves the
+        previous checkpoint whole; the two newest levels are kept."""
         if self.ckpt_dir is None:
             raise RuntimeError("tree_checkpoint: no checkpoint dir configured "
                                "(start the server with FHH_CKPT_DIR set)")
-        if self.frontier is None:
+        pools = self._ingest._ingest_pools
+        ing_only = bool((req or {}).get("ingest_only"))
+        if self.frontier is None and not pools:
             raise RuntimeError("tree_checkpoint before tree_init")
+        if ing_only and not pools:
+            raise RuntimeError("tree_checkpoint: no ingest pools to persist")
         level = int(req["level"])
         t0 = time.perf_counter()
-        fr = self.frontier if self._mesh is None else self._mesh.gather_frontier(self.frontier)
-        st = fr.states
-        as_np = lambda t: t.cpu().numpy()
-        blob = {"seed": words_to_numpy(st.seed), "bit": as_np(st.bit),
-                "y_bit": as_np(st.y_bit), "alive": as_np(fr.alive),
-                "alive_keys": as_np(self.alive_keys), "planar": np.bool_(True),
-                "keys_fp": self._keys_fp(), "level": np.int64(level),
-                "sess": np.str_(DEFAULT_COLLECTION),
-                "radix": np.int64(self.cfg.crawl_radix_bits)}
-        if self._sketch is not None:
-            blob.update(self._sketch_blob())
+        if self.frontier is not None and not ing_only:
+            fr = (self.frontier if self._mesh is None
+                  else self._mesh.gather_frontier(self.frontier))
+            st = fr.states
+            as_np = lambda t: t.cpu().numpy()
+            blob = {"seed": words_to_numpy(st.seed), "bit": as_np(st.bit),
+                    "y_bit": as_np(st.y_bit), "alive": as_np(fr.alive),
+                    "alive_keys": as_np(self.alive_keys), "planar": np.bool_(True),
+                    "keys_fp": self._keys_fp()}
+            if self._sketch is not None:
+                blob.update(self._sketch_blob())
+        else:
+            blob = {"ing_only": np.bool_(True)}
+        blob.update(level=np.int64(level), sess=np.str_(DEFAULT_COLLECTION),
+                    radix=np.int64(self.cfg.crawl_radix_bits))
+        self._ingest.ingest_ckpt_fields(blob)
         path = self._ckpt_path(level)
         tmp = f"{path}.tmp{os.getpid()}"
 
@@ -978,9 +1168,12 @@ class CollectorServer:
         another collection's or crawl radix's stamp, missing fields, another
         key batch, a file renamed to another level, a level past the tree,
         another client count, sketch state where the session has none (or
-        none where it has), torn ``sk_*`` fields — and a refusal leaves the
-        live state as it was.  A blob of the interleaved layout (``planar`` False, a JAX
-        server on the XLA engine) is carried to the plane-major one."""
+        none where it has), torn ``sk_*`` or ``ing_*`` fields — and a
+        refusal leaves the live state as it was.  An ingest-only blob
+        restores the pools alone and needs no keys (the pools are the
+        keys); every other blob restores its pools with the frontier.  A
+        blob of the interleaved layout (``planar`` False, a JAX server on
+        the XLA engine) is carried to the plane-major one."""
         if self.ckpt_dir is None:
             raise RuntimeError("tree_restore: no checkpoint dir configured")
         want = int(req["level"])
@@ -1003,8 +1196,22 @@ class CollectorServer:
                                f"crawl_radix_bits={saved_radix}; this session runs "
                                f"crawl_radix_bits={self.cfg.crawl_radix_bits} — its level grid "
                                "never visits the blob's frontier depth")
-        if "ing_only" in z:
-            raise not_ported(f"tree_restore of {path}", "streaming ingestion")
+        if "ing_only" in z and bool(z["ing_only"]):
+            if int(z.get("level", want)) != want:
+                raise RuntimeError(f"tree_restore: checkpoint at {path} is stamped level {want} "
+                                   f"but records level {int(z['level'])} (renamed or tampered "
+                                   "file)")
+            parsed = self._ingest.ingest_validate(z, path)
+            if parsed is None:
+                raise RuntimeError(f"tree_restore: ingest-only checkpoint at {path} carries no "
+                                   "ingest pools (truncated write?)")
+            self._ingest.ingest_restore_apply(parsed)
+            dt = time.perf_counter() - t0
+            self.stats["restores"] += 1
+            self.stats["restore_s"] += dt
+            self.emit("resilience.server_restore", server=self.server_id,
+                      collection=DEFAULT_COLLECTION, level=want, seconds=dt, ingest_only=True)
+            return {"level": want}
         self._concat_keys("tree_restore")
         required = {"seed", "bit", "y_bit", "alive", "alive_keys", "level", "planar",
                     "keys_fp"}
@@ -1026,6 +1233,7 @@ class CollectorServer:
         if z["alive_keys"].shape[0] != n:
             raise RuntimeError("tree_restore: checkpoint client count != key batch")
         self._check_sketch_blob(z, path)
+        parsed_ing = self._ingest.ingest_validate(z, path)  # None: a blob with no pools
         # -- every check passed: mutate.  With data shards the frontier is
         # split again from the host blob: a lost device is recovered by
         # placement, not by a restart
@@ -1045,6 +1253,8 @@ class CollectorServer:
         self._clear_spans()
         if self._has_sketch():
             self._restore_sketch(z)
+        if parsed_ing is not None:
+            self._ingest.ingest_restore_apply(parsed_ing)
         dt = time.perf_counter() - t0
         self.stats["restores"] += 1
         self.stats["restore_s"] += dt
@@ -1508,15 +1718,16 @@ class CollectorServer:
 
     async def _run_verb(self, verb: str, req):
         """Run one verb; every failure is a response.  ``add_keys`` (it
-        appends and never suspends) and ``plane_break`` (it must reach a
-        verb wedged on the plane while holding the lock) run without the
-        verb lock."""
+        appends and never suspends), ``submit_keys`` (ingest lands while a
+        window's crawl holds the lock; it re-checks its pool after its one
+        suspension) and ``plane_break`` (it must reach a verb wedged on the
+        plane while holding the lock) run without the verb lock."""
         try:
             if verb in UNPORTED_VERBS:
                 raise not_ported(verb, UNPORTED_VERBS[verb])
             if verb not in self.VERBS:
                 raise ValueError(f"unknown verb {verb!r}")
-            if verb in ("add_keys", "plane_break"):
+            if verb in ("add_keys", "submit_keys", "plane_break"):
                 return await getattr(self, verb)(req)
             self._maybe_pre_expand(verb, req)
             async with self._verb_lock:

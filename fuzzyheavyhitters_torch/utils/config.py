@@ -1,11 +1,14 @@
 """Config system — the port's own copy of the JSON schema.
 
 Same fields and defaults as ``fuzzyheavyhitters_tpu/utils/config.py`` (the
-reference schema of src/config.rs:5-16 plus the TPU package's knobs), so
+reference schema of src/config.rs:5-16 plus the JAX package's knobs), so
 every config file in ``configs/`` parses unchanged.  Fields the port does
-not use yet parse as before and are ignored.  ``secure_exchange: true``
-runs the GC/OT data plane, with ``ot_path`` ("auto", "ot2s" or "gc")
-choosing its equality engine.  ``crawl_radix_bits`` (1, 2 or 3) fuses that
+not use yet parse as before and are ignored, but for ``debug_guards: true``,
+which a server and a leader refuse (:func:`refuse_debug_guards`): it asks
+for a sanitizer the port does not have yet.  The ``ingest_*`` fields
+configure the streaming front door (``resilience/admission.py``).
+``secure_exchange: true`` runs the GC/OT data plane, with ``ot_path``
+("auto", "ot2s" or "gc") choosing its equality engine.  ``crawl_radix_bits`` (1, 2 or 3) fuses that
 many bit levels per crawl round; where it is used, ``collect.check_radix``
 holds it against ``n_dims``.  ``malicious: true`` runs the sketch + MPC
 verification (``protocol/sketch.py``) on the socket deployment.
@@ -67,3 +70,15 @@ def load_config(path: str) -> Config:
     if unknown:
         raise ValueError(f"Unknown config keys: {sorted(unknown)}")
     return Config(**raw)
+
+
+SANITIZERS = "the sanitizers (queued as slice 14)"
+
+
+def refuse_debug_guards(cfg: Config) -> None:
+    """Raise ``NotImplementedError`` for ``debug_guards: true``: the JAX
+    server and leader arm their lock-discipline sanitizer on it."""
+    if cfg.debug_guards:
+        raise NotImplementedError("debug_guards: true: the lock-discipline sanitizer, "
+                                  f"utils/guards.py is not ported to PyTorch yet; it belongs to "
+                                  f"{SANITIZERS}")

@@ -6,8 +6,9 @@ Coordinates are centidegrees in i16 (2 decimal places ≈ 1.1 km); the
 protocol-side bit encoding is offset-binary (sign bit flipped) so that
 zero-crossing balls work.  The RideAustin CSV is not shipped; without it
 the sampler draws the same synthetic Austin hotspots as the JAX package.
-With the CSV present this copy samples with ``numpy`` only (the JAX package
-prefers its native reservoir sampler there, so the two samples differ).
+With the CSV present it samples through the native streaming reservoir
+(``fuzzyheavyhitters_torch/native``), as the JAX package does, so a seed
+draws the same sample in both; without ``g++`` both fall back to NumPy.
 """
 
 from __future__ import annotations
@@ -38,17 +39,30 @@ def int_to_geo(lat_int: int, lng_int: int) -> tuple[float, float]:
 def sample_start_locations(
     path: str, sample_size: int, seed: int | None = None
 ) -> np.ndarray:
-    """int16[sample_size, 2] (lat, lon) centidegrees sampled uniformly
-    without replacement from the RideAustin CSV — columns 14 (start lat)
-    and 13 (start lon), as the reference indexes them
-    (ref: sample_driving_data.rs:72-97)."""
-    rng = np.random.default_rng(seed)
-    with open(path, newline="") as f:
-        reader = csv.reader(f)
-        next(reader)  # header
-        rows = [r for r in reader]
-    take = rng.choice(len(rows), size=min(sample_size, len(rows)), replace=False)
-    out = [geo_to_int(float(rows[i][14]), float(rows[i][13])) for i in take]
+    """int16[sample_size, 2] (lat, lon) centidegrees sampled from the
+    RideAustin CSV: columns 14 (start lat) and 13 (start lon), as the
+    reference indexes them (ref: sample_driving_data.rs:72-97).
+
+    Uses the native streaming reservoir sampler (one pass, O(k) memory)
+    when ``g++`` builds it, else an in-memory NumPy fallback.  A fixed
+    ``seed`` pins the sample within one environment; the two paths are
+    different algorithms (xoshiro reservoir against ``rng.choice``), so
+    the sample depends on whether the native library built, as in the JAX
+    package."""
+    from .. import native
+
+    if seed is None:  # random per call, as the NumPy fallback is
+        seed = int(np.random.default_rng().integers(0, 2**63))
+    coords = native.csv_reservoir_sample(path, col_a=14, col_b=13, k=sample_size, seed=seed)
+    if coords is None:  # no native library: load everything and choose
+        rng = np.random.default_rng(seed)
+        with open(path, newline="") as f:
+            reader = csv.reader(f)
+            next(reader)  # header
+            rows = [r for r in reader]
+        take = rng.choice(len(rows), size=min(sample_size, len(rows)), replace=False)
+        coords = np.array([[float(rows[i][14]), float(rows[i][13])] for i in take])
+    out = [geo_to_int(lat, lon) for lat, lon in coords]
     return np.array(out, dtype=np.int16)
 
 

@@ -173,3 +173,120 @@ def test_socket_binaries_malicious_supervised_survive_a_kill(tmp_path, monkeypat
             if e["event"] == "resilience.restored"] == [-1]
     assert [e["level"] for e in run["events"]["server1"]
             if e["event"] == "resilience.server_restore"] == [-1]
+
+
+def test_socket_binaries_stream_windows(tmp_path):
+    """``FHH_WINDOWS=2``: the leader submits its clients through the
+    servers' admission gate (server 0 decides, server 1 mirrors) into two
+    windows, seals each (banking an ingest-only checkpoint in each server's
+    ``FHH_CKPT_DIR``) and crawls it while the next fills; each window's
+    hitter lines equal the in-process crawl of that window's clients."""
+    from fuzzyheavyhitters_torch.bin import leader as leader_bin
+    from fuzzyheavyhitters_torch.ops import ibdcf
+    from fuzzyheavyhitters_torch.protocol import driver
+
+    cfg = tconfig.Config(**CFG)
+    run = chip_smoke.socket_run("windows", cfg, N_REQS, SEED, str(tmp_path),
+                                env={"OMP_NUM_THREADS": "1", "FHH_WINDOWS": "2",
+                                     **chip_smoke.SOCKET_ENV}, ckpt=True)
+    ck = leader_bin.client_keys(cfg, N_REQS, torch.device("cpu"), SEED)
+    per_w = N_REQS // 2
+    ev = run["events"]["leader"]
+    for w in range(2):
+        sl = slice(w * per_w, (w + 1) * per_w)
+        k0, k1 = (ibdcf.keys_from_numpy(ibdcf.IbDcfKeyBatch(*(a[sl] for a in k)), "cpu")
+                  for k in (ck.keys0, ck.keys1))
+        lead = driver.Leader(*driver.make_servers(k0, k1), n_dims=cfg.n_dims,
+                             data_len=cfg.data_len, f_max=cfg.f_max)
+        res = lead.run(nreqs=per_w, threshold=cfg.threshold)
+        want = {str(row.tolist()): int(c) for row, c in zip(res.decode_ints(), res.counts)}
+        assert want and {e["value"]: e["count"] for e in run["hitters"]
+                         if e["window"] == w} == want
+        (win,) = [e for e in ev if e["event"] == "ingest.window" and e["window"] == w]
+        assert win["keys"] == per_w and win["subs"] == per_w // CFG["addkey_batch_size"]
+        (done,) = [e for e in ev if e["event"] == "window.done" and e["window"] == w]
+        assert done["recoveries"] == 0 and done["seal_to_hitters_s"] >= done["crawl_s"] * 0
+    assert run["crawl"]["windows"] == 2 and run["crawl"]["ingest_admitted"] == N_REQS
+    for ex in run["exits"]:
+        assert ex["windows_sealed"] == 2 and ex["pool_admitted_keys"] == N_REQS
+        assert ex["levels"] == 2 * CFG["data_len"] and ex["ckpt_writes"] == 2
+        assert ex["add_keys"] == 0 and ex["seal_to_hitters_s"] is not None
+
+
+# -- the switches the port refuses by name (the JAX binaries read them) -------
+
+_SWITCHES = [("FHH_RUN_REPORT", "report.json", "the run report"),
+             ("FHH_METRICS_PORT", "9100", "the metrics exporter"),
+             ("FHH_TRACE_DIR", "traces", "distributed tracing"),
+             ("FHH_PROFILE", "prof", "the profiler hooks"),
+             ("FHH_LOG_STREAM", "stdout", "the log sinks"),
+             ("FHH_LOG_LEVEL", "debug", "log severity filtering"),
+             ("FHH_LOG_FORMAT", "human", "log formats other than json"),
+             ("FHH_HEARTBEAT_S", "5", "the heartbeat"),
+             ("FHH_ALERT_STALL_S", "30", "alerting"),
+             ("FHH_ALERT_HBM_FRAC", "0.9", "alerting"),
+             ("FHH_DEBUG_GUARDS", "1", "the lock-discipline sanitizer"),
+             ("FHH_DEBUG_TAINT", "1", "the taint sanitizer")]
+
+
+def _main(binary):
+    from fuzzyheavyhitters_torch.bin import leader, server
+
+    return {"leader": lambda cfg: leader.main(["-c", cfg, "-n", "4", "--device", "cpu"]),
+            "server": lambda cfg: server.main(["-c", cfg, "--server_id", "0", "--device",
+                                               "cpu"]),
+            "mesh": lambda cfg: mesh.main(["-c", cfg, "-n", "4", "--device", "cpu"])}[binary]
+
+
+def _clear_switches(monkeypatch):
+    for k in list(os.environ):
+        if k.startswith(("FHH_RUN_", "FHH_METRICS_", "FHH_TRACE_", "FHH_PROFILE", "FHH_LOG_",
+                         "FHH_HEARTBEAT_", "FHH_ALERT_", "FHH_DEBUG_")):
+            monkeypatch.delenv(k)
+
+
+@pytest.mark.parametrize("binary", ["leader", "server", "mesh"])
+@pytest.mark.parametrize("var,val,layer", _SWITCHES, ids=[v for v, _, _ in _SWITCHES])
+def test_unported_switch_is_refused_by_name(tmp_path, monkeypatch, binary, var, val, layer):
+    """Each observability and sanitizer switch of the JAX binaries is
+    refused at start-up, by name and with the part of the port that will
+    bring it, before the config is read or anything is started."""
+    _clear_switches(monkeypatch)
+    monkeypatch.setenv(var, val)
+    part = "sanitizers" if var.startswith("FHH_DEBUG_") else "observability"
+    with pytest.raises(NotImplementedError, match=f"{var}={val}: {layer}.* is not ported "
+                       f"to PyTorch yet; it belongs to .*{part}"):
+        _main(binary)(str(tmp_path / "absent.json"))
+
+
+@pytest.mark.parametrize("binary", ["leader", "server", "mesh"])
+def test_json_log_format_is_accepted(tmp_path, monkeypatch, binary):
+    """``FHH_LOG_FORMAT=json`` is what the port prints: the binary goes on
+    to read its config (absent here)."""
+    _clear_switches(monkeypatch)
+    monkeypatch.setenv("FHH_LOG_FORMAT", "json")
+    monkeypatch.setenv("FHH_ALERT_STALL_S", "")  # set but empty asks for nothing
+    with pytest.raises(FileNotFoundError):
+        _main(binary)(str(tmp_path / "absent.json"))
+
+
+@pytest.mark.parametrize("where", ["leader", "server", "CollectorServer", "RpcLeader"])
+def test_debug_guards_config_is_refused(tmp_path, monkeypatch, where):
+    """``debug_guards: true`` arms the JAX server's and leader's sanitizer:
+    the port's binaries and their classes refuse it by name."""
+    import json
+
+    from fuzzyheavyhitters_torch.protocol import leader_rpc, rpc
+
+    _clear_switches(monkeypatch)
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(dict(CFG, server0="127.0.0.1:1", server1="127.0.0.1:2",
+                                    debug_guards=True)))
+    cfg = tconfig.load_config(str(path))
+    run = {"leader": lambda: _main("leader")(str(path)),
+           "server": lambda: _main("server")(str(path)),
+           "CollectorServer": lambda: rpc.CollectorServer(0, cfg, "cpu"),
+           "RpcLeader": lambda: leader_rpc.RpcLeader(cfg, None, None)}[where]
+    with pytest.raises(NotImplementedError, match="debug_guards: true: the lock-discipline "
+                       "sanitizer.* is not ported to PyTorch yet"):
+        run()

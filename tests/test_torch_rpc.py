@@ -12,8 +12,9 @@ package, over localhost TCP in one event loop, tolerance zero:
     trusted and secure, and their ``final_shares`` reconstruct them;
 (d) the refusals: unported verbs, a named collection, the binaries'
     unported variables, and the leader's environment read with the JAX
-    leader's defaults; the data-shard options, refused until the sharded
-    server was ported, are taken (``test_torch_multichip.py`` holds them).
+    leader's defaults; the data-shard options and ``FHH_WINDOWS``, refused
+    until their paths were ported, are taken (``test_torch_multichip.py``
+    and ``test_torch_ingest.py`` hold them).
 
 The node-span crawl is held in ``test_torch_spans.py``.
 
@@ -411,11 +412,16 @@ def test_wire_refuses_tensors_and_binaries_refuse_unported_modes(monkeypatch):
     for val in ("1", "0"):  # supervised, and the JAX leader's own opt-out
         monkeypatch.setenv("FHH_SUPERVISE", val)
         tleader_bin.refuse_unported_env()
-    for var, val in (("FHH_WINDOWS", "4"), ("FHH_COLLECTION", "tenant-a")):
-        monkeypatch.setenv(var, val)
-        with pytest.raises(NotImplementedError, match=f"{var}={val}: .*one bulk upload"):
-            tleader_bin.refuse_unported_env()
-        monkeypatch.delenv(var)
+    # streaming windows are ported: FHH_WINDOWS is taken (refused until the
+    # ingest front door was ported); named collections are not
+    monkeypatch.setenv("FHH_WINDOWS", "4")
+    tleader_bin.refuse_unported_env()
+    monkeypatch.delenv("FHH_WINDOWS")
+    monkeypatch.setenv("FHH_COLLECTION", "tenant-a")
+    with pytest.raises(NotImplementedError, match="FHH_COLLECTION=tenant-a: the multi-tenant "
+                       "collection layer is not ported"):
+        tleader_bin.refuse_unported_env()
+    monkeypatch.delenv("FHH_COLLECTION")
     for val in ("0", "1"):  # the warmup is ported: either value runs
         monkeypatch.setenv("FHH_WARMUP", val)
         tleader_bin.refuse_unported_env()
