@@ -37,7 +37,7 @@ Phases (any failure raises, and the script exits non-zero):
    ``rides_secure_gc`` (``configs/config.json`` with ``secure_exchange`` and
    ``ot_path: "gc"``, S = 4, the garbled-circuit kernels, N = 262,144) and
    ``rides_secure`` (that config with ``ot_path: "auto"``, S = 4 on the
-   ot2s kernels, N = 32,768: the engine a user of the config gets).
+   ot2s kernels, N = 8,192: the engine a user of the config gets).
    Launches must be one per level of the path's two kernels and none of the
    other path's; every hitter count must equal the plaintext recount;
 7. after each secure crawl, its kernels held bit-exact against their plain
@@ -52,7 +52,7 @@ Phases (any failure raises, and the script exits non-zero):
    localhost ports (server 0 and the leader dial with retries),
    for ``rides_socket`` (``configs/config.json``, trusted, N = 262,144) and
    ``rides_secure_socket`` (the same config with ``secure_exchange``, ot2s at
-   S = 4, N = 32,768, whose in-process crawl ``rides_secure`` phase 6 runs
+   S = 4, N = 8,192, whose in-process crawl ``rides_secure`` phase 6 runs
    through ``bin.mesh.run``).  The leaders run with ``FHH_SUPERVISE=0`` and
    ``FHH_WARMUP=0`` (``SOCKET_ENV``).  Each hitter count must equal the plaintext
    recount, the hitters must equal ``bin.mesh.run``'s for the same config,
@@ -96,7 +96,7 @@ Phases (any failure raises, and the script exits non-zero):
     ``bin.mesh`` and the recount, data-plane bytes and crawl seconds beside
     ``rides_socket``'s;
 15. ``rides_secure_socket_radix2``: the same with ``secure_exchange`` and
-    ``ot_path: "auto"`` at N = 16,384, so the garbled circuit at S' = 8: GC
+    ``ot_path: "auto"`` at N = 8,192, so the garbled circuit at S' = 8: GC
     garble once per fused round a server garbled and eval once per round it
     evaluated (the garbler flips per round), no ot2s launch; the hitters of
     ``bin.mesh.run`` at the same config, seed and N (one level a round) and
@@ -205,7 +205,7 @@ Phases (any failure raises, and the script exits non-zero):
     ``mesh`` section at 4 shards of 65,536 clients, 64 expand launches a
     server (4 × 16);
 28. ``rides_secure_socket_sharded``: the same for ``rides_secure_socket``
-    (ot2s at S = 4, 32,768): every level on the row-sharded kernel stage
+    (ot2s at S = 4, 8,192): every level on the row-sharded kernel stage
     (``kernel_shards_max`` 4, ``kernel_gathers`` 0), 4 × the ot2s launches.
     Then K3 held in this process on the cell's own strings (its keys made
     again from the seed, crawled on the trusted exchange to the level) at
@@ -214,7 +214,7 @@ Phases (any failure raises, and the script exits non-zero):
     whole-level path (k = 1), and each shard's kernel call equals its plain
     version, timed beside its bound;
 29. ``rides_secure_socket_radix2_sharded``: the same for phase 15 (GC at
-    S' = 8, 16,384), 16 + 16 GC launches a server; K3 at its widest round;
+    S' = 8, 8,192), 16 + 16 GC launches a server; K3 at its widest round;
 30. ``zipf_malicious_socket_sharded``: phase 21 with four shards a server:
     all 100,000 clients alive, phase 21's hitters, sketch verbs and
     data-plane bytes, the sketch check on 4 shards (``sketch_shards``);
@@ -255,7 +255,40 @@ Phases (any failure raises, and the script exits non-zero):
     window's hitters the recount, both servers committing the same
     ``sketch.window_root`` a window and the two windows' roots apart, 32
     expand launches and 32 ``sketch_verify`` verbs a window a server; the
-    sketch verbs' seconds a window beside phase 21's.
+    sketch verbs' seconds a window beside phase 21's;
+35. ``rides_socket_tenants``: rides' config on one pair of ``bin.server``
+    processes, the leader in this process: first collection ``t0``'s
+    65,536 clients crawled alone in the default collection (supervised: the
+    solo run), then ``t0`` uploaded in its own collection and warmed over
+    the solo run's buckets, then four collections ``t0``-``t3`` of 65,536
+    clients each (keys at seeds ``seed + t``) at once through
+    ``MultiCollectionDriver.run_collections``, supervised and warmed: each
+    collection's hitters the plaintext recount and ``t0``'s the solo run's
+    bit for bit; ``status`` counting the five collections, each keyed on
+    both servers, and device turns; every other collection's warmup
+    warming no shape and hitting the ladder once for each shape ``t0``
+    warmed; the collections' counters summing to each server's totals,
+    each collection's checkpoints in its own namespace; expand once per
+    crawl verb and twice per warmed shape.  Reported: the aggregate
+    clients/s against the solo run's, stall fills and the fill ratio, each
+    collection's round seconds, each server's peak memory and launches;
+36. ``rides_secure_socket_tenants``: the same at ``rides_secure``'s config
+    (ot2s at S = 4) with two collections of 8,192 clients and no warmup:
+    the same checks, one ot2s encrypt per round a server garbled and one
+    decrypt per round it evaluated, each crawl's; reported besides: each
+    collection's base-OT seconds per server;
+37. ``rides_socket_tenant_isolation`` (the JAX package's
+    ``tests/test_sessions.py:454`` at the card's size): both servers in
+    reject mode with a 16,384-key burst and 1,024 keys/s; collection ``ta``
+    floods its gate with 65,536 keys in submissions of 100 (one attempt
+    each) while collection ``tb`` streams 16,384 clients into one window
+    through ``WindowedIngest``, seals it and crawls it, and server 1 is
+    SIGKILLed once round 2 of that crawl is under way and started again on
+    its ports and directory: ``tb``'s window hitters the plaintext recount
+    over its admitted keys, ``tb``'s gate on both servers without a refusal
+    or a shed while ``ta``'s refused, an ingest recovery, checkpoints only
+    in ``tb``'s namespace.  Reported: the kill-to-hitters seconds and the
+    journal replays.
 
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
@@ -265,7 +298,9 @@ kernel's launches in the crawl that runs it, its time at that crawl's
 widest checked level; ``max_abs_err`` over every check of the kernel, K3's
 per-shard checks of phases 28-29 included;
 expand's row also carries its restored-frontier checks, keygen's its
-data_len-32 check, the ot2s rows their phase-20 checks), and
+data_len-32 check, the ot2s rows their phase-20 checks; each row the
+launches per server of the later phases' processes, phases 35-37's as
+``tenant_launches``), and
 as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX.
 """
@@ -321,8 +356,9 @@ COVID_CLIENTS = 65536
 # the secure socket cell's cut is forced by the wire: at the last level (F =
 # 32, F255) the 1-of-16 table is 512 B a test, 4.3 GB a frame at 65,536
 # clients, 17 GB at 262,144, held three or four times over in host memory;
-# 32,768 (with its in-process and node-span twins) makes room for phases 20-21
-RIDES_SECURE_CLIENTS = 32768
+# 32,768 (with its in-process and node-span twins) made room for phases 20-21,
+# and 8,192 (with its sharded and mesh twins, cut together) for phases 35-37
+RIDES_SECURE_CLIENTS = 8192
 SOCKET_START_S = 240  # seconds for a server to listen (torch import, CUDA init)
 SOCKET_LEADER_S = 420  # seconds for a leader's whole run
 KEYGEN_CHUNKS = ((4096 * 2, 512), (8191, 509))  # keys, levels
@@ -340,8 +376,10 @@ ZIPF_RADIX = 3  # phase 13: config4_zipf in rounds of 3 levels (170 and a tail o
 RIDES_RADIX = 2  # phase 14-15: rides over sockets in rounds of 2 levels (S' = 8 secure)
 # phase 15's cut: a fused level carries 16 patterns of GC tests at about 512 B
 # a test, where two radix-1 levels carry 2 x 4 patterns of ot2s tests at
-# about 320 B; 16,384 clients move about the bytes of rides_secure_socket
-RIDES_RADIX_SECURE_CLIENTS = 16384
+# about 320 B; 16,384 clients moved about the bytes of rides_secure_socket at
+# 32,768, and with it cut for phases 35-37 the pair (phase 29 its twin) is cut
+# alike, to 8,192
+RIDES_RADIX_SECURE_CLIENTS = 8192
 # the socket leaders skip the warmup: its default ladder runs every bucket up
 # to f_max = 1024, whose expansion alone (rides, 262,144 clients) needs about
 # 55 GB per server, two servers on one card; phase 16 warms the buckets its
@@ -390,6 +428,15 @@ DRILL_WINDOWS = 2
 DRILL_SEED = 7  # ingest_seed
 DRILL_FLOOD = "ctl0:flood@msg=6,count=1"  # the 4th submit_keys frame to server 0, twice
 SKETCH_WINDOWS = 2  # phase 34: phase 21's 100,000 clients in two windows
+# phases 35-37: many collections on one server pair
+TENANTS = 4  # phase 35: t0..t3 at rides' config
+TENANT_CLIENTS = 65536
+SECURE_TENANTS = 2  # phase 36: at rides_secure's config (ot2s at S = 4)
+SECURE_TENANT_CLIENTS = 8192
+TENANT_CKPT_EVERY = 8  # the MultiCollectionDriver's default cadence
+ISOLATION_CLIENTS = 16384  # phase 37: tb's window
+FLOOD_KEYS = 65536  # ta's flood
+TENANT_GATE = dict(ingest_burst_keys=16384, ingest_rate_keys_per_s=1024.0)
 
 # every kernel of the port: (module, launch counter, source, TPU kernel it replaces)
 KERNELS = {
@@ -852,9 +899,10 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
         while not done.is_set():
             ev = [e for e in _events(logs["server1"]) if e["event"] == "resilience.server_restore"]
             if ev:
-                lvl = ev[0]["level"]
-                killed["restored_blob"] = os.path.join(work, f"restored_l{lvl}.npz")
-                shutil.copyfile(os.path.join(ckpt[1], f"fhh_server1_l{lvl}.npz"),
+                lvl, coll = ev[0]["level"], ev[0].get("collection", "default")
+                ns = "" if coll == "default" else f"c{coll}_"  # the collection's namespace
+                killed["restored_blob"] = os.path.join(work, f"restored_{ns}l{lvl}.npz")
+                shutil.copyfile(os.path.join(ckpt[1], f"fhh_server1_{ns}l{lvl}.npz"),
                                 killed["restored_blob"])
                 return
             time.sleep(0.01)
@@ -2910,6 +2958,302 @@ def window_phases(seed, cells, points, secure_cfg, report, tmp, stage, torch):
     stage(f"{name} socket run")
 
 
+def _take(keys, sl):
+    from fuzzyheavyhitters_torch.ops import ibdcf
+
+    return ibdcf.IbDcfKeyBatch(*(a[sl] for a in keys))
+
+
+def _session_rows(ex):
+    """A ``server.exit`` line's collections: {collection: its row}."""
+    return ex["sessions"]["per_session"]
+
+
+def _check_session_sums(name, ex):
+    """Every collection's counters sum to the server's totals."""
+    rows = _session_rows(ex)
+    for k in ("levels", "levels_done", "add_keys", "ckpt_writes", "data_bytes_sent",
+              "data_bytes_recv", "warmup_shapes", "pool_submits"):
+        got = sum(r["counters"][k] for r in rows.values())
+        if got != ex[k]:
+            raise AssertionError(f"{name}: server {ex['server']}'s collections count {got} "
+                                 f"{k}, its total {ex[k]}")
+
+
+def tenants_run(name, cfg, n, seed, tmp, tenants, warm, torch):
+    """Phases 35-36: ``tenants`` collections ``t0``, ``t1``, ... of ``n``
+    clients each (keys from ``bin.leader.client_keys`` at seeds ``seed + t``)
+    on one pair of ``bin.server`` processes with a ``FHH_CKPT_DIR`` each, the
+    leader in this process: first ``t0``'s keys crawled alone in the default
+    collection (``RpcLeader.run_supervised``: the solo run), then, with
+    ``warm``, ``t0`` uploaded in its collection and warmed over the solo
+    run's buckets, then every collection at once through
+    ``MultiCollectionDriver.run_collections`` (supervised, warmed with
+    ``warm``, checkpoints every ``TENANT_CKPT_EVERY`` levels).  Each
+    collection's hitters must equal the plaintext recount and ``t0``'s the
+    solo run's bit for bit; ``status`` must count the collections and the
+    default one, each keyed on both servers (``plane_epoch`` >= 1), and
+    device turns; each server's collections must sum to its totals and each
+    collection checkpoint in its own namespace; with ``warm`` every other
+    collection's warmup must warm no shape and hit the ladder once for each
+    shape ``t0`` warmed; each server launches expand once per crawl verb
+    and twice per warmed shape, and in secure mode each ot2s kernel once
+    per verb of a round it garbled (encrypt) or evaluated (decrypt).
+    -> the figures."""
+    import asyncio
+
+    from fuzzyheavyhitters_torch.bin import leader as leader_bin
+    from fuzzyheavyhitters_torch.bin.server import split_addr
+    from fuzzyheavyhitters_torch.protocol.leader_rpc import MultiCollectionDriver, RpcLeader
+    from fuzzyheavyhitters_torch.protocol.rpc import CollectorClient
+
+    keys = [f"t{t}" for t in range(tenants)]
+    dev = torch.device("cpu" if cfg.backend == "cpu" else "cuda")
+    cks = {k: leader_bin.client_keys(cfg, n, dev, seed + t) for t, k in enumerate(keys)}
+
+    async def lead(lcfg):
+        (h0, p0), (h1, p1) = split_addr(lcfg.server0), split_addr(lcfg.server1)
+        fig = {}
+        c0 = await CollectorClient.connect(h0, p0)
+        c1 = await CollectorClient.connect(h1, p1)
+        try:
+            solo = RpcLeader(lcfg, c0, c1, emit=leader_bin.emit)
+            t0 = time.perf_counter()
+            fig["solo"] = await solo.run_supervised(n, cks["t0"].keys0, cks["t0"].keys1,
+                                                    checkpoint_every=TENANT_CKPT_EVERY)
+            fig["solo_s"] = time.perf_counter() - t0
+            fig["solo_seconds"], fig["buckets"] = dict(solo.seconds), sorted(set(solo.buckets))
+        finally:
+            await c0.aclose()
+            await c1.aclose()
+        drv = MultiCollectionDriver(lcfg, h0, p0, h1, p1, emit=leader_bin.emit)
+        try:
+            if warm:  # t0 warms first: the others' warmups find its shapes
+                first = await drv.open("t0")
+                await first.upload_keys(cks["t0"].keys0, cks["t0"].keys1)
+                fig["first_warmup"] = await first.warmup(fig["buckets"])
+            jobs = [{"collection": k, "nreqs": n, "keys0": cks[k].keys0, "keys1": cks[k].keys1}
+                    for k in keys]
+            t0 = time.perf_counter()
+            fig["results"] = await drv.run_collections(
+                jobs, warmup=warm, warm_buckets=fig["buckets"],
+                checkpoint_every=TENANT_CKPT_EVERY)
+            fig["multi_s"] = time.perf_counter() - t0
+            fig["seconds"] = {k: dict(ld.seconds) for k, ld in drv.leaders.items()}
+            fig["status"] = [await drv.leaders["t0"].c0.call("status"),
+                             await drv.leaders["t0"].c1.call("status")]
+        finally:
+            await drv.close()
+        return fig
+
+    run = socket_run(name, cfg, n, seed, tmp, SOCKET_ENV, ckpt=True, leader_coro=lead)
+    fig = run["leader_result"]
+    hitters = {}
+    for k in keys:
+        res = fig["results"][k]
+        if isinstance(res, BaseException):
+            raise AssertionError(f"{name}: collection {k} failed: {type(res).__name__}: {res}")
+        hitters[k] = _hitter_map(res)
+        if not hitters[k]:
+            raise AssertionError(f"{name}: collection {k} has no hitter")
+        _recount(f"{name} {k}", hitters[k], cfg, cks[k].points)
+    solo = fig["solo"]
+    if not (np.array_equal(fig["results"]["t0"].paths, solo.paths)
+            and np.array_equal(fig["results"]["t0"].counts, solo.counts)):
+        raise AssertionError(f"{name}: t0's hitters differ from its solo run's")
+    crawls = tenants + 1  # the solo run and the collections
+    r_per = -(-cfg.data_len // cfg.crawl_radix_bits)
+    warmed = len(fig["buckets"]) if warm else 0
+    for sid, (st, ex) in enumerate(zip(fig["status"], run["exits"])):
+        sess = st["sessions"]
+        if (sess["count"] != tenants + 1 or sess["scheduler"]["device_turns"] <= 0
+                or sorted(sess["per_session"]) != sorted(keys + ["default"])
+                or any(sess["per_session"][k]["plane_epoch"] < 1 for k in keys + ["default"])):
+            raise AssertionError(f"{name}: server {sid} status sessions {sess}")
+        _check_session_sums(name, ex)
+        rows = _session_rows(ex)
+        if warm:
+            first = fig["first_warmup"][f"s{sid}"]
+            got = {k: (rows[k]["counters"]["warmup_shapes"],
+                       rows[k]["counters"]["warmup_ladder_hits"]) for k in keys}
+            want = {k: (first["shapes"], first["shapes"]) if k == "t0"
+                    else (0, first["shapes"]) for k in keys}
+            if first != {"shapes": warmed, "ladder_hits": 0} or got != want:
+                raise AssertionError(f"{name}: server {sid} warmups {first}, then "
+                                     f"(shapes, ladder hits) {got}, want {want}")
+        want_l = {kn: 0 for kn in KERNELS}
+        want_l["expand"] = crawls * r_per + 2 * warmed
+        if cfg.secure_exchange:
+            for kn in OT2S:  # the garbler of round i is i % 2
+                want_l[kn] = crawls * len([i for i in range(r_per) if (i % 2 == sid)
+                                           == (kn == "ot2s_encrypt")])
+        if ex["launches"] != want_l or ex["levels"] != crawls * r_per:
+            raise AssertionError(f"{name}: server {sid} launched {ex['launches']} over "
+                                 f"{ex['levels']} crawl verbs, want {want_l}")
+        names = os.listdir(os.path.join(run["work"], f"ckpt{sid}"))
+        for k in keys + ["default"]:
+            pre = f"fhh_server{sid}_l" if k == "default" else f"fhh_server{sid}_c{k}_l"
+            if not any(nm.startswith(pre) for nm in names):
+                raise AssertionError(f"{name}: server {sid} has no checkpoint of {k}: {names}")
+    exits = run["exits"]
+    out = {"n": n, "tenants": tenants, "hitters": {k: len(h) for k, h in hitters.items()},
+           "solo_s": fig["solo_s"], "solo_rounds_s": fig["solo_seconds"]["levels"],
+           "solo_clients_per_s": n / fig["solo_s"], "multi_s": fig["multi_s"],
+           "aggregate_clients_per_s": tenants * n / fig["multi_s"],
+           "tenant_seconds": fig["seconds"], "buckets": fig["buckets"],
+           "first_warmup": fig.get("first_warmup"),
+           "scheduler": [ex["sessions"]["scheduler"] for ex in exits],
+           "launches": {f"server{sid}": ex["launches"] for sid, ex in enumerate(exits)},
+           "max_memory_allocated": [ex["max_memory_allocated"] for ex in exits],
+           "plane_handshake_s": [{k: r["counters"]["plane_handshake_s"]
+                                  / max(1, r["counters"]["plane_handshakes"])
+                                  for k, r in _session_rows(ex).items()} for ex in exits],
+           "data_bytes_sent": [ex["data_bytes_sent"] for ex in exits]}
+    log(f"tenants {name}: {tenants} collections of {n} clients at once, each collection's "
+        f"hitters {out['hitters']} = its plaintext recount, t0's = its solo run's; aggregate "
+        f"{out['aggregate_clients_per_s']:.1f} clients/s ({fig['multi_s']:.3f} s) against the "
+        f"solo run's {out['solo_clients_per_s']:.1f} ({fig['solo_s']:.3f} s); rounds s "
+        f"{ {k: round(v['levels'], 3) for k, v in fig['seconds'].items()} } (solo "
+        f"{out['solo_rounds_s']:.3f}); scheduler {out['scheduler']}; first warmup "
+        f"{out['first_warmup']}; launches {out['launches']}; peak memory "
+        f"{out['max_memory_allocated']}; handshake s a session {out['plane_handshake_s']}")
+    return out
+
+
+def tenant_isolation_drill(name, cfg, seed, tmp, torch):
+    """Phase 37 (JAX ``tests/test_sessions.py:454`` at the card's size): both
+    servers in reject mode with the ``TENANT_GATE`` bucket; collection
+    ``ta`` floods its gate with ``FLOOD_KEYS`` keys in submissions of
+    ``addkey_batch_size`` (one attempt each: a refusal is final) while
+    collection ``tb`` streams ``ISOLATION_CLIENTS`` clients into one window
+    through ``WindowedIngest``, seals it (the ingest-only checkpoint) and
+    crawls it; server 1 is SIGKILLed once round 2 of ``tb``'s crawl is under
+    way and started again on its ports and directory.  ``tb``'s window
+    hitters must equal the plaintext recount over its admitted keys (all of
+    them), ``tb``'s gate on both servers must show no refusal and no shed
+    while ``ta``'s refused, each collection's checkpoints lie in its own
+    namespace (none for ``ta``, which banks none, and none for the default
+    collection), and the leader counts at least one ingest recovery.
+    -> the figures: the kill-to-hitters seconds, the journal replays."""
+    import asyncio
+
+    from fuzzyheavyhitters_torch.bin import leader as leader_bin
+    from fuzzyheavyhitters_torch.bin.server import split_addr
+    from fuzzyheavyhitters_torch.protocol.leader_rpc import (IngestOverloadedError,
+                                                             MultiCollectionDriver, RpcLeader,
+                                                             WindowedIngest)
+    from fuzzyheavyhitters_torch.resilience.policy import RetryPolicy
+
+    dev = torch.device("cpu" if cfg.backend == "cpu" else "cuda")
+    cka = leader_bin.client_keys(cfg, FLOOD_KEYS, dev, seed + 10)
+    ckb = leader_bin.client_keys(cfg, ISOLATION_CLIENTS, dev, seed + 11)
+    bs = cfg.addkey_batch_size
+    state = {"kill": False}
+
+    async def lead(lcfg):
+        (h0, p0), (h1, p1) = split_addr(lcfg.server0), split_addr(lcfg.server1)
+        drv = MultiCollectionDriver(lcfg, h0, p0, h1, p1, emit=leader_bin.emit)
+        fig = {"flood_subs": 0, "flood_refused": 0}
+        try:
+            la, lb = await drv.open("ta"), await drv.open("tb")
+            wa = WindowedIngest(la, checkpoint=False, policy=RetryPolicy(attempts=1))
+            wb = WindowedIngest(lb)
+
+            async def flood():
+                for lo in range(0, FLOOD_KEYS, bs):
+                    sl = slice(lo, lo + bs)
+                    try:
+                        await wa.submit("flooder", _take(cka.keys0, sl), _take(cka.keys1, sl))
+                    except (IngestOverloadedError, ConnectionError, TimeoutError, RuntimeError):
+                        fig["flood_refused"] += 1
+                    fig["flood_subs"] += 1
+
+            async def trigger():  # round 2 of tb's crawl under way
+                while len(lb.buckets) < 3 or "crawl" not in fig:
+                    await asyncio.sleep(0.001)
+                state["kill"] = True
+                fig["kill_at_round"] = len(lb.buckets) - 1
+
+            fl = asyncio.ensure_future(flood())
+            t0 = time.perf_counter()
+            for i, lo in enumerate(range(0, ISOLATION_CLIENTS, bs)):
+                sl = slice(lo, lo + bs)
+                await wb.submit(f"site{i % cfg.num_sites}", _take(ckb.keys0, sl),
+                                _take(ckb.keys1, sl))
+            fig["tb_submit_s"] = time.perf_counter() - t0
+            fig["seal"] = await wb.seal_window()
+            trig = asyncio.ensure_future(trigger())
+            fig["crawl"] = True
+            res = await wb.crawl_window(0, max_recoveries=8)
+            fig["t_hitters"] = time.time()
+            await trig
+            await fl
+            fig["result"] = res
+            fig["counters"], fig["window"] = dict(wb.counters), dict(wb.windows[0])
+            fig["flood_counters"] = dict(wa.counters)
+            # a probe absorbs the restart a client of ta may not have met yet
+            fig["status"] = {k: [await RpcLeader._probe(ld.c0), await RpcLeader._probe(ld.c1)]
+                             for k, ld in (("ta", la), ("tb", lb))}
+            return fig
+        finally:
+            await drv.close()
+
+    run = socket_run(name, cfg, ISOLATION_CLIENTS, seed, tmp, SOCKET_ENV, ckpt=True,
+                     kill=lambda ev: state["kill"], leader_coro=lead)
+    fig = run["leader_result"]
+    got = _hitter_map(fig["result"])
+    if not got:
+        raise AssertionError(f"{name}: tb's window has no hitter")
+    _recount(f"{name} tb", got, cfg, ckb.points)
+    ing = {k: [st["ingest"] for st in fig["status"][k]] for k in ("ta", "tb")}
+    if (any(i["rejected"] or i["shed"] or i["admitted"] != ISOLATION_CLIENTS for i in ing["tb"])
+            or ing["ta"][0]["rejected"] <= 0 or fig["seal"]["keys"] != ISOLATION_CLIENTS
+            or fig["counters"]["ingest_recoveries"] < 1 or run["killed"].get("rc") != -9):
+        raise AssertionError(f"{name}: ingest {ing}, seal {fig['seal']}, counters "
+                             f"{fig['counters']}, killed {run['killed']}")
+    for sid in (0, 1):
+        names = os.listdir(os.path.join(run["work"], f"ckpt{sid}"))
+        if not names or not all(nm.startswith(f"fhh_server{sid}_ctb_l") for nm in names):
+            raise AssertionError(f"{name}: server {sid}'s checkpoints {names}")
+    exits = run["exits"]
+    out = {"tb_clients": ISOLATION_CLIENTS, "flood_keys": FLOOD_KEYS,
+           "hitters": len(got), "kill_at_round": fig["kill_at_round"],
+           "kill_to_hitters_s": fig["t_hitters"] - run["killed"]["t_kill"],
+           "kill_to_spawn_s": run["killed"]["t_spawn"] - run["killed"]["t_kill"],
+           "tb_submit_s": fig["tb_submit_s"], "window": fig["window"],
+           "counters": fig["counters"], "flood_subs": fig["flood_subs"],
+           "flood_refused": fig["flood_refused"], "flood_counters": fig["flood_counters"],
+           "ingest": ing, "launches": {f"server{sid}": ex["launches"]
+                                       for sid, ex in enumerate(exits)},
+           "max_memory_allocated": [ex["max_memory_allocated"] for ex in exits],
+           "scheduler": [ex["sessions"]["scheduler"] for ex in exits]}
+    log(f"tenants {name}: ta flooded {FLOOD_KEYS} keys in {fig['flood_subs']} submissions "
+        f"({fig['flood_refused']} refused; ta's gate {ing['ta']}), tb's "
+        f"{ISOLATION_CLIENTS} clients all admitted (tb's gate {ing['tb']}), server 1 killed at "
+        f"round {out['kill_at_round']} of tb's crawl: kill to hitters "
+        f"{out['kill_to_hitters_s']:.3f} s (spawn {out['kill_to_spawn_s']:.3f} s), counters "
+        f"{out['counters']}, tb's hitters ({len(got)}) = the recount; checkpoints only in tb's "
+        f"namespace; launches {out['launches']}; peak memory {out['max_memory_allocated']}")
+    return out
+
+
+def tenant_phases(seed, cells, report, tmp, stage, torch):
+    """Phases 35-37: many collections on one server pair."""
+    sock = report["sockets"]
+    rides_cfg = cells["rides"][0]
+    name = "rides_socket_tenants"
+    sock[name] = tenants_run(name, rides_cfg, TENANT_CLIENTS, seed, tmp, TENANTS, True, torch)
+    stage(f"{name} socket run")
+    name = "rides_secure_socket_tenants"
+    sock[name] = tenants_run(name, cells["rides_secure"][0], SECURE_TENANT_CLIENTS, seed, tmp,
+                             SECURE_TENANTS, False, torch)
+    stage(f"{name} socket run")
+    name = "rides_socket_tenant_isolation"
+    sock[name] = tenant_isolation_drill(name, dataclasses.replace(rides_cfg, **TENANT_GATE),
+                                        seed, tmp, torch)
+    stage(f"{name} socket run")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -3294,6 +3638,7 @@ def main() -> int:
         sharded_phases(args.seed, cells, hitters, points, secure_cfg, report, errs, tmp, stage,
                        torch)
         window_phases(args.seed, cells, points, secure_cfg, report, tmp, stage, torch)
+        tenant_phases(args.seed, cells, report, tmp, stage, torch)
     for name in points:
         kg = measure_keygen(name, points[name], cells[name][0], keygen_cuda, ibdcf, torch, rng)
         report["crawls"][name]["keygen_check"] = kg
@@ -3377,6 +3722,12 @@ def main() -> int:
             c: [report["sockets"][c]["launches"][w][kn] for w in ("server0", "server1")]
             for c in ("rides_socket_windows", "rides_socket_windows_drill",
                       "zipf_malicious_socket_windows")}
+        # phases 35-37: launches per server process of the collections' runs
+        # (phase 37: the new server 1)
+        rows[-1]["tenant_launches"] = {
+            c: [report["sockets"][c]["launches"][w][kn] for w in ("server0", "server1")]
+            for c in ("rides_socket_tenants", "rides_secure_socket_tenants",
+                      "rides_socket_tenant_isolation")}
         if kn not in ("keygen", "expand"):
             rows[-1]["k3_checks"] = [
                 {k: c[k] for k in ("kind", "level", "shard", "S", "W", "bp", "max_abs_err",
@@ -3386,7 +3737,7 @@ def main() -> int:
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, ten crawls, a resume, "
-        "twenty-one socket runs and six mesh runs)")
+        "twenty-four socket runs and six mesh runs)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

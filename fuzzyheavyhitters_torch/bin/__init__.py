@@ -17,7 +17,7 @@ import os
 
 from ..utils import config as configmod
 
-OBSERVABILITY = "observability (queued as slice 13)"
+OBSERVABILITY = "observability (queued as slice 14)"
 SANITIZERS = configmod.SANITIZERS
 
 # the JAX binaries' switches, each with the layer that reads it there and the

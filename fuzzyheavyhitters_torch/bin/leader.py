@@ -38,12 +38,15 @@ when they began), ``window.done`` (its crawl seconds, seal-to-hitters
 seconds, recoveries, in malicious mode the clients alive) and its own
 ``hitter`` lines (``window`` w); ``crawl.done`` closes the run with the
 ingest counters.  No CSV is written and no warmup runs in this mode.
-Named collections (``FHH_COLLECTION``) are not ported and are refused by
-name, as are the observability and sanitizer switches the port does not
-have yet (``bin.refuse_unported_switches``) and ``debug_guards: true`` in
-the config (``utils.config.refuse_debug_guards``).  Keygen runs on
-``cuda`` unless ``--device`` names another device or the config says
-``"backend": "cpu"``.
+``FHH_COLLECTION=key`` runs the crawl (supervised, windowed, warmed
+alike) in that collection of the servers: leaders of distinct collections
+share one server pair, each collection with its own keys, frontier, OT
+sessions, ingest gate and checkpoint names (``fhh_server{id}_c{key}_l{level}
+.npz``).  The observability and sanitizer switches the port does not have
+yet are refused by name (``bin.refuse_unported_switches``), and so is
+``debug_guards: true`` in the config (``utils.config.refuse_debug_guards``).
+Keygen runs on ``cuda`` unless ``--device`` names another device or the
+config says ``"backend": "cpu"``.
 With ``--seed s`` sampling and keygen draw from ``default_rng(s)`` in
 ``bin.mesh``'s order, so the keys, and the hitters, equal ``bin.mesh``'s
 for the same config, seed and N; the keygen report draws from a generator
@@ -63,7 +66,7 @@ import torch
 
 from ..ops import ibdcf
 from ..ops.fields import F255, FE62
-from ..protocol import sketch
+from ..protocol import sessions, sketch
 from . import refuse_unported_switches
 from ..protocol.leader_rpc import RpcLeader, WindowedIngest
 from ..protocol.rpc import CollectorClient
@@ -74,13 +77,11 @@ from .server import emit, split_addr
 
 
 def refuse_unported_env() -> None:
-    """Refuse the JAX leader's variables, read with its defaults, when they
-    ask for an unported mode."""
-    coll = os.environ.get("FHH_COLLECTION", "default")
-    if coll not in ("", "default"):
-        raise NotImplementedError(
-            f"FHH_COLLECTION={coll}: the multi-tenant collection layer is not ported to "
-            "PyTorch yet; this leader crawls the default collection")
+    """Check the JAX leader's variables, read with its defaults, before any
+    keygen.  Every mode they name is ported; a ``FHH_COLLECTION`` that
+    cannot name a collection is refused with the JAX session table's
+    ``ValueError`` (which a server's hello would answer)."""
+    sessions.check_key(os.environ.get("FHH_COLLECTION") or None)
 
 
 def _sync(dev: torch.device) -> None:
@@ -161,8 +162,11 @@ async def run(cfg, nreqs: int, dev, seed, warm_buckets=None) -> None:
     warm = os.environ.get("FHH_WARMUP", "1") != "0"
     supervise = os.environ.get("FHH_SUPERVISE", "1") != "0"
     windows = max(1, int(os.environ.get("FHH_WINDOWS", "1")))
-    c0 = await CollectorClient.connect(*split_addr(cfg.server0))
-    c1 = await CollectorClient.connect(*split_addr(cfg.server1))
+    # the collection this leader's crawl runs in on the servers (JAX
+    # bin/leader.py:132-138): leaders of distinct collections share one pair
+    collection = os.environ.get("FHH_COLLECTION") or None
+    c0 = await CollectorClient.connect(*split_addr(cfg.server0), collection=collection)
+    c1 = await CollectorClient.connect(*split_addr(cfg.server1), collection=collection)
     try:
         lead = RpcLeader(cfg, c0, c1, emit=emit)
         if windows > 1:
@@ -271,7 +275,7 @@ def main(argv=None) -> None:
         prog="Leader", description="Leader of the socket deployment (PyTorch/CUDA); runs "
         "the supervised crawl (checkpoints every FHH_CKPT_EVERY levels, default 16) unless "
         "FHH_SUPERVISE=0; FHH_WARMUP=0 skips the warmup; FHH_WINDOWS=N streams the clients "
-        "into N windows; the FHH_COLLECTION mode is not ported and is refused.")
+        "into N windows; FHH_COLLECTION=key crawls that collection of the servers.")
     p.add_argument("-c", "--config", required=True, help="Location of JSON config file")
     p.add_argument("-n", "--num_requests", type=int, required=True,
                    help="Number of client requests")

@@ -38,7 +38,11 @@ config (``utils.config.refuse_debug_guards``).
 The ingest front door (``submit_keys``, ``window_seal``, ``window_load``)
 reads the config's ``ingest_*`` fields; ``server.exit`` counts its
 submissions (``pool_*``), sealed windows and the last window's seconds from
-seal to final shares (``seal_to_hitters_s``).
+seal to final shares (``seal_to_hitters_s``).  The counters are the
+server's totals over its collections; ``sessions`` gives each
+collection's row (its counters, the plane epoch its channel was keyed at,
+its checkpoint levels) and the tenant scheduler's device turns and stall
+fills.  ``alive_clients`` and ``mesh`` are the default collection's.
 """
 
 from __future__ import annotations
@@ -128,7 +132,7 @@ async def amain(cfg, server_id: int, device) -> None:
              boot_id=server.boot_id, **server.stats, launches=launch_counts(),
              alive_clients=(None if server.alive_keys is None
                             else int(server.alive_keys.sum())),
-             mesh=server.mesh_status(),
+             mesh=server.mesh_status(), sessions=server.sessions_status(),
              max_memory_allocated=(
                  torch.cuda.max_memory_allocated(server.device)
                  if server.device.type == "cuda" else 0))

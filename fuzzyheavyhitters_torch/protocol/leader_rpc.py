@@ -70,6 +70,10 @@ while the next one fills, and a server restart is recovered from the
 ingest-only checkpoint and the leader's journal.  Live migration between
 server pairs (the JAX ``migrate``/``failover_to``) belongs to the fleet and
 is not ported.
+
+Many collections on one server pair (:class:`MultiCollectionDriver`): one
+client pair and one :class:`RpcLeader` a collection, each client's hello
+naming its collection, all crawled concurrently.
 """
 
 from __future__ import annotations
@@ -878,3 +882,81 @@ class WindowedIngest:
                     "mirror": {"slot": rec["slot"], "shed": rec["shed"]}})
                 replayed += 1
         self.counters["ingest_journal_replays"] += replayed
+
+
+# -- many collections on one server pair (JAX leader_rpc.py:1503-1590) --------
+
+
+class MultiCollectionDriver:
+    """Run many collections concurrently against one collector server pair.
+
+    Each collection gets its own client pair, whose ``__hello__`` binds
+    every connection to that collection's session on the servers
+    (``protocol/sessions.py``), and its own :class:`RpcLeader`; all run on
+    one event loop, so while one collection's level waits on the data plane
+    another's expand takes the card (the servers' ``TenantScheduler``
+    counts those stall fills).  Each result is bit-identical to a solo run
+    of the same keys: independent trees, keys and OT streams per
+    collection.  ``emit`` receives each leader's events with its
+    ``collection``."""
+
+    def __init__(self, cfg: Config, host0: str, port0: int, host1: str, port1: int, *,
+                 emit=None):
+        self.cfg = cfg
+        self._addr0 = (host0, port0)
+        self._addr1 = (host1, port1)
+        self.emit = emit or (lambda event, **kw: None)
+        self.leaders: dict = {}  # collection -> RpcLeader
+
+    async def open(self, collection: str) -> RpcLeader:
+        """Connect one collection's client pair and build its leader, after
+        a ``reset`` of the collection on both servers."""
+        c0 = await CollectorClient.connect(*self._addr0, collection=collection)
+        c1 = await CollectorClient.connect(*self._addr1, collection=collection)
+        lead = RpcLeader(self.cfg, c0, c1,
+                         emit=lambda event, **f: self.emit(event, collection=collection, **f))
+        await lead._both("reset")
+        self.leaders[collection] = lead
+        return lead
+
+    async def close(self) -> None:
+        for lead in self.leaders.values():
+            for c in (lead.c0, lead.c1):
+                await c.aclose()
+        self.leaders.clear()
+
+    async def run_collections(self, jobs: list, *, supervised: bool = True,
+                              warmup: bool = False, checkpoint_every: int = 8,
+                              warm_buckets=None) -> dict:
+        """Run every job concurrently -> {collection: CrawlResult}.
+
+        ``jobs``: dicts ``{collection, nreqs, keys0, keys1}`` (the wire form),
+        with ``sketch0``/``sketch1`` in malicious mode.  ``supervised`` runs
+        each through :meth:`RpcLeader.run_supervised` (checkpoints in the
+        collection's own namespace, recovery per collection); otherwise the
+        upload, the optional warmup (over ``warm_buckets``) and the rounds.
+        One collection's failure does not stop the others: it is reported
+        under its key as the exception raised."""
+
+        async def one(job: dict):
+            key = str(job["collection"])
+            lead = self.leaders.get(key) or await self.open(key)
+            if supervised:
+                return await lead.run_supervised(
+                    int(job["nreqs"]), job["keys0"], job["keys1"], job.get("sketch0"),
+                    job.get("sketch1"), checkpoint_every=checkpoint_every, warmup=warmup,
+                    warm_buckets=warm_buckets)
+            await lead.upload_keys(job["keys0"], job["keys1"], job.get("sketch0"),
+                                   job.get("sketch1"))
+            if warmup:
+                await lead.warmup(warm_buckets)
+            return await lead.run(int(job["nreqs"]))
+
+        keys = [str(j["collection"]) for j in jobs]
+        done = await asyncio.gather(*(one(j) for j in jobs), return_exceptions=True)
+        results = dict(zip(keys, done))
+        failed = {k: r for k, r in results.items() if isinstance(r, BaseException)}
+        if failed:
+            self.emit("tenancy.collections_failed", collections=sorted(failed),
+                      errors={k: f"{type(e).__name__}: {e}" for k, e in failed.items()})
+        return results

@@ -13,8 +13,9 @@ servers and a leader, each its own process.
   failed verb answers ``{"__error__": "Type: message"}``.
 - **Data plane.**  One server↔server TCP connection (server 1 listens on
   its control port + 1, server 0 dials, server.rs:344-354) carrying
-  ``(channel, payload)`` frames on channel ``"default"``; a third element,
-  the trace header a traced JAX peer adds, is accepted and ignored.
+  ``(collection, payload)`` frames, demultiplexed into one FIFO channel a
+  collection (``sessions.PlaneMux``); a third element, the trace header a
+  traced JAX peer adds, is accepted and ignored.
 
 The wire is the JAX package's, frame for frame: every payload is numpy
 arrays of its dtypes (uint32 words, uint64 FE62 shares, uint32[..., 8] F255
@@ -22,9 +23,10 @@ shares, bool bits, int32 indices), Python scalars, dicts, tuples and bytes —
 never a ``torch.Tensor`` (:func:`_send` refuses one) — so a JAX server can
 pair with a port server, and either package's leader can drive either pair.
 
-Per plane, once: a 16-byte coin flip (the XOR of both sides' halves is the
-plane's sketch seed; sent in every mode, because a JAX peer sends it), then
-in secure mode the two base-OT sessions, one per garbling direction.  Per level, trusted: the packed share bits are swapped
+Per collection and plane, once, on the collection's channel: a 16-byte
+coin flip (the XOR of both sides' halves is its sketch seed; sent in every
+mode, because a JAX peer sends it), then in secure mode the two base-OT
+sessions, one per garbling direction.  Per level, trusted: the packed share bits are swapped
 in role order and both servers count; counts go to the leader masked by
 the shared stream of ``protocol/sessions.py``.  Per level, secure: the
 whole-level 2PC of ``protocol/secure.py`` with the garbler and ``ot_path``
@@ -102,20 +104,29 @@ reservoir shedding; server 0 decides, server 1 applies its verdict as
 ``mirror``), outside the verb lock, idempotent per ``sub_id``;
 ``window_seal`` freezes a window (in malicious mode committing
 ``sketch.window_root`` as its challenge root); ``window_load`` makes a
-sealed pool the next crawl's key batch.  The pools live in
-``sessions.IngestState``, ride every checkpoint as the JAX blob's ``ing_*``
+sealed pool the next crawl's key batch.  The pools live in the
+collection's session, ride every checkpoint as the JAX blob's ``ing_*``
 fields, and an ``ingest_only`` blob banks them between windows.
 
+Collections (JAX rpc.py:63-84): everything above that one collection owns
+lives in its ``sessions.CollectionSession``, selected by the ``collection``
+field of ``__hello__``; one server pair crawls many collections at once,
+each with its own keys, frontier, OT sessions, sketch, ingest gate, replay
+and checkpoint namespaces and verb lock.  Device stages take FIFO turns
+across collections (``tenancy.TenantScheduler``), so one collection's
+expand fills the gap another's wire wait leaves (a stall fill), and the
+warmup's ladder of warmed shapes is shared by the process.  A connection
+that names no collection works on the default one, so every single-tenant
+flow, checkpoint names included, is unchanged.
+
 Not ported (they answer ``NotImplementedError`` naming the missing path,
-never "unknown verb"): the session migration verbs of the JAX server and
-multi-tenant collections.
+never "unknown verb"): the session migration verbs of the JAX server.
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
-import hashlib
 import logging
 import os
 import pickle
@@ -138,7 +149,7 @@ from ..ops.ibdcf import EvalState
 from ..utils import resolve_device, tensor_from_numpy, words_from_numpy, words_to_numpy
 from ..utils import config as configmod
 from ..utils.config import Config
-from . import collect, mpc, secure, sessions
+from . import collect, mpc, secure, sessions, tenancy
 from . import sketch as sketchmod
 from .driver import PhaseClock
 from .sessions import DEFAULT_COLLECTION
@@ -237,11 +248,13 @@ def _resp_nbytes(resp) -> int:
 
 class _Session:
     """One leader session's replay state: responses already sent
-    (``cache``) and verbs still running (``inflight``)."""
+    (``cache``) and verbs still running (``inflight``), and the collection
+    its last ``__hello__`` bound."""
 
-    __slots__ = ("cache", "sizes", "bytes_total", "inflight", "last_seen")
+    __slots__ = ("cache", "sizes", "bytes_total", "inflight", "last_seen", "collection")
 
     def __init__(self):
+        self.collection = DEFAULT_COLLECTION
         self.cache: collections.OrderedDict = collections.OrderedDict()
         self.sizes: dict = {}
         self.bytes_total = 0
@@ -267,16 +280,9 @@ def _load_npz(path: str) -> dict:
         return {k: npz[k] for k in npz.files}
 
 
-# the run report's phases: host-clock spans of every level (the JAX server's
-# fss, gc_ot, field), then the secure exchange's steps, spans of the device
-# stream on the card (driver.PhaseClock), then the sketch_verify verbs' host
-# seconds (the JAX server's "sketch" span)
-PHASES = ("fss", "gc_ot", "field", "otext", "b2a", "garble", "eval", "sketch")
-
-
 class CollectorServer:
     """One collector server (ref: server.rs:44-172) holding one party's key
-    share, its own OT secrets and its own crawl state on ``device``; only
+    shares, its own OT secrets and its own crawl state on ``device``; only
     wire frames cross to the peer.  ``server_id`` 0 dials the peer, 1
     listens.  ``ckpt_dir`` (the binary's ``FHH_CKPT_DIR``) holds the
     checkpoint blobs; without it ``tree_checkpoint`` and ``tree_restore``
@@ -286,7 +292,17 @@ class CollectorServer:
     ``resilience.mesh_reshard``, ``warmup.shard_mismatch``).  Data shards
     come from ``cfg.server_data_devices`` (``parallel/server_mesh.py``);
     ``mesh_chaos`` (a ``resilience.chaos.MeshChaos``) injects device faults
-    at each crawl verb's entry."""
+    at a crawl verb's entry, into whichever collection reaches its level
+    first.
+
+    The server holds only what its collections share: the listeners, the
+    data plane (:class:`sessions.PlaneMux`), the replay caches, the tenant
+    scheduler, the boot id and the totals of the counters (``stats``).
+    Everything one collection owns lives in its
+    :class:`sessions.CollectionSession` (``_table``), resolved per
+    connection from ``__hello__``; the attributes below the constructor
+    read and write the default collection's, so single-tenant callers see
+    the server they knew."""
 
     VERBS = ("reset", "add_keys", "tree_init", "tree_crawl", "tree_crawl_last",
              "tree_prune", "tree_prune_last", "final_shares", "warmup", "status",
@@ -301,300 +317,179 @@ class CollectorServer:
         self.server_id = server_id
         self.cfg = cfg
         self.device = resolve_device(device)
-        k = smesh.resolve_data_devices(cfg.server_data_devices, self.device)
-        self._mesh = smesh.ServerMesh(k, self.device) if k > 1 else None
         self._mesh_chaos = mesh_chaos
         self.boot_id = secrets.token_hex(8)
         self.ckpt_dir = ckpt_dir
         self.emit = emit or (lambda event, **kw: None)
-        # run report: seconds per phase, bytes per plane and the largest
-        # data-plane frame, crawl verbs begun and finished, add_keys chunks,
-        # replays answered from the cache, plane resets, checkpoints written
-        # (bytes, seconds) and restored (seconds), sketch_verify verbs and
-        # the host seconds the prunes spent advancing the sketch states; the
-        # crawl's device readbacks (k a sharded one), and with data shards the
-        # seconds of the per-shard reductions, the levels that gathered their
-        # share bits, the device faults, re-shards and re-runs inside a verb;
-        # the ingest front door's submissions (replays answered from a
-        # recorded verdict among them), admitted and shed keys, Overloaded
-        # answers, sealed windows, and the seconds from the loaded window's
-        # seal to its final shares
-        self.stats = {"seconds": dict.fromkeys(PHASES, 0.0),
-                      "data_bytes_sent": 0, "data_bytes_recv": 0, "data_frame_max": 0,
-                      "control_bytes_sent": 0, "control_bytes_recv": 0, "levels": 0,
-                      "levels_done": 0, "add_keys": 0, "dedup_hits": 0, "plane_resets": 0,
-                      "ckpt_writes": 0, "ckpt_bytes": 0, "ckpt_write_s": 0.0, "restores": 0,
-                      "restore_s": 0.0, "sketch_verifies": 0, "sketch_advance_s": 0.0,
-                      "device_fetches": 0, "ici_reduce_s": 0.0, "kernel_gathers": 0,
-                      "kernel_gather_s": 0.0, "mesh_faults": 0, "mesh_reshards": 0,
-                      "shards_rerun": 0, "pool_submits": 0, "pool_dup_submits": 0,
-                      "pool_admitted_keys": 0, "pool_shed_keys": 0, "pool_rejected": 0,
-                      "windows_sealed": 0, "seal_to_hitters_s": None}
-        # the last value of the data shards' per-level gauges (None before
-        # any), and the kernel stage's widest
-        self._gauges = {"kernel_shards": None, "kernel_shards_max": None,
-                        "sketch_shards": None}
-        # every verb but add_keys and plane_break runs under it
+        # the totals of every collection's counters (sessions.new_stats), and
+        # the shared plane's own: control bytes, the largest data-plane
+        # frame, replays answered from the cache, plane resets
+        self.stats = dict(sessions.new_stats(), data_frame_max=0, control_bytes_sent=0,
+                          control_bytes_recv=0, dedup_hits=0, plane_resets=0)
+        self._table = sessions.SessionTable(server_id, cfg, self.device, ckpt_dir)
+        self._sched = tenancy.TenantScheduler()
+        self._plane = sessions.PlaneMux(route_count=self._plane_count)
+        # serializes plane_reset: the plane is shared by every collection,
+        # whose own verbs serialize on their session's lock
         self._verb_lock = asyncio.Lock()
         self._sessions: dict = {}  # leader session id -> _Session
         self._peer_addr = None  # server 0: where it dials the plane
         self._peer_reader = self._peer_writer = None
         self._rpc_srv = self._peer_srv = None
         self._ctl_writers: set = set()
-        self._plane_keyed = False  # the handshake below ran on this data plane
-        self._ot_snd = self._ot_rcv = None  # extension sender (garbler) / receiver
-        self._sec_seed = None  # per-level GC and b2a seeds
-        self._crawl_ctr = 0
-        self._sketch_seed = None  # this data plane's coin flip: uint32[4]
-        # the streaming front door: window pools and the admission gate,
-        # which outlive a window's crawl state (reset clears them)
-        self._ingest = sessions.IngestState(cfg)
-        self._clear()
 
-    def _clear(self) -> None:
-        # the uploaded numpy key chunks; with data shards they are kept after
-        # concatenation, for a re-shard after a device loss rebuilds the keys
-        # from them
-        self.keys_parts: list = []
-        self._keys_stale = False  # chunks arrived since the keys were built
-        # IbDcfKeyBatch [N, d, 2] on the device; with data shards one per
-        # shard, and so for the frontier and the child cache
-        self.keys = None
-        self.alive_keys = None
-        self.frontier = None
-        self.children = None  # the child cache of this level's crawl
-        self.last_shares = None  # surviving leaves' F255 shares
-        self._clear_spans()
-        # the malicious sketch (JAX sessions.py:351-369): uploaded chunks, the
-        # key batch on the device, the frontier-following DPF states [F, N,
-        # d], the dedup table of each slot's per-dim prefix int32[F, d], the
-        # depth they stand at, the stored pair shares awaiting the next
-        # sketch_verify ([(pairs, depth, field)], one a fused bit level), the
-        # ratchet's committed root and its transcript digest
-        self._sketch_parts: list = []
-        self._sketch = None
-        self._sketch_states = None
-        self._sketch_pids = None
-        self._sketch_depth = 0
-        self._sketch_pairs = None
-        self._sketch_root = None
-        self._ratchet_digest = None
-        # a loaded window's committed challenge root, which tree_init takes
-        # in place of the coin flip, and its seal instant (None: a bulk upload)
-        self._window_sketch_root = None
-        self._window_seal_ts = None
+    # -- the default collection's state, for single-tenant callers ------------
 
-    def _clear_spans(self) -> None:
-        self._shard_children: dict = {}  # span lo -> child cache of this level
-        self._shard_last: dict = {}  # span lo -> last-level shares
-        self._shard_level = None
-        self._expand_ready: dict = {}  # (last, level, span) -> pre-expanded stage
-        self._mask_cache = None  # ((level, F, f255), the whole level's mask rows)
+    def _default(self) -> sessions.CollectionSession:
+        return self._table.default()
+
+    def _state_prop(name):  # noqa: N805 (class-body helper, deleted below)
+        return property(lambda self: getattr(self._default(), name),
+                        lambda self, value: setattr(self._default(), name, value))
+
+    keys = _state_prop("keys")
+    keys_parts = _state_prop("keys_parts")
+    alive_keys = _state_prop("alive_keys")
+    frontier = _state_prop("frontier")
+    children = _state_prop("children")
+    last_shares = _state_prop("last_shares")
+    _mesh = _state_prop("_mesh")
+    _sketch_parts = _state_prop("_sketch_parts")
+    _sketch = _state_prop("_sketch")
+    _sketch_states = _state_prop("_sketch_states")
+    _sketch_pids = _state_prop("_sketch_pids")
+    _sketch_depth = _state_prop("_sketch_depth")
+    _sketch_pairs = _state_prop("_sketch_pairs")
+    _sketch_seed = _state_prop("_sketch_seed")
+    _sketch_root = _state_prop("_sketch_root")
+    _ratchet_digest = _state_prop("_ratchet_digest")
+    _ot_snd = _state_prop("_ot_snd")
+    _ot_rcv = _state_prop("_ot_rcv")
+    _sec_seed = _state_prop("_sec_seed")
+    del _state_prop
+
+    @property
+    def _ingest(self) -> sessions.CollectionSession:
+        """The default collection's ingest pools and gate."""
+        return self._default()
+
+    @property
+    def _plane_keyed(self) -> bool:
+        """The default collection's channel is keyed on the current plane."""
+        return self._keyed(self._default())
+
+    @_plane_keyed.setter
+    def _plane_keyed(self, value: bool) -> None:
+        self._default().plane_epoch = self._plane.epoch if value else -1
+
+    def _keys_fp(self) -> np.ndarray:
+        return self._default()._keys_fp()
+
+    def crawl_radix(self, level: int) -> int:
+        return self._default().crawl_radix(level)
+
+    def mesh_status(self) -> dict | None:
+        return self._default().mesh_status()
+
+    def _ckpt_path(self, level: int) -> str:
+        return self._default().ckpt_path(level)
+
+    def _ckpt_levels(self) -> list:
+        return self._default().ckpt_levels()
+
+    def _ckpt_prune(self, keep: int = 2) -> None:
+        self._default().ckpt_prune(keep)
+
+    # -- counters ---------------------------------------------------------------
+
+    def _add(self, cs, key: str, n=1) -> None:
+        """Count ``n`` under ``key`` for the collection and in the total."""
+        cs.stats[key] += n
+        self.stats[key] += n
+
+    def _phases(self, cs, **seconds) -> None:
+        for k, v in seconds.items():
+            cs.stats["seconds"][k] += v
+            self.stats["seconds"][k] += v
 
     def _count(self, key: str):
         def add(n: int) -> None:
             self.stats[key] += n
-            if key.startswith("data_"):
-                self.stats["data_frame_max"] = max(self.stats["data_frame_max"], n)
         return add
 
-    # -- verbs ----------------------------------------------------------------
+    def _plane_count(self, chan: str, nbytes: int) -> None:
+        """The mux's accounting hook: a received frame's bytes go to its
+        collection (a channel with no session here: the total only)."""
+        cs = self._table.peek(chan)
+        if cs is not None:
+            cs.stats["data_bytes_recv"] += nbytes
+        self.stats["data_bytes_recv"] += nbytes
+        self.stats["data_frame_max"] = max(self.stats["data_frame_max"], nbytes)
 
-    async def reset(self, _req) -> bool:
-        self._clear()
-        self._ingest._ingest_pools.clear()  # a new collection's front door opens clean
-        self._ckpt_clear()  # a new collection must not resume an old one's
-        if self._ot_snd is not None:  # fresh GC/b2a randomness per collection
-            self._sec_seed = np.frombuffer(secrets.token_bytes(16), "<u4").copy()
+    # -- verbs ----------------------------------------------------------------
+    # Each takes the collection bound by its connection's hello (``cs``; the
+    # default one when called directly) and runs under that session's lock.
+
+    async def reset(self, _req, cs=None) -> bool:
+        (cs or self._default()).reset_state()
         return True
 
-    async def add_keys(self, req) -> bool:
+    async def add_keys(self, req, cs=None) -> bool:
         """Append one key chunk: the five leaves of a [B, d, 2] batch, and in
         malicious mode the 16 leaves of the same clients' sketch keys
         (``sketch``, :func:`sketch.sketch_leaves` order)."""
+        cs = cs or self._default()
         sk = req.get("sketch")
         if sk is not None and len(sk) != 16:
             raise ValueError(f"add_keys: a sketch chunk has 16 leaves, got {len(sk)}")
-        self.stats["add_keys"] += 1
-        self.keys_parts.append(tuple(np.asarray(a) for a in req["keys"]))
-        self._keys_stale = True
+        self._add(cs, "add_keys")
+        cs.keys_parts.append(tuple(np.asarray(a) for a in req["keys"]))
+        cs._keys_stale = True
         if sk is not None:
-            self._sketch_parts.append(tuple(np.asarray(a) for a in sk))
+            cs._sketch_parts.append(tuple(np.asarray(a) for a in sk))
         return True
 
-    def _has_sketch(self) -> bool:
-        return bool(self._sketch_parts) or self._sketch is not None
-
-    def _concat_sketch(self) -> None:
-        """The uploaded sketch chunks as one key batch on the device."""
-        if self._sketch_parts:
-            leaves = [np.concatenate(p) for p in zip(*self._sketch_parts)]
-            self._sketch_parts = []
-            self._sketch = sketchmod.sketch_from_numpy(leaves, self.device)
-
-    def _concat_keys(self, verb: str) -> None:
-        """The uploaded chunks as one key batch on the device (with data
-        shards, bound to the batch and split per shard), checked against
-        the crawl radix.  With data shards the chunks are kept."""
-        if not self.keys_parts and self.keys is None:
-            raise RuntimeError(f"{verb} before add_keys")
-        if self.keys is None or self._keys_stale:
-            leaves = [np.concatenate(p) for p in zip(*self.keys_parts)]
-            if self._mesh is not None:
-                self._mesh.bind(leaves[0].shape[0])
-                self.keys = self._mesh.shard_keys(leaves)
-            else:
-                self.keys_parts = []  # only a re-shard reads them again
-                self.keys = ibdcf.keys_from_numpy(ibdcf.IbDcfKeyBatch(*leaves), self.device)
-            self._keys_stale = False
-        d = self._kb().cw_seed.shape[1]
-        if not 1 <= d <= collect.MAX_DIMS:
-            raise ValueError(f"n_dims={d}: supported 1..{collect.MAX_DIMS}")
-        collect.check_radix(d, self.cfg.crawl_radix_bits)
-
-    # -- data shards: one code path, a list of one part without them ---------
-
-    def _shards(self, x) -> list:
-        """The per-shard parts of ``x`` (keys, a frontier, a child cache)."""
-        return x if self._mesh is not None else [x]
-
-    def _one(self, parts: list):
-        """:meth:`_shards`' inverse."""
-        return parts if self._mesh is not None else parts[0]
-
-    def _kb(self) -> ibdcf.IbDcfKeyBatch:
-        """A key batch to read the key shapes from (the first shard's)."""
-        return self._shards(self.keys)[0]
-
-    def _n_clients(self) -> int:
-        return self._mesh.n_clients if self._mesh is not None else self.keys.cw_seed.shape[0]
-
-    def _data_len(self) -> int:
-        return self._kb().cw_seed.shape[-2]
-
-    def _f_bucket(self) -> int:
-        return self._shards(self.frontier)[0].f_bucket
-
-    def _gauge(self, name: str, value: int) -> None:
-        self._gauges[name] = value
-        if name == "kernel_shards":
-            self._gauges["kernel_shards_max"] = max(self._gauges["kernel_shards_max"] or 0,
-                                                    value)
-
-    def _keys_fp(self) -> np.ndarray:
-        """uint8[32]: SHA-256 over ``key_idx`` then ``root_seed`` in their
-        wire dtypes, byte for byte the JAX server's ``keys_fp``: did the
-        leader re-upload the batch this checkpoint was written under (an
-        operational check, not a cryptographic one)."""
-        keys = self._shards(self.keys)
-        h = hashlib.sha256()
-        h.update(np.ascontiguousarray(np.concatenate([k.key_idx.cpu().numpy() for k in keys])))
-        h.update(np.ascontiguousarray(np.concatenate([words_to_numpy(k.root_seed)
-                                                      for k in keys])))
-        return np.frombuffer(h.digest(), np.uint8)
-
-    def crawl_radix(self, level: int) -> int:
-        """Bit levels of the crawl round based at ``level``: the server's
-        radix, clipped at the tail of the key batch's data_len."""
-        return min(self.cfg.crawl_radix_bits, self._data_len() - int(level))
-
-    async def tree_init(self, req) -> bool:
-        if not self.keys_parts and self.keys is None:
+    async def tree_init(self, req, cs=None) -> bool:
+        cs = cs or self._default()
+        if not cs.keys_parts and cs.keys is None:
             raise RuntimeError("tree_init before add_keys")
-        await self._ensure_plane()
-        self._concat_keys("tree_init")
-        self.alive_keys = torch.ones(self._n_clients(), dtype=torch.bool, device=self.device)
+        await self._ensure_session_plane(cs)
+        cs._concat_keys("tree_init")
+        cs.alive_keys = torch.ones(cs._n_clients(), dtype=torch.bool, device=self.device)
         rb = int((req or {}).get("root_bucket", 1))
-        self.frontier = self._one([collect.tree_init(k, rb) for k in self._shards(self.keys)])
-        self.children = self.last_shares = None
-        self._clear_spans()
-        if self._has_sketch():
-            self._concat_sketch()
-            root = dpf.eval_init(self._sketch.key)  # [N, d]
-            self._sketch_states = dpf.DpfEvalState(seed=root.seed[None], t=root.t[None])
-            self._sketch_pids = np.zeros((1, root.t.shape[1]), np.int32)
-            self._sketch_depth = 0
-            self._sketch_pairs = None
-            # commit the ratchet: the root is this plane's coin flip (the
+        cs.frontier = cs._one([collect.tree_init(k, rb) for k in cs._shards(cs.keys)])
+        cs.children = cs.last_shares = None
+        cs.clear_spans()
+        if cs._has_sketch():
+            cs._concat_sketch()
+            root = dpf.eval_init(cs._sketch.key)  # [N, d]
+            cs._sketch_states = dpf.DpfEvalState(seed=root.seed[None], t=root.t[None])
+            cs._sketch_pids = np.zeros((1, root.t.shape[1]), np.int32)
+            cs._sketch_depth = 0
+            cs._sketch_pairs = None
+            # commit the ratchet: the root is this channel's coin flip (the
             # clients committed their keys before it), the transcript empty;
             # both are checkpointed, so later plane resets and restarts
             # cannot move any level's challenge.  A loaded window commits
             # its seal-time root instead (sketch.window_root), which its seal
             # stats and ingest checkpoint carry: a recovered window's re-run
             # replays the same challenges
-            root = (self._window_sketch_root if self._window_sketch_root is not None
-                    else self._sketch_seed)
-            self._sketch_root = np.asarray(root, np.uint32).copy()
-            self._ratchet_digest = sketchmod.transcript_init()
+            root = (cs._window_sketch_root if cs._window_sketch_root is not None
+                    else cs._sketch_seed)
+            cs._sketch_root = np.asarray(root, np.uint32).copy()
+            cs._ratchet_digest = sketchmod.transcript_init()
         return True
 
-    def challenge_seed(self, level: int) -> np.ndarray:
-        """This level's sketch challenge: the ratchet of the committed root,
-        the level and the transcript digest (the plane's raw coin flip only
-        before any ``tree_init`` committed a root)."""
-        if self._sketch_root is None:
-            return self._sketch_seed
-        return sketchmod.ratchet_seed(self._sketch_root, level, self._ratchet_digest)
-
-    def advance_sketch(self, level: int, parent: np.ndarray, pat: np.ndarray,
-                       n_alive: int) -> None:
-        """Advance the frontier-following sketch states with the prune's
-        survivor table (dim j's direction is pattern bit j), r steps for a
-        fused ``pat`` [F', r, d], storing each new depth's pair shares gated
-        by per-dim prefix dedup: two frontier slots that share a dim-j
-        prefix are one node of dim j's 1-D sketch tree and count once (the
-        first slot keeps it).  The dedup table comes from the public
-        survivor table, so both servers gate alike (JAX sessions.py:552-628)."""
-        L = self._data_len()
-        k = self._sketch.key  # batch [N, d]
-        d = k.root_seed.shape[1]
-        r = pat.shape[1]
-        par = torch.from_numpy(np.asarray(parent, np.int64)).to(self.device)
-        st = dpf.DpfEvalState(seed=self._sketch_states.seed[par], t=self._sketch_states.t[par])
-        F2 = parent.shape[0]
-        parent_pid = self._sketch_pids[parent[:n_alive]]  # [n_alive, d]
-        pids = self._sketch_pids
-        entries = []
-        for t in range(r):
-            bl = level + t  # this step's absolute bit level
-            last = bl == L - 1
-            fld = F255 if last else FE62
-            direction = torch.from_numpy(np.ascontiguousarray(pat[:, t, :])).to(
-                self.device)[:, None, :]
-            cw = tuple(a[None] for a in dpf.level_cw(k, bl))  # [1, N, d, ...]
-            cwv = (k.cw_val[..., bl, :] if not last else k.cw_val_last)[None]
-            st, pair = dpf.eval_bit(cw, st, direction, cwv, k.key_idx[None], fld,
-                                    sketchmod.LANES)  # pair [F2, N, d, LANES(, limbs)]
-            # this depth's dedup key: the parent's prefix id and the step
-            # bits through step t
-            pids = np.zeros((F2, d), np.int32)
-            keep = np.zeros((F2, d), bool)
-            for j in range(d):
-                key_j = np.stack([parent_pid[:, j]] + [pat[:n_alive, u, j].astype(np.int32)
-                                                       for u in range(t + 1)], 1)
-                _, inv = np.unique(key_j, axis=0, return_inverse=True)
-                inv = inv.reshape(-1)
-                pids[:n_alive, j] = inv
-                _, first = np.unique(inv, return_index=True)
-                keep[first, j] = True
-            gate = torch.from_numpy(keep.reshape((F2, 1, d) + (1,) * (pair.dim() - 3))).to(
-                self.device)
-            entries.append((torch.where(gate, pair, 0), bl + 1, fld))
-        self._sketch_states = st
-        self._sketch_pids = pids  # the final depth's table seeds the next prune
-        self._sketch_depth = level + r
-        self._sketch_pairs = entries
-
-    def _advance_and_absorb(self, level: int, parent, pat, n_alive: int) -> None:
+    def _advance_and_absorb(self, cs, level: int, parent, pat, n_alive: int) -> None:
         """A prune's sketch half: advance the states, then fold the survivor
         table into the transcript digest."""
         t0 = time.perf_counter()
-        self.advance_sketch(level, parent, pat, n_alive)
-        self._ratchet_digest = sketchmod.transcript_absorb(self._ratchet_digest, level, parent,
-                                                           pat, n_alive)
-        self.stats["sketch_advance_s"] += time.perf_counter() - t0
+        cs.advance_sketch(level, parent, pat, n_alive)
+        cs._ratchet_digest = sketchmod.transcript_absorb(cs._ratchet_digest, level, parent,
+                                                         pat, n_alive)
+        self._add(cs, "sketch_advance_s", time.perf_counter() - t0)
 
-    async def sketch_verify(self, req) -> np.ndarray:
+    async def sketch_verify(self, req, cs=None) -> np.ndarray:
         """The malicious-security check (JAX rpc.py:541-696): sketch inner
         products and Beaver verification over the data plane, per (client,
         dim); a client fails if any dim fails, and its liveness flag flips
@@ -607,20 +502,21 @@ class CollectorServer:
         second opening under another challenge would leak ``<r - r', x>``;
         so is every level past 0 when data_len is 1.  -> a copy of the
         client liveness vector, bool[N]."""
-        if self._sketch is None:
+        cs = cs or self._default()
+        if cs._sketch is None:
             raise RuntimeError("sketch_verify without sketch keys")
-        await self._ensure_plane()
+        await self._ensure_session_plane(cs)
         t0 = time.perf_counter()
         level = int(req["level"])
-        k = self._sketch.key
+        k = cs._sketch.key
         L = k.data_len
         n, d = k.root_seed.shape[0], k.root_seed.shape[1]
         if level == 0:
-            if self._sketch_depth != 0:
+            if cs._sketch_depth != 0:
                 raise RuntimeError("level-0 full check called after the tree advanced")
             last = L == 1
             fld = F255 if last else FE62
-            st = dpf.DpfEvalState(seed=self._sketch_states.seed[0], t=self._sketch_states.t[0])
+            st = dpf.DpfEvalState(seed=cs._sketch_states.seed[0], t=cs._sketch_states.t[0])
             cw = dpf.level_cw(k, 0)
             cwv = k.cw_val[..., 0, :] if not last else k.cw_val_last
             sides = [dpf.eval_bit(cw, st, torch.full((n, d), c, device=self.device), cwv,
@@ -632,17 +528,17 @@ class CollectorServer:
             if level == 1:
                 raise RuntimeError("depth 1 is covered by the level-0 full check; "
                                    "re-verifying it would re-open its Beaver triples")
-            if self._sketch_pairs is None or self._sketch_pairs[-1][1] != level:
+            if cs._sketch_pairs is None or cs._sketch_pairs[-1][1] != level:
                 raise RuntimeError(f"no stored sketch shares for depth {level}")
             # one stored entry per fused bit level, depth 1 dropped (the
             # level-0 check opened its slab)
-            checks = [(p, dep - 1, f, dep) for (p, dep, f) in self._sketch_pairs if dep >= 2]
-        sk = self._sketch
+            checks = [(p, dep - 1, f, dep) for (p, dep, f) in cs._sketch_pairs if dep >= 2]
+        sk = cs._sketch
         # with data shards the check batch splits along its clients
         # (parallel/sketch_shard.py): the same wire, assembled by position
-        ss = self._sketch_bind(n, d)
-        if self._mesh is not None:
-            self._gauge("sketch_shards", 1 if ss is None else ss.k)
+        ss = cs._sketch_bind(n, d)
+        if cs._mesh is not None:
+            cs._gauge("sketch_shards", 1 if ss is None else ss.k)
         fetches = 1 if ss is None else ss.k
         ok_all = None
         for pairs, dpf_level, fld, depth in checks:
@@ -651,132 +547,128 @@ class CollectorServer:
             else:
                 trip, mk, mk2 = mpc.level_slab(sk.triples, dpf_level), sk.mac_key, sk.mac_key2
             cor, state = sketch_shard.cor_state(ss, fld, pairs, trip, mk, mk2,
-                                                self.challenge_seed(depth), depth)
-            peer_cor = await self._swap(await asyncio.to_thread(sketch_shard.wire, cor))
+                                                cs.challenge_seed(depth), depth)
+            peer_cor = await self._swap(cs, await asyncio.to_thread(sketch_shard.wire, cor))
             o = sketch_shard.out_shares(ss, fld, state, cor, peer_cor, bool(self.server_id))
             del state, cor
-            peer_o = await self._swap(await asyncio.to_thread(sketch_shard.wire, o))
+            peer_o = await self._swap(cs, await asyncio.to_thread(sketch_shard.wire, o))
             ok = sketch_shard.verdicts(ss, fld, o, peer_o)
-            self.stats["device_fetches"] += 2 * fetches
+            self._add(cs, "device_fetches", 2 * fetches)
             ok_all = ok if ok_all is None else ok_all & ok
         if ok_all is not None:
-            self.alive_keys &= ok_all
+            cs.alive_keys &= ok_all
         if level != 0:
             # each stored depth opens once; a re-run after a recovery reloads
             # the pairs from the checkpoint and replays the same challenge
-            self._sketch_pairs = None
-        out = await asyncio.to_thread(lambda: self.alive_keys.cpu().numpy().copy())
-        self.stats["sketch_verifies"] += 1
-        self._phases(sketch=time.perf_counter() - t0)
+            cs._sketch_pairs = None
+        out = await asyncio.to_thread(lambda: cs.alive_keys.cpu().numpy().copy())
+        self._add(cs, "sketch_verifies")
+        self._phases(cs, sketch=time.perf_counter() - t0)
         return out
 
-    def _sketch_bind(self, n: int, d: int):
-        """The sketch check's shard binding: the data shards under the
-        ``Config.sketch_shards`` budget (0 follows the data shards); None
-        without data shards or when one shard fits."""
-        if self._mesh is None:
-            return None
-        budget = (self._mesh.shards if self.cfg.sketch_shards <= 0
-                  else min(int(self.cfg.sketch_shards), self._mesh.shards))
-        return sketch_shard.bind(self._mesh._active_devices(), n, d, budget)
-
-    async def tree_crawl(self, req) -> np.ndarray:
+    async def tree_crawl(self, req, cs=None) -> np.ndarray:
         """-> FE62 shares uint64[F, 2^d] of the per-child counts (rpc.rs:60)."""
-        return await self._crawl("tree_crawl", req, last=False)
+        return await self._crawl(cs or self._default(), "tree_crawl", req, last=False)
 
-    async def tree_crawl_last(self, req) -> np.ndarray:
+    async def tree_crawl_last(self, req, cs=None) -> np.ndarray:
         """-> F255 shares uint32[F, 2^d, 8] of the last level (rpc.rs:61),
         kept for ``tree_prune_last`` and ``final_shares``; a span's shares
         are banked for ``tree_prune_last`` to assemble."""
-        shares = await self._crawl("tree_crawl_last", req, last=True)
+        cs = cs or self._default()
+        shares = await self._crawl(cs, "tree_crawl_last", req, last=True)
         shard = self._parse_shard(req)
         if shard is None:
-            self.last_shares = shares
+            cs.last_shares = shares
         else:
-            self.last_shares = None
-            self._shard_last[shard[0]] = shares
+            cs.last_shares = None
+            cs._shard_last[shard[0]] = shares
         return shares
 
-    async def tree_prune(self, req) -> bool:
+    async def tree_prune(self, req, cs=None) -> bool:
         """Fused prune + advance: the surviving children, gathered from this
         round's child cache (ref: rpc.rs:63, collect.rs:918-929), assembled
         from its spans when the round was crawled in spans.  A prune with no
         cache re-expands the round's r bits first."""
-        if self.frontier is None:
+        cs = cs or self._default()
+        if cs.frontier is None:
             raise RuntimeError("tree_prune before tree_init")
         level = int(req["level"])
         parent, pat, n_alive = self._prune_args(req)
         r = pat.shape[1]
-        if r != self.crawl_radix(level):
+        if r != cs.crawl_radix(level):
             raise RuntimeError(
                 f"prune pattern carries {r} step bit(s) where this session's level-{level} "
-                f"round fuses {self.crawl_radix(level)} (crawl_radix_bits mismatch between "
+                f"round fuses {cs.crawl_radix(level)} (crawl_radix_bits mismatch between "
                 "leader and server?)")
-        self._expand_ready.clear()  # the frontier is about to change
-        if self.children is None and self._shard_children:
-            self.children = self._assemble_shard_children(r)
-        children = self.children
+        cs._expand_ready.clear()  # the frontier is about to change
+        if cs.children is None and cs._shard_children:
+            cs.children = cs._assemble_shard_children(r)
+        children = cs.children
         if children is None:
-            children = self._one([
+            children = cs._one([
                 collect.expand_share_bits_radix(k, f, level, r, want_children=True)[1]
-                for k, f in zip(self._shards(self.keys), self._shards(self.frontier))])
+                for k, f in zip(cs._shards(cs.keys), cs._shards(cs.frontier))])
         par, pt = torch.from_numpy(parent), torch.from_numpy(pat)
-        self.frontier = self._one([
+        cs.frontier = cs._one([
             collect.advance_from_children_radix(c, par.to(c.seed.device), pt.to(c.seed.device),
                                                 n_alive, r)
-            for c in self._shards(children)])
-        self.children = None
-        if self._sketch is not None:  # the sketch states follow the same survivors
-            self._advance_and_absorb(level, parent, pat, n_alive)
+            for c in cs._shards(children)])
+        cs.children = None
+        if cs._sketch is not None:  # the sketch states follow the same survivors
+            self._advance_and_absorb(cs, level, parent, pat, n_alive)
         return True
 
-    async def tree_prune_last(self, req) -> bool:
+    async def tree_prune_last(self, req, cs=None) -> bool:
         """Compact the last level's shares to the survivors
         (ref: collect.rs:931-942)."""
-        self._expand_ready.clear()
-        if self.last_shares is None and self._shard_last:
-            whole = np.concatenate([p for _, p in sorted(self._shard_last.items())], axis=0)
-            if whole.shape[0] != self._f_bucket():
+        cs = cs or self._default()
+        cs._expand_ready.clear()
+        if cs.last_shares is None and cs._shard_last:
+            whole = np.concatenate([p for _, p in sorted(cs._shard_last.items())], axis=0)
+            if whole.shape[0] != cs._f_bucket():
                 raise RuntimeError(f"sharded last crawl incomplete: shares cover "
-                                   f"{whole.shape[0]} of {self._f_bucket()} slots")
-            self.last_shares = whole
-            self._shard_last.clear()
-        if self.last_shares is None:
+                                   f"{whole.shape[0]} of {cs._f_bucket()} slots")
+            cs.last_shares = whole
+            cs._shard_last.clear()
+        if cs.last_shares is None:
             raise RuntimeError("tree_prune_last called before tree_crawl_last")
-        self.children = None
+        cs.children = None
         parent, pat, n_alive = self._prune_args(req)
         _, r, d = pat.shape
-        base = self._data_len() - r
-        if r != self.crawl_radix(base):
+        base = cs._data_len() - r
+        if r != cs.crawl_radix(base):
             raise RuntimeError(f"leaf prune pattern carries {r} step bit(s) where this "
-                               f"session's tail round fuses {self.crawl_radix(base)}")
+                               f"session's tail round fuses {cs.crawl_radix(base)}")
         # the step-major fused leaf id
         shift = np.arange(r)[:, None] * d + np.arange(d)[None, :]
         child = (pat[:n_alive].astype(np.int64) << shift).sum(axis=(1, 2))
-        self.last_shares = self.last_shares[parent[:n_alive], child]
-        if self._sketch is not None:  # once more, for the F255 leaf payloads
-            self._advance_and_absorb(base, parent, pat, n_alive)
+        cs.last_shares = cs.last_shares[parent[:n_alive], child]
+        if cs._sketch is not None:  # once more, for the F255 leaf payloads
+            self._advance_and_absorb(cs, base, parent, pat, n_alive)
         return True
 
-    async def final_shares(self, _req) -> dict:
+    async def final_shares(self, _req, cs=None) -> dict:
         """The surviving leaves' count shares (ref: rpc.rs:65).  After a
         loaded window's crawl, the seconds since that window's seal go to
         ``seal_to_hitters_s``, once a window."""
-        if self._window_seal_ts is not None:
-            self.stats["seal_to_hitters_s"] = max(0.0, time.time() - self._window_seal_ts)
-            self._window_seal_ts = None
-        return {"server_id": self.server_id, "shares": self.last_shares}
+        cs = cs or self._default()
+        if cs._window_seal_ts is not None:
+            dt = max(0.0, time.time() - cs._window_seal_ts)
+            cs.stats["seal_to_hitters_s"] = self.stats["seal_to_hitters_s"] = dt
+            cs._window_seal_ts = None
+        return {"server_id": self.server_id, "shares": cs.last_shares}
 
     # -- the streaming ingest front door (JAX rpc.py:1442-1660): the online
     # successor of the one-shot add_keys upload --------------------------------
 
-    async def submit_keys(self, req) -> dict:
+    async def submit_keys(self, req, cs=None) -> dict:
         """One submission into the named window's pool: admission-controlled,
         append-only, idempotent per ``sub_id``.  Runs without the verb lock
         (as ``add_keys``), so a window fills while the previous one's crawl
         holds it; the admission arithmetic runs in an executor behind the
-        gate's lock, and after that one suspension the duplicate and seal
-        checks run again before the pool changes.
+        collection's own gate (a flooding tenant drains only its own token
+        bucket), and after that one suspension the duplicate and seal checks
+        run again before the pool changes.
 
         Req: ``{window, sub_id, client_id, keys}``, in malicious mode
         ``sketch`` (the same clients' 16 sketch leaves, :func:`sketch.
@@ -787,7 +679,7 @@ class CollectorServer:
         ``{"admitted": False, "overloaded": True, "scope", "retry_after_s"}``
         (retryable); a replayed ``sub_id`` answers its recorded verdict with
         ``dup`` True."""
-        ing = self._ingest
+        cs = cs or self._default()
         window = int(req["window"])
         sub_id = str(req["sub_id"])
         chunk = tuple(np.asarray(a) for a in req["keys"])
@@ -803,11 +695,11 @@ class CollectorServer:
         elif self.cfg.malicious:
             raise RuntimeError("malicious mode: submit_keys requires the client's sketch "
                                "chunk alongside its keys")
-        pool = ing.ingest_pool(window)
-        self.stats["pool_submits"] += 1
+        pool = cs.ingest_pool(window)
+        self._add(cs, "pool_submits")
         prev = pool.verdicts.get(sub_id)
         if prev is not None:  # a replay: the recorded verdict, nothing re-admitted
-            self.stats["pool_dup_submits"] += 1
+            self._add(cs, "pool_dup_submits")
             return dict(prev, dup=True)
         if pool.sealed:
             raise RuntimeError(f"ingest window {window} is sealed — submit into a later window")
@@ -815,38 +707,39 @@ class CollectorServer:
         if mirror is not None:  # never suspends: applied positionally
             resp = pool.apply_mirror(sub_id, chunk, mirror, str(req.get("client_id", "")))
         else:
-            v = await ing._admission.admit_offloaded(pool.wa, str(req.get("client_id", "")),
-                                                     n_keys, gate=ing._adm_gate)
+            v = await cs._admission.admit_offloaded(pool.wa, str(req.get("client_id", "")),
+                                                    n_keys, gate=cs._adm_gate)
             # another frame may have replayed this sub_id or sealed the
             # window during the await
             prev = pool.verdicts.get(sub_id)
             if prev is not None:
-                self.stats["pool_dup_submits"] += 1
+                self._add(cs, "pool_dup_submits")
                 return dict(prev, dup=True)
             if pool.sealed:
                 raise RuntimeError(f"ingest window {window} sealed during admission — "
                                    "submit into a later window")
             resp = pool.apply(sub_id, chunk, v)
         if resp.get("admitted"):
-            self.stats["pool_admitted_keys"] += n_keys
+            self._add(cs, "pool_admitted_keys", n_keys)
         elif resp.get("shed"):
-            self.stats["pool_shed_keys"] += n_keys
+            self._add(cs, "pool_shed_keys", n_keys)
         else:
-            self.stats["pool_rejected"] += 1
+            self._add(cs, "pool_rejected")
         return resp
 
-    async def window_seal(self, req) -> dict:
+    async def window_seal(self, req, cs=None) -> dict:
         """Freeze the named window: later submissions name later windows.
         Idempotent: sealing a sealed window returns the same stats.  In
         malicious mode the first seal commits the window's challenge root,
-        ``sketch.window_root`` of this plane's coin flip and the window; a
+        ``sketch.window_root`` of this channel's coin flip and the window; a
         recovery re-seal hands back the root banked at the first seal
         (``sk_root``), which a pool rebuilt from the journal takes and a
         pool holding another refuses.  -> the pool's stats."""
+        cs = cs or self._default()
         w = int(req["window"])
-        pool = self._ingest._ingest_pools.get(w)
+        pool = cs._ingest_pools.get(w)
         if pool is None:
-            pool = self._ingest.ingest_pool(w)  # sealing an idle window is legal
+            pool = cs.ingest_pool(w)  # sealing an idle window is legal
         want_root = req.get("sk_root")
         if want_root is not None:
             want_root = np.array(want_root, np.uint32)
@@ -857,18 +750,18 @@ class CollectorServer:
                                    "sketch root (recovery replayed stats from another life?)")
         if not pool.sealed:
             if self.cfg.malicious and pool.sk_root is None:
-                await self._ensure_plane()
-                pool.sk_root = sketchmod.window_root(self._sketch_seed, w)
+                await self._ensure_session_plane(cs)
+                pool.sk_root = sketchmod.window_root(cs._sketch_seed, w)
             pool.sealed = True
             pool.sealed_at = time.time()
-            self.stats["windows_sealed"] += 1
+            self._add(cs, "windows_sealed")
             self.emit("ingest.window_sealed", server=self.server_id,
-                      collection=DEFAULT_COLLECTION, window=w, keys=pool.keys,
+                      collection=cs.key, window=w, keys=pool.keys,
                       subs=len(pool.entries), shed=pool.shed_keys,
                       sk_root=None if pool.sk_root is None else pool.sk_root.tolist())
         return pool.stats()
 
-    async def window_load(self, req) -> dict:
+    async def window_load(self, req, cs=None) -> dict:
         """Make a sealed window's frozen pool the crawl's key batch (the
         streaming twin of the ``add_keys`` upload): the crawl and sketch
         state clear, the pool's entries become the uploaded chunks in slot
@@ -877,8 +770,9 @@ class CollectorServer:
         back into sketch chunks, the window's root is installed for
         ``tree_init``, and earlier windows' pools are dropped.  Every
         refusal comes before any state changes."""
+        cs = cs or self._default()
         w = int(req["window"])
-        pool = self._ingest._ingest_pools.get(w)
+        pool = cs._ingest_pools.get(w)
         if pool is None:
             raise RuntimeError(f"window_load: no ingest pool for window {w}")
         if not pool.sealed:
@@ -893,21 +787,21 @@ class CollectorServer:
         if has_sketch and pool.sk_root is None:
             raise RuntimeError(f"window_load: window {w} carries sketch material but no "
                                "committed challenge root (sealed by a pre-sketch server?)")
-        self._clear()
-        self.keys_parts = [tuple(e[:nk]) for e in pool.entries]
-        self._keys_stale = True
+        cs.clear()
+        cs.keys_parts = [tuple(e[:nk]) for e in pool.entries]
+        cs._keys_stale = True
         if has_sketch:
-            self._sketch_parts = [tuple(e[nk:]) for e in pool.entries]
-            self._window_sketch_root = np.array(pool.sk_root, np.uint32)
-        self._window_seal_ts = pool.sealed_at
-        for old in [k for k in self._ingest._ingest_pools if k < w]:
-            del self._ingest._ingest_pools[old]
+            cs._sketch_parts = [tuple(e[nk:]) for e in pool.entries]
+            cs._window_sketch_root = np.array(pool.sk_root, np.uint32)
+        cs._window_seal_ts = pool.sealed_at
+        for old in [k for k in cs._ingest_pools if k < w]:
+            del cs._ingest_pools[old]
         self.emit("ingest.window_loaded", server=self.server_id,
-                  collection=DEFAULT_COLLECTION, window=w, keys=pool.keys, sketch=has_sketch)
+                  collection=cs.key, window=w, keys=pool.keys, sketch=has_sketch)
         return {"window": w, "keys": pool.keys, "subs": len(pool.entries),
                 "sketch": has_sketch}
 
-    async def warmup(self, req) -> dict:
+    async def warmup(self, req, cs=None) -> dict:
         """Run, for every requested bucket ``f_buckets`` and every span size
         it implies under ``crawl_shard_nodes`` (none for a whole-level
         secure crawl unless ``secure_spans``), what a crawl at that bucket
@@ -915,40 +809,63 @@ class CollectorServer:
         no live state: neither the frontier, nor the OT sessions, nor the
         data plane.  A leader whose ``data_shards`` resolves to another shard
         count than this server's gets a ``warmup.shard_mismatch`` event (the
-        server's own shards are warmed).  -> ``{"shapes", "ladder_hits"}``
-        (the hits of the JAX server's tenant ladder, always 0: tenancy is
-        not ported)."""
-        self._concat_keys("warmup")
+        server's own shards are warmed).  A shape that any collection of
+        this server already warmed is skipped and counted a ladder hit
+        (``protocol/tenancy.py``): a new collection on a warmed shape runs
+        nothing again.  -> ``{"shapes", "ladder_hits"}``: the
+        shapes warmed, the shapes skipped."""
+        cs = cs or self._default()
+        cs._concat_keys("warmup")
         req = req or {}
         buckets = sorted({int(b) for b in req.get("f_buckets", []) if int(b) > 0})
         ot_path = req.get("ot_path") or self.cfg.ot_path
         whole = (self.cfg.secure_exchange and self.cfg.secure_whole_level
                  and not req.get("secure_spans"))
         want = req.get("data_shards")
-        have = 1 if self._mesh is None else self._mesh.shards
+        have = 1 if cs._mesh is None else cs._mesh.shards
         if want is not None and int(want) > 0:
             want_shards = smesh._largest_divisor_leq(
-                self._n_clients(), smesh.resolve_data_devices(int(want), self.device))
+                cs._n_clients(), smesh.resolve_data_devices(int(want), self.device))
             if want_shards != have:
                 self.emit("warmup.shard_mismatch", server=self.server_id,
                           leader_data_shards=want_shards, server_data_shards=have)
-        L = self._data_len()
-        shapes = 0
+        L = cs._data_len()
+        shapes = hits = 0
         for b in buckets:
             sizes = set() if whole else {
                 hi - lo for lo, hi in collect.shard_spans(b, self.cfg.crawl_shard_nodes)}
             for fb in sorted(sizes | {b}):
-                self._warm_bucket(fb, L, ot_path)
-                shapes += 1
+                key = self._warm_key(cs, fb, L, ot_path)
+                if tenancy.warmed(key):
+                    hits += 1
+                else:
+                    self._warm_bucket(cs, fb, L, ot_path)
+                    tenancy.mark_warmed(key)
+                    shapes += 1
                 await asyncio.sleep(0)  # the control plane keeps answering
+        self._add(cs, "warmup_shapes", shapes)
+        self._add(cs, "warmup_ladder_hits", hits)
         # a malicious session warms the same crawl shapes: the JAX server's
         # _warm_sketch pre-compiles the sketch verify's XLA programs, and
         # PyTorch compiles nothing, so there is nothing more to warm
         if self.device.type == "cuda":  # the peer process shares the card
             torch.cuda.empty_cache()
-        return {"shapes": shapes, "ladder_hits": 0}
+        return {"shapes": shapes, "ladder_hits": hits}
 
-    def _warm_bucket(self, fb: int, L: int, ot_path: str) -> None:
+    def _warm_key(self, cs, fb: int, L: int, ot_path: str) -> tuple:
+        """The warm ladder's key of one shape: everything that changes a
+        launch's shape or path — the server (its boot id: servers sharing a
+        process, as in the CPU tests, each warm as their own processes
+        would) and its device, the batch shape, the bucket, the secure
+        exchange and its ``ot_path`` (so S through d and the radix, W
+        through the field of each round), the data shards and the kernel
+        stage's shard budget."""
+        return ("warm", self.boot_id, str(self.device), tuple(cs._kb().cw_seed.shape),
+                cs._n_clients(), fb, L, bool(self.cfg.secure_exchange), str(ot_path),
+                int(self.cfg.crawl_radix_bits), 1 if cs._mesh is None else cs._mesh.shards,
+                int(self.cfg.secure_kernel_shards))
+
+    def _warm_bucket(self, cs, fb: int, L: int, ot_path: str) -> None:
         """A throwaway root frontier of ``fb`` slots through the rounds a
         crawl runs: the full-radix round with the child cache and the tail
         round without (one round when it is the whole crawl); then the
@@ -957,15 +874,15 @@ class CollectorServer:
         live level binds the kernel stage to the data shards) in FE62 or,
         for the tail, F255.  With data shards every stage runs per shard,
         as the live crawl does."""
-        mesh = self._mesh
-        keys = self._shards(self.keys)
-        d, N = keys[0].cw_seed.shape[1], self._n_clients()
+        mesh = cs._mesh
+        keys = cs._shards(cs.keys)
+        d, N = keys[0].cw_seed.shape[1], cs._n_clients()
         k = self.cfg.crawl_radix_bits
         frs = [collect.tree_init(kb, fb) for kb in keys]
         base_last = k * ((L - 1) // k)
         steps = ([(min(k, L), True)] if base_last == 0
                  else [(k, False), (L - base_last, True)])
-        alive = self.alive_keys
+        alive = cs.alive_keys
         if alive is None:
             alive = torch.ones(N, dtype=torch.bool, device=self.device)
         for r, last in steps:
@@ -994,173 +911,115 @@ class CollectorServer:
     # -- recovery verbs (no reference analogue: its only recovery verb is
     # reset, server.rs:64-69) ------------------------------------------------
 
-    async def status(self, _req) -> dict:
+    async def status(self, _req, cs=None) -> dict:
         """The supervising leader's probe: the boot id tells it whether this
         is the process it knew (replay is safe) or a restart (state gone:
-        restore), the dedup hits that no verb ran twice, the ingest front
-        door's health (``ingest``: per-window occupancy, the unsealed queue
-        depth, the admit, shed and reject counters), and the data shards'
-        health (:meth:`mesh_status`; its ``faults`` tells the leader a
-        device loss from a server loss).  The JAX server's sections of
-        unported layers (sessions, fleet, slo, alerts) are left out."""
-        return {"boot_id": self.boot_id, "collection": DEFAULT_COLLECTION,
+        restore), the dedup hits that no verb ran twice; for the calling
+        collection its ingest front door's health (``ingest``: per-window
+        occupancy, the unsealed queue depth, the admit, shed and reject
+        counters) and its data shards' (``mesh``, whose ``faults`` tells the
+        leader a device loss from a server loss); and every collection's row
+        with the tenant scheduler's figures (``sessions``).  The JAX
+        server's sections of unported layers (fleet, slo, alerts) are left
+        out."""
+        cs = cs or self._default()
+        return {"boot_id": self.boot_id, "collection": cs.key,
                 "clock": round(time.time(), 6),
-                "has_keys": self.keys is not None or bool(self.keys_parts),
-                "has_frontier": self.frontier is not None,
+                "has_keys": cs.keys is not None or bool(cs.keys_parts),
+                "has_frontier": cs.frontier is not None,
                 "dedup_hits": self.stats["dedup_hits"],
                 "plane_resets": self.stats["plane_resets"],
-                "ckpt_levels": self._ckpt_levels(), "ingest": self._ingest.ingest_status(),
-                "mesh": self.mesh_status()}
+                "ckpt_levels": cs.ckpt_levels(), "ingest": cs.ingest_status(),
+                "mesh": cs.mesh_status(), "sessions": self.sessions_status()}
 
-    def mesh_status(self) -> dict | None:
-        """The data shards in the JAX server's ``mesh`` section (None
-        without them): devices in the budget, shards bound and clients per
-        shard, the per-shard reductions' seconds, device faults and
-        re-shards, the secure kernel stage's last and widest shard count
-        (None before a secure level), the levels that gathered their share
-        bits and the seconds of those gathers, and the last sketch check's
-        shard count (None before one)."""
-        if self._mesh is None:
-            return None
-        st = self.stats
-        return {"data_devices": self._mesh.n_devices, "data_shards": self._mesh.shards,
-                "shard_clients": self._mesh.occupancy(),
-                "ici_reduce_seconds": round(st["ici_reduce_s"], 6),
-                "reshards": st["mesh_reshards"], "faults": st["mesh_faults"],
-                "kernel_shards": self._gauges["kernel_shards"],
-                "kernel_shards_max": self._gauges["kernel_shards_max"],
-                "kernel_gathers": st["kernel_gathers"],
-                "kernel_gather_seconds": round(st["kernel_gather_s"], 6),
-                "sketch_shards": self._gauges["sketch_shards"]}
+    def sessions_status(self) -> dict:
+        """The ``sessions`` section of ``status`` and ``server.exit`` (JAX
+        rpc.py:1969-2005): the live collections, one row each (the verb it
+        runs and its level, the unsealed queue depth, the replay-cache
+        entries of its leaders, its checkpoint levels, the plane epoch its
+        channel was keyed at, the seconds since it last finished a verb, and
+        its counters, which sum to the server's totals), and the tenant
+        scheduler's device turns and stall fills."""
+        dedup: dict = {}
+        for sess in self._sessions.values():
+            dedup[sess.collection] = dedup.get(sess.collection, 0) + len(sess.cache)
+        now = time.monotonic()
+        rows = {key: {"phase": cs.phase, "level": cs.level,
+                      "queue_depth": sum(p.keys for p in cs._ingest_pools.values()
+                                         if not p.sealed),
+                      "dedup_entries": dedup.get(key, 0), "ckpt_levels": cs.ckpt_levels(),
+                      "has_frontier": cs.frontier is not None, "plane_epoch": cs.plane_epoch,
+                      "last_progress_s": round(max(0.0, now - cs.last_progress), 3),
+                      "counters": cs.stats}
+                for key, cs in self._table.items()}
+        return {"count": len(self._table), "scheduler": self._sched.stats(),
+                "per_session": rows}
 
-    async def tree_checkpoint(self, req) -> dict:
+    async def tree_checkpoint(self, req, cs=None) -> dict:
         """Persist the crawl state after the round based at ``level``: the
         frontier (plane-major: ``planar`` True), node and client liveness,
         stamped with the key fingerprint, the level, the collection
         (``sess``) and the crawl radix, and in malicious mode the sketch
-        state (:meth:`_sketch_blob`) — the JAX server's blob, field for
-        field.  A sketch crawl banks one at level -1 too, after
-        ``tree_init``, before any Beaver slab opens.  Keys are not in it:
-        the leader re-uploads them to a restarted server.  The ingest pools
-        ride every blob (``ing_*``: entries, recorded verdicts, quota
-        ledgers, the reservoir's state); with ``ingest_only``, or with pools
-        and no frontier (between windows), the blob is ingest-only
-        (``ing_only``), the rollback point of a window's recovery.  Written
-        to a temporary file and renamed, so a crash mid-write leaves the
-        previous checkpoint whole; the two newest levels are kept."""
+        state (:meth:`sessions.CollectionSession._sketch_blob`) — the JAX
+        server's blob, field for field, in the collection's own namespace.
+        A sketch crawl banks one at level -1 too, after ``tree_init``,
+        before any Beaver slab opens.  Keys are not in it: the leader
+        re-uploads them to a restarted server.  The ingest pools ride every
+        blob (``ing_*``: entries, recorded verdicts, quota ledgers, the
+        reservoir's state); with ``ingest_only``, or with pools and no
+        frontier (between windows), the blob is ingest-only (``ing_only``),
+        the rollback point of a window's recovery.  Written to a temporary
+        file and renamed, so a crash mid-write leaves the previous
+        checkpoint whole; the two newest levels are kept."""
+        cs = cs or self._default()
         if self.ckpt_dir is None:
             raise RuntimeError("tree_checkpoint: no checkpoint dir configured "
                                "(start the server with FHH_CKPT_DIR set)")
-        pools = self._ingest._ingest_pools
+        pools = cs._ingest_pools
         ing_only = bool((req or {}).get("ingest_only"))
-        if self.frontier is None and not pools:
+        if cs.frontier is None and not pools:
             raise RuntimeError("tree_checkpoint before tree_init")
         if ing_only and not pools:
             raise RuntimeError("tree_checkpoint: no ingest pools to persist")
         level = int(req["level"])
         t0 = time.perf_counter()
-        if self.frontier is not None and not ing_only:
-            fr = (self.frontier if self._mesh is None
-                  else self._mesh.gather_frontier(self.frontier))
+        if cs.frontier is not None and not ing_only:
+            fr = (cs.frontier if cs._mesh is None
+                  else cs._mesh.gather_frontier(cs.frontier))
             st = fr.states
             as_np = lambda t: t.cpu().numpy()
             blob = {"seed": words_to_numpy(st.seed), "bit": as_np(st.bit),
                     "y_bit": as_np(st.y_bit), "alive": as_np(fr.alive),
-                    "alive_keys": as_np(self.alive_keys), "planar": np.bool_(True),
-                    "keys_fp": self._keys_fp()}
-            if self._sketch is not None:
-                blob.update(self._sketch_blob())
+                    "alive_keys": as_np(cs.alive_keys), "planar": np.bool_(True),
+                    "keys_fp": cs._keys_fp()}
+            if cs._sketch is not None:
+                blob.update(cs._sketch_blob())
         else:
             blob = {"ing_only": np.bool_(True)}
-        blob.update(level=np.int64(level), sess=np.str_(DEFAULT_COLLECTION),
+        blob.update(level=np.int64(level), sess=np.str_(cs.key),
                     radix=np.int64(self.cfg.crawl_radix_bits))
-        self._ingest.ingest_ckpt_fields(blob)
-        path = self._ckpt_path(level)
+        cs.ingest_ckpt_fields(blob)
+        path = cs.ckpt_path(level)
         tmp = f"{path}.tmp{os.getpid()}"
 
         def write():
             with open(tmp, "wb") as f:
                 np.savez(f, **blob)
             os.replace(tmp, path)
-            self._ckpt_prune()
+            cs.ckpt_prune()
 
         await asyncio.to_thread(write)
         dt = time.perf_counter() - t0
         nbytes = os.path.getsize(path)
-        self.stats["ckpt_writes"] += 1
-        self.stats["ckpt_bytes"] += nbytes
-        self.stats["ckpt_write_s"] += dt
+        self._add(cs, "ckpt_writes")
+        self._add(cs, "ckpt_bytes", nbytes)
+        self._add(cs, "ckpt_write_s", dt)
         self.emit("resilience.server_checkpoint", server=self.server_id,
-                  collection=DEFAULT_COLLECTION, level=level, path=path, bytes=nbytes,
+                  collection=cs.key, level=level, path=path, bytes=nbytes,
                   seconds=dt)
         return {"level": level}
 
-    def _sketch_blob(self) -> dict:
-        """The sketch's share of a checkpoint (JAX rpc.py:2092-2128): the
-        frontier-following DPF states, the stored pairs not yet opened (one
-        ``sk_pairs_{i}`` a fused depth, with their depths and fields), the
-        dedup table, the depth, the committed root and the transcript digest
-        — all a re-run needs to replay each level's challenge."""
-        st = self._sketch_states
-        blob = {"sk_state_seed": words_to_numpy(st.seed), "sk_state_t": st.t.cpu().numpy(),
-                "sk_pids": np.asarray(self._sketch_pids), "sk_depth": np.int64(self._sketch_depth),
-                "sk_root": np.asarray(self._sketch_root, np.uint32),
-                "sk_digest": np.frombuffer(self._ratchet_digest, np.uint8)}
-        if self._sketch_pairs is not None:
-            for i, (p, _, _) in enumerate(self._sketch_pairs):
-                blob[f"sk_pairs_{i}"] = sketchmod.wire(p)
-            blob["sk_pairs_depth"] = np.asarray([dep for _, dep, _ in self._sketch_pairs],
-                                                np.int64)
-            blob["sk_pairs_last"] = np.asarray([f is F255 for _, _, f in self._sketch_pairs],
-                                               bool)
-        return blob
-
-    def _check_sketch_blob(self, z: dict, path: str) -> None:
-        """Refuse a blob whose sketch presence differs from the session's,
-        or whose ``sk_*`` fields are torn, before any state changes (JAX
-        rpc.py:2265-2284; the per-depth ``sk_pairs_{i}`` are held to their
-        count as well)."""
-        has = self._has_sketch()
-        if has != ("sk_root" in z):
-            raise RuntimeError("tree_restore: sketch material mismatch — the checkpoint "
-                               + ("lacks" if has else "carries")
-                               + " sketch state relative to the uploaded keys")
-        if not has:
-            return
-        need = {"sk_state_seed", "sk_state_t", "sk_pids", "sk_depth", "sk_digest"}
-        if "sk_pairs" in z or "sk_pairs_0" in z:
-            need |= {"sk_pairs_depth", "sk_pairs_last"}
-        if "sk_pairs_0" in z and "sk_pairs_depth" in z:
-            need |= {f"sk_pairs_{i}" for i in range(np.atleast_1d(z["sk_pairs_depth"]).size)}
-        missing = need - set(z)
-        if missing:
-            raise RuntimeError(f"tree_restore: checkpoint at {path} is missing sketch fields "
-                               f"{sorted(missing)} (truncated write?)")
-
-    def _restore_sketch(self, z: dict) -> None:
-        """Load the sketch state of a checked blob: per-depth ``sk_pairs_{i}``
-        entries, or the older single ``sk_pairs``."""
-        self._concat_sketch()
-        dev = self.device
-        self._sketch_states = dpf.DpfEvalState(seed=words_from_numpy(z["sk_state_seed"], dev),
-                                               t=tensor_from_numpy(z["sk_state_t"], dev, bool))
-        self._sketch_pids = np.asarray(z["sk_pids"])
-        self._sketch_depth = int(z["sk_depth"])
-        self._sketch_root = np.asarray(z["sk_root"], np.uint32).copy()
-        self._ratchet_digest = np.asarray(z["sk_digest"], np.uint8).tobytes()
-        field = lambda last: F255 if bool(last) else FE62
-        if "sk_pairs_0" in z:
-            depths = np.atleast_1d(z["sk_pairs_depth"])
-            lasts = np.atleast_1d(z["sk_pairs_last"])
-            self._sketch_pairs = [(sketchmod.from_wire(z[f"sk_pairs_{i}"], dev), int(depths[i]),
-                                   field(lasts[i])) for i in range(len(depths))]
-        elif "sk_pairs" in z:
-            self._sketch_pairs = [(sketchmod.from_wire(z["sk_pairs"], dev),
-                                   int(z["sk_pairs_depth"]), field(z["sk_pairs_last"]))]
-        else:
-            self._sketch_pairs = None
-
-    async def tree_restore(self, req) -> dict:
+    async def tree_restore(self, req, cs=None) -> dict:
         """Reload the :meth:`tree_checkpoint` of the level the leader names
         and return it (the crawl goes on at the round after it).  Needs the
         keys: still held, or re-uploaded after a restart.  Every check runs
@@ -1174,10 +1033,11 @@ class CollectorServer:
         keys); every other blob restores its pools with the frontier.  A
         blob of the interleaved layout (``planar`` False, a JAX server on
         the XLA engine) is carried to the plane-major one."""
+        cs = cs or self._default()
         if self.ckpt_dir is None:
             raise RuntimeError("tree_restore: no checkpoint dir configured")
         want = int(req["level"])
-        path = self._ckpt_path(want)
+        path = cs.ckpt_path(want)
         if not os.path.exists(path):
             raise RuntimeError(f"tree_restore: no checkpoint at {path}")
         t0 = time.perf_counter()
@@ -1186,9 +1046,9 @@ class CollectorServer:
         except Exception as e:  # every load failure is the same refusal
             raise RuntimeError(f"tree_restore: corrupt or truncated checkpoint at {path} "
                                f"({type(e).__name__}: {e})") from e
-        if "sess" in z and str(z["sess"]) != DEFAULT_COLLECTION:
+        if "sess" in z and str(z["sess"]) != cs.key:
             raise RuntimeError(f"tree_restore: checkpoint at {path} is stamped for collection "
-                               f"{str(z['sess'])!r}, not {DEFAULT_COLLECTION!r} (renamed across "
+                               f"{str(z['sess'])!r}, not {cs.key!r} (renamed across "
                                "session namespaces?)")
         saved_radix = int(z["radix"]) if "radix" in z else 1  # unstamped blobs are radix 1
         if saved_radix != self.cfg.crawl_radix_bits:
@@ -1201,29 +1061,29 @@ class CollectorServer:
                 raise RuntimeError(f"tree_restore: checkpoint at {path} is stamped level {want} "
                                    f"but records level {int(z['level'])} (renamed or tampered "
                                    "file)")
-            parsed = self._ingest.ingest_validate(z, path)
+            parsed = cs.ingest_validate(z, path)
             if parsed is None:
                 raise RuntimeError(f"tree_restore: ingest-only checkpoint at {path} carries no "
                                    "ingest pools (truncated write?)")
-            self._ingest.ingest_restore_apply(parsed)
+            cs.ingest_restore_apply(parsed)
             dt = time.perf_counter() - t0
-            self.stats["restores"] += 1
-            self.stats["restore_s"] += dt
+            self._add(cs, "restores")
+            self._add(cs, "restore_s", dt)
             self.emit("resilience.server_restore", server=self.server_id,
-                      collection=DEFAULT_COLLECTION, level=want, seconds=dt, ingest_only=True)
+                      collection=cs.key, level=want, seconds=dt, ingest_only=True)
             return {"level": want}
-        self._concat_keys("tree_restore")
+        cs._concat_keys("tree_restore")
         required = {"seed", "bit", "y_bit", "alive", "alive_keys", "level", "planar",
                     "keys_fp"}
         missing = required - set(z)
         if missing:
             raise RuntimeError(f"tree_restore: checkpoint at {path} is missing fields "
                                f"{sorted(missing)} (truncated write?)")
-        if not np.array_equal(z["keys_fp"], self._keys_fp()):
+        if not np.array_equal(z["keys_fp"], cs._keys_fp()):
             raise RuntimeError("tree_restore: checkpoint was written under a different key "
                                "batch — re-upload the original keys")
         level = int(z["level"])
-        L, n = self._data_len(), self._n_clients()
+        L, n = cs._data_len(), cs._n_clients()
         if level != want:
             raise RuntimeError(f"tree_restore: checkpoint at {path} is stamped level {want} "
                                f"but records level {level} (renamed or tampered file)")
@@ -1232,12 +1092,12 @@ class CollectorServer:
                                f"key batch's tree (data_len={L}) — wrong collection")
         if z["alive_keys"].shape[0] != n:
             raise RuntimeError("tree_restore: checkpoint client count != key batch")
-        self._check_sketch_blob(z, path)
-        parsed_ing = self._ingest.ingest_validate(z, path)  # None: a blob with no pools
+        cs._check_sketch_blob(z, path)
+        parsed_ing = cs.ingest_validate(z, path)  # None: a blob with no pools
         # -- every check passed: mutate.  With data shards the frontier is
         # split again from the host blob: a lost device is recovered by
         # placement, not by a restart
-        dev = self.device if self._mesh is None else torch.device("cpu")
+        dev = self.device if cs._mesh is None else torch.device("cpu")
         as_bool = lambda a: tensor_from_numpy(a, dev, bool)
         if bool(z["planar"]):
             states = EvalState(seed=words_from_numpy(z["seed"], dev), bit=as_bool(z["bit"]),
@@ -1245,29 +1105,32 @@ class CollectorServer:
         else:
             states = collect.states_from_numpy(
                 EvalState(seed=z["seed"], bit=z["bit"], y_bit=z["y_bit"]), dev)
-        self.alive_keys = tensor_from_numpy(z["alive_keys"], self.device, bool)
+        cs.alive_keys = tensor_from_numpy(z["alive_keys"], self.device, bool)
         frontier = collect.Frontier(states=states, alive=as_bool(z["alive"]))
-        self.frontier = (frontier if self._mesh is None
-                         else self._mesh.shard_frontier(frontier))
-        self.children = self.last_shares = None
-        self._clear_spans()
-        if self._has_sketch():
-            self._restore_sketch(z)
+        cs.frontier = (frontier if cs._mesh is None
+                       else cs._mesh.shard_frontier(frontier))
+        cs.children = cs.last_shares = None
+        cs.clear_spans()
+        if cs._has_sketch():
+            cs._restore_sketch(z)
         if parsed_ing is not None:
-            self._ingest.ingest_restore_apply(parsed_ing)
+            cs.ingest_restore_apply(parsed_ing)
         dt = time.perf_counter() - t0
-        self.stats["restores"] += 1
-        self.stats["restore_s"] += dt
+        self._add(cs, "restores")
+        self._add(cs, "restore_s", dt)
         self.emit("resilience.server_restore", server=self.server_id,
-                  collection=DEFAULT_COLLECTION, level=level, seconds=dt,
+                  collection=cs.key, level=level, seconds=dt,
                   planar=bool(z["planar"]))
         return {"level": level}
 
-    async def plane_reset(self, _req) -> bool:
+    async def plane_reset(self, _req, cs=None) -> bool:
         """Re-establish the data plane after a peer loss: server 0 drops its
         transport and redials under ``DIAL_POLICY``; server 1 re-accepts on
-        its listener, which is still bound.  The next data-plane verb on
-        each side re-keys the new transport."""
+        its listener, which is still bound.  The plane is shared: the new
+        transport bumps the mux epoch, so every collection re-keys its
+        channel at its next data-plane verb, and a collection caught
+        mid-exchange fails that verb, for its own leader to recover.  Runs
+        under the server's lock, not a collection's."""
         if self.server_id != 0:
             return True
         if self._peer_writer is not None and not self._peer_writer.is_closing():
@@ -1277,54 +1140,18 @@ class CollectorServer:
         self.emit("resilience.plane_reset", server=self.server_id)
         return True
 
-    async def plane_break(self, _req) -> bool:
+    async def plane_break(self, _req, cs=None) -> bool:
         """Close this server's end of the data plane without redialing: the
-        pipelined leader's quiesce.  Dispatched outside the verb lock, so it
-        can break a verb wedged on a plane recv while holding that lock (a
-        span that reached one server only): the recv fails, the verb answers
-        its error, and the leader's ``plane_reset`` follows."""
+        pipelined leader's quiesce.  Dispatched outside the verb locks, so it
+        can break a verb wedged on a plane recv while holding its lock (a
+        span that reached one server only): the mux fails every blocked
+        recv, the verb answers its error, and the leader's ``plane_reset``
+        follows."""
         w = self._peer_writer
         if w is not None and not w.is_closing():
             w.close()
         self.emit("resilience.plane_break", server=self.server_id)
         return True
-
-    # -- the checkpoint namespace (the JAX default collection's names) --------
-
-    def _ckpt_prefix(self) -> str:
-        return f"fhh_server{self.server_id}_l"
-
-    def _ckpt_path(self, level: int) -> str:
-        # level-stamped: a torn round (one server wrote level k, the other
-        # died first) leaves both able to restore the same earlier level
-        return os.path.join(self.ckpt_dir, f"{self._ckpt_prefix()}{level}.npz")
-
-    def _ckpt_found(self) -> list:
-        """[(level, file name)] of this server's checkpoints, in numeric
-        level order (a string sort puts l10 before l9)."""
-        if self.ckpt_dir is None or not os.path.isdir(self.ckpt_dir):
-            return []
-        prefix, found = self._ckpt_prefix(), []
-        for name in os.listdir(self.ckpt_dir):
-            if name.startswith(prefix) and name.endswith(".npz"):
-                try:
-                    found.append((int(name[len(prefix):-4]), name))
-                except ValueError:
-                    continue
-        return sorted(found)
-
-    def _ckpt_levels(self) -> list:
-        return [lvl for lvl, _ in self._ckpt_found()]
-
-    def _ckpt_prune(self, keep: int = 2) -> None:
-        """Drop all but the newest ``keep`` checkpoint levels (``keep`` 0:
-        all of them)."""
-        found = self._ckpt_found()
-        for _, name in found[:len(found) - keep] if keep else found:
-            os.remove(os.path.join(self.ckpt_dir, name))
-
-    def _ckpt_clear(self) -> None:
-        self._ckpt_prune(keep=0)
 
     @staticmethod
     def _prune_args(req):
@@ -1339,96 +1166,61 @@ class CollectorServer:
                              "[F', r, d]")
         return parent, pat, int(req["n_alive"])
 
-    # -- node spans -----------------------------------------------------------
-
     @staticmethod
     def _parse_shard(req):
         s = (req or {}).get("shard")
         return None if s is None else (int(s[0]), int(s[1]))
 
-    def _frontier_view(self, shard):
-        if shard is None:
-            return self.frontier
-        return self._one([collect.frontier_slice(f, *shard) for f in self._shards(self.frontier)])
+    # -- one level: the device stage, then the exchange --------------------------
 
-    def _stash_children(self, level: int, shard, children) -> None:
-        """Bank one crawl's child cache for the prune: the whole level's,
-        or a span's under its ``lo`` (the first span of a new level drops
-        any stale ones)."""
-        if shard is None:
-            self.children = children
-            return
-        if self._shard_level != level:
-            self._shard_children.clear()
-            self._shard_last.clear()
-            self._shard_level = level
-        self.children = None
-        if children is not None:
-            self._shard_children[shard[0]] = children
-
-    def _assemble_shard_children(self, radix: int):
-        """The round's child cache from its spans (``2^(radix-1)`` cache
-        rows per frontier slot); a missing span raises rather than advance
-        garbage for its nodes."""
-        items = list(self._shard_children.items())
-        n = len(self._shards(self.frontier))
-        children = self._one([collect.children_cat([(lo, self._shards(c)[j]) for lo, c in items])
-                              for j in range(n)])
-        got = self._shards(children)[0].seed.shape[4] >> (radix - 1)
-        if got != self._f_bucket():
-            raise RuntimeError(f"sharded crawl incomplete: child caches cover {got} of "
-                               f"{self._f_bucket()} frontier slots")
-        self._shard_children.clear()
-        return children
-
-    def _mask_rows(self, level: int, shard, C: int, f255: bool) -> np.ndarray:
-        """The trusted answer's mask rows of one (level, span): the whole
-        level's stream sliced to the span's nodes (one-entry cache)."""
-        F = self._f_bucket()
-        key = (level, F, f255)
-        if self._mask_cache is None or self._mask_cache[0] != key:
-            self._mask_cache = (key, sessions.mask_rows(level, F, C, f255))
-        full = self._mask_cache[1]
-        return full if shard is None else full[shard[0]:shard[1]]
-
-    def _do_expand(self, level: int, last: bool, shard) -> dict:
+    def _do_expand(self, cs, level: int, last: bool, shard) -> dict:
         """The device half of one crawl verb: the expansion of the frontier
         view, per data shard on its clients (and in secure mode its
         equality strings: row-sharded over the kernel stage's shards, or
         gathered onto the first shard when the level binds one).
         Dispatches device work and never touches the data plane."""
-        frontier = self._frontier_view(shard)
-        r = self.crawl_radix(level)
+        frontier = cs._frontier_view(shard)
+        r = cs.crawl_radix(level)
         outs = [collect.expand_share_bits_radix(k, f, level, r, want_children=not last)
-                for k, f in zip(self._shards(self.keys), self._shards(frontier))]
-        packed = self._one([p for p, _ in outs])
-        out = {"packed": packed, "children": self._one([c for _, c in outs]),
+                for k, f in zip(cs._shards(cs.keys), cs._shards(frontier))]
+        packed = cs._one([p for p, _ in outs])
+        out = {"packed": packed, "children": cs._one([c for _, c in outs]),
                "frontier": frontier}
         if self.cfg.secure_exchange:  # strings of S' = 2·d·r bits
-            d = self._kb().cw_seed.shape[1]
-            if self._mesh is not None:
-                F, N, C = frontier[0].f_bucket, self._mesh.n_clients, 1 << (d * r)
-                ks = self._mesh.kernel_bind(F * C * N, 2 * d * r, self.cfg.secure_kernel_shards)
+            d = cs._kb().cw_seed.shape[1]
+            if cs._mesh is not None:
+                F, N, C = frontier[0].f_bucket, cs._mesh.n_clients, 1 << (d * r)
+                ks = cs._mesh.kernel_bind(F * C * N, 2 * d * r, self.cfg.secure_kernel_shards)
                 if ks is not None:
                     out.update(flat=kernel_shard.shard_flat(ks, packed, d, F, N, r),
                                dims=(F, C, N, 2 * d * r), kernel=ks)
                     del out["packed"]
                     return out
                 t0 = time.perf_counter()
-                packed = self._mesh.gather(Sharded(packed, 1))
-                self.stats["kernel_gathers"] += 1
-                self.stats["kernel_gather_s"] += time.perf_counter() - t0
+                packed = cs._mesh.gather(Sharded(packed, 1))
+                self._add(cs, "kernel_gathers")
+                self._add(cs, "kernel_gather_s", time.perf_counter() - t0)
             strs = secure.child_strings_radix(packed, d, r)
             F, C, N, S = strs.shape
             out.update(flat=strs.reshape(F * C * N, S), dims=(F, C, N, S))
             del out["packed"]
         return out
 
-    def _expand_stage(self, level: int, last: bool, shard) -> dict:
-        hit = self._expand_ready.pop((last, level, shard), None)
-        return hit if hit is not None else self._do_expand(level, last, shard)
+    def _expand_stage(self, cs, level: int, last: bool, shard) -> dict:
+        hit = cs._expand_ready.pop((last, level, shard), None)
+        return hit if hit is not None else self._do_expand(cs, level, last, shard)
 
-    def _maybe_pre_expand(self, verb: str, req) -> None:
+    async def _device_stage(self, cs, level: int, last: bool, shard) -> dict:
+        """The expand stage in a device turn (``tenancy.TenantScheduler``):
+        FIFO across collections, a stall fill when another collection waits
+        on the wire.  The turn brackets the stage alone, never an exchange:
+        two servers granting turns in opposite orders must not wait on each
+        other.  A span pre-expanded at its frame's arrival was counted then."""
+        pre = (last, level, shard) in cs._expand_ready
+        async with self._sched.device_turn(cs.key, count=not pre):
+            return self._expand_stage(cs, level, last, shard)
+
+    def _maybe_pre_expand(self, cs, verb: str, req) -> None:
         """Frame arrival of a span's crawl verb, before the verb lock: run
         its expansion now, while an earlier span holds the lock on the data
         plane.  A prefetch only: any failure here leaves the verb to
@@ -1436,42 +1228,44 @@ class CollectorServer:
         if verb not in ("tree_crawl", "tree_crawl_last"):
             return
         shard = self._parse_shard(req)
-        if shard is None or self.keys is None or self.frontier is None:
+        if shard is None or cs.keys is None or cs.frontier is None:
             return
-        if shard[1] > self._f_bucket():
+        if shard[1] > cs._f_bucket():
             return
         key = (verb == "tree_crawl_last", int(req["level"]), shard)
-        if key in self._expand_ready or len(self._expand_ready) >= 32:
+        if key in cs._expand_ready or len(cs._expand_ready) >= 32:
             return
         t0 = time.perf_counter()
         try:
-            self._expand_ready[key] = self._do_expand(key[1], key[0], shard)
+            cs._expand_ready[key] = self._do_expand(cs, key[1], key[0], shard)
         except Exception:  # prefetch only: the verb recomputes and reports
-            self._expand_ready.pop(key, None)
+            cs._expand_ready.pop(key, None)
             return
-        self._phases(fss=time.perf_counter() - t0)
+        # a dispatch while another collection's span is on the wire is the
+        # gap tenancy fills
+        self._sched.note_dispatch(cs.key)
+        self._phases(cs, fss=time.perf_counter() - t0)
 
-    # -- one level ------------------------------------------------------------
-
-    async def _crawl(self, verb: str, req, last: bool) -> np.ndarray:
-        if self.frontier is None:
+    async def _crawl(self, cs, verb: str, req, last: bool) -> np.ndarray:
+        if cs.frontier is None:
             raise RuntimeError(f"{verb} before tree_init")
         level = int(req["level"])
         shard = self._parse_shard(req)
-        await self._ensure_plane()
+        await self._ensure_session_plane(cs)
         field = F255 if last else FE62
-        self.stats["levels"] += 1
+        self._add(cs, "levels")
         if self.cfg.secure_exchange:
-            shares = await self._mesh_guard(level, lambda: self._crawl_secure(
-                level, field, last, int(req.get("garbler", 0)), req.get("ot_path"), shard))
-            self.stats["levels_done"] += 1
+            shares = await self._mesh_guard(cs, level, lambda: self._crawl_secure(
+                cs, level, field, last, int(req.get("garbler", 0)), req.get("ot_path"), shard))
+            self._add(cs, "levels_done")
             return shares
-        counts = await self._mesh_guard(level, lambda: self._crawl_trusted(level, last, shard))
-        self.stats["levels_done"] += 1
+        counts = await self._mesh_guard(cs, level,
+                                        lambda: self._crawl_trusted(cs, level, last, shard))
+        self._add(cs, "levels_done")
         # trusted mode: both servers hold these counts; the shared mask is a
         # wire-format shim for the leader's v0 - v1, not a secret
         F, C = counts.shape
-        r = self._mask_rows(level, shard, C, f255=last)
+        r = cs._mask_rows(level, shard, C, f255=last)
         if self.server_id == 1:
             return r
         if last:
@@ -1480,11 +1274,7 @@ class CollectorServer:
             return F255.np_add(c, r)
         return FE62.np_add(counts.astype(np.uint64), r)
 
-    def _phases(self, **seconds) -> None:
-        for k, v in seconds.items():
-            self.stats["seconds"][k] += v
-
-    async def _mesh_guard(self, level: int, thunk):
+    async def _mesh_guard(self, cs, level: int, thunk):
         """A crawl verb's level under device-loss containment (JAX
         rpc.py:1163-1192): the mesh chaos schedule fires first, before any
         data-plane I/O of the level, and a device fault is recovered in
@@ -1494,76 +1284,76 @@ class CollectorServer:
         error."""
         try:
             if self._mesh_chaos is not None:
-                self._mesh_chaos.before_level(self, int(level))
+                self._mesh_chaos.before_level(cs, int(level))
             return await thunk()
         except reschaos.MeshFaultError as err:
-            if self._mesh is None:
+            if cs._mesh is None:
                 raise
-            await self._mesh_recover(int(level), err)
+            await self._mesh_recover(cs, int(level), err)
             return await thunk()
 
-    async def _mesh_recover(self, level: int, err) -> None:
+    async def _mesh_recover(self, cs, level: int, err) -> None:
         """After a device fault: a lost device (``state_lost``) takes the
         device state with it, so the keys are rebuilt from the kept chunks
-        and the frontier re-sharded from the checkpoint of level - 1
-        (``tree_restore``); a dropped shard is only re-run.  With no such
-        checkpoint the data plane is closed (the peer's half of the level
-        fails instead of waiting for this one) and the fault goes to the
-        leader."""
-        self.stats["mesh_faults"] += 1
-        self._expand_ready.clear()  # a pre-expanded dispatch is suspect
+        and the frontier re-sharded from the collection's checkpoint of
+        level - 1 (``tree_restore``); a dropped shard is only re-run.  With
+        no such checkpoint the data plane is closed (the peer's half of the
+        level fails instead of waiting for this one) and the fault goes to
+        the leader."""
+        self._add(cs, "mesh_faults")
+        cs._expand_ready.clear()  # a pre-expanded dispatch is suspect
         state_lost = bool(getattr(err, "state_lost", False))
-        if state_lost or self.frontier is None:
+        if state_lost or cs.frontier is None:
             prev = level - 1
-            if self.ckpt_dir is None or prev not in self._ckpt_levels():
+            if self.ckpt_dir is None or prev not in cs.ckpt_levels():
                 if self._peer_writer is not None and not self._peer_writer.is_closing():
                     self._peer_writer.close()
                 raise RuntimeError(f"mesh device lost at level {level} with no level-{prev} "
                                    "checkpoint to re-shard from") from err
-            self.keys = None  # device-resident: lost with the shard
-            await self.tree_restore({"level": prev})
-            self.stats["mesh_reshards"] += 1
-        self.stats["shards_rerun"] += 1
+            cs.keys = None  # device-resident: lost with the shard
+            await self.tree_restore({"level": prev}, cs)
+            self._add(cs, "mesh_reshards")
+        self._add(cs, "shards_rerun")
         self.emit("resilience.mesh_reshard", server=self.server_id,
-                  collection=DEFAULT_COLLECTION, level=level, state_lost=state_lost,
+                  collection=cs.key, level=level, state_lost=state_lost,
                   error=str(err))
 
-    async def _crawl_trusted(self, level: int, last: bool, shard) -> np.ndarray:
+    async def _crawl_trusted(self, cs, level: int, last: bool, shard) -> np.ndarray:
         """Swap the packed share bits uint32[F, N] of the frontier (or the
         span) with the peer and count -> int64[F, 2^(d·r)] (ref:
         collect.rs:945-964)."""
         t0 = time.perf_counter()
-        ex = self._expand_stage(level, last, shard)
+        ex = await self._device_stage(cs, level, last, shard)
         packed, frontier = ex["packed"], ex["frontier"]
-        mesh = self._mesh
+        mesh = cs._mesh
         if mesh is None:
             mine = await _fetch_words(packed)
         else:  # per-shard readbacks, assembled by position
             mine = (await asyncio.to_thread(kernel_shard.assemble, Sharded(packed, 1))).view(
                 np.uint32)
-        self.stats["device_fetches"] += len(self._shards(packed))
+        self._add(cs, "device_fetches", len(cs._shards(packed)))
         t1 = time.perf_counter()
-        peer = await self._swap(mine)
+        peer = await self._swap(cs, mine)
         t2 = time.perf_counter()
         if peer.shape != mine.shape:
             raise RuntimeError(f"level {level}: the peer's share bits are shaped "
                                f"{peer.shape}, this server's {mine.shape}")
-        masks = collect.pattern_masks_radix(self._kb().cw_seed.shape[1], self.crawl_radix(level))
+        masks = collect.pattern_masks_radix(cs._kb().cw_seed.shape[1], cs.crawl_radix(level))
         if mesh is None:
             dev_counts = collect.counts_by_pattern(packed, words_from_numpy(peer, self.device),
-                                                   masks, self.alive_keys, frontier.alive)
+                                                   masks, cs.alive_keys, frontier.alive)
         else:
             dev_counts = mesh.counts_by_pattern(packed, words_from_numpy(peer, "cpu"), masks,
-                                                self.alive_keys, frontier[0].alive)
+                                                cs.alive_keys, frontier[0].alive)
         counts = await asyncio.to_thread(lambda: dev_counts.cpu().numpy())
-        self.stats["device_fetches"] += 1
+        self._add(cs, "device_fetches")
         if mesh is not None:
-            self.stats["ici_reduce_s"] += time.perf_counter() - t2
-        self._stash_children(level, shard, ex["children"])
-        self._phases(fss=t1 - t0, gc_ot=t2 - t1, field=time.perf_counter() - t2)
+            self._add(cs, "ici_reduce_s", time.perf_counter() - t2)
+        cs._stash_children(level, shard, ex["children"])
+        self._phases(cs, fss=t1 - t0, gc_ot=t2 - t1, field=time.perf_counter() - t2)
         return counts
 
-    async def _crawl_secure(self, level: int, field, last: bool, garbler: int,
+    async def _crawl_secure(self, cs, level: int, field, last: bool, garbler: int,
                             ot_path, shard) -> np.ndarray:
         """The whole-level (or span) 2PC (ref: collect.rs:419-501): the
         evaluator sends its extension's ``u``, the garbler answers with its
@@ -1572,39 +1362,40 @@ class CollectorServer:
         dev = self.device
         clock = PhaseClock(dev)
         t0 = time.perf_counter()
-        ex = self._expand_stage(level, last, shard)
+        ex = await self._device_stage(cs, level, last, shard)
         flat, ks = ex["flat"], ex.get("kernel")
         F, C, N, S = ex["dims"]
         B = F * C * N
-        w = secure.alive_weight(self._shards(ex["frontier"])[0].alive, self.alive_keys, C)
+        w = secure.alive_weight(cs._shards(ex["frontier"])[0].alive, cs.alive_keys, C)
         # the crawl counter keeps every garbling's randomness fresh if a leader
         # re-crawls a level without a reset
-        self._crawl_ctr += 1
-        gseed = secure.derive_seed(self._sec_seed, 1, level, self._crawl_ctr)
-        bseed = secure.derive_seed(self._sec_seed, 2, level, self._crawl_ctr)
+        cs._crawl_ctr += 1
+        gseed = secure.derive_seed(cs._sec_seed, 1, level, cs._crawl_ctr)
+        bseed = secure.derive_seed(cs._sec_seed, 2, level, cs._crawl_ctr)
         path = secure.ot_path(S, ot_path or self.cfg.ot_path)
-        if self._mesh is not None:  # the kernel stage's shards (1: the gather path)
-            self._gauge("kernel_shards", 1 if ks is None else ks.k)
+        if cs._mesh is not None:  # the kernel stage's shards (1: the gather path)
+            cs._gauge("kernel_shards", 1 if ks is None else ks.k)
         t1 = time.perf_counter()
         if ks is not None:  # row-sharded over the data shards: the same wire
-            vals = await self._secure_sharded(ks, flat, gseed, bseed, field, garbler, path, clock)
+            vals = await self._secure_sharded(cs, ks, flat, gseed, bseed, field, garbler, path,
+                                              clock)
         elif self.server_id == garbler:  # garbler = OT-extension sender
-            u = words_from_numpy(await self._dp_recv(), dev)
-            msg, vals = secure.gb_step_level(self._ot_snd, u, flat, gseed, bseed, field,
+            u = words_from_numpy(await self._dp_recv(cs), dev)
+            msg, vals = secure.gb_step_level(cs._ot_snd, u, flat, gseed, bseed, field,
                                              garbler, path, phase=clock)
             del u
-            await self._dp_send(await _fetch_words(msg))
+            await self._dp_send(cs, await _fetch_words(msg))
             del msg
         else:  # evaluator = OT-extension receiver
-            u, t_rows, idx0 = secure.ev_step1_fused(self._ot_rcv, flat, phase=clock)
-            await self._dp_send(await _fetch_words(u))
+            u, t_rows, idx0 = secure.ev_step1_fused(cs._ot_rcv, flat, phase=clock)
+            await self._dp_send(cs, await _fetch_words(u))
             del u
-            msg = words_from_numpy(await self._dp_recv(), dev)
+            msg = words_from_numpy(await self._dp_recv(cs), dev)
             vals = secure.ev_open_level(t_rows, flat, msg, B, S, field, idx0, path,
                                         phase=clock)
             del t_rows, msg
         if ks is None:
-            self.stats["device_fetches"] += 1
+            self._add(cs, "device_fetches")
         del flat, ex["flat"]
         t2 = time.perf_counter()
         if ks is not None:
@@ -1613,16 +1404,16 @@ class CollectorServer:
             sh = secure.node_share_sums(field, vals.reshape((F, C, N) + field.limb_shape), w)
         del vals
         shares = await asyncio.to_thread(_share_wire, field, sh)
-        self.stats["device_fetches"] += 1
-        if self._mesh is not None:
-            self.stats["ici_reduce_s"] += time.perf_counter() - t2
-        self._stash_children(level, shard, ex["children"])
-        self._phases(fss=t1 - t0, gc_ot=t2 - t1, field=time.perf_counter() - t2,
+        self._add(cs, "device_fetches")
+        if cs._mesh is not None:
+            self._add(cs, "ici_reduce_s", time.perf_counter() - t2)
+        cs._stash_children(level, shard, ex["children"])
+        self._phases(cs, fss=t1 - t0, gc_ot=t2 - t1, field=time.perf_counter() - t2,
                      **clock.settle())
         return shares
 
-    async def _secure_sharded(self, ks, flat, gseed, bseed, field, garbler: int, path: str,
-                              clock):
+    async def _secure_sharded(self, cs, ks, flat, gseed, bseed, field, garbler: int,
+                              path: str, clock):
         """The row-sharded twin of the whole-level exchange
         (``parallel/kernel_shard.py``, JAX rpc.py:1023-1110): extension,
         payload pair and equality kernel per kernel shard; the frames read
@@ -1630,119 +1421,147 @@ class CollectorServer:
         shares, per shard."""
         kphase = "b2a" if path == "ot2s" else ("garble" if self.server_id == garbler else "eval")
         if self.server_id == garbler:
-            u_np = await self._dp_recv()
+            u_np = await self._dp_recv(cs)
             with clock("otext"):
-                q, idx0 = kernel_shard.snd_extend(ks, self._ot_snd, u_np)
+                q, idx0 = kernel_shard.snd_extend(ks, cs._ot_snd, u_np)
             with clock(kphase):
-                planes, vals = kernel_shard.gb_kernel(ks, self._ot_snd.s_block, q, flat, gseed,
+                planes, vals = kernel_shard.gb_kernel(ks, cs._ot_snd.s_block, q, flat, gseed,
                                                       bseed, field, garbler, path, idx0)
             del q
-            self.stats["device_fetches"] += ks.k
-            await self._dp_send(await asyncio.to_thread(kernel_shard.msg_wire, ks, planes))
+            self._add(cs, "device_fetches", ks.k)
+            await self._dp_send(cs, await asyncio.to_thread(kernel_shard.msg_wire, ks, planes))
             return vals
         with clock("otext"):
-            u, t_rows, idx0 = kernel_shard.rcv_extend(ks, self._ot_rcv, flat)
-        self.stats["device_fetches"] += ks.k
-        await self._dp_send(await asyncio.to_thread(kernel_shard.u_wire, ks, u))
+            u, t_rows, idx0 = kernel_shard.rcv_extend(ks, cs._ot_rcv, flat)
+        self._add(cs, "device_fetches", ks.k)
+        await self._dp_send(cs, await asyncio.to_thread(kernel_shard.u_wire, ks, u))
         del u
-        msg = await self._dp_recv()
+        msg = await self._dp_recv(cs)
         with clock(kphase):
             return kernel_shard.ev_open(ks, t_rows, flat, msg, field, path, idx0)
 
-    # -- data plane -----------------------------------------------------------
+    # -- data plane: (collection, payload) frames, received through the mux ---
 
-    async def _dp_send(self, obj) -> None:
-        await _send(self._peer_writer, (DEFAULT_COLLECTION, obj),
-                    count=self._count("data_bytes_sent"))
+    async def _dp_send(self, cs, obj) -> None:
+        def count(n: int) -> None:
+            self._add(cs, "data_bytes_sent", n)
+            self.stats["data_frame_max"] = max(self.stats["data_frame_max"], n)
 
-    async def _dp_recv(self):
-        frame = await _recv(self._peer_reader, count=self._count("data_bytes_recv"))
-        if frame[0] != DEFAULT_COLLECTION:
-            raise not_ported(f"a data-plane frame on channel {frame[0]!r}",
-                              "the multi-tenant collection layer")
-        return frame[1]
+        await _send(self._peer_writer, (cs.key, obj), count=count)
 
-    async def _swap(self, obj):
-        """Role-ordered exchange: server 0 writes first, server 1 reads
-        first (symmetric send-then-recv deadlocks once frames outgrow the
-        socket buffers)."""
+    async def _dp_recv(self, cs):
+        # a collection's wire wait is the gap another collection's device
+        # turn fills
+        with self._sched.wire_wait(cs.key):
+            return await self._plane.recv(cs.key)
+
+    async def _swap(self, cs, obj):
+        """Role-ordered exchange on the collection's channel: server 0 writes
+        first, server 1 reads first (symmetric send-then-recv deadlocks once
+        frames outgrow the socket buffers)."""
         if self.server_id == 0:
-            await self._dp_send(obj)
-            return await self._dp_recv()
-        peer = await self._dp_recv()
-        await self._dp_send(obj)
+            await self._dp_send(cs, obj)
+            return await self._dp_recv(cs)
+        peer = await self._dp_recv(cs)
+        await self._dp_send(cs, obj)
         return peer
 
-    async def _ensure_plane(self) -> None:
-        """Key the current data plane once: the coin flip, then in secure
-        mode the base-OT sessions (rpc.py:3144-3216 of the JAX package).  A
-        new transport (:meth:`_attach_plane`) is keyed anew by the next
-        data-plane verb on each side."""
-        if self._plane_keyed:
+    def _keyed(self, cs) -> bool:
+        return cs.plane_epoch == self._plane.epoch and (
+            cs._ot_snd is not None or not self.cfg.secure_exchange)
+
+    async def _ensure_session_plane(self, cs) -> None:
+        """Key the collection's channel on the current plane, once per
+        (collection, plane epoch) (JAX rpc.py:3144-3180): the coin flip,
+        then in secure mode the base-OT sessions, all on the collection's
+        own channel, so many collections key up at once on one socket.  A
+        new transport bumps the epoch, and each collection re-keys at its
+        next data-plane verb.  The caller holds the collection's verb lock,
+        and both servers reach this from the same leader verb, so the
+        channel carries matching handshake frames."""
+        if self._keyed(cs):
             return
-        # the coin flip: the XOR of both sides' 16 bytes is this plane's
+        t0 = time.perf_counter()
+        # the coin flip: the XOR of both sides' 16 bytes is this channel's
         # sketch seed, uniform if either side is honest and never a public
         # constant (a client that predicts the challenge forges a pass);
         # sent in every mode, since a JAX peer sends and awaits it
         mine = secrets.token_bytes(16)
-        theirs = await self._swap(mine)
-        self._sketch_seed = np.frombuffer(bytes(a ^ b for a, b in zip(mine, theirs)),
-                                          "<u4").copy()
+        theirs = await self._swap(cs, mine)
+        cs._sketch_seed = np.frombuffer(bytes(a ^ b for a, b in zip(mine, theirs)),
+                                        "<u4").copy()
         if self.cfg.secure_exchange:
-            await self._setup_secure()
-        self._plane_keyed = True
+            await self._setup_secure(cs)
+        cs.plane_epoch = self._plane.epoch
+        self._add(cs, "plane_handshakes")
+        self._add(cs, "plane_handshake_s", time.perf_counter() - t0)
 
-    async def _setup_secure(self) -> None:
-        """Two base-OT sessions seeding the IKNP extension, one per garbling
-        direction: in session ``g`` server ``g`` is the extension sender and
-        plays base-OT receiver with its secret ``s``.  The elliptic-curve
-        work runs off the event loop."""
+    async def _setup_secure(self, cs) -> None:
+        """Two base-OT sessions seeding the collection's IKNP extension, one
+        per garbling direction: in session ``g`` server ``g`` is the
+        extension sender and plays base-OT receiver with its secret ``s``.
+        The elliptic-curve work runs off the event loop."""
         for g in (0, 1):
             if self.server_id == g:
                 s_bits = otext.fresh_s_bits()
-                a_msg = await self._dp_recv()
+                a_msg = await self._dp_recv(cs)
                 br = baseot.BaseOtReceiver(s_bits)
-                await self._dp_send(await asyncio.to_thread(br.round1, a_msg))
+                await self._dp_send(cs, await asyncio.to_thread(br.round1, a_msg))
                 seeds = await asyncio.to_thread(br.seeds)
-                self._ot_snd = otext.OtExtSender(s_bits, seeds, self.device)
+                cs._ot_snd = otext.OtExtSender(s_bits, seeds, self.device)
             else:
                 bs = baseot.BaseOtSender()
-                await self._dp_send(bs.round1())
-                r_msgs = await self._dp_recv()
+                await self._dp_send(cs, bs.round1())
+                r_msgs = await self._dp_recv(cs)
                 s0, s1 = await asyncio.to_thread(
                     lambda: bs.seeds([baseot.decompress(m) for m in r_msgs]))
-                self._ot_rcv = otext.OtExtReceiver(s0, s1, self.device)
-        self._sec_seed = np.frombuffer(secrets.token_bytes(16), "<u4").copy()
+                cs._ot_rcv = otext.OtExtReceiver(s0, s1, self.device)
+        cs._sec_seed = np.frombuffer(secrets.token_bytes(16), "<u4").copy()
 
     # -- serving --------------------------------------------------------------
 
-    async def _run_verb(self, verb: str, req):
-        """Run one verb; every failure is a response.  ``add_keys`` (it
-        appends and never suspends), ``submit_keys`` (ingest lands while a
-        window's crawl holds the lock; it re-checks its pool after its one
-        suspension) and ``plane_break`` (it must reach a verb wedged on the
-        plane while holding the lock) run without the verb lock."""
+    async def _run_verb(self, cs, verb: str, req):
+        """Run one verb on collection ``cs``; every failure is a response.
+        ``add_keys`` (it appends and never suspends), ``submit_keys`` (ingest
+        lands while a window's crawl holds the lock; it re-checks its pool
+        after its one suspension) and ``plane_break`` (it must reach a verb
+        wedged on the plane while holding a lock) run without a lock;
+        ``plane_reset`` runs under the server's (the plane is shared), every
+        other verb under its collection's."""
         try:
             if verb in UNPORTED_VERBS:
                 raise not_ported(verb, UNPORTED_VERBS[verb])
             if verb not in self.VERBS:
                 raise ValueError(f"unknown verb {verb!r}")
             if verb in ("add_keys", "submit_keys", "plane_break"):
-                return await getattr(self, verb)(req)
-            self._maybe_pre_expand(verb, req)
-            async with self._verb_lock:
-                return await getattr(self, verb)(req)
+                return await getattr(self, verb)(req, cs)
+            if verb == "plane_reset":
+                async with self._verb_lock:
+                    return await self.plane_reset(req, cs)
+            self._maybe_pre_expand(cs, verb, req)
+            async with cs._verb_lock:
+                if verb != "status":  # a probe is not the collection's phase
+                    cs.phase, cs.level = f"verb:{verb}", (req or {}).get("level")
+                try:
+                    return await getattr(self, verb)(req, cs)
+                finally:
+                    if verb != "status":
+                        cs.phase = cs.level = None
         except Exception as e:  # the RPC boundary: every failure goes to the caller
-            _log.warning("server %d: verb %s failed: %s: %s", self.server_id, verb,
-                         type(e).__name__, e)
+            _log.warning("server %d: verb %s of collection %s failed: %s: %s", self.server_id,
+                         verb, cs.key, type(e).__name__, e)
             return {"__error__": f"{type(e).__name__}: {e}"}
 
-    async def _dispatch(self, sess: _Session | None, req_id, verb: str, req):
+    async def _dispatch(self, sess: _Session | None, cs, req_id, verb: str, req):
         """Run one verb at most once per (session, request id): a replay of
         a finished request is answered from the session's cache, a replay of
         one still running awaits the same execution.  Errors are responses
         too, so a rejection replays as the same rejection.  A connection
-        that never said hello has no session and no dedup."""
+        that never said hello has no session and no dedup, and works on the
+        default collection."""
+        if cs is None:
+            cs = self._default()
+        cs.last_used = time.monotonic()
         if sess is not None:
             sess.last_seen = time.monotonic()
             if req_id in sess.cache:
@@ -1755,28 +1574,21 @@ class CollectorServer:
                 return await asyncio.shield(live)
             done = sess.inflight[req_id] = asyncio.get_running_loop().create_future()
         try:
-            resp = await self._run_verb(verb, req)
+            resp = await self._run_verb(cs, verb, req)
         except asyncio.CancelledError:  # release any replay awaiting this execution
             if sess is not None:
                 sess.inflight.pop(req_id, None)
                 if not done.done():
                     done.cancel()
             raise
+        if verb != "status":  # a probe is not progress
+            cs.last_progress = time.monotonic()
         if sess is not None:
             sess.put(req_id, resp)
             sess.inflight.pop(req_id, None)
             if not done.done():
                 done.set_result(resp)
         return resp
-
-    def _hello(self, req) -> dict:
-        coll = (req or {}).get("collection") or DEFAULT_COLLECTION
-        if coll != DEFAULT_COLLECTION:
-            e = not_ported(f"__hello__ for collection {coll!r}",
-                            "the multi-tenant collection layer")
-            return {"__error__": f"{type(e).__name__}: {e}"}
-        return {"boot_id": self.boot_id, "server_id": self.server_id,
-                "collection": DEFAULT_COLLECTION, "clock": round(time.time(), 6)}
 
     def _bind_session(self, req) -> _Session | None:
         """Create or attach the leader session a ``__hello__`` names; the
@@ -1797,13 +1609,17 @@ class CollectorServer:
         """Control-plane serve loop: every request runs as its own task, so
         many ``add_keys`` chunks are in flight at once; responses carry the
         request id.  A ``__hello__`` binds the connection to its leader's
-        session (:meth:`_dispatch`).  On disconnect the verbs in flight
-        finish (a verb mid-exchange must not leave the peer's frame unread)
-        and their answers stay in the session's cache for the replay on
-        the next connection."""
+        session (:meth:`_dispatch`) and to the collection it names
+        (``collection``; none: the default one), counted in the collection's
+        ``bound`` until the connection closes; a key the table refuses (an
+        invalid key, the session bound reached) answers the hello with the
+        error.  On disconnect the verbs in flight finish (a verb
+        mid-exchange must not leave the peer's frame unread) and their
+        answers stay in the session's cache for the replay on the next
+        connection."""
         write_lock = asyncio.Lock()
         self._ctl_writers.add(writer)
-        sess = None
+        sess = cs = None
 
         async def respond(req_id, resp):
             try:
@@ -1815,20 +1631,32 @@ class CollectorServer:
                 if not writer.is_closing():  # asyncio's write on a closing transport
                     raise
 
-        async def handle(sess, req_id, verb, req):
-            await respond(req_id, await self._dispatch(sess, req_id, verb, req))
+        async def handle(sess, cs, req_id, verb, req):
+            await respond(req_id, await self._dispatch(sess, cs, req_id, verb, req))
 
         tasks: set = set()
         try:
             while True:
                 req_id, verb, req = await _recv(reader, count=self._count("control_bytes_recv"))
                 if verb == "__hello__":
-                    resp = self._hello(req)
-                    if "__error__" not in resp:
-                        sess = self._bind_session(req)
-                    await respond(req_id, resp)
+                    try:
+                        new_cs = self._table.get((req or {}).get("collection"))
+                    except (ValueError, RuntimeError) as e:
+                        await respond(req_id, {"__error__": f"{type(e).__name__}: {e}"})
+                        continue
+                    sess = self._bind_session(req)
+                    if new_cs is not cs:
+                        if cs is not None:
+                            cs.bound -= 1
+                        new_cs.bound += 1
+                    cs = new_cs
+                    if sess is not None:
+                        sess.collection = cs.key
+                    await respond(req_id, {"boot_id": self.boot_id, "server_id": self.server_id,
+                                           "collection": cs.key,
+                                           "clock": round(time.time(), 6)})
                     continue
-                t = asyncio.create_task(handle(sess, req_id, verb, req))
+                t = asyncio.create_task(handle(sess, cs, req_id, verb, req))
                 tasks.add(t)
                 t.add_done_callback(tasks.discard)
         except (asyncio.IncompleteReadError, ConnectionResetError):
@@ -1838,19 +1666,27 @@ class CollectorServer:
                 await asyncio.wait(set(tasks))
             writer.close()
             self._ctl_writers.discard(writer)
+            if cs is not None:
+                cs.bound -= 1  # the connection is gone: so is its binding
+
+    @staticmethod
+    async def _recv_plane_frame(reader):
+        """One data-plane frame for the mux's pump -> (framed bytes, frame)."""
+        (n,) = _HDR.unpack(await reader.readexactly(_HDR.size))
+        return n + _HDR.size, pickle.loads(await reader.readexactly(n))
 
     def _attach_plane(self, reader, writer) -> None:
-        """Bind a new peer transport (closing the one it replaces): the next
-        data-plane verb keys it anew, the coin flip and in secure mode fresh
-        base-OT sessions (a survivor that kept its old OT extension with a
-        restarted peer would break the 2PC)."""
+        """Bind a new peer transport (closing the one it replaces) to the
+        mux, failing every receiver of the old one; each collection re-keys
+        its channel at its next data-plane verb, the coin flip and in secure
+        mode fresh base-OT sessions (a survivor that kept its old OT
+        extension with a restarted peer would break the 2PC)."""
         old = self._peer_writer
         if old is not None and old is not writer and not old.is_closing():
             old.close()
         self._peer_reader, self._peer_writer = reader, writer
         _keepalive(writer)
-        self._plane_keyed = False
-        self._ot_snd = self._ot_rcv = None
+        self._plane.attach(reader, self._recv_plane_frame)
 
     async def _dial_peer(self) -> None:
         """Server 0: dial the peer's data plane under ``DIAL_POLICY``."""
@@ -1898,6 +1734,7 @@ class CollectorServer:
             w.close()
         if self._peer_writer is not None:
             self._peer_writer.close()
+        self._plane.close()
         for srv in (self._rpc_srv, self._peer_srv):
             if srv is not None:
                 srv.close()
@@ -1917,7 +1754,9 @@ class CollectorClient:
     id); ``__error__`` responses raise ``RuntimeError``.
 
     The client keeps one session id for its life and says ``__hello__
-    {session, epoch}`` on every connect (``epoch`` counts connects).  A
+    {session, epoch, collection}`` on every connect (``epoch`` counts
+    connects; ``collection``, from ``collection=``, binds every connection,
+    a reconnect's too, to that collection's state on the server).  A
     call keeps one request id for its life: after a transport loss it
     redials under ``dial_policy`` (one redial per epoch; calls that failed
     together ride it) and resends the same frame, which the server answers
@@ -1925,7 +1764,8 @@ class CollectorClient:
     answer: the verb's budget (``budgets``) runs out (``TimeoutError``),
     or the hello finds a new boot id (:class:`ServerRestartedError`)."""
 
-    def __init__(self, host: str, port: int, *, dial_policy=None, budgets=None):
+    def __init__(self, host: str, port: int, *, dial_policy=None, budgets=None,
+                 collection: str | None = None):
         self._host, self._port = host, port
         self._r = self._w = None
         self._send_lock = asyncio.Lock()
@@ -1934,7 +1774,9 @@ class CollectorClient:
         self._next_id = 0
         self._reader_task = None
         self._dead: ConnectionError | None = None
-        self.collection = DEFAULT_COLLECTION
+        # the collection every connection of this client binds (None: the
+        # default one), named in each hello, reconnects included
+        self.collection = collection or DEFAULT_COLLECTION
         self.session_id = secrets.token_hex(8)
         self.epoch = 0  # connects so far; above 1 the client has reconnected
         self.boot_id = self.server_id = None  # from the last hello

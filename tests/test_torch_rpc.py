@@ -10,11 +10,13 @@ package, over localhost TCP in one event loop, tolerance zero:
 (c) mixed pairs — a JAX ``CollectorServer`` with a port server, in both
     roles, under both leaders — give the JAX ``driver.Leader``'s hitters,
     trusted and secure, and their ``final_shares`` reconstruct them;
-(d) the refusals: unported verbs, a named collection, the binaries'
-    unported variables, and the leader's environment read with the JAX
-    leader's defaults; the data-shard options and ``FHH_WINDOWS``, refused
-    until their paths were ported, are taken (``test_torch_multichip.py``
-    and ``test_torch_ingest.py`` hold them).
+(d) the refusals: unported verbs, an invalid collection key, the
+    binaries' unported variables, and the leader's environment read with
+    the JAX leader's defaults; the data-shard options, ``FHH_WINDOWS`` and
+    named collections (a hello's ``collection``, ``FHH_COLLECTION``),
+    refused until their paths were ported, are taken
+    (``test_torch_multichip.py``, ``test_torch_ingest.py`` and
+    ``test_torch_tenants_rpc.py`` hold them).
 
 The node-span crawl is held in ``test_torch_spans.py``.
 
@@ -332,12 +334,22 @@ def test_requests_of_unported_paths_are_refused():
     async def flow():
         cfg = tconfig.Config(**_cfg_kw(1, "trusted"))
         servers, p0, p1 = await _port_pair_clients(cfg)
+        # a named collection's hello binds the connection to that collection
+        # (refused until the collection sessions were ported); a key that
+        # cannot name a file or a channel is refused with the JAX text
         c = trpc.CollectorClient("127.0.0.1", p0)
         c.collection = "tenant-a"
-        with pytest.raises(RuntimeError, match="hello refused.*NotImplementedError: __hello__ "
-                           "for collection 'tenant-a': the multi-tenant collection layer"):
-            await c._ensure_connected(0)
+        await c._ensure_connected(0)
+        assert servers[0]._table.peek("tenant-a").bound == 1
+        assert (await c.call("status"))["collection"] == "tenant-a"
         await c.aclose()
+        bad = trpc.CollectorClient("127.0.0.1", p0, collection="a/b")
+        with pytest.raises(RuntimeError, match=re.escape(
+                "hello refused by 127.0.0.1:" + str(p0) + ": ValueError: collection key 'a/b' "
+                "is invalid (want [A-Za-z0-9._-]{1,64}: it names checkpoint files and wire "
+                "channels)")):
+            await bad._ensure_connected(0)
+        await bad.aclose()
         clients = [await trpc.CollectorClient.connect("127.0.0.1", p) for p in (p0, p1)]
         try:
             k0, _ = _keys(1)
@@ -413,13 +425,18 @@ def test_wire_refuses_tensors_and_binaries_refuse_unported_modes(monkeypatch):
         monkeypatch.setenv("FHH_SUPERVISE", val)
         tleader_bin.refuse_unported_env()
     # streaming windows are ported: FHH_WINDOWS is taken (refused until the
-    # ingest front door was ported); named collections are not
+    # ingest front door was ported); so are named collections (refused until
+    # the collection sessions were ported), and an invalid key is refused
+    # with the JAX session table's text
     monkeypatch.setenv("FHH_WINDOWS", "4")
     tleader_bin.refuse_unported_env()
     monkeypatch.delenv("FHH_WINDOWS")
     monkeypatch.setenv("FHH_COLLECTION", "tenant-a")
-    with pytest.raises(NotImplementedError, match="FHH_COLLECTION=tenant-a: the multi-tenant "
-                       "collection layer is not ported"):
+    tleader_bin.refuse_unported_env()
+    monkeypatch.setenv("FHH_COLLECTION", "tenant/a")
+    with pytest.raises(ValueError, match=re.escape(
+            "collection key 'tenant/a' is invalid (want [A-Za-z0-9._-]{1,64}: it names "
+            "checkpoint files and wire channels)")):
         tleader_bin.refuse_unported_env()
     monkeypatch.delenv("FHH_COLLECTION")
     for val in ("0", "1"):  # the warmup is ported: either value runs
