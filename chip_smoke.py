@@ -96,7 +96,7 @@ Phases (any failure raises, and the script exits non-zero):
     ``bin.mesh`` and the recount, data-plane bytes and crawl seconds beside
     ``rides_socket``'s;
 15. ``rides_secure_socket_radix2``: the same with ``secure_exchange`` and
-    ``ot_path: "auto"`` at N = 8,192, so the garbled circuit at S' = 8: GC
+    ``ot_path: "auto"`` at N = 4,096, so the garbled circuit at S' = 8: GC
     garble once per fused round a server garbled and eval once per round it
     evaluated (the garbler flips per round), no ot2s launch; the hitters of
     ``bin.mesh.run`` at the same config, seed and N (one level a round) and
@@ -128,7 +128,7 @@ Phases (any failure raises, and the script exits non-zero):
     over rides' keys made again from the seed (``keys_fp`` must match) and
     expand is held against its plain version on that frontier;
 19. ``rides_secure_socket_supervised_sever``: ``rides_secure`` (ot2s at S =
-    4) at 16,384 clients, supervised as phase 17, the leader's link to
+    4) at 8,192 clients, supervised as phase 17, the leader's link to
     server 0 through a ``ChaosProxy`` here that severs the answer of the
     first crawl verb after the first checkpoint, and server 1 killed and
     started again as in phase 18: the hitters of the in-process trusted
@@ -186,8 +186,8 @@ Phases (any failure raises, and the script exits non-zero):
 25. ``rides_mesh_2proc`` / ``rides_mesh_2proc_secure``: two OS processes of
     ``bin.mesh --devices 8 --processes 2`` over a gloo group on localhost,
     one mesh row each on the card, trusted at ``rides``' 262,144 clients
-    and secure at 16,384: both print the hitters of the one-process run
-    (``rides``, and the one-process mesh at 16,384) and the recount, each
+    and secure at 8,192: both print the hitters of the one-process run
+    (``rides``, and the one-process mesh at 8,192) and the recount, each
     reports its process-group bytes and its kernel launches (4 expand a
     level; secure, 4 encrypts a level it garbled, 4 decrypts a level it
     evaluated);
@@ -214,7 +214,7 @@ Phases (any failure raises, and the script exits non-zero):
     whole-level path (k = 1), and each shard's kernel call equals its plain
     version, timed beside its bound;
 29. ``rides_secure_socket_radix2_sharded``: the same for phase 15 (GC at
-    S' = 8, 8,192), 16 + 16 GC launches a server; K3 at its widest round;
+    S' = 8, 4,096), 16 + 16 GC launches a server; K3 at its widest round;
 30. ``zipf_malicious_socket_sharded``: phase 21 with four shards a server:
     all 100,000 clients alive, phase 21's hitters, sketch verbs and
     data-plane bytes, the sketch check on 4 shards (``sketch_shards``);
@@ -249,7 +249,7 @@ Phases (any failure raises, and the script exits non-zero):
     replayed submission answered from its recorded verdict, one ingest
     recovery, one restore, expand once per crawl verb (the re-run crawl's
     included);
-34. ``zipf_malicious_socket_windows``: phase 21's config and 100,000
+34. ``zipf_malicious_socket_windows``: phase 21's config and 50,000
     clients through ``bin.leader`` with ``FHH_WINDOWS=2``, the sketch leaves
     riding each submission: every client alive after each window, each
     window's hitters the recount, both servers committing the same
@@ -273,7 +273,7 @@ Phases (any failure raises, and the script exits non-zero):
     clients/s against the solo run's, stall fills and the fill ratio, each
     collection's round seconds, each server's peak memory and launches;
 36. ``rides_secure_socket_tenants``: the same at ``rides_secure``'s config
-    (ot2s at S = 4) with two collections of 8,192 clients and no warmup:
+    (ot2s at S = 4) with two collections of 4,096 clients and no warmup:
     the same checks, one ot2s encrypt per round a server garbled and one
     decrypt per round it evaluated, each crawl's; reported besides: each
     collection's base-OT seconds per server;
@@ -288,7 +288,41 @@ Phases (any failure raises, and the script exits non-zero):
     over its admitted keys, ``tb``'s gate on both servers without a refusal
     or a shed while ``ta``'s refused, an ingest recovery, checkpoints only
     in ``tb``'s namespace.  Reported: the kill-to-hitters seconds and the
-    journal replays.
+    journal replays;
+38. ``rides_socket_fleet_migrate`` (the collector fleet, JAX
+    ``tests/test_fleet.py`` on the card): two pairs A and B of ``bin.server``
+    processes, each registered under ``FHH_FLEET`` (``FHH_FLEET_PAIR``) with
+    one shared ``FHH_CKPT_DIR``; the script's ``FleetDirectory`` scans the
+    two pairs with the boot ids the processes announced and places the
+    collection on A.  131,072 rides clients in two windows of 65,536 (656
+    submissions of 100 keys a window, reject mode): window 0 submitted and
+    sealed on A, 328 of window 1's submitted there, ``FleetPlacer.migrate``
+    to B, the other 328 to B, window 1 sealed and both windows crawled on
+    B.  Each window's hitters equal an in-process batch crawl over the
+    window's keys as B banked them (its ingest checkpoint in the shared
+    store) and the recount; the journal replay lands once (B's servers
+    answer at least the replayed submissions as duplicates, the seals count
+    every key); A's status shows no pools and one export a server, B's one
+    import; A launches nothing, B expand 32 times a server; expand held
+    against its plain version on window 1's batch crawl.  Reported: the
+    migration seconds, the export blob's bytes a server, the replayed
+    submissions, the window crawl seconds beside phase 32's;
+39. ``rides_secure_socket_fleet_migrate``: the same at ``rides_secure``'s
+    config (ot2s at S = 4), 8,192 clients in two windows: B keys its plane
+    once a server (a base OT each, ``plane_epoch`` 1), A never; B launches
+    each ot2s kernel 16 times a server, no GC; the ot2s pair held against
+    their plain versions at window 1's widest FE62 level and F255 leaf, as
+    phase 20's replay does;
+40. ``rides_socket_fleet_host_kill``: phase 38's config and keys on fresh
+    pairs C and D; after window 0's seal (its ingest checkpoint banked) and
+    328 of window 1's submissions on C, a ``host:kill@window=0`` clause of
+    ``HostChaos`` fires and both of C's processes are SIGKILLed; the
+    directory's probe (bounded by ``FLEET_PROBE_S``) marks C dead,
+    ``recover_dead_pair`` fails the collection over to D from the level -1
+    blob and the journal, the rest is submitted to D and both windows crawl
+    there: hitters equal phase 38's window for window, one failover, one
+    import a server of D.  Reported: the seconds from the kill to the
+    hitters.
 
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
@@ -300,7 +334,7 @@ per-shard checks of phases 28-29 included;
 expand's row also carries its restored-frontier checks, keygen's its
 data_len-32 check, the ot2s rows their phase-20 checks; each row the
 launches per server of the later phases' processes, phases 35-37's as
-``tenant_launches``), and
+``tenant_launches``, phases 38-40's as ``fleet_launches``), and
 as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX.
 """
@@ -378,8 +412,8 @@ RIDES_RADIX = 2  # phase 14-15: rides over sockets in rounds of 2 levels (S' = 8
 # a test, where two radix-1 levels carry 2 x 4 patterns of ot2s tests at
 # about 320 B; 16,384 clients moved about the bytes of rides_secure_socket at
 # 32,768, and with it cut for phases 35-37 the pair (phase 29 its twin) is cut
-# alike, to 8,192
-RIDES_RADIX_SECURE_CLIENTS = 8192
+# alike, to 8,192; for phases 38-40 to 4,096
+RIDES_RADIX_SECURE_CLIENTS = 4096
 # the socket leaders skip the warmup: its default ladder runs every bucket up
 # to f_max = 1024, whose expansion alone (rides, 262,144 clients) needs about
 # 55 GB per server, two servers on one card; phase 16 warms the buckets its
@@ -391,8 +425,8 @@ SOCKET_ENV = {"FHH_WARMUP": "0"}
 SUPERVISED_ENV = {"FHH_WARMUP": "0", "FHH_CKPT_EVERY": "4"}
 CKPT_EVERY = 4
 # phase 19's cut, for the script's time: rides_secure_socket's 65,536 clients
-# took 51-74 s a stage
-RIDES_SEVER_CLIENTS = 16384
+# took 51-74 s a stage, and 16,384 until phases 38-40 needed the time
+RIDES_SEVER_CLIENTS = 8192
 PLAIN_COMPARE = 1 << 26  # elements per slice of a large kernel-vs-plain comparison
 # phase 20: configs/secure.json as shipped (ot2s at S = 2, malicious) over
 # sockets, its leader in this process forging keys; cut from the 100,000
@@ -408,7 +442,9 @@ SITE_BITS = 24  # a zipf point is its site's 24 bits and 8 random ones (AUG_LEN)
 # phases 22-26: the device mesh, 2 x 4 logical shards on the one card
 MESH_DEVICES = 8
 MESH_SHARDS = MESH_DEVICES // 2  # shards a row: kernel launches a level per row
-MESH_2PROC_SECURE_CLIENTS = 16384  # phase 25's secure cut (its table crosses gloo)
+# phase 25's secure cut (its table crosses gloo): 16,384 until phases 38-40
+# needed the time
+MESH_2PROC_SECURE_CLIENTS = 8192
 MESH_CKPT_EVERY = 4
 MESH_FAULTS = "mesh:delay@level=1,ms=200;mesh:drop@level=5;mesh:kill@level=9"
 
@@ -427,16 +463,22 @@ DRILL_CLIENTS = 65600
 DRILL_WINDOWS = 2
 DRILL_SEED = 7  # ingest_seed
 DRILL_FLOOD = "ctl0:flood@msg=6,count=1"  # the 4th submit_keys frame to server 0, twice
-SKETCH_WINDOWS = 2  # phase 34: phase 21's 100,000 clients in two windows
+SKETCH_WINDOWS = 2  # phase 34: two windows
+# phase 34's clients, cut from phase 21's 100,000 for phases 38-40's time
+SKETCH_WINDOW_CLIENTS = 50000
 # phases 35-37: many collections on one server pair
 TENANTS = 4  # phase 35: t0..t3 at rides' config
 TENANT_CLIENTS = 65536
 SECURE_TENANTS = 2  # phase 36: at rides_secure's config (ot2s at S = 4)
-SECURE_TENANT_CLIENTS = 8192
+SECURE_TENANT_CLIENTS = 4096  # 8,192 until phases 38-40 needed the time
 TENANT_CKPT_EVERY = 8  # the MultiCollectionDriver's default cadence
 ISOLATION_CLIENTS = 16384  # phase 37: tb's window
 FLOOD_KEYS = 65536  # ta's flood
 TENANT_GATE = dict(ingest_burst_keys=16384, ingest_rate_keys_per_s=1024.0)
+FLEET_CLIENTS = 131072  # phases 38 and 40: rides clients, 65,536 a window
+FLEET_WINDOWS = 2
+FLEET_SECURE_CLIENTS = 8192  # phase 39: rides_secure's N, 4,096 a window
+FLEET_PROBE_S = 3.0  # a fleet probe's whole budget: both dials and status calls
 
 # every kernel of the port: (module, launch counter, source, TPU kernel it replaces)
 KERNELS = {
@@ -2942,9 +2984,9 @@ def window_phases(seed, cells, points, secure_cfg, report, tmp, stage, torch):
     # phase 34: phase 21's malicious sketch, the sketch leaves riding each submission
     name = "zipf_malicious_socket_windows"
     cfg34 = dataclasses.replace(secure_cfg, secure_exchange=False)
-    run = socket_run(name, cfg34, SKETCH_CLIENTS, seed, tmp,
+    run = socket_run(name, cfg34, SKETCH_WINDOW_CLIENTS, seed, tmp,
                      {**SOCKET_ENV, "FHH_WINDOWS": str(SKETCH_WINDOWS)}, ckpt=True)
-    pts = sample_points(cfg34, SKETCH_CLIENTS, np.random.default_rng(seed))
+    pts = sample_points(cfg34, SKETCH_WINDOW_CLIENTS, np.random.default_rng(seed))
     base = sock["zipf_malicious_socket"]
     fig = check_window_run(name, run, cfg34, pts, SKETCH_WINDOWS, base["crawl_s"],
                            cfg34.data_len, malicious=True)
@@ -2953,7 +2995,7 @@ def window_phases(seed, cells, points, secure_cfg, report, tmp, stage, torch):
     log(f"windows {name}: every client alive in each window; sketch verb seconds a window "
         f"{[round(x, 3) for x in fig['sketch_s_per_window']]} against phase 21's "
         f"{[round(x, 3) for x in fig['batch_sketch_s']]} for the whole batch (a window "
-        f"holds 1/{SKETCH_WINDOWS} of its clients)")
+        f"holds {SKETCH_WINDOW_CLIENTS // SKETCH_WINDOWS} of its {SKETCH_CLIENTS} clients)")
     sock[name] = fig
     stage(f"{name} socket run")
 
@@ -3252,6 +3294,436 @@ def tenant_phases(seed, cells, report, tmp, stage, torch):
     sock[name] = tenant_isolation_drill(name, dataclasses.replace(rides_cfg, **TENANT_GATE),
                                         seed, tmp, torch)
     stage(f"{name} socket run")
+
+
+def fleet_run(name, cfg, tmp, pairs, leader_coro):
+    """Phases 38-40: for each pair named in ``pairs`` two ``bin.server``
+    processes on free ports, every server with ``FHH_FLEET`` (one fleet
+    directory), ``FHH_FLEET_PAIR`` its pair's name and one ``FHH_CKPT_DIR``
+    shared by all (a fleet's shared store), all started together (on the CPU
+    one after another); once all serve, the leader ``leader_coro(fleet_dir,
+    ckpt_dir, kill)`` in this process, its events written to its log;
+    ``kill(pair)`` SIGKILLs both of that pair's processes and returns the
+    instant.  Then SIGTERM to the live servers: each must exit 0 without a
+    traceback, a killed one -9.  Returns the leader's result, each server's
+    events and ``server.exit`` line by ``<pair><id>``, the kill instants and
+    the directories."""
+    import asyncio
+    import contextlib
+    import signal
+
+    work = os.path.join(tmp, name)
+    fleet_dir, ckpt_dir = os.path.join(work, "fleet"), os.path.join(work, "ckpt")
+    os.makedirs(ckpt_dir)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "FHH_FLEET": fleet_dir, "FHH_CKPT_DIR": ckpt_dir,
+           "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    device = "cpu" if cfg.backend == "cpu" else "cuda"
+    procs, logs, killed = {}, {}, {}
+
+    def spawn(pair, sid, cfg_path):
+        who = f"{pair}{sid}"
+        logs[who] = os.path.join(work, f"server_{who}.log")
+        with open(logs[who], "w") as out:
+            procs[who] = subprocess.Popen(
+                [sys.executable, "-m", "fuzzyheavyhitters_torch.bin.server", "--config",
+                 cfg_path, "--device", device, "--server_id", str(sid)], cwd=work,
+                env={**env, "FHH_FLEET_PAIR": pair}, stdout=out, stderr=subprocess.STDOUT)
+
+    def kill(pair):
+        t = time.time()
+        for sid in (0, 1):
+            procs[f"{pair}{sid}"].kill()
+        for sid in (0, 1):
+            procs[f"{pair}{sid}"].wait()
+        killed[pair] = t
+        return t
+
+    rcs, result = {}, None
+    try:
+        for pair in pairs:
+            p0, p1 = free_ports()
+            cfg_path = os.path.join(work, f"config_{pair}.json")
+            with open(cfg_path, "w") as f:
+                json.dump(dict(dataclasses.asdict(cfg), server0=f"127.0.0.1:{p0}",
+                               server1=f"127.0.0.1:{p1}"), f)
+            spawn(pair, 1, cfg_path)
+            if device == "cpu":  # start-ups contend for the cores
+                _wait_event(logs[f"{pair}1"], "server.plane_listening", procs[f"{pair}1"],
+                            SOCKET_START_S)
+            spawn(pair, 0, cfg_path)
+            if device == "cpu":
+                _wait_event(logs[f"{pair}0"], "server.serving", procs[f"{pair}0"],
+                            SOCKET_START_S)
+        for who in procs:
+            _wait_event(logs[who], "server.serving", procs[who], SOCKET_START_S)
+        with open(os.path.join(work, "leader.log"), "w") as out, \
+                contextlib.redirect_stdout(out):
+            result = asyncio.run(asyncio.wait_for(leader_coro(fleet_dir, ckpt_dir, kill),
+                                                  SOCKET_LEADER_S))
+        for who, p in procs.items():
+            if who[:-1] not in killed:
+                p.send_signal(signal.SIGTERM)
+        for who, p in procs.items():
+            rcs[who] = p.wait(timeout=60)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for who, path in logs.items():
+        with open(path) as f:
+            text = f.read()
+        want = -signal.SIGKILL if who[:-1] in killed else 0
+        if rcs.get(who) != want or "Traceback" in text:
+            raise AssertionError(f"{name}: server {who} exited {rcs.get(who)} (want {want}):\n"
+                                 f"{text[-3000:]}")
+    events = {who: _events(path) for who, path in logs.items()}
+    exits = {who: next((e for e in ev if e["event"] == "server.exit"), None)
+             for who, ev in events.items()}
+    return {"work": work, "fleet_dir": fleet_dir, "ckpt_dir": ckpt_dir, "events": events,
+            "exits": exits, "killed": killed, "leader_result": result}
+
+
+def _fleet_chunks(cfg, n, windows):
+    """Each window's submissions: (client id, slice) of ``addkey_batch_size``
+    keys, the window's last one shorter, as ``bin.leader`` cuts them."""
+    per_w, bs = n // windows, cfg.addkey_batch_size
+    return [[(f"site{i % cfg.num_sites}", slice(lo, min(lo + bs, (w + 1) * per_w)))
+             for i, lo in enumerate(range(w * per_w, (w + 1) * per_w, bs))]
+            for w in range(windows)]
+
+
+def _banked_window_keys(ckpt_dir, w):
+    """Window ``w``'s admitted keys as the pair banked them: each server's
+    level -1 ingest blob in the shared store, the pool's entries in slot
+    order.  -> (server 0's, server 1's) ``IbDcfKeyBatch`` of host arrays."""
+    from fuzzyheavyhitters_torch.ops import ibdcf
+
+    nk = len(ibdcf.IbDcfKeyBatch._fields)
+    out = []
+    for sid in (0, 1):
+        with np.load(os.path.join(ckpt_dir, f"fhh_server{sid}_l-1.npz")) as z:
+            i = list(z["ing_windows"]).index(w)
+            out.append(ibdcf.IbDcfKeyBatch(*(z[f"ing{i}_leaf{j}"] for j in range(nk))))
+    return out
+
+
+def _batch_crawl(cfg, keys0, keys1, points, torch):
+    """The in-process batch crawl (``driver.Leader``, secure with fresh
+    base-OT sessions) over exactly these keys; -> a ``bin.mesh.MeshRun``."""
+    from fuzzyheavyhitters_torch.bin.mesh import MeshRun
+    from fuzzyheavyhitters_torch.ops import ibdcf
+    from fuzzyheavyhitters_torch.protocol import driver
+
+    dev = torch.device("cuda")
+    k0, k1 = (ibdcf.keys_from_numpy(k, dev) for k in (keys0, keys1))
+    sessions = (driver.make_sessions(driver.session_material(), dev)
+                if cfg.secure_exchange else None)
+    lead = driver.Leader(*driver.make_servers(k0, k1), n_dims=cfg.n_dims,
+                         data_len=cfg.data_len, f_max=cfg.f_max, secure=sessions,
+                         ot_path=cfg.ot_path)
+    t0 = time.perf_counter()
+    res = lead.run(nreqs=points.shape[0], threshold=cfg.threshold)
+    torch.cuda.synchronize()
+    return MeshRun(points=points, result=res, leader=lead,
+                   seconds={"crawl": time.perf_counter() - t0})
+
+
+def fleet_move(name, cfg, n, ck, tmp, torch, failover=False):
+    """Phases 38-40 (JAX ``tests/test_fleet.py``'s choreographies on the
+    card): a collection of ``n`` clients (``ck``, ``bin.leader.client_keys``)
+    in ``FLEET_WINDOWS`` windows on two pairs of ``bin.server`` processes
+    (``fleet_run``), the leader in this process.  The script's
+    ``FleetDirectory`` scans the two pairs the processes registered and
+    places the collection on the first; window 0 is submitted and sealed
+    there (its ingest checkpoint banked) and half of window 1 submitted.
+    Then either ``FleetPlacer.migrate`` moves it to the second pair, or
+    (``failover``) a ``host:kill@window=0`` clause fires, both processes of
+    the first pair are SIGKILLed, the directory's bounded probe marks it
+    dead and ``recover_dead_pair`` fails the collection over to the second
+    from the level -1 blob and the journal.  The rest of window 1 goes to
+    the second pair, window 1 is sealed, and both windows crawl there.
+    -> the figures and the leader's results by window."""
+    import asyncio
+
+    from fuzzyheavyhitters_torch.bin import leader as leader_bin
+    from fuzzyheavyhitters_torch.protocol.fleet import FleetDirectory, FleetPlacer, status_probe
+    from fuzzyheavyhitters_torch.protocol.leader_rpc import RpcLeader, WindowedIngest
+    from fuzzyheavyhitters_torch.protocol.rpc import CollectorClient
+    from fuzzyheavyhitters_torch.resilience.chaos import HostChaos, parse_host_faults
+
+    src, dst = ("C", "D") if failover else ("A", "B")
+    chunks = _fleet_chunks(cfg, n, FLEET_WINDOWS)
+    half = len(chunks[1]) // 2
+
+    async def submit(wi, part):
+        for client, sl in part:
+            await wi.submit(client, tuple(a[sl] for a in ck.keys0),
+                            tuple(a[sl] for a in ck.keys1))
+
+    async def lead(fleet_dir, ckpt_dir, kill):
+        emit = leader_bin.emit
+        fig, clients = {}, []
+        fd = FleetDirectory(fleet_dir, emit=emit)
+        fig["scanned"] = await fd.scan()
+        pairs = {p.name: p for p in await fd.pairs()}
+        fig["pairs"] = {k: (p.boot0, p.boot1) for k, p in pairs.items()}
+        placer = FleetPlacer(fd, emit=emit)
+
+        async def connect(pair):
+            cs = [await CollectorClient.connect(*pair.addr(i)) for i in (0, 1)]
+            clients.extend(cs)
+            return RpcLeader(cfg, *cs, emit=emit)
+
+        try:
+            fig["placed"] = (await placer.place("default")).name
+            la = await connect(pairs[src])
+            await la._both("reset")
+            wi = WindowedIngest(la)
+            t0 = time.perf_counter()
+            await submit(wi, chunks[0])
+            fig["seals"] = [await wi.seal_window()]
+            await submit(wi, chunks[1][:half])
+            fig["submit_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if not failover:
+                lb = await connect(pairs[dst])
+                fig["stats"] = await placer.migrate(wi, lb, session="default", dest=dst)
+                fig["src_status"] = [await c.call("status") for c in (la.c0, la.c1)]
+            else:
+                hc = HostChaos(parse_host_faults("host:kill@window=0"), emit=emit)
+                if hc.before_window(0):
+                    fig["t_kill"] = kill(src)
+                fig["fired"] = list(hc.fired)
+                fig["died"] = await fd.probe(status_probe(pairs, FLEET_PROBE_S))
+                fig["probe_s"] = time.perf_counter() - t0
+
+                async def make_ingest(session, dest):
+                    return wi, await connect(dest)
+
+                fig["stats"] = (await placer.recover_dead_pair(src, make_ingest))["default"]
+            fig["move_s"] = time.perf_counter() - t0
+            await submit(wi, chunks[1][half:])
+            fig["seals"].append(await wi.seal_window())
+            fig["results"] = {w: await wi.crawl_window(w) for w in range(FLEET_WINDOWS)}
+            fig["t_hitters"] = time.time()
+            fig["windows"] = dict(wi.windows)
+            fig["counters"] = dict(wi.counters)
+            fig["dst_status"] = [await c.call("status") for c in (wi.lead.c0, wi.lead.c1)]
+            fig["placer"], fig["directory"] = placer.status(), await fd.status()
+            return fig
+        finally:
+            for c in clients:
+                await c.aclose()
+
+    run = fleet_run(name, cfg, tmp, (src, dst), lead)
+    fig = run["leader_result"]
+    ev, exits = run["events"], run["exits"]
+    registered = {who: next(e["boot_id"] for e in evs if e["event"] == "fleet.registered")
+                  for who, evs in ev.items()}
+    want_pairs = {p: (registered[f"{p}0"], registered[f"{p}1"]) for p in (src, dst)}
+    if fig["scanned"] != 2 or fig["pairs"] != want_pairs or fig["placed"] != src:
+        raise AssertionError(f"{name}: scanned {fig['scanned']} pairs {fig['pairs']} (the "
+                             f"processes registered {want_pairs}), placed on {fig['placed']}")
+    per_w = n // FLEET_WINDOWS
+    replayed = len(chunks[0]) + half
+    if (fig["stats"].get("replayed") != replayed
+            or [s["keys"] for s in fig["seals"]] != [per_w] * FLEET_WINDOWS
+            or fig["counters"]["ingest_admitted"] != n):
+        raise AssertionError(f"{name}: move {fig['stats']} (want {replayed} replayed), seals "
+                             f"{fig['seals']}, counters {fig['counters']}")
+    # exactly once: what the destination imported answers as duplicates (a
+    # migration's export carries every journaled submission, a failover's
+    # checkpoint window 0's), the rest lands fresh
+    dups = replayed if not failover else len(chunks[0])
+    dst_exits = [exits[f"{dst}{sid}"] for sid in (0, 1)]
+    for sid, ex in enumerate(dst_exits):
+        _check_session_sums(name, ex)
+        st = fig["dst_status"][sid]["fleet"]
+        if ex["pool_dup_submits"] < dups or st["session_imports"] != 1:
+            raise AssertionError(f"{name}: {dst}{sid} answered {ex['pool_dup_submits']} "
+                                 f"duplicates (want >= {dups}), fleet {st}")
+    if failover:
+        if (fig["fired"] != [("kill", 0)] or fig["died"] != [src]
+                or fig["stats"]["imported"] is not True
+                or fig["placer"]["session_failovers"] != 1
+                or fig["directory"]["pairs"][src]["alive"] is not False
+                or any(exits[f"{src}{sid}"] is not None for sid in (0, 1))):
+            raise AssertionError(f"{name}: fired {fig['fired']}, died {fig['died']}, "
+                                 f"{fig['stats']}, placer {fig['placer']}, "
+                                 f"directory {fig['directory']}")
+    else:
+        src_st = fig["src_status"]
+        if (fig["stats"]["windows"] != list(range(FLEET_WINDOWS))
+                or fig["placer"]["session_migrations"] != 1
+                or any(st["ingest"]["windows"] or st["fleet"]["session_exports"] != 1
+                       for st in src_st)):
+            raise AssertionError(f"{name}: {fig['stats']}, placer {fig['placer']}, source "
+                                 f"status {[(st['ingest'], st['fleet']) for st in src_st]}")
+    if fig["directory"]["placements"] != {"default": dst}:
+        raise AssertionError(f"{name}: placements {fig['directory']['placements']}")
+    out = {"n": n, "windows": FLEET_WINDOWS, "pairs": (src, dst), "move": fig["stats"],
+           "move_s": fig["move_s"], "submit_s": fig["submit_s"],
+           "window_crawl_s": [fig["windows"][w]["crawl_s"] for w in range(FLEET_WINDOWS)],
+           "seal_to_hitters_s": [fig["windows"][w]["seal_to_hitters_s"]
+                                 for w in range(FLEET_WINDOWS)],
+           "replayed": replayed, "placer": fig["placer"],
+           "dup_submits": [ex["pool_dup_submits"] for ex in dst_exits],
+           "launches": {who: (ex or {}).get("launches") for who, ex in exits.items()},
+           "plane_handshakes": {who: ex["plane_handshakes"] for who, ex in exits.items()
+                                if ex is not None},
+           "plane_epoch": [ex["sessions"]["per_session"]["default"]["plane_epoch"]
+                           for ex in dst_exits],
+           "max_memory_allocated": {who: ex["max_memory_allocated"]
+                                    for who, ex in exits.items() if ex is not None}}
+    if failover:
+        out["kill_to_hitters_s"] = fig["t_hitters"] - fig["t_kill"]
+        out["probe_s"] = fig["probe_s"]
+    else:
+        xp = [e for who in (f"{src}0", f"{src}1") for e in ev[who]
+              if e["event"] == "fleet.session_exported"]
+        out["export_bytes"] = [e["bytes"] for e in xp]
+    return out, fig["results"], run
+
+
+def _fleet_launch_check(name, out, cfg, src, dst, kernels):
+    """The source pair launched nothing; each destination server launched
+    expand once per crawl verb of the two windows and each kernel of
+    ``kernels`` once per verb of a round it garbled (encrypt) or evaluated
+    (decrypt), the garbler of round i being i % 2; nothing else."""
+    r_per = -(-cfg.data_len // cfg.crawl_radix_bits)
+    for who, got in out["launches"].items():
+        want = {kn: 0 for kn in KERNELS}
+        if who.startswith(dst):
+            sid = int(who[-1])
+            want["expand"] = FLEET_WINDOWS * r_per
+            for kn in kernels:
+                want[kn] = FLEET_WINDOWS * len([i for i in range(r_per)
+                                                if (i % 2 == sid) == (kn == "ot2s_encrypt")])
+        if got is not None and got != want:
+            raise AssertionError(f"{name}: server {who} launched {got}, want {want}")
+        if got is None and not who.startswith(src):
+            raise AssertionError(f"{name}: server {who} printed no server.exit")
+
+
+def _fleet_hitters(name, cfg, results, run, ck, torch, secure_checks=False):
+    """Each window's hitters against the in-process batch crawl over the
+    window's keys as the destination banked them (equal to the window's
+    slice of the client keys: reject mode admits everything, in order) and
+    the plaintext recount; expand (or, ``secure_checks``, the ot2s pair as
+    phase 20's replay does) held against its plain version on the batch
+    crawl of the last window.  -> (hitters by window, the kernel checks)."""
+    from fuzzyheavyhitters_torch.ops import expand_cuda, prg
+    from fuzzyheavyhitters_torch.protocol import collect
+
+    per_w = ck.points.shape[0] // FLEET_WINDOWS
+    hitters, checks = {}, []
+    for w in range(FLEET_WINDOWS):
+        sl = slice(w * per_w, (w + 1) * per_w)
+        k0, k1 = _banked_window_keys(run["ckpt_dir"], w)
+        for got, want in ((k0, ck.keys0), (k1, ck.keys1)):
+            if any(a.tobytes() != b[sl].tobytes() for a, b in zip(got, want)):
+                raise AssertionError(f"{name}: window {w}'s banked keys are not its clients'")
+        batch = _batch_crawl(cfg, k0, k1, ck.points[sl], torch)
+        res = results[w]
+        if not (np.array_equal(res.paths, batch.result.paths)
+                and np.array_equal(res.counts, batch.result.counts)):
+            raise AssertionError(f"{name}: window {w}'s hitters differ from the batch crawl's")
+        hitters[w] = _hitter_map(res)
+        if not hitters[w]:
+            raise AssertionError(f"{name}: window {w} has no hitter")
+        _recount(f"{name} window {w}", hitters[w], cfg, ck.points[sl])
+        if w == FLEET_WINDOWS - 1:
+            if secure_checks:
+                checks = measure_secure(name, batch, cfg, OT2S, torch)
+            else:
+                checks = measure_expand(name, batch, cfg, expand_cuda, collect, prg, torch)
+        del batch
+        torch.cuda.empty_cache()
+    return hitters, checks
+
+
+def fleet_phases(seed, cells, report, errs, tmp, stage, torch):
+    """Phases 38-40: the collector fleet on the socket deployment."""
+    from fuzzyheavyhitters_torch.bin import leader as leader_bin
+
+    fleet = report["fleet"] = {}
+    dev = torch.device("cuda")
+    rides_cfg = cells["rides"][0]
+    base_crawl_s = report["sockets"]["rides_socket_windows"]["crawl_s"]
+
+    def client_keys(name, cfg, n):
+        """The leader's keygen (the script is the leader), its launches
+        zeroed just before and read just after."""
+        mod, attr = _counter("keygen")
+        setattr(mod, attr, 0)
+        ck = leader_bin.client_keys(cfg, n, dev, seed)
+        launches = getattr(mod, attr)
+        if launches <= 0:
+            raise AssertionError(f"{name}: the leader's keygen never launched its kernel")
+        return ck, launches
+
+    ck, kg = client_keys("rides_socket_fleet_migrate", rides_cfg, FLEET_CLIENTS)
+    # phase 38: a live migration between two pairs mid-stream
+    name = "rides_socket_fleet_migrate"
+    out, results, run = fleet_move(name, rides_cfg, FLEET_CLIENTS, ck, tmp, torch)
+    _fleet_launch_check(name, out, rides_cfg, "A", "B", ())
+    out["leader_keygen_launches"] = kg
+    hitters38, checks = _fleet_hitters(name, rides_cfg, results, run, ck, torch)
+    errs["expand"] += [c["max_abs_err"] for c in checks]
+    out["expand_checks"], out["hitters"] = checks, {w: len(h) for w, h in hitters38.items()}
+    log(f"fleet {name}: N={FLEET_CLIENTS} in {FLEET_WINDOWS} windows, migrated A -> B after "
+        f"window 0's seal and half of window 1's submissions: migration {out['move_s']:.3f} s, "
+        f"export blob "
+        f"{out['export_bytes']} B a server, {out['replayed']} submissions replayed "
+        f"(duplicates on B {out['dup_submits']}); window crawls "
+        f"{[round(x, 3) for x in out['window_crawl_s']]} s on B (phase 32: "
+        f"{[round(x, 3) for x in base_crawl_s]}); hitters {out['hitters']} = the batch crawls "
+        f"over B's banked keys and the recount; launches {out['launches']}")
+    fleet[name] = out
+    stage(f"{name} fleet run")
+    # phase 39: the same at rides_secure's config, ot2s at S = 4
+    name = "rides_secure_socket_fleet_migrate"
+    sec_cfg = cells["rides_secure"][0]
+    ck39, kg = client_keys(name, sec_cfg, FLEET_SECURE_CLIENTS)
+    out, results, run = fleet_move(name, sec_cfg, FLEET_SECURE_CLIENTS, ck39, tmp, torch)
+    _fleet_launch_check(name, out, sec_cfg, "A", "B", OT2S)
+    out["leader_keygen_launches"] = kg
+    if (out["plane_epoch"] != [1, 1] or [out["plane_handshakes"][f"B{i}"] for i in (0, 1)]
+            != [1, 1] or [out["plane_handshakes"][f"A{i}"] for i in (0, 1)] != [0, 0]):
+        raise AssertionError(f"{name}: plane epochs {out['plane_epoch']}, handshakes "
+                             f"{out['plane_handshakes']}: B must key once a server, A never")
+    hitters, checks = _fleet_hitters(name, sec_cfg, results, run, ck39, torch,
+                                     secure_checks=True)
+    for c in checks:
+        errs[c["kernel"]].append(c["max_abs_err"])
+    out["secure_checks"], out["hitters"] = checks, {w: len(h) for w, h in hitters.items()}
+    log(f"fleet {name}: N={FLEET_SECURE_CLIENTS} in {FLEET_WINDOWS} windows, migrated A -> B:"
+        f" {out['move_s']:.3f} s, export {out['export_bytes']} B a server; B keyed once a "
+        f"server (plane epochs {out['plane_epoch']}, handshakes {out['plane_handshakes']}); "
+        f"window crawls {[round(x, 3) for x in out['window_crawl_s']]} s; hitters "
+        f"{out['hitters']} = the batch crawls and the recount; launches {out['launches']}")
+    fleet[name] = out
+    del ck39
+    stage(f"{name} fleet run")
+    # phase 40: phase 38's keys on fresh pairs, the source pair killed
+    name = "rides_socket_fleet_host_kill"
+    out, results, run = fleet_move(name, rides_cfg, FLEET_CLIENTS, ck, tmp, torch,
+                                   failover=True)
+    _fleet_launch_check(name, out, rides_cfg, "C", "D", ())
+    out["leader_keygen_launches"] = fleet["rides_socket_fleet_migrate"]["leader_keygen_launches"]
+    got = {w: _hitter_map(r) for w, r in results.items()}
+    if got != hitters38:
+        raise AssertionError(f"{name}: hitters differ from phase 38's")
+    out["hitters"] = {w: len(h) for w, h in got.items()}
+    log(f"fleet {name}: pair C SIGKILLed after window 0's seal with half of window 1 in; "
+        f"probe {out['probe_s']:.3f} s, failover to D {out['move_s']:.3f} s ({out['move']}), "
+        f"kill to hitters {out['kill_to_hitters_s']:.3f} s; hitters {out['hitters']} = phase "
+        f"38's window for window; launches {out['launches']}")
+    fleet[name] = out
+    del ck
+    stage(f"{name} fleet run")
 
 
 def main() -> int:
@@ -3639,6 +4111,7 @@ def main() -> int:
                        torch)
         window_phases(args.seed, cells, points, secure_cfg, report, tmp, stage, torch)
         tenant_phases(args.seed, cells, report, tmp, stage, torch)
+        fleet_phases(args.seed, cells, report, errs, tmp, stage, torch)
     for name in points:
         kg = measure_keygen(name, points[name], cells[name][0], keygen_cuda, ibdcf, torch, rng)
         report["crawls"][name]["keygen_check"] = kg
@@ -3728,6 +4201,13 @@ def main() -> int:
             c: [report["sockets"][c]["launches"][w][kn] for w in ("server0", "server1")]
             for c in ("rides_socket_tenants", "rides_secure_socket_tenants",
                       "rides_socket_tenant_isolation")}
+        # phases 38-40: launches per server process of the fleet's pairs (the
+        # source pair's, killed in phase 40, are not known), and keygen's in
+        # the script, the leader (phase 40 reuses phase 38's keys)
+        rows[-1]["fleet_launches"] = {
+            c: {who: (ls or {}).get(kn) for who, ls in f["launches"].items()}
+            | ({"leader": f["leader_keygen_launches"]} if kn == "keygen" else {})
+            for c, f in report["fleet"].items()}
         if kn not in ("keygen", "expand"):
             rows[-1]["k3_checks"] = [
                 {k: c[k] for k in ("kind", "level", "shard", "S", "W", "bp", "max_abs_err",
@@ -3737,7 +4217,7 @@ def main() -> int:
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, ten crawls, a resume, "
-        "twenty-four socket runs and six mesh runs)")
+        "twenty-four socket runs, three fleet runs and six mesh runs)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

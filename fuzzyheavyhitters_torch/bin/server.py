@@ -30,10 +30,14 @@ card, its peak ``torch.cuda.max_memory_allocated`` and the data shards'
 config's ``server_data_devices`` (N > 1: N data shards, wrapped onto the
 visible cards, or logical CPU shards with ``--device cpu``) and
 ``FHH_MESH_FAULTS`` arms the device-loss drills (``mesh:kill@level=N``,
-the grammar of ``resilience.chaos.parse_mesh_faults``).  The JAX binary's
-fleet registration is not ported: its variable is refused, and so are the
-observability and sanitizer switches the port does not have yet
-(``bin.refuse_unported_switches``), and ``debug_guards: true`` in the
+the grammar of ``resilience.chaos.parse_mesh_faults``).  With ``FHH_FLEET``
+set, the server registers in that fleet directory once it serves: it writes
+``<pair>_s<id>.json`` (``FHH_FLEET_PAIR``, default ``pair0``; its host, port,
+boot id and ``FHH_FLEET_CAPACITY``, default 4) by a temporary file and a
+rename, and prints ``fleet.registered``; ``protocol.fleet.FleetDirectory.
+scan`` folds the two halves into one pair.  The observability and sanitizer
+switches the port does not have yet are refused
+(``bin.refuse_unported_switches``), and so is ``debug_guards: true`` in the
 config (``utils.config.refuse_debug_guards``).
 The ingest front door (``submit_keys``, ``window_seal``, ``window_load``)
 reads the config's ``ingest_*`` fields; ``server.exit`` counts its
@@ -59,15 +63,10 @@ import time
 import torch
 
 from . import refuse_unported_switches
-from ..protocol.rpc import CollectorServer, not_ported
+from ..protocol.rpc import CollectorServer
 from ..resilience.chaos import MeshChaos, parse_mesh_faults
 from ..utils import config as configmod
 from ..utils import resolve_device
-
-# the JAX binary's environment knobs, each with the path it selects
-UNPORTED_ENV = {
-    "FHH_FLEET": "fleet registration",
-}
 
 
 def emit(event: str, **kw) -> None:
@@ -88,10 +87,28 @@ def launch_counts() -> dict:
             "gc_garble": gc_cuda.GARBLE_LAUNCHES, "gc_eval": gc_cuda.EVAL_LAUNCHES}
 
 
-def refuse_unported_env() -> None:
-    for var, path in UNPORTED_ENV.items():
-        if os.environ.get(var):
-            raise not_ported(var, path)
+def fleet_register(server, server_id: int, host: str, port: int) -> str | None:
+    """Write this server's half of its pair's row into the fleet directory
+    ``FHH_FLEET`` (JAX bin/server.py:38-66) and return its path (None
+    without ``FHH_FLEET``).  The boot id is what the fleet's probe compares,
+    so a restarted process registers as a new boot; the temporary file and
+    rename keep a scan from reading a torn row."""
+    fleet_dir = os.environ.get("FHH_FLEET")
+    if not fleet_dir:
+        return None
+    os.makedirs(fleet_dir, exist_ok=True)
+    pair = os.environ.get("FHH_FLEET_PAIR") or "pair0"
+    row = {"pair": pair, "server_id": server_id, "host": host, "port": port,
+           "boot_id": server.boot_id,
+           "capacity": int(os.environ.get("FHH_FLEET_CAPACITY", "4")),
+           "ts": round(time.time(), 3)}
+    path = os.path.join(fleet_dir, f"{pair}_s{server_id}.json")
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(row, f)
+    os.replace(tmp, path)
+    emit("fleet.registered", pair=pair, server=server_id, boot_id=server.boot_id)
+    return path
 
 
 async def amain(cfg, server_id: int, device) -> None:
@@ -123,6 +140,8 @@ async def amain(cfg, server_id: int, device) -> None:
     try:
         await server.start(my_host, my_port, peer_host, port1 + 1, on_plane_listen=lambda: emit(
             "server.plane_listening", server=server_id, host=my_host, port=port1 + 1))
+        # after the start, so a row only ever names a pair that listens
+        fleet_register(server, server_id, my_host, my_port)
         emit("server.serving", server=server_id, host=my_host, port=my_port,
              device=str(server.device))
         await stop.wait()
@@ -148,7 +167,6 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     if args.server_id not in (0, 1):
         raise SystemExit(f"server_id must be 0 or 1, got {args.server_id}")
-    refuse_unported_env()
     refuse_unported_switches()
     cfg = configmod.load_config(args.config)
     configmod.refuse_debug_guards(cfg)

@@ -26,8 +26,12 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 SOURCES = {"keygen": "keygen.cu", "expand": "expand.cu", "ot2s": "ot2s.cu", "gc": "gc.cu"}
 HEADERS = ("chacha.cuh",)
+# -split-compile=0 runs the device optimizer's passes over a source's
+# kernels on every core, so gc.cu's 32 template instantiations no longer
+# build one after another; scripts/nvcc_split_check.py times both builds
+# and checks that their SASS is byte-equal
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-split-compile=0",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 

@@ -67,9 +67,11 @@ Streaming ingestion (:class:`WindowedIngest`): clients' submissions go
 through server 0's admission gate and are mirrored to server 1 into
 tumbling windows; each sealed window is crawled by :meth:`RpcLeader.run`
 while the next one fills, and a server restart is recovered from the
-ingest-only checkpoint and the leader's journal.  Live migration between
-server pairs (the JAX ``migrate``/``failover_to``) belongs to the fleet and
-is not ported.
+ingest-only checkpoint and the leader's journal.  A windowed collection
+moves between server pairs at a window boundary
+(:meth:`WindowedIngest.migrate`), or off a dead pair from its newest
+ingest checkpoint (:meth:`WindowedIngest.failover_to`); ``protocol/fleet.py``
+decides where.
 
 Many collections on one server pair (:class:`MultiCollectionDriver`): one
 client pair and one :class:`RpcLeader` a collection, each client's hello
@@ -599,7 +601,8 @@ class RpcLeader:
 INGEST_POLICY = respolicy.RetryPolicy(base_s=0.02, cap_s=0.5, factor=2.0, attempts=16)
 
 INGEST_COUNTERS = ("ingest_admitted", "ingest_shed_subs", "ingest_rejected", "ingest_shed",
-                   "ingest_windows", "ingest_recoveries", "ingest_journal_replays")
+                   "ingest_windows", "ingest_recoveries", "ingest_journal_replays",
+                   "ingest_migrations", "ingest_failovers")
 
 
 class IngestOverloadedError(RuntimeError):
@@ -858,13 +861,17 @@ class WindowedIngest:
                     except RuntimeError as e:
                         lead.emit("ingest.restore_failed", server=i, error=str(e))
                 await self._replay_journal(client, i)
-                for w in sorted(self._sealed):
-                    req = {"window": w}
-                    root = self._sealed[w].get("sk_root")
-                    if root is not None:  # never a fresh root for the same slabs
-                        req["sk_root"] = root
+                for req in self._reseal_requests():
                     await client.call("window_seal", req)
                 lead.emit("ingest.server_reseeded", server=i)
+
+    def _reseal_requests(self) -> list:
+        """``window_seal`` of every sealed window with its banked root: a
+        pool rebuilt from the journal takes it, never a fresh root for the
+        same slabs."""
+        return [{"window": w} if self._sealed[w].get("sk_root") is None
+                else {"window": w, "sk_root": self._sealed[w]["sk_root"]}
+                for w in sorted(self._sealed)]
 
     async def _replay_journal(self, client, which: int) -> None:
         """Re-submit every journaled record to one server in mirror form (the
@@ -882,6 +889,97 @@ class WindowedIngest:
                     "mirror": {"slot": rec["slot"], "shed": rec["shed"]}})
                 replayed += 1
         self.counters["ingest_journal_replays"] += replayed
+
+    # -- the fleet: live migration and failover (JAX leader_rpc.py:1368-1495) --
+
+    async def _adopt(self, new_lead: RpcLeader) -> int:
+        """Bind to ``new_lead``'s pair and complete its pools: the journal
+        replayed to each server in mirror form (the recorded verdicts make
+        it exactly-once), then the sealed windows sealed again with their
+        banked roots.  -> the records replayed to each server."""
+        new_lead.has_sketch = self.lead.has_sketch
+        for i, c in ((0, new_lead.c0), (1, new_lead.c1)):
+            new_lead._boot_ids[i] = getattr(c, "boot_id", None)
+        self.lead = new_lead
+        replayed = sum(len(v) for v in self._journal.values())
+        await self._replay_journal(new_lead.c0, 0)
+        await self._replay_journal(new_lead.c1, 1)
+        for req in self._reseal_requests():
+            await new_lead._both("window_seal", req)
+        return replayed
+
+    async def migrate(self, new_lead: RpcLeader) -> dict:
+        """Move this collection onto ``new_lead``'s server pair mid-stream.
+
+        The whole move holds ``_submit_lock`` then ``_recover_lock`` (the
+        order submissions, seals and recoveries take), so no gate-and-mirror
+        pair is half landed and no boundary half passed; the servers refuse
+        to export mid-level besides.  In this order, so that a failure at
+        any step leaves the source pair authoritative (its copy goes last):
+
+        1. ``session_export`` on both source servers (stamped blobs);
+        2. ``session_import`` on both destination servers (the stamps
+           checked, everything validated before anything changes; each
+           destination keys its own channel at its next plane verb);
+        3. the driver bound to ``new_lead``, the journal replayed in mirror
+           form (every in-flight submission lands once: the exported
+           verdicts answer the rest as duplicates);
+        4. the sealed windows sealed again with their original roots (a
+           migrated malicious window opens the identical challenge);
+        5. an ingest checkpoint banked on the destination, then the source
+           copy retired on both servers.
+
+        -> ``{"windows": the exported windows, "replayed": records}``."""
+        async with self._submit_lock:
+            async with self._recover_lock:
+                old = self.lead
+                x0 = await old.c0.call("session_export", {})
+                x1 = await old.c1.call("session_export", {})
+                await new_lead.c0.call("session_import", {
+                    "path": x0["path"], "boot": x0["boot"], "epoch": x0["epoch"]})
+                await new_lead.c1.call("session_import", {
+                    "path": x1["path"], "boot": x1["boot"], "epoch": x1["epoch"]})
+                replayed = await self._adopt(new_lead)
+                if self._ckpt:
+                    try:
+                        await new_lead._both("tree_checkpoint",
+                                             {"level": -1, "ingest_only": True})
+                        self._have_ckpt = True
+                    except RuntimeError as e:
+                        self._ckpt = False
+                        new_lead.emit("ingest.checkpoint_disabled", error=str(e))
+                # last: the source copy goes only once the destination holds
+                # the whole, re-sealed state
+                await old.c0.call("session_export", {"retire": True, "epoch": x0["epoch"]})
+                await old.c1.call("session_export", {"retire": True, "epoch": x1["epoch"]})
+                windows = [int(w) for w in x0.get("windows", [])]
+        self.counters["ingest_migrations"] += 1
+        self.lead.emit("ingest.session_migrated", windows=windows, replayed=replayed)
+        return {"windows": windows, "replayed": replayed}
+
+    async def failover_to(self, new_lead: RpcLeader, *, level: int = -1) -> dict:
+        """Move this collection off a dead pair onto ``new_lead``'s from its
+        newest checkpoint in the shared store: :meth:`migrate` without the
+        export and the retire.  Each destination server imports the
+        ``level`` ingest blob (the one :meth:`seal_window` banks at every
+        boundary), then the journal is replayed and the sealed windows
+        sealed again with their roots.  A collection that never banked a
+        checkpoint recovers from the journal alone.
+        -> ``{"imported": any server imported a blob, "replayed": records}``."""
+        async with self._submit_lock:
+            async with self._recover_lock:
+                imported = False
+                if self._have_ckpt:
+                    for c in (new_lead.c0, new_lead.c1):
+                        try:
+                            await c.call("session_import", {"level": level})
+                            imported = True
+                        except RuntimeError as e:
+                            new_lead.emit("ingest.restore_failed", error=str(e))
+                replayed = await self._adopt(new_lead)
+        self.counters["ingest_failovers"] += 1
+        self.lead.emit("ingest.session_failed_over", imported=imported, replayed=replayed)
+        return {"imported": imported, "replayed": replayed}
 
 
 # -- many collections on one server pair (JAX leader_rpc.py:1503-1590) --------

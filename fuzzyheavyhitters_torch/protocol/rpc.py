@@ -119,8 +119,15 @@ warmup's ladder of warmed shapes is shared by the process.  A connection
 that names no collection works on the default one, so every single-tenant
 flow, checkpoint names included, is unchanged.
 
-Not ported (they answer ``NotImplementedError`` naming the missing path,
-never "unknown verb"): the session migration verbs of the JAX server.
+Fleet migration (JAX rpc.py:1662-1890; ``protocol/fleet.py``):
+``session_export`` banks a collection's ingest state as a blob stamped
+with the server's boot id and the collection's export epoch, and its
+retire mode drops the source copy once the destination holds it;
+``session_import`` adopts such a blob (or the collection's own ingest
+checkpoint, after its pair died), checking everything before it changes
+anything, and forces the collection's channel to key up again against
+this pair's peer.  The blob is the JAX server's field for field, so
+either package imports the other's export.
 """
 
 from __future__ import annotations
@@ -216,16 +223,6 @@ def _keepalive(writer: asyncio.StreamWriter) -> None:
             sock.setsockopt(socket.IPPROTO_TCP, getattr(socket, opt), val)
 
 
-def not_ported(what: str, path: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: {path} is not ported to PyTorch yet")
-
-
-# the JAX server's other verbs, each with the path it belongs to
-UNPORTED_VERBS = {
-    "session_export": "collection-session migration",
-    "session_import": "collection-session migration",
-}
-
 # replay-dedup bounds (the JAX package's): the cache must cover every request
 # a client could still replay — its in-flight window (the key upload's 256)
 # and slack — and is bounded by bytes too, since crawl answers are share
@@ -307,7 +304,7 @@ class CollectorServer:
     VERBS = ("reset", "add_keys", "tree_init", "tree_crawl", "tree_crawl_last",
              "tree_prune", "tree_prune_last", "final_shares", "warmup", "status",
              "tree_checkpoint", "tree_restore", "plane_reset", "plane_break", "sketch_verify",
-             "submit_keys", "window_seal", "window_load")
+             "submit_keys", "window_seal", "window_load", "session_export", "session_import")
 
     def __init__(self, server_id: int, cfg: Config, device=None, *, ckpt_dir=None,
                  emit=None, mesh_chaos=None):
@@ -801,6 +798,160 @@ class CollectorServer:
         return {"window": w, "keys": pool.keys, "subs": len(pool.entries),
                 "sketch": has_sketch}
 
+    # -- fleet migration (JAX rpc.py:1662-1890; protocol/fleet.py) --------------
+
+    async def session_export(self, req, cs=None) -> dict:
+        """Bank the collection's migratable state as a stamped blob for a
+        ``session_import`` on another pair, or, in retire mode, drop the
+        source copy after the destination confirmed its import.
+
+        An export happens at a window or level boundary only: a collection
+        holding a level's child cache or spans refuses (a torn level would
+        leave half an exchange on each pair).  The blob is the ingest form
+        of the checkpoint (pools, recorded verdicts, quota ledgers, the
+        reservoir's state, each sealed window's challenge root), stamped
+        with the collection, the crawl radix, this server's boot id and the
+        collection's export epoch.  Crawl state stays behind: a windowed
+        crawl rebuilds it from the pools, and the destination keys its own
+        channel, while the windows' roots ride the pools, so a migrated
+        malicious window replays the identical challenge.
+
+        Retire (``{"retire": True, "epoch": E}``, E the last export's epoch):
+        every pool (sealed ones too), the crawl state and keys and the export
+        file go, and the scheduler forgets the collection, whose idle
+        session the table may then evict."""
+        cs = cs or self._default()
+        req = req or {}
+        if req.get("retire"):
+            epoch = int(req.get("epoch", -1))
+            if epoch <= 0 or epoch != cs._export_epoch:
+                raise RuntimeError(f"session_export: retire epoch {epoch} does not match the "
+                                   f"last export ({cs._export_epoch}) — refusing to drop state "
+                                   "that was never transferred")
+            dropped = len(cs._ingest_pools)
+            cs._ingest_pools.clear()
+            cs.clear()
+            if cs.ckpt_dir is not None and os.path.exists(self._export_path(cs)):
+                os.remove(self._export_path(cs))
+            # a migrated-away collection must not hold this pair's
+            # progress-age signal high for ever
+            self._sched.forget(cs.key)
+            self._add(cs, "sessions_retired")
+            self.emit("fleet.session_retired", server=self.server_id, collection=cs.key,
+                      pools_dropped=dropped)
+            return {"retired": True, "pools_dropped": dropped}
+        # mid-level: a child cache between crawl and prune, or spans being
+        # assembled; the last shares alone linger after a finished crawl
+        if cs.children is not None or cs._shard_children or cs._shard_last:
+            raise RuntimeError("session_export: session is mid-level — a migration quiesces "
+                               "at a window/level boundary only")
+        if cs.ckpt_dir is None:
+            raise RuntimeError("session_export: no checkpoint dir configured (start the "
+                               "server with FHH_CKPT_DIR set)")
+        blob = {"ing_only": np.bool_(True), "sess": np.str_(cs.key), "level": np.int64(-1),
+                "radix": np.int64(self.cfg.crawl_radix_bits)}
+        cs.ingest_ckpt_fields(blob)
+        cs._export_epoch += 1
+        blob["xp_boot"] = np.str_(self.boot_id)
+        blob["xp_epoch"] = np.int64(cs._export_epoch)
+        path = self._export_path(cs)
+        tmp = f"{path}.tmp{os.getpid()}"
+
+        def write():
+            with open(tmp, "wb") as f:
+                np.savez(f, **blob)
+            os.replace(tmp, path)
+
+        await asyncio.to_thread(write)
+        self._add(cs, "session_exports")
+        windows = sorted(cs._ingest_pools)
+        self.emit("fleet.session_exported", server=self.server_id, collection=cs.key,
+                  epoch=cs._export_epoch, windows=windows, path=path,
+                  bytes=os.path.getsize(path))
+        return {"path": path, "boot": self.boot_id, "epoch": cs._export_epoch,
+                "windows": windows}
+
+    @staticmethod
+    def _export_path(cs) -> str:
+        # in the collection's checkpoint namespace but outside the level
+        # grammar ("xport" never parses as a level), so the checkpoint
+        # listing and pruning pass it by
+        return os.path.join(cs.ckpt_dir, f"{cs.ckpt_prefix()}xport.npz")
+
+    async def session_import(self, req, cs=None) -> dict:
+        """Adopt a migrated or orphaned collection's banked state.
+
+        ``{"path", "boot", "epoch"}`` names a ``session_export`` blob (live
+        migration: the blob's stamp must be the announced one, and a stamp
+        imports at most once, since applied twice a transfer lands its
+        in-flight submissions twice); ``{"level": N}`` names this
+        collection's own checkpoint (failover: the dead pair's newest ingest
+        checkpoint in the shared store, unstamped).
+
+        Every check runs before anything changes — a torn or corrupt blob,
+        another collection's stamp, a stamp that is not the announced one or
+        was imported already, a blob that is not ingest-only, another crawl
+        radix (either way), a torn ``ing_*`` tail — and a refusal leaves the
+        state as it was.  Then the pools are rebuilt and the collection's
+        channel is forced to key up again (coin flip and, secure, base OT
+        against this pair's peer at the next data-plane verb): OT sessions
+        never cross hosts."""
+        cs = cs or self._default()
+        req = req or {}
+        if cs.ckpt_dir is None:
+            raise RuntimeError("session_import: no checkpoint dir configured")
+        stamp = None
+        if req.get("path") is not None:
+            path = str(req["path"])
+            stamp = (str(req.get("boot", "")), int(req.get("epoch", 0)))
+        else:
+            path = cs.ckpt_path(int(req["level"]))
+        if not os.path.exists(path):
+            raise RuntimeError(f"session_import: no blob at {path}")
+        try:  # a torn write surfaces as BadZipFile, ValueError or EOFError
+            z = await asyncio.to_thread(_load_npz, path)
+        except Exception as e:  # every load failure is the same refusal
+            raise RuntimeError(f"session_import: corrupt or truncated blob at {path} "
+                               f"({type(e).__name__}: {e})") from e
+        if "sess" in z and str(z["sess"]) != cs.key:
+            raise RuntimeError(f"session_import: blob at {path} is stamped for collection "
+                               f"{str(z['sess'])!r}, not {cs.key!r}")
+        if stamp is not None:
+            got = (str(z.get("xp_boot", "")), int(z.get("xp_epoch", 0)))
+            if got != stamp:
+                raise RuntimeError(f"session_import: blob at {path} carries stamp {got}, not "
+                                   f"the announced export {stamp} (stale file?)")
+            if stamp in cs._import_seen:
+                raise RuntimeError(f"session_import: export {stamp} was already imported — "
+                                   "double-applying a transfer would double-land its "
+                                   "in-flight submissions")
+        if not ("ing_only" in z and bool(z["ing_only"])):
+            raise RuntimeError("session_import: only ingest-form blobs migrate (crawl state "
+                               "rebuilds from the pools via window_load); use add_keys + "
+                               "tree_restore for a crawl-level checkpoint")
+        xp_radix = int(z["radix"]) if "radix" in z else 1
+        if xp_radix != self.cfg.crawl_radix_bits:
+            raise RuntimeError(f"session_import: blob at {path} was exported under "
+                               f"crawl_radix_bits={xp_radix}; this session runs "
+                               f"crawl_radix_bits={self.cfg.crawl_radix_bits}")
+        parsed = cs.ingest_validate(z, path)
+        # -- every check passed: mutate
+        if parsed is not None:
+            cs.ingest_restore_apply(parsed)
+        else:
+            cs._ingest_pools.clear()  # an empty export imports as empty
+        if stamp is not None:
+            cs._import_seen.add(stamp)
+        # plane epoch 0: never keyed, so the next data-plane verb keys the
+        # channel against this pair's peer
+        cs._ot_snd = cs._ot_rcv = cs._sec_seed = None
+        cs.plane_epoch = 0
+        self._add(cs, "session_imports")
+        windows = sorted(cs._ingest_pools)
+        self.emit("fleet.session_imported", server=self.server_id, collection=cs.key,
+                  windows=windows, path=path)
+        return {"windows": windows}
+
     async def warmup(self, req, cs=None) -> dict:
         """Run, for every requested bucket ``f_buckets`` and every span size
         it implies under ``crawl_shard_nodes`` (none for a whole-level
@@ -918,10 +1069,12 @@ class CollectorServer:
         collection its ingest front door's health (``ingest``: per-window
         occupancy, the unsealed queue depth, the admit, shed and reject
         counters) and its data shards' (``mesh``, whose ``faults`` tells the
-        leader a device loss from a server loss); and every collection's row
-        with the tenant scheduler's figures (``sessions``).  The JAX
-        server's sections of unported layers (fleet, slo, alerts) are left
-        out."""
+        leader a device loss from a server loss); every collection's row
+        with the tenant scheduler's figures (``sessions``); and the fleet's
+        (``fleet``: the pair this server is half of, its boot id, the
+        calling collection's exports and imports, and the placement signals
+        ``fleet.FleetDirectory.note_load`` takes).  The JAX server's
+        sections of unported layers (slo, alerts) are left out."""
         cs = cs or self._default()
         return {"boot_id": self.boot_id, "collection": cs.key,
                 "clock": round(time.time(), 6),
@@ -930,7 +1083,12 @@ class CollectorServer:
                 "dedup_hits": self.stats["dedup_hits"],
                 "plane_resets": self.stats["plane_resets"],
                 "ckpt_levels": cs.ckpt_levels(), "ingest": cs.ingest_status(),
-                "mesh": cs.mesh_status(), "sessions": self.sessions_status()}
+                "mesh": cs.mesh_status(), "sessions": self.sessions_status(),
+                "fleet": {"pair": os.environ.get("FHH_FLEET_PAIR", ""),
+                          "boot_id": self.boot_id,
+                          "session_exports": cs.stats["session_exports"],
+                          "session_imports": cs.stats["session_imports"],
+                          "load": self._sched.fleet_load()}}
 
     def sessions_status(self) -> dict:
         """The ``sessions`` section of ``status`` and ``server.exit`` (JAX
@@ -1529,8 +1687,6 @@ class CollectorServer:
         ``plane_reset`` runs under the server's (the plane is shared), every
         other verb under its collection's."""
         try:
-            if verb in UNPORTED_VERBS:
-                raise not_ported(verb, UNPORTED_VERBS[verb])
             if verb not in self.VERBS:
                 raise ValueError(f"unknown verb {verb!r}")
             if verb in ("add_keys", "submit_keys", "plane_break"):

@@ -270,9 +270,9 @@ class _WindowPool:
 # readbacks, the data shards' reductions, gathers, faults, re-shards and
 # re-runs, the ingest front door's submissions (replays among them),
 # admitted and shed keys, Overloaded answers and sealed windows, the
-# data-plane bytes, the warmup's shapes and warm-ladder hits, and the
+# data-plane bytes, the warmup's shapes and warm-ladder hits, the
 # channel's handshakes (the coin flip and, secure, the base OT) and their
-# seconds
+# seconds, and the fleet's session exports, imports and retirements
 SESSION_COUNTERS = ("levels", "levels_done", "add_keys", "ckpt_writes", "ckpt_bytes",
                     "ckpt_write_s", "restores", "restore_s", "sketch_verifies",
                     "sketch_advance_s", "device_fetches", "ici_reduce_s", "kernel_gathers",
@@ -280,7 +280,8 @@ SESSION_COUNTERS = ("levels", "levels_done", "add_keys", "ckpt_writes", "ckpt_by
                     "pool_submits", "pool_dup_submits", "pool_admitted_keys", "pool_shed_keys",
                     "pool_rejected", "windows_sealed", "data_bytes_sent", "data_bytes_recv",
                     "warmup_shapes", "warmup_ladder_hits", "plane_handshakes",
-                    "plane_handshake_s")
+                    "plane_handshake_s", "session_exports", "session_imports",
+                    "sessions_retired")
 # the run report's phases: host-clock spans of every level (the JAX server's
 # fss, gc_ot, field), then the secure exchange's steps, spans of the device
 # stream on the card (driver.PhaseClock), then the sketch_verify verbs' host
@@ -347,6 +348,12 @@ class CollectionSession:
         )
         self._adm_gate = asyncio.Lock()
         self._verb_lock = asyncio.Lock()
+        # the fleet's migration stamps (JAX sessions.py:391-396): each export
+        # blob carries (boot id, export epoch), and an import refuses a stamp
+        # it took already (applied twice, a transfer lands its in-flight
+        # submissions twice)
+        self._export_epoch = 0
+        self._import_seen: set = set()
         self.clear()
 
     # -- lifecycle --------------------------------------------------------

@@ -40,8 +40,11 @@ the redial.
 The mesh drills (:class:`MeshChaos`) inject faults into the device-mesh
 crawl of ``parallel/mesh.py`` at the level boundaries its leader crosses,
 and into a collector server's data shards at each crawl verb's entry
-(``protocol/rpc.py``), with their own grammar (below).  The JAX package's host drills
-(``HostChaos``) belong to the fleet, not ported yet.
+(``protocol/rpc.py``), with their own grammar (below).  The host drills
+(:class:`HostChaos`) lose a whole collector pair at a window boundary, for
+the fleet's failover (``protocol/fleet.py``).  :class:`ChaosLinks` bundles
+the three proxies of one pair (leader to server 0, leader to server 1, the
+data plane) built from one fault spec.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from __future__ import annotations
 import asyncio
 import struct
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 _HDR = struct.Struct("<Q")  # protocol/rpc.py's framing
 
@@ -329,3 +332,120 @@ class MeshChaos:
                     state_lost=True)
             raise MeshFaultError(f"data-parallel shard dropped at level {level}",
                                  state_lost=False)
+
+
+# ---------------------------------------------------------------------------
+# Host chaos: a whole collector pair lost (the fleet's failover drill)
+#
+# Above the link (ChaosProxy severs one connection) and the device (MeshChaos
+# clobbers one participant) sits the host: both servers of a pair gone at
+# once, a rack's power or a preempted pair of machines.  The windowed ingest
+# driver asks the injector at its window boundaries; a clause whose window
+# has been reached fires once, and the caller kills the whole pair.  The
+# fleet's probe then sees dead boot ids and fails the pair's sessions over
+# to a surviving pair from their newest checkpoints (protocol/fleet.py).
+#
+# Grammar: ``host:kill@window=<N>``, ';'-separated, each clause consumed
+# once like the mesh clauses.
+# ---------------------------------------------------------------------------
+
+_HOST_ACTIONS = ("kill",)
+
+
+@dataclass(frozen=True)
+class HostFaultSpec:
+    action: str
+    at_window: int
+
+    def __post_init__(self):
+        if self.action not in _HOST_ACTIONS:
+            raise ValueError(f"unknown host chaos action {self.action!r}")
+        if self.at_window < 0:
+            raise ValueError("window= trigger must be >= 0")
+
+
+def parse_host_faults(spec: str | None) -> list[HostFaultSpec]:
+    """Parse a host fault spec (grammar above).  A blank spec is no fault;
+    a malformed clause raises ValueError with the JAX package's text."""
+    out: list[HostFaultSpec] = []
+    for clause in (spec or "").split(";"):
+        clause = clause.strip()
+        if not clause:
+            continue
+        try:
+            head, args = clause.split("@", 1)
+            link, action = head.split(":", 1)
+        except ValueError:
+            raise ValueError(f"bad host chaos clause {clause!r} "
+                             "(want host:kill@window=N)") from None
+        if link.strip() != "host":
+            raise ValueError(f"host chaos clause {clause!r} must target 'host'")
+        kw: dict = {}
+        for part in args.split(","):
+            k, _, v = part.partition("=")
+            k, v = k.strip(), v.strip()
+            if k == "window":
+                kw["at_window"] = int(v)
+            else:
+                raise ValueError(f"unknown host chaos arg {k!r} in {clause!r}")
+        if "at_window" not in kw:
+            raise ValueError(f"host chaos clause {clause!r} missing window=")
+        out.append(HostFaultSpec(action=action.strip(), **kw))
+    return out
+
+
+class HostChaos:
+    """Consumed-once host-pair fault schedule.  :meth:`before_window`
+    returns True when a clause fires at this boundary; the caller then kills
+    the whole pair (two servers of one process in the tests, two processes
+    on the card), so the injector itself knows nothing of processes.
+    ``emit`` receives ``resilience.host_chaos_fired`` events."""
+
+    def __init__(self, faults: list | None = None, emit=None):
+        self._armed: list[HostFaultSpec] = list(faults or [])
+        self.fired: list[tuple[str, int]] = []  # (action, window)
+        self.emit = emit or (lambda event, **kw: None)
+
+    def before_window(self, window: int) -> bool:
+        hit = False
+        for f in list(self._armed):
+            if window < f.at_window:
+                continue
+            self._armed.remove(f)
+            self.fired.append((f.action, window))
+            self.emit("resilience.host_chaos_fired", action=f.action, window=window)
+            hit = True
+        return hit
+
+
+@dataclass
+class ChaosLinks:
+    """The three links of one pair behind proxies, from one fault spec:
+    leader to server 0 (``ctl0``), leader to server 1 (``ctl1``) and the data
+    plane (``plane``), listening on ``base_port`` and the two ports after
+    it.  ``await start()`` brings all three up; :meth:`addr` gives the
+    endpoint the leader's or a server's config should dial."""
+
+    listen_host: str
+    base_port: int  # three consecutive ports: ctl0, ctl1, plane
+    ctl0_target: tuple[str, int]
+    ctl1_target: tuple[str, int]
+    plane_target: tuple[str, int]
+    faults: list[FaultSpec] = field(default_factory=list)
+    proxies: dict = field(default_factory=dict)
+
+    _LINKS = ("ctl0", "ctl1", "plane")
+
+    async def start(self) -> "ChaosLinks":
+        targets = (self.ctl0_target, self.ctl1_target, self.plane_target)
+        for i, (link, tgt) in enumerate(zip(self._LINKS, targets)):
+            self.proxies[link] = await ChaosProxy(self.listen_host, self.base_port + i, tgt[0],
+                                                  tgt[1], self.faults, link=link).start()
+        return self
+
+    async def stop(self) -> None:
+        for p in self.proxies.values():
+            await p.stop()
+
+    def addr(self, link: str) -> tuple[str, int]:
+        return self.listen_host, self.base_port + self._LINKS.index(link)

@@ -10,13 +10,13 @@ package, over localhost TCP in one event loop, tolerance zero:
 (c) mixed pairs — a JAX ``CollectorServer`` with a port server, in both
     roles, under both leaders — give the JAX ``driver.Leader``'s hitters,
     trusted and secure, and their ``final_shares`` reconstruct them;
-(d) the refusals: unported verbs, an invalid collection key, the
-    binaries' unported variables, and the leader's environment read with
-    the JAX leader's defaults; the data-shard options, ``FHH_WINDOWS`` and
-    named collections (a hello's ``collection``, ``FHH_COLLECTION``),
-    refused until their paths were ported, are taken
-    (``test_torch_multichip.py``, ``test_torch_ingest.py`` and
-    ``test_torch_tenants_rpc.py`` hold them).
+(d) the refusals: an unknown verb, an invalid collection key, and the
+    leader's environment read with the JAX leader's defaults; the
+    data-shard options, ``FHH_WINDOWS``, named collections (a hello's
+    ``collection``, ``FHH_COLLECTION``), the fleet's verbs and
+    ``FHH_FLEET``, refused until their paths were ported, are taken
+    (``test_torch_multichip.py``, ``test_torch_ingest.py``,
+    ``test_torch_tenants_rpc.py`` and ``test_torch_fleet*.py`` hold them).
 
 The node-span crawl is held in ``test_torch_spans.py``.
 
@@ -25,6 +25,8 @@ functions run inside ``torch_ref.installed()`` (they import sibling modules
 at call time)."""
 
 import asyncio
+import json
+import os
 import re
 
 import numpy as np
@@ -311,15 +313,20 @@ async def _port_pair_clients(cfg):
     return (s0, s1), p0, p1
 
 
-@pytest.mark.parametrize("verb", sorted(trpc.UNPORTED_VERBS))
+# The name and the cases are those of the refusal this test held until the
+# fleet's verbs were ported; it now holds that they answer.
+@pytest.mark.parametrize("verb", ["session_export", "session_import"])
 def test_unported_verbs_are_refused(verb):
+    """The fleet's verbs, once refused as unported, are served: without a
+    checkpoint directory each answers the JAX server's refusal; an unknown
+    verb is still refused by name, and the connection still serves."""
     async def flow():
         servers, p0, _ = await _port_pair_clients(tconfig.Config(**_cfg_kw(1, "trusted")))
         c0 = await trpc.CollectorClient.connect("127.0.0.1", p0)
         try:
+            assert verb in trpc.CollectorServer.VERBS
             with pytest.raises(RuntimeError, match=re.escape(
-                    f"NotImplementedError: {verb}: {trpc.UNPORTED_VERBS[verb]} is not "
-                    "ported to PyTorch yet")):
+                    f"RuntimeError: {verb}: no checkpoint dir configured")):
                 await c0.call(verb, {"level": 0})
             with pytest.raises(RuntimeError, match="ValueError: unknown verb 'no_such'"):
                 await c0.call("no_such")
@@ -412,7 +419,7 @@ def test_unported_options_are_refused(opt, path):
     assert one._mesh is None and asyncio.run(one.status({}))["mesh"] is None
 
 
-def test_wire_refuses_tensors_and_binaries_refuse_unported_modes(monkeypatch):
+def test_wire_refuses_tensors_and_binaries_refuse_unported_modes(monkeypatch, tmp_path):
     with pytest.raises(TypeError, match="torch.Tensor"):
         trpc._check_wire((1, {"shares": [np.zeros(2), torch.zeros(2)]}))
     trpc._check_wire(("default", {"keys": (np.zeros(2, np.uint32), b"x", 3)}))
@@ -442,14 +449,18 @@ def test_wire_refuses_tensors_and_binaries_refuse_unported_modes(monkeypatch):
     for val in ("0", "1"):  # the warmup is ported: either value runs
         monkeypatch.setenv("FHH_WARMUP", val)
         tleader_bin.refuse_unported_env()
-    tserver_bin.refuse_unported_env()
-    # the server's checkpoint directory is ported
-    assert "FHH_CKPT_DIR" not in tserver_bin.UNPORTED_ENV
-    monkeypatch.setenv("FHH_CKPT_DIR", "ckpt")
-    tserver_bin.refuse_unported_env()
-    monkeypatch.delenv("FHH_CKPT_DIR")
-    for var, path in tserver_bin.UNPORTED_ENV.items():
-        monkeypatch.setenv(var, "x")
-        with pytest.raises(NotImplementedError, match=f"{var}: {path} is not ported"):
-            tserver_bin.refuse_unported_env()
-        monkeypatch.delenv(var)
+    # the server's variables are all ported: FHH_FLEET (refused until the
+    # fleet was ported) is taken, and the server registers its half of the
+    # pair there
+    fleet_dir = tmp_path / "fleet"
+    monkeypatch.setenv("FHH_FLEET", str(fleet_dir))
+    monkeypatch.delenv("FHH_FLEET_PAIR", raising=False)
+    server = trpc.CollectorServer(1, tconfig.Config(**_cfg_kw(1, "trusted")), "cpu")
+    path = tserver_bin.fleet_register(server, 1, "127.0.0.1", 4001)
+    assert os.listdir(fleet_dir) == ["pair0_s1.json"] == [os.path.basename(path)]
+    with open(path) as f:
+        row = json.load(f)
+    assert {k: row[k] for k in ("pair", "server_id", "host", "port", "boot_id",
+                                "capacity")} == {
+        "pair": "pair0", "server_id": 1, "host": "127.0.0.1", "port": 4001,
+        "boot_id": server.boot_id, "capacity": 4}
