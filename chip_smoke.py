@@ -33,7 +33,8 @@ Phases (any failure raises, and the script exits non-zero):
    the six crawls' shapes (all N x n_dims x 2 keys, L levels) and timed;
 6. the secure exchange through ``bin.mesh.run``: ``config4_zipf_secure``
    (the config-4 shape with ``secure_exchange``, S = 2 so the 1-of-2^S OT
-   kernels, at N = 32,768 — half the JAX package's one-chip secure shape),
+   kernels, at N = 8,192 — an eighth of the JAX package's one-chip secure
+   shape),
    ``rides_secure_gc`` (``configs/config.json`` with ``secure_exchange`` and
    ``ot_path: "gc"``, S = 4, the garbled-circuit kernels, N = 262,144) and
    ``rides_secure`` (that config with ``ot_path: "auto"``, S = 4 on the
@@ -49,7 +50,9 @@ Phases (any failure raises, and the script exits non-zero):
    S in {2, 4, 6, 8, 16}, each at W in {4, 8};
 9. the socket deployment: two ``bin.server`` processes and a ``bin.leader``
    (``--seed``) as real OS processes on the card, started together on free
-   localhost ports (server 0 and the leader dial with retries),
+   localhost ports (server 0 and the leader dial with retries; from here on
+   each process is an interpreter started ahead, torch imported and its
+   CUDA context made (``WarmPool``), except a drill's restart),
    for ``rides_socket`` (``configs/config.json``, trusted, N = 262,144) and
    ``rides_secure_socket`` (the same config with ``secure_exchange``, ot2s at
    S = 4, N = 8,192, whose in-process crawl ``rides_secure`` phase 6 runs
@@ -128,7 +131,7 @@ Phases (any failure raises, and the script exits non-zero):
     over rides' keys made again from the seed (``keys_fp`` must match) and
     expand is held against its plain version on that frontier;
 19. ``rides_secure_socket_supervised_sever``: ``rides_secure`` (ot2s at S =
-    4) at 8,192 clients, supervised as phase 17, the leader's link to
+    4) at 4,096 clients, supervised as phase 17, the leader's link to
     server 0 through a ``ChaosProxy`` here that severs the answer of the
     first crawl verb after the first checkpoint, and server 1 killed and
     started again as in phase 18: the hitters of the in-process trusted
@@ -186,8 +189,8 @@ Phases (any failure raises, and the script exits non-zero):
 25. ``rides_mesh_2proc`` / ``rides_mesh_2proc_secure``: two OS processes of
     ``bin.mesh --devices 8 --processes 2`` over a gloo group on localhost,
     one mesh row each on the card, trusted at ``rides``' 262,144 clients
-    and secure at 8,192: both print the hitters of the one-process run
-    (``rides``, and the one-process mesh at 8,192) and the recount, each
+    and secure at 4,096: both print the hitters of the one-process run
+    (``rides``, and the one-process mesh at 4,096) and the recount, each
     reports its process-group bytes and its kernel launches (4 expand a
     level; secure, 4 encrypts a level it garbled, 4 decrypts a level it
     evaluated);
@@ -249,7 +252,7 @@ Phases (any failure raises, and the script exits non-zero):
     replayed submission answered from its recorded verdict, one ingest
     recovery, one restore, expand once per crawl verb (the re-run crawl's
     included);
-34. ``zipf_malicious_socket_windows``: phase 21's config and 50,000
+34. ``zipf_malicious_socket_windows``: phase 21's config and 25,000
     clients through ``bin.leader`` with ``FHH_WINDOWS=2``, the sketch leaves
     riding each submission: every client alive after each window, each
     window's hitters the recount, both servers committing the same
@@ -273,7 +276,7 @@ Phases (any failure raises, and the script exits non-zero):
     clients/s against the solo run's, stall fills and the fill ratio, each
     collection's round seconds, each server's peak memory and launches;
 36. ``rides_secure_socket_tenants``: the same at ``rides_secure``'s config
-    (ot2s at S = 4) with two collections of 4,096 clients and no warmup:
+    (ot2s at S = 4) with two collections of 2,048 clients and no warmup:
     the same checks, one ot2s encrypt per round a server garbled and one
     decrypt per round it evaluated, each crawl's; reported besides: each
     collection's base-OT seconds per server;
@@ -308,7 +311,7 @@ Phases (any failure raises, and the script exits non-zero):
     migration seconds, the export blob's bytes a server, the replayed
     submissions, the window crawl seconds beside phase 32's;
 39. ``rides_secure_socket_fleet_migrate``: the same at ``rides_secure``'s
-    config (ot2s at S = 4), 8,192 clients in two windows: B keys its plane
+    config (ot2s at S = 4), 4,096 clients in two windows: B keys its plane
     once a server (a base OT each, ``plane_epoch`` 1), A never; B launches
     each ot2s kernel 16 times a server, no GC; the ot2s pair held against
     their plain versions at window 1's widest FE62 level and F255 leaf, as
@@ -322,7 +325,24 @@ Phases (any failure raises, and the script exits non-zero):
     blob and the journal, the rest is submitted to D and both windows crawl
     there: hitters equal phase 38's window for window, one failover, one
     import a server of D.  Reported: the seconds from the kill to the
-    hitters.
+    hitters;
+41. ``rides_secure_socket_observed``: ``rides_secure_socket`` again (the
+    same config, seed and 8,192 clients, the leader unsupervised as there)
+    with the per-run telemetry on: ``FHH_RUN_REPORT``, ``FHH_TRACE_DIR``,
+    ``FHH_PROFILE`` with ``FHH_PROFILE_LEVELS=14,15`` (the widest FE62
+    level and the F255 leaf) and ``FHH_HEARTBEAT_S=1``.  Its hitters equal
+    phase 9's and the recount; three run reports (leader, ``s0``, ``s1``)
+    of schema ``fhh-run-report/1``; ``fss``, ``gc_ot`` and ``field`` cover
+    every level on both servers; what one server sent the other received;
+    ``gc_tests`` by level equal on both; the three processes' trace rings
+    merge into one timeline that validates, one ``crawl`` root, every
+    server verb span under a leader call span; each server's two profile
+    captures name the expand and both ot2s kernels with device time above 0;
+    the servers' last memory sample is above 0, its watermark at least
+    that, its limit the card's capacity; no fresh ``nvcc`` build in either
+    server; a heartbeat line names an active span.  Reported: server 0's
+    per-level ``fss``/``gc_ot``/``otext``/``field`` seconds, the crawl
+    seconds against phase 9's as a ratio (no gate), and the launches.
 
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
@@ -334,7 +354,8 @@ per-shard checks of phases 28-29 included;
 expand's row also carries its restored-frontier checks, keygen's its
 data_len-32 check, the ot2s rows their phase-20 checks; each row the
 launches per server of the later phases' processes, phases 35-37's as
-``tenant_launches``, phases 38-40's as ``fleet_launches``), and
+``tenant_launches``, phases 38-40's as ``fleet_launches``, phase 41's as
+``observed_launches``), and
 as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX.
 """
@@ -342,6 +363,7 @@ JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -374,11 +396,11 @@ CONFIG4 = dict(
 )
 ZIPF_CLIENTS = 196608
 RIDES_CLIENTS = 262144
-# the secure config-4 cell runs half of bench.py's bench_secure_device shape
-# (65,536 clients, about 155 s of crawl on the card), so that the script,
-# with the radix cells, stays inside 600 s; the 1,048,576-test chunk checks
-# keep the pad index's wrap past 2^32 covered
-ZIPF_SECURE_CLIENTS = 32768
+# the secure config-4 cell runs an eighth of bench.py's bench_secure_device
+# shape (65,536 clients, about 155 s of crawl on the card; 32,768 until
+# phase 41), for the script's time: its crawl is linear in N; the
+# 1,048,576-test chunk checks keep the pad index's wrap past 2^32 covered
+ZIPF_SECURE_CLIENTS = 8192
 # bench.py:bench_covid's trusted covid crawl, at 8 x its 8,192 clients: about
 # 1,024 clients per hot county
 COVID = dict(
@@ -419,15 +441,25 @@ RIDES_RADIX_SECURE_CLIENTS = 4096
 # 55 GB per server, two servers on one card; phase 16 warms the buckets its
 # crawl walks
 SOCKET_ENV = {"FHH_WARMUP": "0"}
+# every child process of the script logs its events (obs.emit) as JSON lines on
+# standard output, each with its wall clock ``ts``, which the script reads
+LOG_ENV = {"FHH_LOG_FORMAT": "json", "FHH_LOG_STREAM": "stdout"}
+SIGTERM_RC = 143  # a server's exit code after SIGTERM (obs.exit_report)
 # phases 17-19: the supervised crawl (FHH_SUPERVISE unset) banking a checkpoint
 # every 4 levels, after the rounds ending at levels 4, 8 and 12 of rides' 16
 # (the JAX leader's default of 16 banks none there)
 SUPERVISED_ENV = {"FHH_WARMUP": "0", "FHH_CKPT_EVERY": "4"}
 CKPT_EVERY = 4
 # phase 19's cut, for the script's time: rides_secure_socket's 65,536 clients
-# took 51-74 s a stage, and 16,384 until phases 38-40 needed the time
-RIDES_SEVER_CLIENTS = 8192
+# took 51-74 s a stage, 16,384 until phases 38-40 and 8,192 until phase 41
+# needed the time
+RIDES_SEVER_CLIENTS = 4096
 PLAIN_COMPARE = 1 << 26  # elements per slice of a large kernel-vs-plain comparison
+# phase 41: the levels profiled, rides' widest FE62 level and its F255 leaf
+OBSERVED_LEVELS = (14, 15)
+# the symbol of each kernel of phase 41's servers, as a profile names it
+KERNEL_SYMBOLS = {"expand": "fhh_expand_kernel", "ot2s_encrypt": "fhh_ot2s_enc_kernel",
+                  "ot2s_decrypt": "fhh_ot2s_dec_kernel"}
 # phase 20: configs/secure.json as shipped (ot2s at S = 2, malicious) over
 # sockets, its leader in this process forging keys; cut from the 100,000
 # clients of BASELINE.json:9's sketch batch for the script's time (the ot2s
@@ -443,8 +475,8 @@ SITE_BITS = 24  # a zipf point is its site's 24 bits and 8 random ones (AUG_LEN)
 MESH_DEVICES = 8
 MESH_SHARDS = MESH_DEVICES // 2  # shards a row: kernel launches a level per row
 # phase 25's secure cut (its table crosses gloo): 16,384 until phases 38-40
-# needed the time
-MESH_2PROC_SECURE_CLIENTS = 8192
+# and 8,192 until phase 41 needed the time
+MESH_2PROC_SECURE_CLIENTS = 4096
 MESH_CKPT_EVERY = 4
 MESH_FAULTS = "mesh:delay@level=1,ms=200;mesh:drop@level=5;mesh:kill@level=9"
 
@@ -465,19 +497,20 @@ DRILL_SEED = 7  # ingest_seed
 DRILL_FLOOD = "ctl0:flood@msg=6,count=1"  # the 4th submit_keys frame to server 0, twice
 SKETCH_WINDOWS = 2  # phase 34: two windows
 # phase 34's clients, cut from phase 21's 100,000 for phases 38-40's time
-SKETCH_WINDOW_CLIENTS = 50000
+# (50,000) and phase 41's
+SKETCH_WINDOW_CLIENTS = 25000
 # phases 35-37: many collections on one server pair
 TENANTS = 4  # phase 35: t0..t3 at rides' config
 TENANT_CLIENTS = 65536
 SECURE_TENANTS = 2  # phase 36: at rides_secure's config (ot2s at S = 4)
-SECURE_TENANT_CLIENTS = 4096  # 8,192 until phases 38-40 needed the time
+SECURE_TENANT_CLIENTS = 2048  # 8,192 until phases 38-40, 4,096 until phase 41
 TENANT_CKPT_EVERY = 8  # the MultiCollectionDriver's default cadence
 ISOLATION_CLIENTS = 16384  # phase 37: tb's window
 FLOOD_KEYS = 65536  # ta's flood
 TENANT_GATE = dict(ingest_burst_keys=16384, ingest_rate_keys_per_s=1024.0)
 FLEET_CLIENTS = 131072  # phases 38 and 40: rides clients, 65,536 a window
 FLEET_WINDOWS = 2
-FLEET_SECURE_CLIENTS = 8192  # phase 39: rides_secure's N, 4,096 a window
+FLEET_SECURE_CLIENTS = 4096  # phase 39: 2,048 a window (rides_secure's 8,192 until phase 41)
 FLEET_PROBE_S = 3.0  # a fleet probe's whole budget: both dials and status calls
 
 # every kernel of the port: (module, launch counter, source, TPU kernel it replaces)
@@ -594,9 +627,9 @@ def mesh_run(name, cfg, n, seed, tmp):
     """One collection through ``bin.mesh.run`` on the card."""
     from fuzzyheavyhitters_torch.bin import mesh
 
-    with open(os.path.join(tmp, f"{name}_events.jsonl"), "w") as out:
+    with open(os.path.join(tmp, f"{name}_events.jsonl"), "w") as out, json_logs(out):
         return mesh.run(cfg, n, device="cuda", seed=seed,
-                        csv_path=os.path.join(tmp, f"{name}_hitters.csv"), out=out)
+                        csv_path=os.path.join(tmp, f"{name}_hitters.csv"))
 
 
 def covid_run(name, cfg, n, seed, tmp):
@@ -792,6 +825,120 @@ def free_ports():
             return c.getsockname()[1], p1
 
 
+# A pre-started interpreter (WarmPool): it imports torch and makes its CUDA
+# context, then reads the one job it runs, a JSON line (module, args, cwd,
+# env, log), on its standard input and runs the module as ``python -m``
+# would, its output in the job's log.  A warm-up that failed is reported
+# there, so a cell's log always says why its process ended.
+WARM_BOOT = r"""
+import json, os, runpy, sys, traceback
+try:
+    import torch
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    err = None
+except BaseException:
+    err = traceback.format_exc()
+line = sys.stdin.readline()
+if not line:
+    sys.exit(0)
+job = json.loads(line)
+os.chdir(job["cwd"])
+os.environ.clear()
+os.environ.update(job["env"])
+if err is None and os.environ.get("OMP_NUM_THREADS"):  # read at torch's import
+    torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
+fd = os.open(job["log"], os.O_WRONLY | os.O_APPEND)
+os.dup2(fd, 1)
+os.dup2(fd, 2)
+os.close(fd)
+if err is not None:
+    sys.stderr.write(err)
+    sys.exit(1)
+sys.argv = [job["module"], *job["args"]]
+runpy.run_module(job["module"], run_name="__main__", alter_sys=True)
+"""
+WARM_SPARES = 4  # a fleet cell's four servers
+
+
+class WarmPool:
+    """Interpreters started ahead of the card's socket, fleet and two-process
+    cells, so that a cell's processes do not each pay the seconds of a
+    Python and CUDA start-up (torch's import and the context) before they
+    serve.  Each runs one job and is gone; taking one starts its
+    replacement, which warms while the cell runs.  A restart inside a drill
+    is a cold ``python -m`` start (``start(..., warm=False)``): its start-up
+    is what the drill measures."""
+
+    def __init__(self, spares=WARM_SPARES):
+        self.spares, self.idle, self.on = spares, [], False
+
+    def _boot(self):
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        self.idle.append(subprocess.Popen(
+            [sys.executable, "-c", WARM_BOOT], stdin=subprocess.PIPE,
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL, cwd=repo, env=env))
+
+    def start(self, module, args, cwd, env, log, warm=True):
+        """``python -m module *args`` in ``cwd`` under ``env``, its standard
+        output and error truncated into ``log``: a warm interpreter when the
+        pool is on and ``warm``, else a cold process."""
+        open(log, "w").close()
+        proc = None
+        while warm and self.on and proc is None:
+            if not self.idle:
+                self._boot()
+            p = self.idle.pop(0)
+            job = json.dumps({"module": module, "args": list(args), "cwd": cwd,
+                              "env": dict(env), "log": log}) + "\n"
+            try:
+                p.stdin.write(job.encode())
+                p.stdin.close()
+                proc = p
+            except OSError:  # it died warming: take the next one
+                p.kill()
+                p.wait()
+        if proc is None:
+            with open(log, "w") as out:
+                return subprocess.Popen([sys.executable, "-m", module, *args], cwd=cwd,
+                                        env=env, stdout=out, stderr=subprocess.STDOUT)
+        self.fill()
+        return proc
+
+    def fill(self):
+        """Start interpreters until ``spares`` of them wait."""
+        while len(self.idle) < self.spares:
+            self._boot()
+
+    def close(self):
+        """Stop every interpreter still waiting for a job."""
+        self.on = False
+        for p in self.idle:
+            p.kill()
+            p.wait()
+        self.idle = []
+
+
+POOL = WarmPool()  # on only in main() on the card: the CPU tests start cold processes
+
+
+@contextlib.contextmanager
+def json_logs(stream="stdout"):
+    """``obs.emit`` lines as JSON on standard output (or on ``stream``) for
+    the length of the block, as :data:`LOG_ENV` makes them in a child
+    process: an in-process leader writes its log as its process would."""
+    from fuzzyheavyhitters_torch.obs import logs
+
+    saved = (logs._cfg["fmt"], logs._cfg["stream"])
+    logs.configure(fmt="json", stream=stream)
+    try:
+        yield
+    finally:
+        logs.configure(fmt=saved[0], stream=saved[1])
+
+
 def _events(path) -> list:
     """The JSON event lines of a log (a line still being written is left
     for the next read)."""
@@ -847,7 +994,8 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
                kill=False, ctl0_faults=None, leader_coro=None, keep_blobs=False,
                server_env=None, ckpt=None):
     """Phase 9: ``bin.server --server_id 1``, ``--server_id 0`` and ``bin.leader
-    --seed`` started together as OS processes (on the card unless
+    --seed`` started together as OS processes (warm ones from :data:`POOL`
+    once it is on; the restart after ``kill`` cold) (on the card unless
     ``cfg.backend`` is ``"cpu"``; server 0 and the leader dial with retries,
     after start-ups at least as long as the servers'; on the CPU, where the
     start-ups contend for the cores, one after another: server 0 once
@@ -874,10 +1022,11 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
     ``leader_coro(config)`` there instead (its return value is the run's
     ``leader_result``).  With ``keep_blobs`` every checkpoint blob a server
     writes is hard-linked into ``blobs/`` as it appears (the servers keep
-    only their two newest).  Every process must exit 0 without a
-    traceback inside its timeout, but the killed one, which must exit -9;
-    all are killed in a ``finally``.  Returns the leader's and the servers'
-    events and the working directory."""
+    only their two newest).  Every process must end without a traceback
+    inside its timeout: the leader with 0, the servers, sent SIGTERM at the
+    end, with 143 (the SIGTERM contract of ``obs.exit_report``), the killed
+    one with -9; all are killed in a ``finally``.  Returns the leader's and
+    the servers' events and the working directory."""
     import asyncio
     import contextlib
     import shutil
@@ -892,7 +1041,7 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
         json.dump(dict(dataclasses.asdict(cfg), server0=f"127.0.0.1:{p0}",
                        server1=f"127.0.0.1:{p1}"), f)
     repo = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "FHH_SUPERVISE": "0", **(env or {}),
+    env = {**os.environ, "FHH_SUPERVISE": "0", **LOG_ENV, **(env or {}),
            "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
     if supervise:
         del env["FHH_SUPERVISE"]
@@ -905,18 +1054,16 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
 
     device = "cpu" if cfg.backend == "cpu" else "cuda"
 
-    def spawn(who, mod, *args, config=cfg_path, extra=None):
-        with open(logs[who], "w") as out:
-            procs[who] = subprocess.Popen(
-                [sys.executable, "-m", f"fuzzyheavyhitters_torch.bin.{mod}", "--config",
-                 config, "--device", device, *args], cwd=work, env={**env, **(extra or {})},
-                stdout=out, stderr=subprocess.STDOUT)
+    def spawn(who, mod, *args, config=cfg_path, extra=None, warm=True):
+        procs[who] = POOL.start(f"fuzzyheavyhitters_torch.bin.{mod}",
+                                ["--config", config, "--device", device, *args], work,
+                                {**env, **(extra or {})}, logs[who], warm=warm)
         return time.time()
 
-    def spawn_server(sid):
+    def spawn_server(sid, warm=True):
         extra = {"FHH_CKPT_DIR": ckpt[sid]} if with_ckpt else {}
         extra.update((server_env or {}).get(sid, {}))
-        return spawn(f"server{sid}", "server", "--server_id", str(sid), extra=extra)
+        return spawn(f"server{sid}", "server", "--server_id", str(sid), extra=extra, warm=warm)
 
     killed, done = {}, threading.Event()
     kill_now = kill if callable(kill) else (
@@ -937,7 +1084,7 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
         killed["rc"] = old.wait()
         killed["log"] = os.path.join(work, "server1_killed.log")
         os.replace(logs["server1"], killed["log"])
-        killed["t_spawn"] = spawn_server(1)
+        killed["t_spawn"] = spawn_server(1, warm=False)  # a restart's start-up is cold
         while not done.is_set():
             ev = [e for e in _events(logs["server1"]) if e["event"] == "resilience.server_restore"]
             if ev:
@@ -1014,7 +1161,8 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
             os.environ.clear()  # the environment the leader's process would have
             os.environ.update(env)
             try:
-                with open(logs["leader"], "w") as out, contextlib.redirect_stdout(out):
+                with open(logs["leader"], "w") as out, contextlib.redirect_stdout(out), \
+                        json_logs():
                     result = asyncio.run(asyncio.wait_for(
                         leader_coro(configmod.load_config(leader_cfg)), SOCKET_LEADER_S))
             finally:
@@ -1043,8 +1191,10 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
     for who, path in logs.items():
         with open(path) as f:
             text = f.read()
-        if rcs.get(who) != 0 or "Traceback" in text:
-            raise AssertionError(f"{name}: {who} exited {rcs.get(who)}:\n{text[-3000:]}")
+        want = 0 if who == "leader" else SIGTERM_RC  # the servers were sent SIGTERM
+        if rcs.get(who) != want or "Traceback" in text:
+            raise AssertionError(f"{name}: {who} exited {rcs.get(who)} (want {want}):\n"
+                                 f"{text[-3000:]}")
     if kill and killed.get("rc") != -signal.SIGKILL:
         raise AssertionError(f"{name}: server 1 was not killed at a checkpoint: {killed}")
     if "log" in killed:
@@ -1188,7 +1338,8 @@ def check_supervised_run(name, run, cfg, want_hitters, points, per_level=(), sha
         ckpts = [e for e in ev[f"server{sid}"] if e["event"] == "resilience.server_checkpoint"]
         servers.append({k: ex[k] for k in (
             "boot_id", "levels", "levels_done", "launches", "dedup_hits", "plane_resets",
-            "ckpt_writes", "ckpt_bytes", "ckpt_write_s", "restores", "restore_s",
+            "checkpoint_writes", "checkpoint_bytes", "checkpoint_write_s",
+            "checkpoint_restores", "checkpoint_restore_s",
             "data_bytes_sent", "data_bytes_recv", "data_frame_max", "max_memory_allocated")})
         servers[-1]["mesh"] = ex.get("mesh")
         servers[-1]["checkpoints"] = [{k: e[k] for k in ("level", "bytes", "seconds")}
@@ -1210,10 +1361,10 @@ def check_supervised_run(name, run, cfg, want_hitters, points, per_level=(), sha
         new_ev = {e["event"]: e for e in ev["server1"]}
         fig["recovery"] = {
             "restored_level": restored[-1]["level"],
-            "kill_to_restored_s": restored[-1]["t"] - killed["t_kill"],
-            "startup_to_plane_listening_s": new_ev["server.plane_listening"]["t"]
+            "kill_to_restored_s": restored[-1]["ts"] - killed["t_kill"],
+            "startup_to_plane_listening_s": new_ev["server.plane_listening"]["ts"]
             - killed["t_spawn"],
-            "startup_to_serving_s": new_ev["server.serving"]["t"] - killed["t_spawn"],
+            "startup_to_serving_s": new_ev["server.serving"]["ts"] - killed["t_spawn"],
             "leader_probe_s": restored[-1]["probe_s"],
             "leader_reupload_s": restored[-1]["reupload_s"],
             "leader_restore_s": restored[-1]["restore_s"],
@@ -1226,8 +1377,9 @@ def check_supervised_run(name, run, cfg, want_hitters, points, per_level=(), sha
     for sid, sv in enumerate(servers):
         log(f"supervised {name} server{sid}: " + " ".join(
             f"{k}={sv[k]}" for k in ("levels", "levels_done", "launches", "dedup_hits",
-                                     "plane_resets", "ckpt_writes", "ckpt_bytes",
-                                     "ckpt_write_s", "restores", "restore_s", "data_bytes_sent",
+                                     "plane_resets", "checkpoint_writes", "checkpoint_bytes",
+                                     "checkpoint_write_s", "checkpoint_restores",
+                                     "checkpoint_restore_s", "data_bytes_sent",
                                      "max_memory_allocated", "checkpoints")))
     return fig
 
@@ -1342,8 +1494,9 @@ def _sketch_figures(name, run, crawl_s):
                     "alive_clients": ex["alive_clients"], "levels": ex["levels"],
                     "launches": ex["launches"], "data_bytes_sent": ex["data_bytes_sent"],
                     "data_bytes_recv": ex["data_bytes_recv"],
-                    "data_frame_max": ex["data_frame_max"], "ckpt_writes": ex["ckpt_writes"],
-                    "ckpt_bytes": ex["ckpt_bytes"], "phase_s": ex["seconds"],
+                    "data_frame_max": ex["data_frame_max"],
+                    "checkpoint_writes": ex["checkpoint_writes"],
+                    "checkpoint_bytes": ex["checkpoint_bytes"], "phase_s": ex["seconds"],
                     "max_memory_allocated": ex["max_memory_allocated"],
                     "mesh": ex.get("mesh")})
         log(f"malicious {name} server{sid}: " + " ".join(
@@ -2133,9 +2286,9 @@ def mesh_cell_run(name, cfg, n, seed, tmp):
     """``bin.mesh.run`` on the card's 2 x 4 mesh of logical shards."""
     from fuzzyheavyhitters_torch.bin import mesh
 
-    with open(os.path.join(tmp, f"{name}_events.jsonl"), "w") as out:
+    with open(os.path.join(tmp, f"{name}_events.jsonl"), "w") as out, json_logs(out):
         return mesh.run(cfg, n, device="cuda", seed=seed, devices=MESH_DEVICES,
-                        csv_path=os.path.join(tmp, f"{name}_hitters.csv"), out=out)
+                        csv_path=os.path.join(tmp, f"{name}_hitters.csv"))
 
 
 def mesh_main_path(name, cfg, n, seed, tmp, per_level, want_hitters, base):
@@ -2270,20 +2423,20 @@ def mesh_two_process_run(name, cfg, n, seed, tmp):
     with open(cfg_path, "w") as f:
         json.dump(dataclasses.asdict(cfg), f)
     repo = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env = {**os.environ, **LOG_ENV,
+           "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
     coord = f"127.0.0.1:{free_ports()[0]}"
     logs = [os.path.join(work, f"p{pid}.log") for pid in (0, 1)]
     procs = []
     t0 = time.perf_counter()
     try:
         for pid in (0, 1):
-            with open(logs[pid], "w") as out:
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-m", "fuzzyheavyhitters_torch.bin.mesh", "-c", cfg_path,
-                     "-n", str(n), "--device", "cuda", "--seed", str(seed), "--devices",
-                     str(MESH_DEVICES), "--processes", "2", "--process_id", str(pid),
-                     "--coordinator", coord, "--csv", os.path.join(work, f"hh{pid}.csv")],
-                    cwd=work, env=env, stdout=out, stderr=subprocess.STDOUT))
+            procs.append(POOL.start(
+                "fuzzyheavyhitters_torch.bin.mesh",
+                ["-c", cfg_path, "-n", str(n), "--device", "cuda", "--seed", str(seed),
+                 "--devices", str(MESH_DEVICES), "--processes", "2", "--process_id", str(pid),
+                 "--coordinator", coord, "--csv", os.path.join(work, f"hh{pid}.csv")],
+                work, env, logs[pid]))
         for p in procs:
             p.wait(timeout=max(1.0, SOCKET_LEADER_S - (time.perf_counter() - t0)))
     finally:
@@ -2718,10 +2871,12 @@ def sharded_phases(seed, cells, hitters, points, secure_cfg, report, errs, tmp, 
                              f"mesh {m0}, counters {rep['counters']}, {classified}")
     extra = s1["launches"]["expand"] - s1["levels"] * SHARDS
     rep["reshard"] = {"level": MESH_KILL_LEVEL, "restored_level": MESH_KILL_LEVEL - 1,
-                      "server1_restore_s": s1["restore_s"], "extra_expand_launches": extra}
+                      "server1_restore_s": s1["checkpoint_restore_s"],
+                      "extra_expand_launches": extra}
     log(f"sharded {name}: server 1 lost a device at level {MESH_KILL_LEVEL}, re-sharded "
         f"from the level-{MESH_KILL_LEVEL - 1} blob inside the verb (restore "
-        f"{s1['restore_s']:.3f} s), the leader saw no fault (levels_rerun 0, recoveries 0, "
+        f"{s1['checkpoint_restore_s']:.3f} s), the leader saw no fault (levels_rerun 0, "
+        f"recoveries 0, "
         f"no loss_classified); hitters = rides_socket_sharded's; server 1 expand launches "
         f"{s1['launches']['expand']} = {s1['levels']} verbs x {SHARDS} + {extra} "
         f"({'a pre-expanded dispatch dropped and run again' if extra else 'no pre-expanded dispatch: the fault fired before the level expanded'}); "
@@ -2772,12 +2927,13 @@ def check_window_run(name, run, cfg, points, windows, base_crawl_s, per_window_v
         want_l = {kn: 0 for kn in KERNELS}
         want_l["expand"] = verbs
         if (ex["launches"] != want_l or ex["levels"] != verbs or ex["windows_sealed"] != windows
-                or ex["pool_admitted_keys"] != n or ex["ckpt_writes"] != windows
+                or ex["pool_admitted_keys"] != n or ex["checkpoint_writes"] != windows
                 or (malicious and ex["sketch_verifies"] != verbs)):
             raise AssertionError(f"{name}: server {sid} launched {ex['launches']} over "
                                  f"{ex['levels']} crawl verbs (want {want_l} over {verbs}), "
                                  f"sealed {ex['windows_sealed']}, admitted "
-                                 f"{ex['pool_admitted_keys']}, {ex['ckpt_writes']} checkpoints, "
+                                 f"{ex['pool_admitted_keys']}, {ex['checkpoint_writes']} "
+                                 f"checkpoints, "
                                  f"{ex['sketch_verifies']} sketch verbs")
     fig = {"n": n, "windows": windows, "hitters": {w: len(h) for w, h in hitters.items()},
            "pure_ingest_keys_per_s": wins[0]["keys_per_s"],
@@ -2789,8 +2945,9 @@ def check_window_run(name, run, cfg, points, windows, base_crawl_s, per_window_v
            "base_crawl_s": base_crawl_s, "leader_s": run["crawl"]["seconds"],
            "sk_roots": roots if malicious else None,
            "launches": {f"server{sid}": ex["launches"] for sid, ex in enumerate(run["exits"])},
-           "servers": [{k: ex[k] for k in ("pool_submits", "pool_admitted_keys", "ckpt_writes",
-                                           "ckpt_bytes", "ckpt_write_s", "seal_to_hitters_s",
+           "servers": [{k: ex[k] for k in ("pool_submits", "pool_admitted_keys",
+                                           "checkpoint_writes", "checkpoint_bytes",
+                                           "checkpoint_write_s", "seal_to_hitters_s",
                                            "max_memory_allocated", "data_bytes_sent")}
                        | {"sketch_s": ex["seconds"]["sketch"]} for ex in run["exits"]]}
     log(f"windows {name}: N={n} in {windows} windows, each window's hitters "
@@ -2895,6 +3052,9 @@ def window_drill(name, cfg, n, seed, tmp, torch):
             await trig
             fig["counters"], fig["windows"] = dict(wi.counters), dict(wi.windows)
             fig["results"] = {w: _hitter_map(r) for w, r in res.items()}
+            # the servers' figures of the drill, before the batch crawls'
+            # resets clear the collection's telemetry (as a JAX server's do)
+            fig["status"] = [await c.call("status") for c in (c0, c1)]
             fig["batch"] = {}
             for w in range(DRILL_WINDOWS):  # the batch crawl over the admitted keys
                 await lead._both("reset")
@@ -2924,20 +3084,27 @@ def window_drill(name, cfg, n, seed, tmp, torch):
             raise AssertionError(f"{name}: window {w} hitters {got} != the batch crawl's {batch}")
         idx = np.concatenate([np.arange(sl.start, sl.stop) for sl in predicted[w]])
         _recount(f"{name} window {w}", got, cfg, ck.points[idx])
-    s0, s1 = run["exits"]
+    # the drill's figures from the servers' status before the batch crawls
+    rows = [st["sessions"]["per_session"]["default"]["counters"] for st in fig["status"]]
+    dedup = [st["dedup_hits"] for st in fig["status"]]
     if (run["proxy_fired"] != [("flood", "c2s", int(DRILL_FLOOD.split("msg=")[1].split(",")[0]))]
-            or s0["dedup_hits"] < 1 or s1["pool_dup_submits"] < 1 or s1["restores"] != 1
+            or dedup[0] < 1 or rows[1]["pool_dup_submits"] < 1
+            or rows[1]["checkpoint_restores"] != 1
             or fig["counters"]["ingest_recoveries"] < 1 or run["killed"].get("rc") != -9):
         raise AssertionError(f"{name}: fired {run['proxy_fired']}, server 0 dedup_hits "
-                             f"{s0['dedup_hits']}, new server 1 pool_dup_submits "
-                             f"{s1['pool_dup_submits']} restores {s1['restores']}, counters "
-                             f"{fig['counters']}, killed {run['killed']}")
+                             f"{dedup[0]}, new server 1 pool_dup_submits "
+                             f"{rows[1]['pool_dup_submits']} restores "
+                             f"{rows[1]['checkpoint_restores']}, "
+                             f"counters {fig['counters']}, killed {run['killed']}")
+    # crawl verbs: the drill's, then a whole crawl a batch (its hitters are the
+    # window's, so no batch dies out before the leaves)
+    levels = [r["levels"] + DRILL_WINDOWS * cfg.data_len for r in rows]
     for sid, ex in enumerate(run["exits"]):
         want_l = {kn: 0 for kn in KERNELS}
-        want_l["expand"] = ex["levels"]
-        if ex["launches"] != want_l or ex["levels"] < 4 * cfg.data_len + (sid == 0):
+        want_l["expand"] = levels[sid]
+        if ex["launches"] != want_l or levels[sid] < 4 * cfg.data_len + (sid == 0):
             raise AssertionError(f"{name}: server {sid} launched {ex['launches']} over "
-                                 f"{ex['levels']} crawl verbs begun")
+                                 f"{levels[sid]} crawl verbs begun")
     restored = [e for e in run["events"]["server1"] if e["event"] == "resilience.server_restore"]
     out = {"n": n, "windows": DRILL_WINDOWS, "cap_keys": cap,
            "hitters": {w: len(h) for w, h in fig["results"].items()},
@@ -2945,10 +3112,9 @@ def window_drill(name, cfg, n, seed, tmp, torch):
            "window_crawl": fig["windows"], "kill_at_round": fig["kill_at_round"],
            "kill_to_spawn_s": run["killed"]["t_spawn"] - run["killed"]["t_kill"],
            "server1_restore": restored, "epochs": fig["epochs"],
-           "pool_dup_submits": [s0["pool_dup_submits"], s1["pool_dup_submits"]],
-           "dedup_hits": [s0["dedup_hits"], s1["dedup_hits"]],
-           "launches": {"server0": s0["launches"], "server1": s1["launches"]},
-           "levels": [s0["levels"], s1["levels"]], "leader_wall_s": run["wall_s"]}
+           "pool_dup_submits": [r["pool_dup_submits"] for r in rows], "dedup_hits": dedup,
+           "launches": {f"server{sid}": ex["launches"] for sid, ex in enumerate(run["exits"])},
+           "levels": levels, "leader_wall_s": run["wall_s"]}
     log(f"windows {name}: N={n} in {DRILL_WINDOWS} windows, reservoir cap {cap} keys; slot "
         f"tables = the port's AdmissionController's prediction, seal keys = the cap, hitters "
         f"{out['hitters']} = the batch crawls over the admitted keys and the recount; flood "
@@ -3014,7 +3180,7 @@ def _session_rows(ex):
 def _check_session_sums(name, ex):
     """Every collection's counters sum to the server's totals."""
     rows = _session_rows(ex)
-    for k in ("levels", "levels_done", "add_keys", "ckpt_writes", "data_bytes_sent",
+    for k in ("levels", "levels_done", "add_keys", "checkpoint_writes", "data_bytes_sent",
               "data_bytes_recv", "warmup_shapes", "pool_submits"):
         got = sum(r["counters"][k] for r in rows.values())
         if got != ex[k]:
@@ -3036,9 +3202,9 @@ def tenants_run(name, cfg, n, seed, tmp, tenants, warm, torch):
     solo run's bit for bit; ``status`` must count the collections and the
     default one, each keyed on both servers (``plane_epoch`` >= 1), and
     device turns; each server's collections must sum to its totals and each
-    collection checkpoint in its own namespace; with ``warm`` every other
-    collection's warmup must warm no shape and hit the ladder once for each
-    shape ``t0`` warmed; each server launches expand once per crawl verb
+    collection checkpoint in its own namespace; with ``warm`` the first
+    warmup must warm every shape and every collection's warmup in the run
+    (``t0``'s second) warm none and hit the ladder once for each of them; each server launches expand once per crawl verb
     and twice per warmed shape, and in secure mode each ot2s kernel once
     per verb of a round it garbled (encrypt) or evaluated (decrypt).
     -> the figures."""
@@ -3118,8 +3284,10 @@ def tenants_run(name, cfg, n, seed, tmp, tenants, warm, torch):
             first = fig["first_warmup"][f"s{sid}"]
             got = {k: (rows[k]["counters"]["warmup_shapes"],
                        rows[k]["counters"]["warmup_ladder_hits"]) for k in keys}
-            want = {k: (first["shapes"], first["shapes"]) if k == "t0"
-                    else (0, first["shapes"]) for k in keys}
+            # every collection's supervised run resets it first, and a reset
+            # clears the collection's telemetry (as a JAX server's does): t0's
+            # row holds its second warmup, all ladder hits, like the others'
+            want = {k: (0, first["shapes"]) for k in keys}
             if first != {"shapes": warmed, "ladder_hits": 0} or got != want:
                 raise AssertionError(f"{name}: server {sid} warmups {first}, then "
                                      f"(shapes, ladder hits) {got}, want {want}")
@@ -3148,7 +3316,7 @@ def tenants_run(name, cfg, n, seed, tmp, tenants, warm, torch):
            "launches": {f"server{sid}": ex["launches"] for sid, ex in enumerate(exits)},
            "max_memory_allocated": [ex["max_memory_allocated"] for ex in exits],
            "plane_handshake_s": [{k: r["counters"]["plane_handshake_s"]
-                                  / max(1, r["counters"]["plane_handshakes"])
+                                  / max(1, r["counters"]["plane_handshake_calls"])
                                   for k, r in _session_rows(ex).items()} for ex in exits],
            "data_bytes_sent": [ex["data_bytes_sent"] for ex in exits]}
     log(f"tenants {name}: {tenants} collections of {n} clients at once, each collection's "
@@ -3304,8 +3472,9 @@ def fleet_run(name, cfg, tmp, pairs, leader_coro):
     one after another); once all serve, the leader ``leader_coro(fleet_dir,
     ckpt_dir, kill)`` in this process, its events written to its log;
     ``kill(pair)`` SIGKILLs both of that pair's processes and returns the
-    instant.  Then SIGTERM to the live servers: each must exit 0 without a
-    traceback, a killed one -9.  Returns the leader's result, each server's
+    instant.  Then SIGTERM to the live servers: each must exit 143 (the
+    SIGTERM contract of ``obs.exit_report``) without a traceback, a killed
+    one -9.  Returns the leader's result, each server's
     events and ``server.exit`` line by ``<pair><id>``, the kill instants and
     the directories."""
     import asyncio
@@ -3316,7 +3485,7 @@ def fleet_run(name, cfg, tmp, pairs, leader_coro):
     fleet_dir, ckpt_dir = os.path.join(work, "fleet"), os.path.join(work, "ckpt")
     os.makedirs(ckpt_dir)
     repo = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "FHH_FLEET": fleet_dir, "FHH_CKPT_DIR": ckpt_dir,
+    env = {**os.environ, **LOG_ENV, "FHH_FLEET": fleet_dir, "FHH_CKPT_DIR": ckpt_dir,
            "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
     device = "cpu" if cfg.backend == "cpu" else "cuda"
     procs, logs, killed = {}, {}, {}
@@ -3324,11 +3493,9 @@ def fleet_run(name, cfg, tmp, pairs, leader_coro):
     def spawn(pair, sid, cfg_path):
         who = f"{pair}{sid}"
         logs[who] = os.path.join(work, f"server_{who}.log")
-        with open(logs[who], "w") as out:
-            procs[who] = subprocess.Popen(
-                [sys.executable, "-m", "fuzzyheavyhitters_torch.bin.server", "--config",
-                 cfg_path, "--device", device, "--server_id", str(sid)], cwd=work,
-                env={**env, "FHH_FLEET_PAIR": pair}, stdout=out, stderr=subprocess.STDOUT)
+        procs[who] = POOL.start("fuzzyheavyhitters_torch.bin.server",
+                                ["--config", cfg_path, "--device", device, "--server_id",
+                                 str(sid)], work, {**env, "FHH_FLEET_PAIR": pair}, logs[who])
 
     def kill(pair):
         t = time.time()
@@ -3358,7 +3525,7 @@ def fleet_run(name, cfg, tmp, pairs, leader_coro):
         for who in procs:
             _wait_event(logs[who], "server.serving", procs[who], SOCKET_START_S)
         with open(os.path.join(work, "leader.log"), "w") as out, \
-                contextlib.redirect_stdout(out):
+                contextlib.redirect_stdout(out), json_logs():
             result = asyncio.run(asyncio.wait_for(leader_coro(fleet_dir, ckpt_dir, kill),
                                                   SOCKET_LEADER_S))
         for who, p in procs.items():
@@ -3374,7 +3541,7 @@ def fleet_run(name, cfg, tmp, pairs, leader_coro):
     for who, path in logs.items():
         with open(path) as f:
             text = f.read()
-        want = -signal.SIGKILL if who[:-1] in killed else 0
+        want = -signal.SIGKILL if who[:-1] in killed else SIGTERM_RC
         if rcs.get(who) != want or "Traceback" in text:
             raise AssertionError(f"{name}: server {who} exited {rcs.get(who)} (want {want}):\n"
                                  f"{text[-3000:]}")
@@ -3571,8 +3738,8 @@ def fleet_move(name, cfg, n, ck, tmp, torch, failover=False):
            "replayed": replayed, "placer": fig["placer"],
            "dup_submits": [ex["pool_dup_submits"] for ex in dst_exits],
            "launches": {who: (ex or {}).get("launches") for who, ex in exits.items()},
-           "plane_handshakes": {who: ex["plane_handshakes"] for who, ex in exits.items()
-                                if ex is not None},
+           "plane_handshake_calls": {who: ex["plane_handshake_calls"]
+                                     for who, ex in exits.items() if ex is not None},
            "plane_epoch": [ex["sessions"]["per_session"]["default"]["plane_epoch"]
                            for ex in dst_exits],
            "max_memory_allocated": {who: ex["max_memory_allocated"]
@@ -3690,10 +3857,10 @@ def fleet_phases(seed, cells, report, errs, tmp, stage, torch):
     out, results, run = fleet_move(name, sec_cfg, FLEET_SECURE_CLIENTS, ck39, tmp, torch)
     _fleet_launch_check(name, out, sec_cfg, "A", "B", OT2S)
     out["leader_keygen_launches"] = kg
-    if (out["plane_epoch"] != [1, 1] or [out["plane_handshakes"][f"B{i}"] for i in (0, 1)]
-            != [1, 1] or [out["plane_handshakes"][f"A{i}"] for i in (0, 1)] != [0, 0]):
+    if (out["plane_epoch"] != [1, 1] or [out["plane_handshake_calls"][f"B{i}"] for i in (0, 1)]
+            != [1, 1] or [out["plane_handshake_calls"][f"A{i}"] for i in (0, 1)] != [0, 0]):
         raise AssertionError(f"{name}: plane epochs {out['plane_epoch']}, handshakes "
-                             f"{out['plane_handshakes']}: B must key once a server, A never")
+                             f"{out['plane_handshake_calls']}: B must key once a server, A never")
     hitters, checks = _fleet_hitters(name, sec_cfg, results, run, ck39, torch,
                                      secure_checks=True)
     for c in checks:
@@ -3701,7 +3868,8 @@ def fleet_phases(seed, cells, report, errs, tmp, stage, torch):
     out["secure_checks"], out["hitters"] = checks, {w: len(h) for w, h in hitters.items()}
     log(f"fleet {name}: N={FLEET_SECURE_CLIENTS} in {FLEET_WINDOWS} windows, migrated A -> B:"
         f" {out['move_s']:.3f} s, export {out['export_bytes']} B a server; B keyed once a "
-        f"server (plane epochs {out['plane_epoch']}, handshakes {out['plane_handshakes']}); "
+        f"server (plane epochs {out['plane_epoch']}, handshakes "
+        f"{out['plane_handshake_calls']}); "
         f"window crawls {[round(x, 3) for x in out['window_crawl_s']]} s; hitters "
         f"{out['hitters']} = the batch crawls and the recount; launches {out['launches']}")
     fleet[name] = out
@@ -3724,6 +3892,133 @@ def fleet_phases(seed, cells, report, errs, tmp, stage, torch):
     fleet[name] = out
     del ck
     stage(f"{name} fleet run")
+
+
+def _profile_kernels(path) -> dict:
+    """Device microseconds by kernel symbol in one profile capture's Chrome
+    trace (``torch.profiler``'s ``kernel`` events)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    return out
+
+
+def observed_phase(seed, cells, points, hitters, report, tmp, stage, torch):
+    """Phase 41: ``rides_secure_socket`` with the run reports, the traces,
+    the level profiles and the heartbeat on (see the module doc)."""
+    from fuzzyheavyhitters_torch.obs import trace as obstrace
+
+    name, cell = "rides_secure_socket_observed", "rides_secure"
+    cfg, n, per_level = cells[cell][0], cells[cell][1], cells[cell][2]
+    obs_dir = os.path.join(tmp, f"{name}_obs")
+    trace_dir = os.path.join(obs_dir, "trace")
+    env = dict(SOCKET_ENV, FHH_RUN_REPORT=os.path.join(obs_dir, "report.json"),
+               FHH_TRACE_DIR=trace_dir, FHH_PROFILE=os.path.join(obs_dir, "profile"),
+               FHH_PROFILE_LEVELS=",".join(str(lv) for lv in OBSERVED_LEVELS),
+               FHH_HEARTBEAT_S="1")
+    run = socket_run(name, cfg, n, seed, tmp, env)
+    base = report["sockets"]["rides_secure_socket"]
+    rep = check_socket_run(name, run, cfg, points[cell], hitters[cell],
+                           report["crawls"][cell]["seconds"]["crawl"], per_level)
+    if rep["hitter_map"] != base["hitter_map"]:
+        raise AssertionError(f"{name}: hitters differ from rides_secure_socket's")
+    reports = {}
+    for who, suffix in (("leader", ""), ("s0", ".s0"), ("s1", ".s1")):
+        with open(os.path.join(obs_dir, f"report{suffix}.json")) as f:
+            reports[who] = json.load(f)
+        if reports[who].get("schema") != "fhh-run-report/1":
+            raise AssertionError(f"{name}: the {who} run report has schema "
+                                 f"{reports[who].get('schema')}")
+    L = cfg.data_len
+    regs = [reports[f"s{sid}"]["registries"][f"server{sid}"] for sid in (0, 1)]
+    for sid, reg in enumerate(regs):
+        for ph in ("fss", "gc_ot", "field"):
+            got = set(reg["phases"][ph]["by_level"])
+            if got != {str(lv) for lv in range(L)}:
+                raise AssertionError(f"{name}: server {sid}'s {ph} covers levels {sorted(got)}")
+    sent = [r["counters"]["data_bytes_sent"]["total"] for r in regs]
+    recv = [r["counters"]["data_bytes_recv"]["total"] for r in regs]
+    if sent != recv[::-1]:
+        raise AssertionError(f"{name}: data_bytes_sent {sent} against data_bytes_recv {recv}")
+    if regs[0]["counters"]["gc_tests"]["by_level"] != regs[1]["counters"]["gc_tests"]["by_level"]:
+        raise AssertionError(f"{name}: the servers' gc_tests by level differ")
+    # the merged timeline of the three processes
+    events = obstrace.load_events(trace_dir)
+    verdict = obstrace.merge(trace_dir, os.path.join(obs_dir, "trace.json"))
+    if not verdict["ok"] or len(verdict["traces"]) != 1 or not verdict["traces"][0].startswith(
+            "crawl-"):
+        raise AssertionError(f"{name}: the merged trace: {verdict}")
+    spans = {e["span"]: e for e in events if e.get("ph") == "X"}
+    verbs = [e for e in spans.values() if e["name"].startswith("verb:")]
+    for e in verbs:
+        parent = spans.get(e.get("parent"))
+        if parent is None or parent["comp"] != "leader" or not parent["name"].startswith("call:"):
+            raise AssertionError(f"{name}: server verb span {e} has no leader call span above it")
+    if {e["comp"] for e in verbs} != {"server0", "server1"}:
+        raise AssertionError(f"{name}: verb spans from {sorted({e['comp'] for e in verbs})}")
+    # each server's level captures: the expand and ot2s kernels with device time
+    captures = {}
+    for sid in (0, 1):
+        caps = reports[f"s{sid}"].get("slo", {}).get("profile", [])
+        if [c["level"] for c in caps] != list(OBSERVED_LEVELS) or any(
+                c["trace"] != verdict["traces"][0] for c in caps):
+            raise AssertionError(f"{name}: server {sid}'s captures {caps}")
+        us = {}
+        for c in caps:
+            for k, v in _profile_kernels(c["path"]).items():
+                us[k] = us.get(k, 0.0) + v
+        captures[f"server{sid}"] = {kn: sum(v for k, v in us.items() if sym in k)
+                                    for kn, sym in KERNEL_SYMBOLS.items()}
+        if not all(v > 0 for v in captures[f"server{sid}"].values()):
+            raise AssertionError(f"{name}: server {sid}'s profiles name {sorted(us)} with device "
+                                 f"us {captures[f'server{sid}']}")
+    # the card's memory and the builds, from the servers' reports: a server
+    # samples at each level's end and at exit, so its watermark holds the
+    # key plane the crawl kept on the card and stays within the allocator's
+    # peak (server.exit's max_memory_allocated)
+    capacity = torch.cuda.mem_get_info()[1]
+    memory = []
+    for sid, reg in enumerate(regs):
+        g = {k: reg["gauges"].get(k, {}).get("last") for k in (
+            "hbm_in_use_bytes", "hbm_watermark_bytes", "hbm_limit_bytes", "key_plane_bytes")}
+        g["max_memory_allocated"] = run["exits"][sid]["max_memory_allocated"]
+        if not (g["hbm_in_use_bytes"] or 0) > 0 or not (
+                g["key_plane_bytes"] or 0) <= (g["hbm_watermark_bytes"] or 0) <= (
+                g["max_memory_allocated"] or 0) or not (g["key_plane_bytes"] or 0) > 0 or (
+                g["hbm_limit_bytes"] != capacity):
+            raise AssertionError(f"{name}: server {sid}'s memory gauges {g} (capacity "
+                                 f"{capacity})")
+        memory.append(g)
+        builds = sum(r["counters"].get("fresh_compiles", {}).get("total", 0)
+                     for r in reports[f"s{sid}"]["registries"].values())
+        if builds:
+            raise AssertionError(f"{name}: server {sid} built {builds} kernel libraries")
+    beats = [e for who in ("server0", "server1", "leader") for e in run["events"][who]
+             if e["event"] == "heartbeat" and e.get("span")]
+    if not beats:
+        raise AssertionError(f"{name}: no heartbeat named an active span")
+    keygen = run["crawl"]["launches"]["keygen"]
+    if keygen <= 0:
+        raise AssertionError(f"{name}: the leader's keygen launched {keygen} times")
+    per = {ph: [round(regs[0]["phases"][ph]["by_level"].get(str(lv), 0.0), 6)
+                for lv in range(L)] for ph in ("fss", "gc_ot", "otext", "field")}
+    ratio = rep["crawl_s"] / base["crawl_s"]
+    log(f"observed {name} server0 per-level seconds: {per}")
+    log(f"observed {name}: hitters = rides_secure_socket's; crawl_s={rep['crawl_s']:.3f} "
+        f"(rides_secure_socket {base['crawl_s']:.3f}; ratio {ratio:.3f}, no gate) trace "
+        f"events={verdict['events']} spans={verdict['spans']} verb spans={len(verbs)} "
+        f"capture kernel device us={captures} memory={memory} heartbeats naming a span="
+        f"{len(beats)} leader keygen launches={keygen} launches={rep['launches']}")
+    rep.update(per_level_s=per, crawl_s_ratio=ratio, trace=verdict, captures=captures,
+               memory=memory, heartbeats=len(beats), leader_keygen_launches=keygen,
+               secure_kernels=reports["s0"].get("secure_kernels"),
+               slo={who: reports[who].get("slo", {}).get("level_latency")
+                    for who in reports})
+    report["sockets"][name] = rep
+    stage(f"{name} socket run")
 
 
 def main() -> int:
@@ -3889,6 +4184,10 @@ def main() -> int:
         if args.profile:
             fig["profile"] = profile_crawl(name, run, cfg4, torch)
             stage(f"{name} profile")
+        # from here on the cells' processes start warm: the first cell's
+        # interpreters warm during these checks, which time on the card
+        POOL.on = True
+        POOL.fill()
         fig["stream_checks"] = measure_stream_expand(name, run, cfg4, expand_cuda, prg, torch)
         errs["expand"] += [c["max_abs_err"] for c in fig["stream_checks"]]
         kg = measure_keygen(f"{name} chunk", run.points[:KEYGEN_HOST_CHUNK], cfg4, keygen_cuda,
@@ -3991,10 +4290,10 @@ def main() -> int:
         sup = check_supervised_run(name, run, rides_cfg, report["sockets"]["rides_socket"][
             "hitter_map"], points["rides"])
         want_ck = len([lv for lv in range(CKPT_EVERY, rides_cfg.data_len, CKPT_EVERY)])
-        if sup["counters"]["recoveries"] or any(sv["ckpt_writes"] != want_ck
+        if sup["counters"]["recoveries"] or any(sv["checkpoint_writes"] != want_ck
                                                 for sv in sup["servers"]):
             raise AssertionError(f"{name}: {sup['counters']}, checkpoints "
-                                 f"{[sv['ckpt_writes'] for sv in sup['servers']]}, want "
+                                 f"{[sv['checkpoint_writes'] for sv in sup['servers']]}, want "
                                  f"{want_ck} each and no recovery")
         base = report["sockets"]["rides_socket"]
         log(f"supervised {name}: crawl_s={sup['crawl_s']:.3f} (reset, upload and rounds; "
@@ -4112,6 +4411,7 @@ def main() -> int:
         window_phases(args.seed, cells, points, secure_cfg, report, tmp, stage, torch)
         tenant_phases(args.seed, cells, report, tmp, stage, torch)
         fleet_phases(args.seed, cells, report, errs, tmp, stage, torch)
+        observed_phase(args.seed, cells, points, hitters, report, tmp, stage, torch)
     for name in points:
         kg = measure_keygen(name, points[name], cells[name][0], keygen_cuda, ibdcf, torch, rng)
         report["crawls"][name]["keygen_check"] = kg
@@ -4208,6 +4508,12 @@ def main() -> int:
             c: {who: (ls or {}).get(kn) for who, ls in f["launches"].items()}
             | ({"leader": f["leader_keygen_launches"]} if kn == "keygen" else {})
             for c, f in report["fleet"].items()}
+        # phase 41: launches per server process of the observed run, and the
+        # leader process's keygen
+        obs41 = report["sockets"]["rides_secure_socket_observed"]
+        rows[-1]["observed_launches"] = (
+            {w: obs41["launches"][w][kn] for w in ("server0", "server1")}
+            | ({"leader": obs41["leader_keygen_launches"]} if kn == "keygen" else {}))
         if kn not in ("keygen", "expand"):
             rows[-1]["k3_checks"] = [
                 {k: c[k] for k in ("kind", "level", "shard", "S", "W", "bp", "max_abs_err",
@@ -4217,7 +4523,7 @@ def main() -> int:
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke wall_s={report['wall_s']:.1f} (build, checks, ten crawls, a resume, "
-        "twenty-four socket runs, three fleet runs and six mesh runs)")
+        "twenty-five socket runs, three fleet runs and six mesh runs)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -4230,4 +4536,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        POOL.close()
+    sys.exit(rc)

@@ -9,8 +9,9 @@ too, ``sketch_gen``), connect, ``reset``, batched key upload,
 the warmup (``FHH_WARMUP=0`` skips it, as in the JAX leader), the crawl in
 rounds of ``crawl_radix_bits`` levels (``crawl.done``), one ``hitter``
 line per heavy hitter and, for the rides workload, the heavy-hitter CSV
-(``data/ride_heavy_hitters.csv`` under the working directory).  Events are
-JSON lines on standard output.
+(``data/ride_heavy_hitters.csv`` under the working directory).  Events go
+through ``obs.emit`` (JSON lines on standard output with
+``FHH_LOG_FORMAT=json`` and ``FHH_LOG_STREAM=stdout``).
 
 The environment means what it means to the JAX leader, defaults included.
 Unset or ``"1"``, ``FHH_SUPERVISE`` runs the supervised crawl
@@ -42,9 +43,13 @@ ingest counters.  No CSV is written and no warmup runs in this mode.
 alike) in that collection of the servers: leaders of distinct collections
 share one server pair, each collection with its own keys, frontier, OT
 sessions, ingest gate and checkpoint names (``fhh_server{id}_c{key}_l{level}
-.npz``).  The observability and sanitizer switches the port does not have
+.npz``).  The live-plane and sanitizer switches the port does not have
 yet are refused by name (``bin.refuse_unported_switches``), and so is
 ``debug_guards: true`` in the config (``utils.config.refuse_debug_guards``).
+Telemetry (JAX bin/leader.py:245-256): ``FHH_RUN_REPORT`` is written at
+exit (the bare path; the servers take siblings), the trace ring is tagged
+``leader`` and each crawl or window is one trace, ``FHH_PROFILE`` without
+``FHH_PROFILE_LEVELS`` captures each crawl, and the heartbeat runs.
 Keygen runs on ``cuda`` unless ``--device`` names another device or the
 config says ``"backend": "cpu"``.
 With ``--seed s`` sampling and keygen draw from ``default_rng(s)`` in
@@ -64,6 +69,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops import ibdcf
 from ..ops.fields import F255, FE62
 from ..protocol import sessions, sketch
@@ -73,7 +79,7 @@ from ..protocol.rpc import CollectorClient
 from ..utils import config as configmod
 from ..utils import resolve_device
 from ..workloads import OUTPUT_CSV, rides, sample_points, strings
-from .server import emit, split_addr
+from .server import emit, launch_counts, split_addr
 
 
 def refuse_unported_env() -> None:
@@ -198,7 +204,7 @@ async def run(cfg, nreqs: int, dev, seed, warm_buckets=None) -> None:
              hitters=int(res.paths.shape[0]), secure=cfg.secure_exchange,
              buckets=lead.buckets, pipeline=lead.pipeline, epochs=[c0.epoch, c1.epoch],
              alive=None if lead.alive is None else int(lead.alive.sum()),
-             control_bytes={"server0": c0.stats, "server1": c1.stats}, **extra)
+             control_bytes=_control_bytes(lead), launches=launch_counts(), **extra)
     finally:
         await c0.aclose()
         await c1.aclose()
@@ -208,6 +214,11 @@ async def run(cfg, nreqs: int, dev, seed, warm_buckets=None) -> None:
         os.makedirs(os.path.dirname(OUTPUT_CSV), exist_ok=True)
         rides.save_heavy_hitters(res.paths, OUTPUT_CSV)
         emit("csv.written", path=OUTPUT_CSV, hitters=int(res.paths.shape[0]))
+
+
+def _control_bytes(lead: RpcLeader) -> dict:
+    """Both clients' control-plane bytes, from the leader's registry."""
+    return {k: int(lead.obs.counter_value(f"control_bytes_{k}")) for k in ("sent", "recv")}
 
 
 def _emit_window(res, window: int) -> None:
@@ -264,7 +275,7 @@ async def run_windows(lead: RpcLeader, nreqs: int, windows: int, keys0, keys1, s
                "secure": cfg.secure_exchange, "malicious": cfg.malicious,
                "epochs": [lead.c0.epoch, lead.c1.epoch],
                "alive": None if lead.alive is None else int(lead.alive.sum()),
-               "control_bytes": {"server0": lead.c0.stats, "server1": lead.c1.stats},
+               "control_bytes": _control_bytes(lead), "launches": launch_counts(),
                **wi.counters}
     emit("crawl.done", **figures)
     return figures
@@ -290,7 +301,9 @@ def main(argv=None) -> None:
     cfg = configmod.load_config(args.config)
     configmod.refuse_debug_guards(cfg)
     dev = resolve_device(args.device or ("cpu" if cfg.backend == "cpu" else None))
-    asyncio.run(run(cfg, args.num_requests, dev, args.seed))
+    obs.trace.claim_tag("leader")
+    with obs.exit_report():
+        asyncio.run(run(cfg, args.num_requests, dev, args.seed))
 
 
 if __name__ == "__main__":

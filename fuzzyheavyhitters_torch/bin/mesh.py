@@ -3,7 +3,10 @@
 The port of ``fuzzyheavyhitters_tpu/bin/mesh.py``: sample the clients,
 generate both parties' ibDCF keys, crawl the prefix tree, emit the heavy
 hitters, and for the rides workload append them to the heavy-hitter CSV.
-Events are JSON lines on standard output.  With ``secure_exchange: true``
+Events go through ``obs.emit`` (JSON lines on standard output with
+``FHH_LOG_FORMAT=json`` and ``FHH_LOG_STREAM=stdout``; a caller of
+:func:`run` that wants them in a stream of its own sets it with
+``obs.logs.configure(fmt="json", stream=...)``).  With ``secure_exchange: true``
 in the config the servers run the secure exchange (``protocol/secure.py``)
 on two OT-extension sessions set up by the Chou-Orlandi base OT from
 system randomness; otherwise the trusted exchange.
@@ -39,8 +42,11 @@ in the JAX binary, the mesh ignores ``ot_path`` (its engine follows
 
 It runs on ``cuda`` unless ``--device`` names another device, and raises
 when there is no card.  ``--platform`` (a JAX backend pin) is refused, and
-so are the observability and sanitizer switches the port does not have yet
-(``bin.refuse_unported_switches``).
+so are the live-plane and sanitizer switches the port does not have yet
+(``bin.refuse_unported_switches``).  It runs under ``obs.exit_report``
+(JAX bin/mesh.py:87-92): the run report at exit (``FHH_RUN_REPORT``; two
+processes write ``<path>.p<id>.json`` siblings), the trace ring, the
+heartbeat.
 Malicious mode is refused as the JAX binary refuses it: the mesh holds both
 parties in one trust domain, so the sketch would add no security; the
 socket binaries run it.
@@ -49,16 +55,15 @@ socket binaries run it.
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import secrets
-import sys
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import obs
 from . import refuse_unported_switches
 from ..ops import ibdcf
 from ..parallel import mesh as meshmod
@@ -107,7 +112,7 @@ def use_mesh(dev: torch.device, devices: int | None, processes: int | None) -> b
 
 
 def run(cfg: configmod.Config, n: int, device=None, seed: int | None = None,
-        csv_path: str = OUTPUT_CSV, out=None, session: dict | None = None,
+        csv_path: str = OUTPUT_CSV, session: dict | None = None,
         devices: int | None = None, processes: int | None = None,
         process_id: int | None = None, coordinator: str | None = None) -> MeshRun:
     """Sample ``n`` clients, keygen, crawl, emit; returns the points, the
@@ -119,7 +124,6 @@ def run(cfg: configmod.Config, n: int, device=None, seed: int | None = None,
     ``process_id`` and ``coordinator`` are the binary's mesh flags."""
     if cfg.malicious:
         raise SystemExit(MALICIOUS_REFUSAL)
-    out = sys.stdout if out is None else out
     dev = resolve_device(device)
     mesh_run = use_mesh(dev, devices, processes)
     if processes and processes > 1:
@@ -127,13 +131,9 @@ def run(cfg: configmod.Config, n: int, device=None, seed: int | None = None,
         # both processes sample the same clients
         seed = meshmod.agree(secrets.randbits(63) if seed is None else seed)
 
-    def emit(event: str, **kw):
-        out.write(json.dumps({"event": event, **kw}) + "\n")
-        out.flush()
-
     rng = np.random.default_rng(seed)
     seconds = {}
-    emit("sampling", distribution=cfg.distribution, n=n, device=str(dev))
+    obs.emit("sampling", distribution=cfg.distribution, n=n, device=str(dev))
     t0 = time.perf_counter()
     pts = sample_points(cfg, n, rng)
     seconds["sampling"] = time.perf_counter() - t0
@@ -142,7 +142,7 @@ def run(cfg: configmod.Config, n: int, device=None, seed: int | None = None,
     k0, k1 = ibdcf.gen_l_inf_ball(pts, cfg.ball_size, rng, device=dev)
     _sync(dev)
     seconds["keygen"] = time.perf_counter() - t0
-    emit("keygen.report", seconds=seconds["keygen"], n_keys=n,
+    obs.emit("keygen.report", seconds=seconds["keygen"], n_keys=n,
          engine=ibdcf.best_engine(dev))
 
     extra = {}
@@ -151,7 +151,7 @@ def run(cfg: configmod.Config, n: int, device=None, seed: int | None = None,
         if processes == 2:  # this process keeps its own party's keys only
             keys[1 - process_id] = None
         del k0, k1
-        lead, res = _crawl_mesh(cfg, n, keys, dev, devices, processes, session, seconds, emit)
+        lead, res = _crawl_mesh(cfg, n, keys, dev, devices, processes, session, seconds)
         extra["levels"] = len(lead.timings["level"])
         extra["recoveries"] = lead.counters["recoveries"]
         if lead.r.link.rank is not None:
@@ -166,7 +166,7 @@ def run(cfg: configmod.Config, n: int, device=None, seed: int | None = None,
             sessions = driver.make_sessions(
                 driver.session_material() if session is None else session, dev)
             seconds["base_ot"] = time.perf_counter() - t0
-            emit("secure.session", seconds=seconds["base_ot"], ot_path=cfg.ot_path)
+            obs.emit("secure.session", seconds=seconds["base_ot"], ot_path=cfg.ot_path)
         lead = driver.Leader(s0, s1, n_dims=cfg.n_dims, data_len=cfg.data_len,
                              f_max=cfg.f_max, secure=sessions, ot_path=cfg.ot_path)
         t0 = time.perf_counter()
@@ -176,19 +176,19 @@ def run(cfg: configmod.Config, n: int, device=None, seed: int | None = None,
         extra["levels"] = len(lead.timings["expand"])
         if sessions is not None:
             extra["ot_consumed"] = [s.consumed for s in sessions.snd]
-    emit("crawl.done", seconds=seconds["crawl"], hitters=int(res.paths.shape[0]),
+    obs.emit("crawl.done", seconds=seconds["crawl"], hitters=int(res.paths.shape[0]),
          secure=cfg.secure_exchange, mesh=mesh_run, launches=kernel_launches(), **extra)
     for row, c in zip(res.decode_ints(), res.counts):
-        emit("hitter", value=str(row.tolist()), count=int(c))
+        obs.emit("hitter", value=str(row.tolist()), count=int(c))
     if cfg.distribution == "rides" and res.paths.shape[0] and not process_id:
         # the same CSV contract as the JAX package's deployments
         os.makedirs(os.path.dirname(csv_path) or ".", exist_ok=True)
         rides.save_heavy_hitters(res.paths, csv_path)
-        emit("csv.written", path=csv_path, hitters=int(res.paths.shape[0]))
+        obs.emit("csv.written", path=csv_path, hitters=int(res.paths.shape[0]))
     return MeshRun(points=pts, result=res, leader=lead, seconds=seconds)
 
 
-def _crawl_mesh(cfg, n, keys, dev, devices, processes, session, seconds, emit):
+def _crawl_mesh(cfg, n, keys, dev, devices, processes, session, seconds):
     """Build the mesh and its runner over the parties' keys ([k0, k1], the
     peer's None in two processes) and crawl; returns (MeshLeader, result).
     ``keys`` is emptied once the runner holds its shards."""
@@ -207,7 +207,7 @@ def _crawl_mesh(cfg, n, keys, dev, devices, processes, session, seconds, emit):
                                     secure_exchange=cfg.secure_exchange, session=session)
     keys.clear()
     seconds["mesh_setup"] = time.perf_counter() - t0
-    emit("mesh.placement", rows=mesh.placement(), held_rows=list(runner.rows),
+    obs.emit("mesh.placement", rows=mesh.placement(), held_rows=list(runner.rows),
          processes=processes or 1, seconds=seconds["mesh_setup"])
     lead = meshmod.MeshLeader(runner)
     t0 = time.perf_counter()
@@ -246,9 +246,13 @@ def main(argv=None) -> None:
         p.error("--processes 2 needs --coordinator host:port and --process_id 0 or 1")
     refuse_unported_switches()
     cfg = configmod.load_config(args.config)
-    run(cfg, args.num_requests, device=args.device, seed=args.seed, csv_path=args.csv,
-        devices=args.devices, processes=args.processes, process_id=args.process_id,
-        coordinator=args.coordinator)
+    if args.processes == 2:  # both inherit one FHH_RUN_REPORT: one sibling each
+        obs.claim_report_path(f"p{args.process_id}")
+        obs.trace.claim_tag(f"p{args.process_id}")
+    with obs.exit_report():
+        run(cfg, args.num_requests, device=args.device, seed=args.seed, csv_path=args.csv,
+            devices=args.devices, processes=args.processes, process_id=args.process_id,
+            coordinator=args.coordinator)
 
 
 if __name__ == "__main__":

@@ -12,16 +12,19 @@ CUDA context before it listens.  With ``FHH_CKPT_DIR`` set (made if
 missing) it answers the supervising leader's ``tree_checkpoint`` and
 ``tree_restore`` with blobs in that directory; a server started again on
 the same ports and directory after a crash rejoins the crawl there.
-Events are JSON lines on standard output, each with its wall clock
-``t``: ``server.plane_listening`` (server 1, once its peer may dial),
+Events go through ``obs.emit`` (``FHH_LOG_FORMAT=json`` and
+``FHH_LOG_STREAM=stdout``: JSON lines on standard output, each with its
+wall clock ``ts``): ``server.plane_listening`` (server 1, once its peer may dial),
 ``server.serving`` once the leader may connect, the recovery events
 (``resilience.server_checkpoint`` with the blob's bytes and seconds,
 ``resilience.server_restore``, ``resilience.plane_reset``,
 ``resilience.plane_break``) and on SIGTERM or SIGINT ``server.exit`` with
-the seconds per phase, the bytes of each plane, the largest data-plane
-frame, the crawl verbs begun and finished, the ``add_keys`` chunks,
-replays answered from the dedup cache, plane resets, checkpoints written
-and restored, the ``sketch_verify`` verbs and their seconds (phase
+its registries' flat figures under the registries' own names
+(``CollectorServer.summary``): the seconds per phase, the bytes of each
+plane, the largest data-plane frame, the crawl verbs begun and finished,
+the ``add_keys`` chunks, replays answered from the dedup cache, plane
+resets, checkpoints written and restored (``checkpoint_writes``,
+``checkpoint_restores``), the ``sketch_verify`` verbs and their seconds (phase
 ``sketch``), the prunes' sketch advance seconds (``sketch_advance_s``), the
 clients still alive (``alive_clients``; null before a
 ``tree_init``), the launches of each kernel in this process and, on the
@@ -35,10 +38,19 @@ set, the server registers in that fleet directory once it serves: it writes
 ``<pair>_s<id>.json`` (``FHH_FLEET_PAIR``, default ``pair0``; its host, port,
 boot id and ``FHH_FLEET_CAPACITY``, default 4) by a temporary file and a
 rename, and prints ``fleet.registered``; ``protocol.fleet.FleetDirectory.
-scan`` folds the two halves into one pair.  The observability and sanitizer
+scan`` folds the two halves into one pair.  The live-plane and sanitizer
 switches the port does not have yet are refused
 (``bin.refuse_unported_switches``), and so is ``debug_guards: true`` in the
 config (``utils.config.refuse_debug_guards``).
+
+Telemetry (JAX bin/server.py:166-178): ``FHH_RUN_REPORT`` is claimed as
+this server's ``<path>.s<id>.json`` sibling and written at exit, the trace
+ring under ``FHH_TRACE_DIR`` is tagged ``s<id>``, ``FHH_PROFILE`` with
+``FHH_PROFILE_LEVELS`` captures those crawl levels, and a heartbeat names
+the active span every ``FHH_HEARTBEAT_S`` seconds (30 unset).  A fresh
+``nvcc`` build at start-up counts as ``fresh_compiles``.  SIGTERM ends the
+server with exit code 143 once ``server.exit`` is out (``obs.exit_report``'s
+contract), SIGINT with 0.
 The ingest front door (``submit_keys``, ``window_seal``, ``window_load``)
 reads the config's ``ingest_*`` fields; ``server.exit`` counts its
 submissions (``pool_*``), sealed windows and the last window's seconds from
@@ -62,6 +74,7 @@ import time
 
 import torch
 
+from .. import obs
 from . import refuse_unported_switches
 from ..protocol.rpc import CollectorServer
 from ..resilience.chaos import MeshChaos, parse_mesh_faults
@@ -70,7 +83,7 @@ from ..utils import resolve_device
 
 
 def emit(event: str, **kw) -> None:
-    print(json.dumps({"event": event, "t": time.time(), **kw}), flush=True)
+    obs.emit(event, **kw)
 
 
 def split_addr(addr: str) -> tuple[str, int]:
@@ -134,9 +147,10 @@ async def amain(cfg, server_id: int, device) -> None:
         cuda_build.build()
         torch.zeros(1, device=server.device)
     stop = asyncio.Event()
+    got = []  # the signal that stopped the server
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGTERM, signal.SIGINT):
-        loop.add_signal_handler(sig, stop.set)
+        loop.add_signal_handler(sig, lambda s=sig: (got.append(s), stop.set()))
     try:
         await server.start(my_host, my_port, peer_host, port1 + 1, on_plane_listen=lambda: emit(
             "server.plane_listening", server=server_id, host=my_host, port=port1 + 1))
@@ -147,14 +161,19 @@ async def amain(cfg, server_id: int, device) -> None:
         await stop.wait()
     finally:
         await server.aclose()
+        # a last device-memory sample: a run whose leader never probes
+        # status still reports the card's memory at its end
+        obs.devmem.sample(server.obs, phase="exit")
         emit("server.exit", server=server_id, device=str(server.device),
-             boot_id=server.boot_id, **server.stats, launches=launch_counts(),
+             boot_id=server.boot_id, **server.summary(), launches=launch_counts(),
              alive_clients=(None if server.alive_keys is None
                             else int(server.alive_keys.sum())),
              mesh=server.mesh_status(), sessions=server.sessions_status(),
              max_memory_allocated=(
                  torch.cuda.max_memory_allocated(server.device)
                  if server.device.type == "cuda" else 0))
+    if got and got[0] == signal.SIGTERM:
+        raise SystemExit(143)  # obs.exit_report's SIGTERM contract
 
 
 def main(argv=None) -> None:
@@ -171,7 +190,12 @@ def main(argv=None) -> None:
     cfg = configmod.load_config(args.config)
     configmod.refuse_debug_guards(cfg)
     device = resolve_device(args.device or ("cpu" if cfg.backend == "cpu" else None))
-    asyncio.run(amain(cfg, args.server_id, device))
+    # both servers and the leader inherit one FHH_RUN_REPORT: each server
+    # writes its own sibling, and names its trace ring the same way
+    obs.claim_report_path(f"s{args.server_id}")
+    obs.trace.claim_tag(f"s{args.server_id}")
+    with obs.exit_report():
+        asyncio.run(amain(cfg, args.server_id, device))
 
 
 if __name__ == "__main__":

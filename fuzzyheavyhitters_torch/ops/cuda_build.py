@@ -6,9 +6,10 @@ PyTorch headers, so a build takes seconds).  Libraries land in
 ``build/fhh_torch/`` beside the package (``FHH_TORCH_BUILD_DIR`` overrides
 it), named by a hash of their sources and flags, so an edited source is
 rebuilt and an unchanged one is reused; processes that start together on
-one build directory build each library once (:func:`build`).  Everything here runs at first use,
-never at import: the CPU tests import every module on hosts with no
-``nvcc``.
+one build directory build each library once (:func:`build`).  Each
+library ``nvcc`` builds counts as a fresh compile (``obs.devmem``).
+Everything here runs at first use, never at import: the CPU tests import
+every module on hosts with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from ..obs import devmem
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -88,6 +92,7 @@ def _build_locked(names) -> None:
     if not todo:
         return
     compiler = nvcc()
+    t0 = time.perf_counter()
     procs = {}
     for name in todo:
         out = lib_path(name)
@@ -105,6 +110,9 @@ def _build_locked(names) -> None:
         if rc == 0:
             os.replace(tmp_log, log_path(name))
             os.replace(tmp, out)
+            # a fresh build, counted where the JAX package counts an XLA
+            # compile (a cached library's load is not one)
+            devmem.note_fresh_compile(name, time.perf_counter() - t0)
         else:
             failed.append(f"{name} (nvcc rc={rc}):\n{tmp_log.read_text()}")
             tmp_log.unlink()

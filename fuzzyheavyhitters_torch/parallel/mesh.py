@@ -44,6 +44,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..obs import metrics as obsmetrics
 from ..ops import gc, otext
 from ..ops.fields import _M32, F255, FE62, _shr
 from ..ops.ibdcf import EvalState, IbDcfKeyBatch
@@ -520,21 +521,32 @@ class MeshRunner:
 
 class MeshLeader:
     """Level-loop driver over a :class:`MeshRunner` (leader.rs:185-297, the
-    bookkeeping of ``driver.Leader``).  ``counters`` keeps ``recoveries``,
-    ``levels_rerun``, ``shards_rerun``, ``crawl_checkpoints`` and
-    ``device_fetches``; ``survivors`` the surviving node count per level;
-    ``timings["level"]`` each level's host seconds; ``emit(event,
-    **fields)`` receives ``resilience.mesh_recover`` events."""
+    bookkeeping of ``driver.Leader``).  Its registry ``obs`` (``mesh``, JAX
+    mesh.py:636-790) holds the last crawl's ``level`` spans, survivors and
+    counters; ``counters`` reads ``recoveries``, ``levels_rerun``,
+    ``shards_rerun``, ``crawl_checkpoints`` and ``device_fetches`` from it;
+    ``survivors`` the surviving node count per level; ``timings["level"]``
+    each level's host seconds; ``emit(event, **fields)`` receives
+    ``resilience.mesh_recover`` events."""
 
     def __init__(self, runner: MeshRunner, emit=None):
         self.r = runner
         self.paths = None
         self.n_nodes = 0
         self.emit = emit or (lambda event, **kw: None)
+        self.obs = obsmetrics.Registry("mesh")
         self._reset()
 
+    @property
+    def counters(self) -> dict:
+        return {c: int(self.obs.counter_value(c)) for c in COUNTERS}
+
     def _reset(self) -> None:
-        self.counters = dict.fromkeys(COUNTERS, 0)
+        """A crawl's figures start from zero (the counters zero-touched, so
+        a fault-free run reports its zeros)."""
+        self.obs.reset()
+        for c in COUNTERS:
+            self.obs.count(c, 0)
         self.survivors = {}
         self.timings = {"level": []}
 
@@ -543,7 +555,7 @@ class MeshLeader:
         ``sh0 - sh1`` (FE62 inner levels, F255 last, rpc.rs:60-62)."""
         r = self.r
         last = level == r.data_len - 1
-        self.counters["device_fetches"] += 1
+        self.obs.count("device_fetches", level=level)  # the counts, or the shares
         if not r.secure:
             return r.level_counts(level, last=last)
         if last:
@@ -561,6 +573,10 @@ class MeshLeader:
     def _run_one_level(self, level: int, nreqs: int, threshold: float):
         """One count -> threshold -> prune -> advance round; the kept counts,
         or None when no node survives."""
+        with self.obs.span("level", level=level):
+            return self._one_level(level, nreqs, threshold)
+
+    def _one_level(self, level: int, nreqs: int, threshold: float):
         r = self.r
         t0 = time.perf_counter()
         counts = self._level_counts(level)
@@ -569,6 +585,7 @@ class MeshLeader:
         parent, pattern, n_alive = collect.compact_survivors(keep, r.f_max, r.min_bucket)
         pat_bits = collect.pattern_to_bits(pattern, r.n_dims)
         self.survivors[level] = n_alive
+        self.obs.gauge("survivors", n_alive, level=level)
         if n_alive == 0:
             return None
         if level < r.data_len - 1:  # nothing advances past the leaves
@@ -627,19 +644,19 @@ class MeshLeader:
                 if level < r.data_len - 1 and (level + 1) % checkpoint_every == 0:
                     stash = (level, r.snapshot(), self.paths.copy(), self.n_nodes,
                              counts_kept.copy())
-                    self.counters["crawl_checkpoints"] += 1
+                    self.obs.count("crawl_checkpoints", level=level)
                 level += 1
             except MeshFaultError as err:
-                self.counters["recoveries"] += 1
+                self.obs.count("recoveries")
                 self.emit("resilience.mesh_recover", level=level,
                           attempt=self.counters["recoveries"], state_lost=err.state_lost,
                           error=str(err))
                 if self.counters["recoveries"] > max_recoveries:
                     raise
                 if not err.state_lost and r.frontier is not None:
-                    self.counters["shards_rerun"] += 1  # only this level's result is suspect
+                    self.obs.count("shards_rerun", level=level)  # only this level is suspect
                     continue
-                self.counters["levels_rerun"] += 1
+                self.obs.count("levels_rerun")
                 if stash is not None:
                     lvl, snap, paths, n_nodes, kept = stash
                     r.restore(snap)

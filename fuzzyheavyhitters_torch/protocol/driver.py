@@ -61,6 +61,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..obs import metrics as obsmetrics
 from ..ops import baseot, otext
 from ..ops.fields import F255, FE62
 from ..ops.ibdcf import EvalState, HostKeys, IbDcfKeyBatch
@@ -337,8 +338,14 @@ class Leader:
     # the span on the device stream between CUDA events recorded around
     # it (no sync of its own), on the CPU its host time
     timings: dict = field(default_factory=dict)
+    # the driver's registry (JAX driver.py:156-160): a "level" span a round,
+    # the round's fss / field / advance seconds, readbacks, survivors and
+    # checkpoints
+    obs: obsmetrics.Registry | None = None
 
     def __post_init__(self):
+        if self.obs is None:
+            self.obs = obsmetrics.Registry("driver")
         if not 1 <= self.n_dims <= collect.MAX_DIMS:
             raise ValueError(f"n_dims={self.n_dims}: supported 1..{collect.MAX_DIMS}")
         collect.check_radix(self.n_dims, self.radix)
@@ -394,6 +401,10 @@ class Leader:
         no child cache and leaves no frontier: nothing advances past it.
         When streaming, the level expands without a child cache and the
         advance re-expands the survivors' parents."""
+        with self.obs.span("level", level=level):
+            return self._run_level(level, nreqs, threshold)
+
+    def _run_level(self, level: int, nreqs: int, threshold: float) -> int:
         d = self.n_dims
         r = min(self.radix, self.data_len - level)
         last = level + r == self.data_len
@@ -459,6 +470,11 @@ class Leader:
         self.timings["expand"].append(t1 - t0)
         self.timings["count"].append(t2 - tc)
         self.timings["advance"].append(t3 - t2)
+        self.obs.timer_add("fss", t1 - t0, level=level)
+        self.obs.timer_add("field", t2 - tc, level=level)
+        self.obs.timer_add("advance", t3 - t2, level=level)
+        self.obs.count("device_fetches", level=level)
+        self.obs.gauge("survivors", n_alive, level=level)
         return n_alive
 
     def _secure_counts(self, level: int, packed: list, alive_nodes, last: bool):
@@ -613,6 +629,7 @@ class Leader:
         with open(tmp, "wb") as f:
             np.savez(f, **blob)
         os.replace(tmp, path)
+        self.obs.count("checkpoint_writes", level=level)
 
     def restore(self, path: str, nreqs: int | None = None,
                 threshold: float | None = None) -> int:
@@ -661,6 +678,7 @@ class Leader:
         self._last_counts = z["last_counts"].astype(np.int64)
         self._reset()
         lvl = int(z["level"])  # base level of the last completed round
+        self.obs.count("checkpoint_restores", level=lvl)
         return lvl + min(self.radix, self.data_len - lvl)
 
 

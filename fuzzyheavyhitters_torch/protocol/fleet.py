@@ -36,6 +36,8 @@ import json
 import os
 import time
 
+from ..obs import metrics as obsmetrics
+
 FLEET_COUNTERS = ("placement_decisions", "session_migrations", "session_failovers")
 
 
@@ -260,32 +262,40 @@ class FleetPlacer:
     where a collection goes, brackets each move with
     ``migration_inflight_since`` (the wall clock while a move runs, 0.0
     otherwise, on both outcomes: a failed migration leaves the source
-    authoritative) and keeps the placements true; ``counters`` keeps
-    ``FLEET_COUNTERS``.  ``emit`` receives ``fleet.placed``,
+    authoritative) and keeps the placements true.  Its registry ``obs``
+    (``fleet``, JAX fleet.py:295) holds ``FLEET_COUNTERS`` (``counters``
+    reads them) and the inflight gauge.  ``emit`` receives ``fleet.placed``,
     ``fleet.migrated`` and ``fleet.failed_over``."""
 
     def __init__(self, directory: FleetDirectory, emit=None):
         self.directory = directory
         self.emit = emit or (lambda event, **kw: None)
-        self.counters = dict.fromkeys(FLEET_COUNTERS, 0)
-        self.migration_inflight_since = 0.0
+        self.obs = obsmetrics.Registry("fleet")
+
+    @property
+    def counters(self) -> dict:
+        return {c: int(self.obs.counter_value(c)) for c in FLEET_COUNTERS}
+
+    @property
+    def migration_inflight_since(self) -> float:
+        return float(self.obs.gauge_value("migration_inflight_since") or 0.0)
 
     async def place(self, session: str, *, exclude: tuple = ()) -> HostPair:
         pair = await self.directory.place(session, exclude=exclude)
-        self.counters["placement_decisions"] += 1
+        self.obs.count("placement_decisions")
         self.emit("fleet.placed", session=session, pair=pair.name)
         return pair
 
     async def migrate(self, ingest, new_lead, *, session: str, dest: str) -> dict:
         """Live-migrate ``ingest``'s collection onto ``new_lead``'s pair
         (``dest``)."""
-        self.migration_inflight_since = time.time()
+        self.obs.gauge("migration_inflight_since", time.time())
         try:
             stats = await ingest.migrate(new_lead)
         finally:
-            self.migration_inflight_since = 0.0
-        self.counters["session_migrations"] += 1
-        self.counters["placement_decisions"] += 1
+            self.obs.gauge("migration_inflight_since", 0.0)
+        self.obs.count("session_migrations")
+        self.obs.count("placement_decisions")
         await self.directory.move(session, dest)
         self.emit("fleet.migrated", session=session, dest=dest, **stats)
         return stats
@@ -294,13 +304,13 @@ class FleetPlacer:
                        level: int = -1) -> dict:
         """Recover a collection of a dead pair onto ``new_lead``'s pair
         (``dest``) from its newest checkpoint (``level``)."""
-        self.migration_inflight_since = time.time()
+        self.obs.gauge("migration_inflight_since", time.time())
         try:
             stats = await ingest.failover_to(new_lead, level=level)
         finally:
-            self.migration_inflight_since = 0.0
-        self.counters["session_failovers"] += 1
-        self.counters["placement_decisions"] += 1
+            self.obs.gauge("migration_inflight_since", 0.0)
+        self.obs.count("session_failovers")
+        self.obs.count("placement_decisions")
         await self.directory.move(session, dest)
         self.emit("fleet.failed_over", session=session, dest=dest, **stats)
         return stats

@@ -76,6 +76,18 @@ decides where.
 Many collections on one server pair (:class:`MultiCollectionDriver`): one
 client pair and one :class:`RpcLeader` a collection, each client's hello
 naming its collection, all crawled concurrently.
+
+Telemetry (JAX leader_rpc.py): each leader owns a registry ``leader`` (or
+``leader:{collection}``), which its clients' control bytes count on, with a
+``level`` span a round (its seconds also the ``level_latency`` histogram),
+the ``upload_keys`` and ``warmup`` spans, the survivors, the pipeline's
+figures and the supervised crawl's counters; a crawl is one trace
+(``trace.root("crawl")``) and, with ``FHH_PROFILE`` and no level list, one
+profile capture.  The windowed ingest owns ``ingest`` (or
+``ingest:{collection}``): an ``ingest`` span a window from its first
+submission to its seal, the admission counters and the ``ingest_admit``
+latency, a ``window_crawl`` span and the ``seal_to_hitters`` latency, a
+window one trace (``trace.root("window")``).
 """
 
 from __future__ import annotations
@@ -87,6 +99,8 @@ import time
 
 import numpy as np
 
+from ..obs import metrics as obsmetrics
+from ..obs import trace as obstrace
 from ..ops import ibdcf
 from ..ops.fields import F255, FE62
 from ..resilience import policy as respolicy
@@ -115,7 +129,14 @@ class RpcLeader:
         self.n_nodes = 0
         self.buckets: list = []  # frontier bucket per round
         self.pipeline = {"depth": 0, "overlap_s": 0.0, "stalls": 0}
-        self.counters = dict.fromkeys(COUNTERS, 0)
+        # the leader's registry, named for a non-default collection; the
+        # clients predate it, so their control bytes are rebound onto it
+        self.collection = getattr(client0, "collection", None) or "default"
+        self.obs = obsmetrics.Registry("leader" if self.collection == "default"
+                                       else f"leader:{self.collection}")
+        for c in (client0, client1):
+            if c is not None:
+                c.obs = self.obs
         # the supervised crawl's seconds: reset and upload, warmup, the
         # rounds (re-runs and recoveries included), recoveries alone
         self.seconds = {"upload": 0.0, "warmup": 0.0, "levels": 0.0, "recover": 0.0}
@@ -123,6 +144,11 @@ class RpcLeader:
         self._mesh_faults: dict = {}  # last seen mesh.faults count per server
         self.has_sketch = False  # the uploaded keys carry sketch keys (malicious mode)
         self.alive = None  # server 0's client liveness after the latest sketch_verify
+
+    @property
+    def counters(self) -> dict:
+        """The supervised crawl's :data:`COUNTERS`, from the registry."""
+        return {c: int(self.obs.counter_value(c)) for c in COUNTERS}
 
     @staticmethod
     async def _all(*coros):
@@ -167,8 +193,10 @@ class RpcLeader:
 
         # cancel on the first failure: an orphaned add_keys replay landing
         # after a recovery's reset would append a chunk twice
-        await self._all(*(send_one(c, k, sk, slice(lo, min(lo + bs, n)))
-                          for lo in range(0, n, bs) for _, c, k, sk in targets))
+        with self.obs.span("upload_keys"):
+            await self._all(*(send_one(c, k, sk, slice(lo, min(lo + bs, n)))
+                              for lo in range(0, n, bs) for _, c, k, sk in targets))
+        self.obs.count("keys_uploaded", n)
 
     async def warmup(self, f_buckets=None) -> dict:
         """Ask both servers to warm every bucket shape (``rpc.CollectorServer.
@@ -182,11 +210,12 @@ class RpcLeader:
                 b *= 2
             if f_buckets and f_buckets[-1] != cfg.f_max:
                 f_buckets.append(cfg.f_max)
-        r0, r1 = await self._both("warmup", {
-            "f_buckets": [int(b) for b in f_buckets], "ot_path": cfg.ot_path,
-            "secure_spans": bool(cfg.secure_exchange and not cfg.secure_whole_level
-                                 and cfg.crawl_shard_nodes),
-            "data_shards": int(cfg.server_data_devices)})
+        with self.obs.span("warmup"):
+            r0, r1 = await self._both("warmup", {
+                "f_buckets": [int(b) for b in f_buckets], "ot_path": cfg.ot_path,
+                "secure_spans": bool(cfg.secure_exchange and not cfg.secure_whole_level
+                                     and cfg.crawl_shard_nodes),
+                "data_shards": int(cfg.server_data_devices)})
         return {"f_buckets": list(f_buckets), "s0": r0, "s1": r1}
 
     async def _crawl_level(self, level: int, last: bool):
@@ -218,7 +247,7 @@ class RpcLeader:
         for span in spans:
             s0, s1 = await self._shard_call(verb, dict(req, shard=list(span)))
             if rerun:
-                self.counters["shards_rerun"] += 1
+                self.obs.count("shards_rerun", level=level)
             parts0.append(np.asarray(s0))
             parts1.append(np.asarray(s1))
         return np.concatenate(parts0, axis=0), np.concatenate(parts1, axis=0)
@@ -259,9 +288,15 @@ class RpcLeader:
                 with contextlib.suppress(Exception, asyncio.CancelledError):
                     await t
             raise
+        level = int(req["level"])
+        overlap = max(0.0, busy - (time.perf_counter() - t_level))
         self.pipeline["depth"] = depth
-        self.pipeline["overlap_s"] += max(0.0, busy - (time.perf_counter() - t_level))
+        self.pipeline["overlap_s"] += overlap
         self.pipeline["stalls"] += stalls
+        self.obs.gauge("pipeline_depth", depth, level=level)
+        self.obs.timer_add("pipeline_overlap", overlap, level=level)
+        if stalls:
+            self.obs.count("pipeline_stalls", stalls, level=level)
         return np.concatenate(parts0, axis=0), np.concatenate(parts1, axis=0)
 
     async def _quiesce_after_pipeline_fault(self, level: int, err) -> None:
@@ -271,7 +306,7 @@ class RpcLeader:
         outside it), re-key the plane and check that neither server
         restarted.  The caller re-runs the level; the servers' span caches
         are overwritten, so the re-run is bit-identical."""
-        self.counters["pipeline_faults"] += 1
+        self.obs.count("pipeline_faults", level=level)
         self.emit("pipeline.quiesce", level=level, error=f"{type(err).__name__}: {err}")
         await self._both("plane_break")
         if await self._reprobe_and_reset():
@@ -294,7 +329,7 @@ class RpcLeader:
                     raise
                 if await self._reprobe_and_reset():
                     raise
-                self.counters["shards_rerun"] += 1
+                self.obs.count("shards_rerun", level=int(req["level"]))
                 self.emit("resilience.shard_rerun", level=int(req["level"]),
                           span=req.get("shard"), attempt=attempt,
                           error=f"{type(err).__name__}: {err}")
@@ -368,6 +403,7 @@ class RpcLeader:
         self.paths = np.concatenate(
             [self.paths[parent[:n_alive]], pat_bits[:n_alive].transpose(0, 2, 1)], axis=-1)
         self.n_nodes = n_alive
+        self.obs.gauge("survivors", n_alive, level=level)
         return counts[parent[:n_alive], pattern[:n_alive]], alive
 
     async def _start_tree(self) -> None:
@@ -376,8 +412,21 @@ class RpcLeader:
         self.n_nodes = 1
         self.buckets = [1]
 
+    async def _level(self, level: int, nreqs: int, thresh: int):
+        """One round in a ``level`` span, its seconds also the
+        ``level_latency`` histogram's."""
+        with self.obs.span("level", level=level) as sp:
+            out = await self._run_one_level(level, nreqs, thresh)
+        self.obs.observe("level_latency", sp.seconds)
+        return out
+
     async def run(self, nreqs: int) -> CrawlResult:
-        """The whole crawl on the uploaded keys."""
+        """The whole crawl on the uploaded keys: one trace, and with
+        ``FHH_PROFILE`` (no level list) one profile capture."""
+        with obstrace.root("crawl"), obstrace.profile_capture("crawl"):
+            return await self._run(nreqs)
+
+    async def _run(self, nreqs: int) -> CrawlResult:
         cfg = self.cfg
         d, L = cfg.n_dims, cfg.data_len
         await self._start_tree()
@@ -386,7 +435,7 @@ class RpcLeader:
         k = cfg.crawl_radix_bits
         alive_before_leaf = None  # the liveness after the latest sketch check
         for level in range(0, L, k):
-            kept, alive = await self._run_one_level(level, nreqs, thresh)
+            kept, alive = await self._level(level, nreqs, thresh)
             if alive is not None:
                 alive_before_leaf = alive
             if kept is None:
@@ -504,7 +553,15 @@ class RpcLeader:
         lost rounds: the result is bit-identical to a fault-free crawl's.
         A sketch crawl banks an init checkpoint (level -1) after
         ``tree_init``, before any Beaver slab opens, since it may never
-        start over: a re-run level then replays its ratcheted challenge."""
+        start over: a re-run level then replays its ratcheted challenge.
+        The whole crawl, recoveries included, is one trace."""
+        with obstrace.root("crawl"), obstrace.profile_capture("crawl"):
+            return await self._run_supervised(
+                nreqs, keys0, keys1, sketch0, sketch1, checkpoint_every=checkpoint_every,
+                warmup=warmup, warm_buckets=warm_buckets)
+
+    async def _run_supervised(self, nreqs, keys0, keys1, sketch0, sketch1, *,
+                              checkpoint_every, warmup, warm_buckets) -> CrawlResult:
         cfg = self.cfg
         d, L, k = cfg.n_dims, cfg.data_len, cfg.crawl_radix_bits
         if cfg.malicious and sketch0 is None:
@@ -513,7 +570,8 @@ class RpcLeader:
             raise ValueError("run_supervised in malicious mode needs the sketch key batches "
                              "(pass sketch0/sketch1)")
         thresh = max(1, int(cfg.threshold * nreqs))
-        self.counters = dict.fromkeys(COUNTERS, 0)
+        for c in COUNTERS:  # zero-touched: a fault-free run reports its zeros
+            self.obs.count(c, 0)
         self.pipeline = {"depth": 0, "overlap_s": 0.0, "stalls": 0}
         t0 = time.perf_counter()
         await self._both("reset")
@@ -539,10 +597,11 @@ class RpcLeader:
                 ckpt_enabled = False
                 self.emit("resilience.checkpoint_disabled", error=str(e))
         level = 0
+        attempts = 0  # this run's recoveries
         while level < L:
             r = min(k, L - level)
             try:
-                kept, alive = await self._run_one_level(level, nreqs, thresh)
+                kept, alive = await self._level(level, nreqs, thresh)
                 if alive is not None:
                     alive_before_leaf = alive
                 if kept is None:
@@ -557,7 +616,7 @@ class RpcLeader:
                                  "buckets": list(self.buckets),
                                  "alive": None if alive_before_leaf is None
                                  else alive_before_leaf.copy()}
-                        self.counters["crawl_checkpoints"] += 1
+                        self.obs.count("crawl_checkpoints", level=level)
                     except RuntimeError as e:  # no FHH_CKPT_DIR: supervise without
                         ckpt_enabled = False
                         self.emit("resilience.checkpoint_disabled", error=str(e))
@@ -565,8 +624,9 @@ class RpcLeader:
             except (ConnectionError, TimeoutError, RuntimeError) as err:
                 t_rec = time.perf_counter()
                 while True:
-                    self.counters["recoveries"] += 1
-                    attempt = self.counters["recoveries"]
+                    self.obs.count("recoveries")
+                    attempts += 1
+                    attempt = attempts
                     self.emit("resilience.recover", level=level, attempt=attempt,
                               error=f"{type(err).__name__}: {err}")
                     if attempt > MAX_RECOVERIES:
@@ -579,7 +639,7 @@ class RpcLeader:
                 kept = stash["counts"].copy() if stash is not None else np.zeros(0, np.uint32)
                 alive_before_leaf = (None if stash is None or stash["alive"] is None
                                      else stash["alive"].copy())
-                self.counters["levels_rerun"] += 1
+                self.obs.count("levels_rerun")
                 self.seconds["recover"] += time.perf_counter() - t_rec
         await self._leaf_check(alive_before_leaf)
         self.seconds["levels"] = time.perf_counter() - t_levels
@@ -635,8 +695,8 @@ class WindowedIngest:
     the same admitted keys.  A recovery that fails (a restarted server
     still starting) is tried again at the caller's next attempt, bounded
     per call, where the JAX ``crawl_window`` gives up at once.
-    ``counters`` keeps ``INGEST_COUNTERS``;
-    ``windows`` each crawled window's crawl seconds, recoveries and
+    ``counters`` reads ``INGEST_COUNTERS`` from its registry ``obs``;
+    ``windows`` keeps each crawled window's crawl seconds, recoveries and
     seal-to-hitters seconds."""
 
     def __init__(self, lead: RpcLeader, *, policy=None, checkpoint=True):
@@ -644,7 +704,11 @@ class WindowedIngest:
         self.cfg = lead.cfg
         self.window = 0
         self.policy = policy or INGEST_POLICY
-        self.counters = dict.fromkeys(INGEST_COUNTERS, 0)
+        # a registry of its own, so the heartbeat names the ingest phase apart
+        # from the crawl's; a non-default collection is named in it
+        coll = getattr(lead, "collection", None) or "default"
+        self.obs = obsmetrics.Registry("ingest" if coll == "default" else f"ingest:{coll}")
+        self._span_ctx = None  # the open window's "ingest" span
         self.windows: dict = {}  # window -> {"crawl_s", "recoveries", "seal_to_hitters_s"}
         self._journal: dict = {}  # window -> submission records
         self._journaled: set = set()  # sub_ids already journaled
@@ -661,6 +725,23 @@ class WindowedIngest:
         for i, c in ((0, lead.c0), (1, lead.c1)):  # restart detection's baseline
             if lead._boot_ids.get(i) is None:
                 lead._boot_ids[i] = getattr(c, "boot_id", None)
+
+    @property
+    def counters(self) -> dict:
+        """:data:`INGEST_COUNTERS`, from the registry."""
+        return {c: int(self.obs.counter_value(c)) for c in INGEST_COUNTERS}
+
+    def _ensure_span(self) -> None:
+        """Open the current window's ``ingest`` span at its first submission
+        (closed at its seal: a ``with`` cannot straddle the two calls)."""
+        if self._span_ctx is None:
+            self._span_ctx = self.obs.span("ingest", level=self.window)
+            self._span_ctx.__enter__()
+
+    def _exit_span(self) -> None:
+        if self._span_ctx is not None:
+            self._span_ctx.__exit__(None, None, None)
+            self._span_ctx = None
 
     async def submit(self, client_id, k0_chunk, k1_chunk, *, sk0_chunk=None, sk1_chunk=None,
                      sub_id: str | None = None) -> dict:
@@ -687,6 +768,8 @@ class WindowedIngest:
             sk0_chunk = [np.asarray(a) for a in sk0_chunk]
             sk1_chunk = [np.asarray(a) for a in sk1_chunk]
         n_keys = int(k0_chunk[0].shape[0])
+        self._ensure_span()
+        t_admit = time.perf_counter()
         attempt = faults = 0
         while True:
             # the window id is read under the lock: a seal may have advanced
@@ -725,7 +808,7 @@ class WindowedIngest:
                         await self._recover_or_retry()
             if not r0.get("overloaded"):
                 break
-            self.counters["ingest_rejected"] += 1
+            self.obs.count("ingest_rejected", level=w)
             if r0.get("scope") == "burst":  # no refill horizon ever covers it
                 raise IngestOverloadedError(
                     f"submission {sub_id} ({n_keys} keys) exceeds the gate's burst allowance "
@@ -737,10 +820,12 @@ class WindowedIngest:
                     f"{r0.get('scope')}) — client is over the front door's sustained capacity")
             await asyncio.sleep(max(float(r0.get("retry_after_s", 0.0)),
                                     self.policy.delay(attempt - 1)))
+        # the window the submission landed in: the id read under the lock
         if rec["shed"]:
-            self.counters["ingest_shed_subs"] += 1
+            self.obs.count("ingest_shed_subs", level=w)
         else:
-            self.counters["ingest_admitted"] += n_keys
+            self.obs.count("ingest_admitted", n_keys, level=w)
+        self.obs.observe("ingest_admit", time.perf_counter() - t_admit)
         return r0
 
     async def seal_window(self) -> dict:
@@ -771,9 +856,10 @@ class WindowedIngest:
                 self._sealed[w] = dict(r0, sealed_at=time.time())
                 self.window = w + 1
                 break
+        self._exit_span()
         # the seal stats count the reservoir's replaced occupants too
-        self.counters["ingest_shed"] += int(r0["shed_keys"])
-        self.counters["ingest_windows"] += 1
+        self.obs.count("ingest_shed", int(r0["shed_keys"]), level=w)
+        self.obs.count("ingest_windows")
         self.lead.emit("ingest.window_boundary", window=w, keys=int(r0["keys"]),
                        subs=int(r0["subs"]), shed=int(r0["shed_keys"]),
                        rejected=int(r0["rejected"]))
@@ -793,7 +879,13 @@ class WindowedIngest:
         verb lock).  On a transport loss, a restart or a verb failure the
         ingest state is recovered, the window reloaded and its crawl run
         again: the pool is rebuilt exactly and the crawl is deterministic,
-        so the result is too."""
+        so the result is too.  The window is one trace, the crawl a
+        ``window_crawl`` span, and the seconds from the seal to the hitters
+        go to the ``seal_to_hitters`` histogram."""
+        with obstrace.root("window"):
+            return await self._crawl_window(w, max_recoveries=max_recoveries)
+
+    async def _crawl_window(self, w: int, *, max_recoveries: int) -> CrawlResult:
         async with self._submit_lock:
             stats = self._sealed.get(w)
         if stats is None:
@@ -807,11 +899,12 @@ class WindowedIngest:
                 # a malicious window's crawl runs the sketch gates: the batch
                 # flow learns it at upload, the windowed one from the pool
                 self.lead.has_sketch = bool(l0.get("sketch"))
-                res = await self.lead.run(nreqs)
+                with self.obs.span("window_crawl", level=w):
+                    res = await self.lead.run(nreqs)
                 break
             except (ConnectionError, TimeoutError, RuntimeError) as err:
                 recoveries += 1
-                self.counters["ingest_recoveries"] += 1
+                self.obs.count("ingest_recoveries")
                 self.lead.emit("ingest.window_recover", window=w, attempt=recoveries,
                                error=f"{type(err).__name__}: {err}")
                 if recoveries > max_recoveries:
@@ -821,8 +914,10 @@ class WindowedIngest:
                 # between replayed records would part the servers' slot orders
                 async with self._submit_lock:
                     await self._recover_or_retry()
+        seal_s = max(0.0, time.time() - stats["sealed_at"])
+        self.obs.observe("seal_to_hitters", seal_s)
         self.windows[w] = {"crawl_s": time.perf_counter() - t0, "recoveries": recoveries,
-                           "seal_to_hitters_s": max(0.0, time.time() - stats["sealed_at"])}
+                           "seal_to_hitters_s": seal_s}
         # the window is crawled: its journal and seal stats (and any
         # earlier ones) are done
         async with self._submit_lock:
@@ -888,7 +983,7 @@ class WindowedIngest:
                     "sketch": rec["sk0"] if which == 0 else rec["sk1"],
                     "mirror": {"slot": rec["slot"], "shed": rec["shed"]}})
                 replayed += 1
-        self.counters["ingest_journal_replays"] += replayed
+        self.obs.count("ingest_journal_replays", replayed)
 
     # -- the fleet: live migration and failover (JAX leader_rpc.py:1368-1495) --
 
@@ -953,7 +1048,7 @@ class WindowedIngest:
                 await old.c0.call("session_export", {"retire": True, "epoch": x0["epoch"]})
                 await old.c1.call("session_export", {"retire": True, "epoch": x1["epoch"]})
                 windows = [int(w) for w in x0.get("windows", [])]
-        self.counters["ingest_migrations"] += 1
+        self.obs.count("ingest_migrations")
         self.lead.emit("ingest.session_migrated", windows=windows, replayed=replayed)
         return {"windows": windows, "replayed": replayed}
 
@@ -977,7 +1072,7 @@ class WindowedIngest:
                         except RuntimeError as e:
                             new_lead.emit("ingest.restore_failed", error=str(e))
                 replayed = await self._adopt(new_lead)
-        self.counters["ingest_failovers"] += 1
+        self.obs.count("ingest_failovers")
         self.lead.emit("ingest.session_failed_over", imported=imported, replayed=replayed)
         return {"imported": imported, "replayed": replayed}
 

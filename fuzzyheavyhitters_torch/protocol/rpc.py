@@ -14,8 +14,9 @@ servers and a leader, each its own process.
 - **Data plane.**  One server↔server TCP connection (server 1 listens on
   its control port + 1, server 0 dials, server.rs:344-354) carrying
   ``(collection, payload)`` frames, demultiplexed into one FIFO channel a
-  collection (``sessions.PlaneMux``); a third element, the trace header a
-  traced JAX peer adds, is accepted and ignored.
+  collection (``sessions.PlaneMux``); under tracing a third element, the
+  sender's (trace id, span id), ties the receiver's arrival instant to the
+  sender's span (JAX rpc.py:704-720).
 
 The wire is the JAX package's, frame for frame: every payload is numpy
 arrays of its dtypes (uint32 words, uint64 FE62 shares, uint32[..., 8] F255
@@ -128,13 +129,26 @@ checkpoint, after its pair died), checking everything before it changes
 anything, and forces the collection's channel to key up again against
 this pair's peer.  The blob is the JAX server's field for field, so
 either package imports the other's export.
+
+Telemetry (JAX rpc.py:644-1054, ``obs/``): each server owns a registry
+``server{id}`` (shared with its default collection; every other
+collection has ``server{id}:{key}``), and records the JAX server's
+counters, gauges, phase spans (``fss``, ``gc_ot``, ``field``, the secure
+steps, ``sketch``, ``ici_reduce``, ``plane_handshake``, ``warmup``, a
+``verb:{verb}`` span a verb) and histograms (``level_latency``,
+``rpc:{verb}``, ``seal_to_hitters``) under the same names and levels.  A
+request's ``trace`` field activates the leader's trace context around the
+verb; ``FHH_PROFILE_LEVELS`` wraps the named levels' device work in a
+``torch.profiler`` capture; ``status`` samples device memory and carries
+the ``slo`` section.  ``server.exit``'s flat counters are read from the
+registries (:meth:`CollectorServer.summary`).
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
-import logging
+import contextlib
 import os
 import pickle
 import secrets
@@ -145,6 +159,10 @@ import time
 import numpy as np
 import torch
 
+from .. import obs
+from ..obs import devmem as obsdevmem
+from ..obs import metrics as obsmetrics
+from ..obs import trace as obstrace
 from ..ops import baseot, dpf, ibdcf, otext
 from ..ops.fields import F255, FE62
 from ..parallel import kernel_shard, sketch_shard
@@ -161,7 +179,6 @@ from . import sketch as sketchmod
 from .driver import PhaseClock
 from .sessions import DEFAULT_COLLECTION
 
-_log = logging.getLogger(__name__)
 _HDR = struct.Struct("<Q")
 
 
@@ -176,6 +193,26 @@ def _check_wire(obj) -> None:
     elif isinstance(obj, (tuple, list)):
         for v in obj:
             _check_wire(v)
+
+
+def _readonly(obj):
+    """Numpy arrays in ``obj`` as read-only views, which pickle as bytes, as
+    the arrays a JAX server reads back from its device do (a writable
+    array pickles as a bytearray, a few bytes longer): the data-plane
+    frames and the secure share answers are then the JAX server's byte for
+    byte."""
+    if isinstance(obj, np.ndarray):
+        if obj.flags.writeable:
+            obj = obj.view()
+            obj.flags.writeable = False
+        return obj
+    if isinstance(obj, dict):
+        return {k: _readonly(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_readonly(v) for v in obj]
+    if isinstance(obj, tuple) and not hasattr(obj, "_fields"):
+        return tuple(_readonly(v) for v in obj)
+    return obj
 
 
 async def _send(writer: asyncio.StreamWriter, obj, count=None) -> None:
@@ -207,8 +244,8 @@ def _share_wire(field, sh: torch.Tensor) -> np.ndarray:
     """Share sums in the JAX package's wire dtype: FE62 uint64 bit
     patterns, F255 uint32[..., 8] limbs."""
     if field is F255:
-        return words_to_numpy(sh)
-    return sh.detach().cpu().numpy().view(np.uint64)
+        return _readonly(words_to_numpy(sh))
+    return _readonly(sh.detach().cpu().numpy().view(np.uint64))
 
 
 def _keepalive(writer: asyncio.StreamWriter) -> None:
@@ -294,7 +331,8 @@ class CollectorServer:
 
     The server holds only what its collections share: the listeners, the
     data plane (:class:`sessions.PlaneMux`), the replay caches, the tenant
-    scheduler, the boot id and the totals of the counters (``stats``).
+    scheduler, the boot id and its registry ``obs`` (``server{id}``, also
+    the default collection's; the shared plane's figures live there).
     Everything one collection owns lives in its
     :class:`sessions.CollectionSession` (``_table``), resolved per
     connection from ``__hello__``; the attributes below the constructor
@@ -317,15 +355,14 @@ class CollectorServer:
         self._mesh_chaos = mesh_chaos
         self.boot_id = secrets.token_hex(8)
         self.ckpt_dir = ckpt_dir
-        self.emit = emit or (lambda event, **kw: None)
-        # the totals of every collection's counters (sessions.new_stats), and
-        # the shared plane's own: control bytes, the largest data-plane
-        # frame, replays answered from the cache, plane resets
-        self.stats = dict(sessions.new_stats(), data_frame_max=0, control_bytes_sent=0,
-                          control_bytes_recv=0, dedup_hits=0, plane_resets=0)
-        self._table = sessions.SessionTable(server_id, cfg, self.device, ckpt_dir)
-        self._sched = tenancy.TenantScheduler()
-        self._plane = sessions.PlaneMux(route_count=self._plane_count)
+        self.emit = emit or obs.emit
+        # one registry for the server's shared plane (control bytes, replay
+        # dedup, plane resets, the scheduler), which the default collection
+        # shares (JAX rpc.py:338-347)
+        self.obs = obsmetrics.Registry(f"server{server_id}")
+        self._table = sessions.SessionTable(server_id, cfg, self.device, ckpt_dir, self.obs)
+        self._sched = tenancy.TenantScheduler(self.obs)
+        self._plane = sessions.PlaneMux(route_count=self._plane_count, tag=f"server{server_id}")
         # serializes plane_reset: the plane is shared by every collection,
         # whose own verbs serialize on their session's lock
         self._verb_lock = asyncio.Lock()
@@ -397,38 +434,46 @@ class CollectorServer:
     def _ckpt_prune(self, keep: int = 2) -> None:
         self._default().ckpt_prune(keep)
 
-    # -- counters ---------------------------------------------------------------
-
-    def _add(self, cs, key: str, n=1) -> None:
-        """Count ``n`` under ``key`` for the collection and in the total."""
-        cs.stats[key] += n
-        self.stats[key] += n
-
-    def _phases(self, cs, **seconds) -> None:
-        for k, v in seconds.items():
-            cs.stats["seconds"][k] += v
-            self.stats["seconds"][k] += v
-
-    def _count(self, key: str):
-        def add(n: int) -> None:
-            self.stats[key] += n
-        return add
+    # -- telemetry ----------------------------------------------------------------
 
     def _plane_count(self, chan: str, nbytes: int) -> None:
         """The mux's accounting hook: a received frame's bytes go to its
-        collection (a channel with no session here: the total only)."""
+        collection's registry, whose active span gives them their level (a
+        channel with no session here: the server's)."""
         cs = self._table.peek(chan)
-        if cs is not None:
-            cs.stats["data_bytes_recv"] += nbytes
-        self.stats["data_bytes_recv"] += nbytes
-        self.stats["data_frame_max"] = max(self.stats["data_frame_max"], nbytes)
+        (cs.obs if cs is not None else self.obs).count("data_bytes_recv", nbytes)
+        self._note_frame(nbytes)
+
+    def _note_frame(self, nbytes: int) -> None:
+        """The largest data-plane frame either way (a port-only gauge)."""
+        if nbytes > (self.obs.gauge_value("data_frame_max") or 0):
+            self.obs.gauge("data_frame_max", nbytes)
+
+    def _registries(self) -> list:
+        """The server's registry and every other live collection's."""
+        return [self.obs] + [cs.obs for _, cs in self._table.items()
+                             if cs.obs is not self.obs]
+
+    def summary(self) -> dict:
+        """``server.exit``'s flat figures, read from the registries: the
+        collections' counters summed (:func:`sessions.summary`), then the
+        shared plane's control bytes, replays answered from the cache, plane
+        resets and largest data-plane frame."""
+        out = sessions.summary([r.report() for r in self._registries()])
+        for name in ("control_bytes_sent", "control_bytes_recv", "dedup_hits", "plane_resets"):
+            out[name] = int(self.obs.counter_value(name))
+        out["data_frame_max"] = int(self.obs.gauge_value("data_frame_max") or 0)
+        return out
 
     # -- verbs ----------------------------------------------------------------
     # Each takes the collection bound by its connection's hello (``cs``; the
     # default one when called directly) and runs under that session's lock.
 
     async def reset(self, _req, cs=None) -> bool:
-        (cs or self._default()).reset_state()
+        cs = cs or self._default()
+        # the default collection's registry is the server's: with other
+        # collections live its reset keeps their shared-plane figures
+        cs.reset_state(reset_obs=(cs.key != DEFAULT_COLLECTION or len(self._table) <= 1))
         return True
 
     async def add_keys(self, req, cs=None) -> bool:
@@ -439,7 +484,7 @@ class CollectorServer:
         sk = req.get("sketch")
         if sk is not None and len(sk) != 16:
             raise ValueError(f"add_keys: a sketch chunk has 16 leaves, got {len(sk)}")
-        self._add(cs, "add_keys")
+        cs.obs.count("add_keys")
         cs.keys_parts.append(tuple(np.asarray(a) for a in req["keys"]))
         cs._keys_stale = True
         if sk is not None:
@@ -484,7 +529,7 @@ class CollectorServer:
         cs.advance_sketch(level, parent, pat, n_alive)
         cs._ratchet_digest = sketchmod.transcript_absorb(cs._ratchet_digest, level, parent,
                                                          pat, n_alive)
-        self._add(cs, "sketch_advance_s", time.perf_counter() - t0)
+        cs.obs.timer_add("sketch_advance", time.perf_counter() - t0, level=level)
 
     async def sketch_verify(self, req, cs=None) -> np.ndarray:
         """The malicious-security check (JAX rpc.py:541-696): sketch inner
@@ -503,8 +548,13 @@ class CollectorServer:
         if cs._sketch is None:
             raise RuntimeError("sketch_verify without sketch keys")
         await self._ensure_session_plane(cs)
-        t0 = time.perf_counter()
         level = int(req["level"])
+        with cs.obs.span("sketch", level=level):
+            out = await self._sketch_checks(cs, level)
+        cs.obs.count("sketch_verifies")
+        return out
+
+    async def _sketch_checks(self, cs, level: int) -> np.ndarray:
         k = cs._sketch.key
         L = k.data_len
         n, d = k.root_seed.shape[0], k.root_seed.shape[1]
@@ -534,8 +584,7 @@ class CollectorServer:
         # with data shards the check batch splits along its clients
         # (parallel/sketch_shard.py): the same wire, assembled by position
         ss = cs._sketch_bind(n, d)
-        if cs._mesh is not None:
-            cs._gauge("sketch_shards", 1 if ss is None else ss.k)
+        cs.obs.gauge("sketch_shards", 1 if ss is None else ss.k, level=level)
         fetches = 1 if ss is None else ss.k
         ok_all = None
         for pairs, dpf_level, fld, depth in checks:
@@ -550,7 +599,7 @@ class CollectorServer:
             del state, cor
             peer_o = await self._swap(cs, await asyncio.to_thread(sketch_shard.wire, o))
             ok = sketch_shard.verdicts(ss, fld, o, peer_o)
-            self._add(cs, "device_fetches", 2 * fetches)
+            cs.obs.count("device_fetches", 2 * fetches, level=level)
             ok_all = ok if ok_all is None else ok_all & ok
         if ok_all is not None:
             cs.alive_keys &= ok_all
@@ -558,10 +607,8 @@ class CollectorServer:
             # each stored depth opens once; a re-run after a recovery reloads
             # the pairs from the checkpoint and replays the same challenge
             cs._sketch_pairs = None
-        out = await asyncio.to_thread(lambda: cs.alive_keys.cpu().numpy().copy())
-        self._add(cs, "sketch_verifies")
-        self._phases(cs, sketch=time.perf_counter() - t0)
-        return out
+        cs.obs.count("device_fetches", level=level)  # the verdicts' readback
+        return await asyncio.to_thread(lambda: cs.alive_keys.cpu().numpy().copy())
 
     async def tree_crawl(self, req, cs=None) -> np.ndarray:
         """-> FE62 shares uint64[F, 2^d] of the per-child counts (rpc.rs:60)."""
@@ -613,6 +660,7 @@ class CollectorServer:
         cs.children = None
         if cs._sketch is not None:  # the sketch states follow the same survivors
             self._advance_and_absorb(cs, level, parent, pat, n_alive)
+        cs.obs.gauge("survivors", n_alive, level=level)
         return True
 
     async def tree_prune_last(self, req, cs=None) -> bool:
@@ -642,16 +690,16 @@ class CollectorServer:
         cs.last_shares = cs.last_shares[parent[:n_alive], child]
         if cs._sketch is not None:  # once more, for the F255 leaf payloads
             self._advance_and_absorb(cs, base, parent, pat, n_alive)
+        cs.obs.gauge("survivors", n_alive, level=cs._data_len() - 1)
         return True
 
     async def final_shares(self, _req, cs=None) -> dict:
         """The surviving leaves' count shares (ref: rpc.rs:65).  After a
         loaded window's crawl, the seconds since that window's seal go to
-        ``seal_to_hitters_s``, once a window."""
+        the ``seal_to_hitters`` histogram, once a window."""
         cs = cs or self._default()
         if cs._window_seal_ts is not None:
-            dt = max(0.0, time.time() - cs._window_seal_ts)
-            cs.stats["seal_to_hitters_s"] = self.stats["seal_to_hitters_s"] = dt
+            cs.obs.observe("seal_to_hitters", max(0.0, time.time() - cs._window_seal_ts))
             cs._window_seal_ts = None
         return {"server_id": self.server_id, "shares": cs.last_shares}
 
@@ -693,10 +741,10 @@ class CollectorServer:
             raise RuntimeError("malicious mode: submit_keys requires the client's sketch "
                                "chunk alongside its keys")
         pool = cs.ingest_pool(window)
-        self._add(cs, "pool_submits")
+        cs.obs.count("pool_submits")
         prev = pool.verdicts.get(sub_id)
         if prev is not None:  # a replay: the recorded verdict, nothing re-admitted
-            self._add(cs, "pool_dup_submits")
+            cs.obs.count("pool_dup_submits")
             return dict(prev, dup=True)
         if pool.sealed:
             raise RuntimeError(f"ingest window {window} is sealed — submit into a later window")
@@ -710,18 +758,18 @@ class CollectorServer:
             # window during the await
             prev = pool.verdicts.get(sub_id)
             if prev is not None:
-                self._add(cs, "pool_dup_submits")
+                cs.obs.count("pool_dup_submits")
                 return dict(prev, dup=True)
             if pool.sealed:
                 raise RuntimeError(f"ingest window {window} sealed during admission — "
                                    "submit into a later window")
             resp = pool.apply(sub_id, chunk, v)
         if resp.get("admitted"):
-            self._add(cs, "pool_admitted_keys", n_keys)
+            cs.obs.count("pool_admitted_keys", n_keys)
         elif resp.get("shed"):
-            self._add(cs, "pool_shed_keys", n_keys)
+            cs.obs.count("pool_shed_keys", n_keys)
         else:
-            self._add(cs, "pool_rejected")
+            cs.obs.count("pool_rejected")
         return resp
 
     async def window_seal(self, req, cs=None) -> dict:
@@ -751,7 +799,7 @@ class CollectorServer:
                 pool.sk_root = sketchmod.window_root(cs._sketch_seed, w)
             pool.sealed = True
             pool.sealed_at = time.time()
-            self._add(cs, "windows_sealed")
+            cs.obs.count("windows_sealed")
             self.emit("ingest.window_sealed", server=self.server_id,
                       collection=cs.key, window=w, keys=pool.keys,
                       subs=len(pool.entries), shed=pool.shed_keys,
@@ -836,7 +884,7 @@ class CollectorServer:
             # a migrated-away collection must not hold this pair's
             # progress-age signal high for ever
             self._sched.forget(cs.key)
-            self._add(cs, "sessions_retired")
+            cs.obs.count("sessions_retired")
             self.emit("fleet.session_retired", server=self.server_id, collection=cs.key,
                       pools_dropped=dropped)
             return {"retired": True, "pools_dropped": dropped}
@@ -863,7 +911,7 @@ class CollectorServer:
             os.replace(tmp, path)
 
         await asyncio.to_thread(write)
-        self._add(cs, "session_exports")
+        cs.obs.count("session_exports")
         windows = sorted(cs._ingest_pools)
         self.emit("fleet.session_exported", server=self.server_id, collection=cs.key,
                   epoch=cs._export_epoch, windows=windows, path=path,
@@ -946,7 +994,7 @@ class CollectorServer:
         # channel against this pair's peer
         cs._ot_snd = cs._ot_rcv = cs._sec_seed = None
         cs.plane_epoch = 0
-        self._add(cs, "session_imports")
+        cs.obs.count("session_imports")
         windows = sorted(cs._ingest_pools)
         self.emit("fleet.session_imported", server=self.server_id, collection=cs.key,
                   windows=windows, path=path)
@@ -982,25 +1030,31 @@ class CollectorServer:
                           leader_data_shards=want_shards, server_data_shards=have)
         L = cs._data_len()
         shapes = hits = 0
-        for b in buckets:
-            sizes = set() if whole else {
-                hi - lo for lo, hi in collect.shard_spans(b, self.cfg.crawl_shard_nodes)}
-            for fb in sorted(sizes | {b}):
-                key = self._warm_key(cs, fb, L, ot_path)
-                if tenancy.warmed(key):
-                    hits += 1
-                else:
-                    self._warm_bucket(cs, fb, L, ot_path)
-                    tenancy.mark_warmed(key)
-                    shapes += 1
-                await asyncio.sleep(0)  # the control plane keeps answering
-        self._add(cs, "warmup_shapes", shapes)
-        self._add(cs, "warmup_ladder_hits", hits)
+        with cs.obs.span("warmup"):
+            for b in buckets:
+                sizes = set() if whole else {
+                    hi - lo for lo, hi in collect.shard_spans(b, self.cfg.crawl_shard_nodes)}
+                for fb in sorted(sizes | {b}):
+                    key = self._warm_key(cs, fb, L, ot_path)
+                    if tenancy.warmed(key):
+                        hits += 1
+                    else:
+                        self._warm_bucket(cs, fb, L, ot_path)
+                        tenancy.mark_warmed(key)
+                        shapes += 1
+                    await asyncio.sleep(0)  # the control plane keeps answering
+        cs.obs.count("warmup_shapes", shapes)
+        if hits:
+            cs.obs.count("warmup_ladder_hits", hits)
         # a malicious session warms the same crawl shapes: the JAX server's
         # _warm_sketch pre-compiles the sketch verify's XLA programs, and
         # PyTorch compiles nothing, so there is nothing more to warm
         if self.device.type == "cuda":  # the peer process shares the card
             torch.cuda.empty_cache()
+        # the warmup is the build baseline: a fresh kernel build after it is
+        # a named event, and the post-warmup watermark is the crawl's floor
+        obsdevmem.note_warmup_done()
+        obsdevmem.sample(cs.obs, phase="warmup")
         return {"shapes": shapes, "ladder_hits": hits}
 
     def _warm_key(self, cs, fb: int, L: int, ot_path: str) -> tuple:
@@ -1073,22 +1127,27 @@ class CollectorServer:
         with the tenant scheduler's figures (``sessions``); and the fleet's
         (``fleet``: the pair this server is half of, its boot id, the
         calling collection's exports and imports, and the placement signals
-        ``fleet.FleetDirectory.note_load`` takes).  The JAX server's
-        sections of unported layers (slo, alerts) are left out."""
+        ``fleet.FleetDirectory.note_load`` takes); and the calling
+        collection's latency quantiles (``slo``: per-level crawl, per-verb,
+        seal to hitters).  Each probe samples device memory onto the
+        server's registry.  The JAX server's ``alerts`` section belongs to
+        the live plane, which is not ported."""
         cs = cs or self._default()
+        obsdevmem.sample(self.obs, phase="status")
         return {"boot_id": self.boot_id, "collection": cs.key,
                 "clock": round(time.time(), 6),
                 "has_keys": cs.keys is not None or bool(cs.keys_parts),
                 "has_frontier": cs.frontier is not None,
-                "dedup_hits": self.stats["dedup_hits"],
-                "plane_resets": self.stats["plane_resets"],
+                "dedup_hits": int(self.obs.counter_value("dedup_hits")),
+                "plane_resets": int(self.obs.counter_value("plane_resets")),
                 "ckpt_levels": cs.ckpt_levels(), "ingest": cs.ingest_status(),
                 "mesh": cs.mesh_status(), "sessions": self.sessions_status(),
                 "fleet": {"pair": os.environ.get("FHH_FLEET_PAIR", ""),
                           "boot_id": self.boot_id,
-                          "session_exports": cs.stats["session_exports"],
-                          "session_imports": cs.stats["session_imports"],
-                          "load": self._sched.fleet_load()}}
+                          "session_exports": int(cs.obs.counter_value("session_exports")),
+                          "session_imports": int(cs.obs.counter_value("session_imports")),
+                          "load": self._sched.fleet_load()},
+                "slo": cs.obs.hists_summary()}
 
     def sessions_status(self) -> dict:
         """The ``sessions`` section of ``status`` and ``server.exit`` (JAX
@@ -1096,8 +1155,9 @@ class CollectorServer:
         runs and its level, the unsealed queue depth, the replay-cache
         entries of its leaders, its checkpoint levels, the plane epoch its
         channel was keyed at, the seconds since it last finished a verb, and
-        its counters, which sum to the server's totals), and the tenant
-        scheduler's device turns and stall fills."""
+        its flat counters from its registry, :func:`sessions.summary`, which
+        sum to the server's), and the tenant scheduler's device turns and
+        stall fills."""
         dedup: dict = {}
         for sess in self._sessions.values():
             dedup[sess.collection] = dedup.get(sess.collection, 0) + len(sess.cache)
@@ -1108,7 +1168,7 @@ class CollectorServer:
                       "dedup_entries": dedup.get(key, 0), "ckpt_levels": cs.ckpt_levels(),
                       "has_frontier": cs.frontier is not None, "plane_epoch": cs.plane_epoch,
                       "last_progress_s": round(max(0.0, now - cs.last_progress), 3),
-                      "counters": cs.stats}
+                      "counters": sessions.summary([cs.obs.report()])}
                 for key, cs in self._table.items()}
         return {"count": len(self._table), "scheduler": self._sched.stats(),
                 "per_session": rows}
@@ -1169,9 +1229,9 @@ class CollectorServer:
         await asyncio.to_thread(write)
         dt = time.perf_counter() - t0
         nbytes = os.path.getsize(path)
-        self._add(cs, "ckpt_writes")
-        self._add(cs, "ckpt_bytes", nbytes)
-        self._add(cs, "ckpt_write_s", dt)
+        cs.obs.count("checkpoint_writes", level=level)
+        cs.obs.count("checkpoint_bytes", nbytes, level=level)
+        cs.obs.timer_add("checkpoint_write", dt, level=level)
         self.emit("resilience.server_checkpoint", server=self.server_id,
                   collection=cs.key, level=level, path=path, bytes=nbytes,
                   seconds=dt)
@@ -1225,8 +1285,8 @@ class CollectorServer:
                                    "ingest pools (truncated write?)")
             cs.ingest_restore_apply(parsed)
             dt = time.perf_counter() - t0
-            self._add(cs, "restores")
-            self._add(cs, "restore_s", dt)
+            cs.obs.count("checkpoint_restores", level=want)
+            cs.obs.timer_add("checkpoint_restore", dt, level=want)
             self.emit("resilience.server_restore", server=self.server_id,
                       collection=cs.key, level=want, seconds=dt, ingest_only=True)
             return {"level": want}
@@ -1274,8 +1334,8 @@ class CollectorServer:
         if parsed_ing is not None:
             cs.ingest_restore_apply(parsed_ing)
         dt = time.perf_counter() - t0
-        self._add(cs, "restores")
-        self._add(cs, "restore_s", dt)
+        cs.obs.count("checkpoint_restores", level=level)
+        cs.obs.timer_add("checkpoint_restore", dt, level=level)
         self.emit("resilience.server_restore", server=self.server_id,
                   collection=cs.key, level=level, seconds=dt,
                   planar=bool(z["planar"]))
@@ -1294,7 +1354,7 @@ class CollectorServer:
         if self._peer_writer is not None and not self._peer_writer.is_closing():
             self._peer_writer.close()
         await self._dial_peer()
-        self.stats["plane_resets"] += 1
+        self.obs.count("plane_resets")
         self.emit("resilience.plane_reset", server=self.server_id)
         return True
 
@@ -1308,6 +1368,7 @@ class CollectorServer:
         w = self._peer_writer
         if w is not None and not w.is_closing():
             w.close()
+        self.obs.count("plane_breaks")
         self.emit("resilience.plane_break", server=self.server_id)
         return True
 
@@ -1356,8 +1417,8 @@ class CollectorServer:
                     return out
                 t0 = time.perf_counter()
                 packed = cs._mesh.gather(Sharded(packed, 1))
-                self._add(cs, "kernel_gathers")
-                self._add(cs, "kernel_gather_s", time.perf_counter() - t0)
+                cs.obs.timer_add("kernel_gather", time.perf_counter() - t0, level=level)
+                cs.obs.count("kernel_gathers", level=level)
             strs = secure.child_strings_radix(packed, d, r)
             F, C, N, S = strs.shape
             out.update(flat=strs.reshape(F * C * N, S), dims=(F, C, N, S))
@@ -1366,7 +1427,10 @@ class CollectorServer:
 
     def _expand_stage(self, cs, level: int, last: bool, shard) -> dict:
         hit = cs._expand_ready.pop((last, level, shard), None)
-        return hit if hit is not None else self._do_expand(cs, level, last, shard)
+        if hit is not None:
+            cs.obs.count("pipeline_expand_hits", level=level)
+            return hit
+        return self._do_expand(cs, level, last, shard)
 
     async def _device_stage(self, cs, level: int, last: bool, shard) -> dict:
         """The expand stage in a device turn (``tenancy.TenantScheduler``):
@@ -1400,9 +1464,11 @@ class CollectorServer:
             cs._expand_ready.pop(key, None)
             return
         # a dispatch while another collection's span is on the wire is the
-        # gap tenancy fills
+        # gap tenancy fills; its seconds go to the fss phase the verb would
+        # otherwise have spent them in (no span: another verb's is active)
         self._sched.note_dispatch(cs.key)
-        self._phases(cs, fss=time.perf_counter() - t0)
+        cs.obs.timer_add("fss", time.perf_counter() - t0, level=key[1])
+        cs.obs.count("pipeline_pre_expands", level=key[1])
 
     async def _crawl(self, cs, verb: str, req, last: bool) -> np.ndarray:
         if cs.frontier is None:
@@ -1411,15 +1477,20 @@ class CollectorServer:
         shard = self._parse_shard(req)
         await self._ensure_session_plane(cs)
         field = F255 if last else FE62
-        self._add(cs, "levels")
+        cs.obs.count("levels", level=level)
+        # FHH_PROFILE with FHH_PROFILE_LEVELS: this level's device work in a
+        # torch.profiler capture, recorded with the live trace id
         if self.cfg.secure_exchange:
-            shares = await self._mesh_guard(cs, level, lambda: self._crawl_secure(
-                cs, level, field, last, int(req.get("garbler", 0)), req.get("ot_path"), shard))
-            self._add(cs, "levels_done")
+            with obstrace.profile_capture("level", level=level):
+                shares = await self._mesh_guard(cs, level, lambda: self._crawl_secure(
+                    cs, level, field, last, int(req.get("garbler", 0)), req.get("ot_path"),
+                    shard))
+            cs.obs.count("levels_done", level=level)
             return shares
-        counts = await self._mesh_guard(cs, level,
-                                        lambda: self._crawl_trusted(cs, level, last, shard))
-        self._add(cs, "levels_done")
+        with obstrace.profile_capture("level", level=level):
+            counts = await self._mesh_guard(cs, level,
+                                            lambda: self._crawl_trusted(cs, level, last, shard))
+        cs.obs.count("levels_done", level=level)
         # trusted mode: both servers hold these counts; the shared mask is a
         # wire-format shim for the leader's v0 - v1, not a secret
         F, C = counts.shape
@@ -1458,7 +1529,7 @@ class CollectorServer:
         no such checkpoint the data plane is closed (the peer's half of the
         level fails instead of waiting for this one) and the fault goes to
         the leader."""
-        self._add(cs, "mesh_faults")
+        cs.obs.count("mesh_faults", level=level)
         cs._expand_ready.clear()  # a pre-expanded dispatch is suspect
         state_lost = bool(getattr(err, "state_lost", False))
         if state_lost or cs.frontier is None:
@@ -1470,45 +1541,70 @@ class CollectorServer:
                                    "checkpoint to re-shard from") from err
             cs.keys = None  # device-resident: lost with the shard
             await self.tree_restore({"level": prev}, cs)
-            self._add(cs, "mesh_reshards")
-        self._add(cs, "shards_rerun")
+            cs.obs.count("mesh_reshards", level=level)
+        cs.obs.count("shards_rerun", level=level)
         self.emit("resilience.mesh_reshard", server=self.server_id,
                   collection=cs.key, level=level, state_lost=state_lost,
                   error=str(err))
 
+    def _level_done(self, cs, level: int, fss, gc_ot, field) -> None:
+        """A level's three exited spans: the ``level.phases`` debug line and
+        the per-level latency histogram, from this pass's seconds (the
+        registry's totals would count a re-run level twice); then, on the
+        card, a memory sample."""
+        obs.emit("level.phases", severity="debug", server=self.server_id,
+                 collection=cs.key, level=level, fss_s=fss.seconds, gc_ot_s=gc_ot.seconds,
+                 field_s=field.seconds)
+        cs.obs.observe("level_latency", fss.seconds + gc_ot.seconds + field.seconds)
+        # on the card, one allocator query a level (a port-only sample
+        # point: the JAX server samples at status and warmup), so the
+        # watermark sees the crawl; on the CPU a sample reads 0 bytes
+        if self.device.type == "cuda":
+            obsdevmem.sample(cs.obs)
+
+    def _reduce_span(self, cs, level: int):
+        """With data shards, the per-shard reduction and its readback run
+        in an ``ici_reduce`` span (JAX rpc.py:912-930)."""
+        if cs._mesh is None:
+            return contextlib.nullcontext()
+        cs.obs.gauge("data_shards", cs._mesh.shards, level=level)
+        return cs.obs.span("ici_reduce", level=level)
+
     async def _crawl_trusted(self, cs, level: int, last: bool, shard) -> np.ndarray:
         """Swap the packed share bits uint32[F, N] of the frontier (or the
         span) with the peer and count -> int64[F, 2^(d·r)] (ref:
-        collect.rs:945-964)."""
-        t0 = time.perf_counter()
-        ex = await self._device_stage(cs, level, last, shard)
-        packed, frontier = ex["packed"], ex["frontier"]
-        mesh = cs._mesh
-        if mesh is None:
-            mine = await _fetch_words(packed)
-        else:  # per-shard readbacks, assembled by position
-            mine = (await asyncio.to_thread(kernel_shard.assemble, Sharded(packed, 1))).view(
-                np.uint32)
-        self._add(cs, "device_fetches", len(cs._shards(packed)))
-        t1 = time.perf_counter()
-        peer = await self._swap(cs, mine)
-        t2 = time.perf_counter()
-        if peer.shape != mine.shape:
-            raise RuntimeError(f"level {level}: the peer's share bits are shaped "
-                               f"{peer.shape}, this server's {mine.shape}")
-        masks = collect.pattern_masks_radix(cs._kb().cw_seed.shape[1], cs.crawl_radix(level))
-        if mesh is None:
-            dev_counts = collect.counts_by_pattern(packed, words_from_numpy(peer, self.device),
-                                                   masks, cs.alive_keys, frontier.alive)
-        else:
-            dev_counts = mesh.counts_by_pattern(packed, words_from_numpy(peer, "cpu"), masks,
-                                                cs.alive_keys, frontier[0].alive)
-        counts = await asyncio.to_thread(lambda: dev_counts.cpu().numpy())
-        self._add(cs, "device_fetches")
-        if mesh is not None:
-            self._add(cs, "ici_reduce_s", time.perf_counter() - t2)
+        collect.rs:945-964), in the reference's three phase spans."""
+        with cs.obs.span("fss", level=level) as sp_fss:
+            ex = await self._device_stage(cs, level, last, shard)
+            packed, frontier = ex["packed"], ex["frontier"]
+            mesh = cs._mesh
+            if mesh is None:
+                mine = await _fetch_words(packed)
+            else:  # per-shard readbacks, assembled by position
+                mine = (await asyncio.to_thread(kernel_shard.assemble,
+                                                Sharded(packed, 1))).view(np.uint32)
+            cs.obs.count("device_fetches", len(cs._shards(packed)))
+        with cs.obs.span("gc_ot", level=level) as sp_gc:
+            peer = await self._swap(cs, mine)
+        with cs.obs.span("field", level=level) as sp_field:
+            if peer.shape != mine.shape:
+                raise RuntimeError(f"level {level}: the peer's share bits are shaped "
+                                   f"{peer.shape}, this server's {mine.shape}")
+            masks = collect.pattern_masks_radix(cs._kb().cw_seed.shape[1],
+                                                cs.crawl_radix(level))
+            with self._reduce_span(cs, level):
+                if mesh is None:
+                    dev_counts = collect.counts_by_pattern(
+                        packed, words_from_numpy(peer, self.device), masks, cs.alive_keys,
+                        frontier.alive)
+                else:
+                    dev_counts = mesh.counts_by_pattern(packed, words_from_numpy(peer, "cpu"),
+                                                        masks, cs.alive_keys,
+                                                        frontier[0].alive)
+                counts = await asyncio.to_thread(lambda: dev_counts.cpu().numpy())
+                cs.obs.count("device_fetches")
+        self._level_done(cs, level, sp_fss, sp_gc, sp_field)
         cs._stash_children(level, shard, ex["children"])
-        self._phases(cs, fss=t1 - t0, gc_ot=t2 - t1, field=time.perf_counter() - t2)
         return counts
 
     async def _crawl_secure(self, cs, level: int, field, last: bool, garbler: int,
@@ -1516,62 +1612,70 @@ class CollectorServer:
         """The whole-level (or span) 2PC (ref: collect.rs:419-501): the
         evaluator sends its extension's ``u``, the garbler answers with its
         one planar message, each server sums its additive shares per (node,
-        pattern).  No share bit crosses the wire."""
+        pattern).  No share bit crosses the wire.  The ``gc_ot`` span splits
+        into the secure steps ``otext``, ``garble``/``eval`` and ``b2a``
+        (device-stream seconds on the card, every one present at every
+        level, as the JAX server's)."""
         dev = self.device
         clock = PhaseClock(dev)
-        t0 = time.perf_counter()
-        ex = await self._device_stage(cs, level, last, shard)
-        flat, ks = ex["flat"], ex.get("kernel")
-        F, C, N, S = ex["dims"]
-        B = F * C * N
-        w = secure.alive_weight(cs._shards(ex["frontier"])[0].alive, cs.alive_keys, C)
-        # the crawl counter keeps every garbling's randomness fresh if a leader
-        # re-crawls a level without a reset
-        cs._crawl_ctr += 1
-        gseed = secure.derive_seed(cs._sec_seed, 1, level, cs._crawl_ctr)
-        bseed = secure.derive_seed(cs._sec_seed, 2, level, cs._crawl_ctr)
-        path = secure.ot_path(S, ot_path or self.cfg.ot_path)
-        if cs._mesh is not None:  # the kernel stage's shards (1: the gather path)
-            cs._gauge("kernel_shards", 1 if ks is None else ks.k)
-        t1 = time.perf_counter()
-        if ks is not None:  # row-sharded over the data shards: the same wire
-            vals = await self._secure_sharded(cs, ks, flat, gseed, bseed, field, garbler, path,
-                                              clock)
-        elif self.server_id == garbler:  # garbler = OT-extension sender
-            u = words_from_numpy(await self._dp_recv(cs), dev)
-            msg, vals = secure.gb_step_level(cs._ot_snd, u, flat, gseed, bseed, field,
-                                             garbler, path, phase=clock)
-            del u
-            await self._dp_send(cs, await _fetch_words(msg))
-            del msg
-        else:  # evaluator = OT-extension receiver
-            u, t_rows, idx0 = secure.ev_step1_fused(cs._ot_rcv, flat, phase=clock)
-            await self._dp_send(cs, await _fetch_words(u))
-            del u
-            msg = words_from_numpy(await self._dp_recv(cs), dev)
-            vals = secure.ev_open_level(t_rows, flat, msg, B, S, field, idx0, path,
-                                        phase=clock)
-            del t_rows, msg
-        if ks is None:
-            self._add(cs, "device_fetches")
-        del flat, ex["flat"]
-        t2 = time.perf_counter()
-        if ks is not None:
-            sh = kernel_shard.share_sums(ks, field, vals, w, F, C, N)
-        else:  # whole values on one device: the gather path too
-            sh = secure.node_share_sums(field, vals.reshape((F, C, N) + field.limb_shape), w)
-        del vals
-        shares = await asyncio.to_thread(_share_wire, field, sh)
-        self._add(cs, "device_fetches")
-        if cs._mesh is not None:
-            self._add(cs, "ici_reduce_s", time.perf_counter() - t2)
+        with cs.obs.span("fss", level=level) as sp_fss:
+            ex = await self._device_stage(cs, level, last, shard)
+            flat, ks = ex["flat"], ex.get("kernel")
+            F, C, N, S = ex["dims"]
+            B = F * C * N
+            cs.obs.count("gc_tests", B, level=level)
+            cs.obs.gauge("ot_batch_size", B * S, level=level)
+        with cs.obs.span("gc_ot", level=level) as sp_gc:
+            w = secure.alive_weight(cs._shards(ex["frontier"])[0].alive, cs.alive_keys, C)
+            # the crawl counter keeps every garbling's randomness fresh if a
+            # leader re-crawls a level without a reset
+            cs._crawl_ctr += 1
+            gseed = secure.derive_seed(cs._sec_seed, 1, level, cs._crawl_ctr)
+            bseed = secure.derive_seed(cs._sec_seed, 2, level, cs._crawl_ctr)
+            path = secure.ot_path(S, ot_path or self.cfg.ot_path)
+            cs.obs.count(f"ot_path_{path}", level=level)
+            if cs._mesh is not None:  # the kernel stage's shards (1: the gather path)
+                cs.obs.gauge("kernel_shards", 1 if ks is None else ks.k, level=level)
+            if ks is not None:  # row-sharded over the data shards: the same wire
+                vals = await self._secure_sharded(cs, ks, flat, gseed, bseed, field, garbler,
+                                                  path, clock, level)
+            elif self.server_id == garbler:  # garbler = OT-extension sender
+                u = words_from_numpy(await self._dp_recv(cs), dev)
+                msg, vals = secure.gb_step_level(cs._ot_snd, u, flat, gseed, bseed, field,
+                                                 garbler, path, phase=clock)
+                del u
+                cs.obs.count("device_fetches", level=level)
+                await self._dp_send(cs, await _fetch_words(msg))
+                del msg
+            else:  # evaluator = OT-extension receiver
+                u, t_rows, idx0 = secure.ev_step1_fused(cs._ot_rcv, flat, phase=clock)
+                cs.obs.count("device_fetches", level=level)
+                await self._dp_send(cs, await _fetch_words(u))
+                del u
+                msg = words_from_numpy(await self._dp_recv(cs), dev)
+                vals = secure.ev_open_level(t_rows, flat, msg, B, S, field, idx0, path,
+                                            phase=clock)
+                del t_rows, msg
+            del flat, ex["flat"]
+        with cs.obs.span("field", level=level) as sp_field:
+            with self._reduce_span(cs, level):
+                if ks is not None:
+                    sh = kernel_shard.share_sums(ks, field, vals, w, F, C, N)
+                else:  # whole values on one device: the gather path too
+                    sh = secure.node_share_sums(
+                        field, vals.reshape((F, C, N) + field.limb_shape), w)
+                del vals
+                shares = await asyncio.to_thread(_share_wire, field, sh)
+                cs.obs.count("device_fetches", level=level)
+        spent = clock.settle()
+        for name in ("otext", "garble", "eval", "b2a"):
+            cs.obs.timer_add(name, spent.get(name, 0.0), level=level)
+        self._level_done(cs, level, sp_fss, sp_gc, sp_field)
         cs._stash_children(level, shard, ex["children"])
-        self._phases(cs, fss=t1 - t0, gc_ot=t2 - t1, field=time.perf_counter() - t2,
-                     **clock.settle())
         return shares
 
     async def _secure_sharded(self, cs, ks, flat, gseed, bseed, field, garbler: int,
-                              path: str, clock):
+                              path: str, clock, level: int):
         """The row-sharded twin of the whole-level exchange
         (``parallel/kernel_shard.py``, JAX rpc.py:1023-1110): extension,
         payload pair and equality kernel per kernel shard; the frames read
@@ -1586,12 +1690,12 @@ class CollectorServer:
                 planes, vals = kernel_shard.gb_kernel(ks, cs._ot_snd.s_block, q, flat, gseed,
                                                       bseed, field, garbler, path, idx0)
             del q
-            self._add(cs, "device_fetches", ks.k)
+            cs.obs.count("device_fetches", ks.k, level=level)
             await self._dp_send(cs, await asyncio.to_thread(kernel_shard.msg_wire, ks, planes))
             return vals
         with clock("otext"):
             u, t_rows, idx0 = kernel_shard.rcv_extend(ks, cs._ot_rcv, flat)
-        self._add(cs, "device_fetches", ks.k)
+        cs.obs.count("device_fetches", ks.k, level=level)
         await self._dp_send(cs, await asyncio.to_thread(kernel_shard.u_wire, ks, u))
         del u
         msg = await self._dp_recv(cs)
@@ -1601,11 +1705,17 @@ class CollectorServer:
     # -- data plane: (collection, payload) frames, received through the mux ---
 
     async def _dp_send(self, cs, obj) -> None:
-        def count(n: int) -> None:
-            self._add(cs, "data_bytes_sent", n)
-            self.stats["data_frame_max"] = max(self.stats["data_frame_max"], n)
+        cs.obs.count("data_msgs_sent")
 
-        await _send(self._peer_writer, (cs.key, obj), count=count)
+        def count(n: int) -> None:
+            cs.obs.count("data_bytes_sent", n)
+            self._note_frame(n)
+
+        # under tracing the frame carries this verb's (trace id, span id), so
+        # the peer's arrival instant parents under the sender's span
+        hdr = obstrace.wire_tag() if obstrace.enabled() else None
+        frame = (cs.key, _readonly(obj)) if hdr is None else (cs.key, _readonly(obj), hdr)
+        await _send(self._peer_writer, frame, count=count)
 
     async def _dp_recv(self, cs):
         # a collection's wire wait is the gap another collection's device
@@ -1639,20 +1749,21 @@ class CollectorServer:
         channel carries matching handshake frames."""
         if self._keyed(cs):
             return
-        t0 = time.perf_counter()
-        # the coin flip: the XOR of both sides' 16 bytes is this channel's
-        # sketch seed, uniform if either side is honest and never a public
-        # constant (a client that predicts the challenge forges a pass);
-        # sent in every mode, since a JAX peer sends and awaits it
-        mine = secrets.token_bytes(16)
-        theirs = await self._swap(cs, mine)
-        cs._sketch_seed = np.frombuffer(bytes(a ^ b for a, b in zip(mine, theirs)),
-                                        "<u4").copy()
-        if self.cfg.secure_exchange:
-            await self._setup_secure(cs)
+        with cs.obs.span("plane_handshake"):
+            # the coin flip: the XOR of both sides' 16 bytes is this
+            # channel's sketch seed, uniform if either side is honest and
+            # never a public constant (a client that predicts the challenge
+            # forges a pass); sent in every mode, since a JAX peer sends and
+            # awaits it
+            mine = secrets.token_bytes(16)
+            theirs = await self._swap(cs, mine)
+            cs._sketch_seed = np.frombuffer(bytes(a ^ b for a, b in zip(mine, theirs)),
+                                            "<u4").copy()
+            if self.cfg.secure_exchange:
+                await self._setup_secure(cs)
         cs.plane_epoch = self._plane.epoch
-        self._add(cs, "plane_handshakes")
-        self._add(cs, "plane_handshake_s", time.perf_counter() - t0)
+        obs.emit("plane.session_keyed", severity="debug", server=self.server_id,
+                 collection=cs.key, epoch=cs.plane_epoch)
 
     async def _setup_secure(self, cs) -> None:
         """Two base-OT sessions seeding the collection's IKNP extension, one
@@ -1704,8 +1815,8 @@ class CollectorServer:
                     if verb != "status":
                         cs.phase = cs.level = None
         except Exception as e:  # the RPC boundary: every failure goes to the caller
-            _log.warning("server %d: verb %s of collection %s failed: %s: %s", self.server_id,
-                         verb, cs.key, type(e).__name__, e)
+            obs.emit("verb.error", severity="warn", server=self.server_id, verb=verb,
+                     collection=cs.key, error=f"{type(e).__name__}: {e}")
             return {"__error__": f"{type(e).__name__}: {e}"}
 
     async def _dispatch(self, sess: _Session | None, cs, req_id, verb: str, req):
@@ -1714,31 +1825,49 @@ class CollectorServer:
         one still running awaits the same execution.  Errors are responses
         too, so a rejection replays as the same rejection.  A connection
         that never said hello has no session and no dedup, and works on the
-        default collection."""
+        default collection.
+
+        The verb runs under the trace context its request carries (the
+        leader's call span, JAX rpc.py:2801) and in a ``verb:{verb}`` span
+        of its collection's registry, whose seconds also feed the
+        ``rpc:{verb}`` histogram; ``status`` is neither (a probe is not the
+        collection's phase, nor its progress)."""
+        self.obs.count("verb_requests")  # the dedup rate's denominator
         if cs is None:
             cs = self._default()
         cs.last_used = time.monotonic()
         if sess is not None:
             sess.last_seen = time.monotonic()
             if req_id in sess.cache:
-                self.stats["dedup_hits"] += 1
+                self.obs.count("dedup_hits")
+                obs.emit("resilience.replay", severity="debug", server=self.server_id,
+                         verb=verb, req_id=req_id)
                 sess.cache.move_to_end(req_id)
                 return sess.cache[req_id]
             live = sess.inflight.get(req_id)
             if live is not None:
-                self.stats["dedup_hits"] += 1
+                self.obs.count("dedup_hits")
                 return await asyncio.shield(live)
             done = sess.inflight[req_id] = asyncio.get_running_loop().create_future()
+        ttok = (obstrace.activate(req.get("trace"))
+                if obstrace.enabled() and isinstance(req, dict) else None)
+        t_verb = time.monotonic()
         try:
-            resp = await self._run_verb(cs, verb, req)
+            with (contextlib.nullcontext() if verb == "status"
+                  else cs.obs.span(f"verb:{verb}")):
+                resp = await self._run_verb(cs, verb, req)
         except asyncio.CancelledError:  # release any replay awaiting this execution
             if sess is not None:
                 sess.inflight.pop(req_id, None)
                 if not done.done():
                     done.cancel()
             raise
+        finally:
+            obstrace.deactivate(ttok)
         if verb != "status":  # a probe is not progress
+            cs.obs.observe(f"rpc:{verb}", time.monotonic() - t_verb)
             cs.last_progress = time.monotonic()
+            cs.obs.gauge("last_progress_ts", round(time.time(), 3))
         if sess is not None:
             sess.put(req_id, resp)
             sess.inflight.pop(req_id, None)
@@ -1758,6 +1887,10 @@ class CollectorServer:
                 del self._sessions[min(self._sessions,
                                        key=lambda k: self._sessions[k].last_seen)]
             sess = self._sessions[sid] = _Session()
+        epoch = int((req or {}).get("epoch", 0))
+        if epoch > 1:  # epoch 1 is the first connect, not a recovery
+            self.obs.count("session_reconnects")
+            obs.emit("resilience.session_reconnect", server=self.server_id, epoch=epoch)
         sess.last_seen = time.monotonic()
         return sess
 
@@ -1780,7 +1913,8 @@ class CollectorServer:
         async def respond(req_id, resp):
             try:
                 async with write_lock:
-                    await _send(writer, (req_id, resp), count=self._count("control_bytes_sent"))
+                    await _send(writer, (req_id, resp),
+                                count=lambda n: self.obs.count("control_bytes_sent", n))
             except ConnectionError:
                 pass  # leader gone; the verb itself has finished
             except RuntimeError:
@@ -1793,7 +1927,8 @@ class CollectorServer:
         tasks: set = set()
         try:
             while True:
-                req_id, verb, req = await _recv(reader, count=self._count("control_bytes_recv"))
+                req_id, verb, req = await _recv(
+                    reader, count=lambda n: self.obs.count("control_bytes_recv", n))
                 if verb == "__hello__":
                     try:
                         new_cs = self._table.get((req or {}).get("collection"))
@@ -1867,20 +2002,21 @@ class CollectorServer:
         server 1 listens for its peer; a later dial (``plane_reset``)
         replaces its plane.  Returns the leader-facing server."""
         self._peer_addr = (peer_host, peer_port)
-        if self.server_id == 1:
-            ready = asyncio.Event()
+        with self.obs.span("setup"):
+            if self.server_id == 1:
+                ready = asyncio.Event()
 
-            async def on_peer(reader, writer):
-                self._attach_plane(reader, writer)
-                ready.set()
+                async def on_peer(reader, writer):
+                    self._attach_plane(reader, writer)
+                    ready.set()
 
-            self._peer_srv = await asyncio.start_server(on_peer, host, peer_port)
-            if on_plane_listen is not None:
-                on_plane_listen()
-            await ready.wait()  # as long as the peer takes to come up
-        else:
-            await self._dial_peer()
-        self._rpc_srv = await asyncio.start_server(self._handle_leader, host, port)
+                self._peer_srv = await asyncio.start_server(on_peer, host, peer_port)
+                if on_plane_listen is not None:
+                    on_plane_listen()
+                await ready.wait()  # as long as the peer takes to come up
+            else:
+                await self._dial_peer()
+            self._rpc_srv = await asyncio.start_server(self._handle_leader, host, port)
         return self._rpc_srv
 
     async def aclose(self) -> None:
@@ -1918,9 +2054,17 @@ class CollectorClient:
     together ride it) and resends the same frame, which the server answers
     from its dedup cache if the verb already ran.  Two ways out besides an
     answer: the verb's budget (``budgets``) runs out (``TimeoutError``),
-    or the hello finds a new boot id (:class:`ServerRestartedError`)."""
+    or the hello finds a new boot id (:class:`ServerRestartedError`).
 
-    def __init__(self, host: str, port: int, *, dial_policy=None, budgets=None,
+    Telemetry (JAX rpc.py:3240-3600): control bytes, reconnects and call
+    retries count on ``obs`` (``reg``, else the process's default registry;
+    a leader rebinds it to its own).  Under an active trace each call
+    carries its span id in the request's ``trace`` field, minted once and
+    replayed with the request id, and closes as a ``call:{verb}`` span; a
+    hello's or first-attempt status's ``clock`` gives the server's clock
+    offset."""
+
+    def __init__(self, host: str, port: int, reg=None, *, dial_policy=None, budgets=None,
                  collection: str | None = None):
         self._host, self._port = host, port
         self._r = self._w = None
@@ -1938,8 +2082,8 @@ class CollectorClient:
         self.boot_id = self.server_id = None  # from the last hello
         self.dial_policy = dial_policy or respolicy.DIAL_POLICY
         self.budgets = budgets or respolicy.VerbBudgets()
-        self.stats = {"control_bytes_sent": 0, "control_bytes_recv": 0, "reconnects": 0,
-                      "call_retries": 0}
+        self._clock_tag = None  # "server{id}", from the hello
+        self.obs = obsmetrics.default_registry() if reg is None else reg
 
     @classmethod
     async def connect(cls, host: str, port: int, **kw) -> "CollectorClient":
@@ -1947,10 +2091,23 @@ class CollectorClient:
         await c._ensure_connected(0)
         return c
 
-    def _count(self, key: str):
-        def add(n: int) -> None:
-            self.stats[key] += n
-        return add
+    def _note_clock(self, resp, t_sent: float) -> None:
+        """A hello's or status's ``clock``: the NTP-style midpoint offset
+        (server clock - this clock) for ``obs.trace merge`` (JAX
+        rpc.py:3401-3418)."""
+        if not obstrace.enabled() or not isinstance(resp, dict):
+            return
+        clock = resp.get("clock")
+        if clock is None:
+            return
+        sid = resp.get("server_id")
+        if sid is not None:
+            self._clock_tag = f"server{sid}"
+        if self._clock_tag is None:
+            return
+        t_recv = time.time()
+        obstrace.note_clock(self._clock_tag, float(clock) - (t_sent + t_recv) / 2.0,
+                            t_recv - t_sent)
 
     def _fail_pending(self, err: ConnectionError) -> None:
         for fut in self._pending.values():
@@ -1988,21 +2145,28 @@ class CollectorClient:
             self.epoch += 1
             self._reader_task = asyncio.ensure_future(self._read_loop(r))
             self._next_id += 1
+            t_hello = time.time()
             hello = await self._roundtrip(
                 self._next_id, "__hello__",
                 {"session": self.session_id, "epoch": self.epoch, "collection": self.collection},
                 self.budgets.deadline("__hello__"))
+            self._note_clock(hello, t_hello)
             if isinstance(hello, dict) and "__error__" in hello:
                 raise RuntimeError(f"hello refused by {self._host}:{self._port}: "
                                    f"{hello['__error__']}")
+            old_boot = self.boot_id
             self.boot_id, self.server_id = hello.get("boot_id"), hello.get("server_id")
             if self.epoch > 1:
-                self.stats["reconnects"] += 1
+                self.obs.count("reconnects")
+                obs.emit("resilience.reconnect", host=self._host, port=self._port,
+                         epoch=self.epoch,
+                         restarted=bool(old_boot and old_boot != self.boot_id))
 
     async def _read_loop(self, reader) -> None:
         try:
             while True:
-                req_id, resp = await _recv(reader, count=self._count("control_bytes_recv"))
+                req_id, resp = await _recv(
+                    reader, count=lambda n: self.obs.count("control_bytes_recv", n))
                 fut = self._pending.pop(req_id, None)
                 if fut is not None and not fut.done():
                     fut.set_result(resp)
@@ -2020,7 +2184,7 @@ class CollectorClient:
         try:
             async with self._send_lock:
                 await _send(self._w, (req_id, verb, req or {}),
-                            count=self._count("control_bytes_sent"))
+                            count=lambda n: self.obs.count("control_bytes_sent", n))
             return await deadline.wait_for(fut)
         finally:
             self._pending.pop(req_id, None)
@@ -2033,25 +2197,48 @@ class CollectorClient:
             raise self._dead
         deadline = self.budgets.deadline(verb)
         first_boot = self.boot_id
+        # under a trace, the call's span id rides the request once, and every
+        # replay resends it with the request id; the request is copied, since
+        # a leader sends one dict to both servers and each call owns its span
+        twire = obstrace.wire_ctx() if obstrace.enabled() else None
+        if twire is not None:
+            req = dict(req or {}, trace=twire[0])
         self._next_id += 1
         req_id = self._next_id  # one id for the call's life: the server dedups replays
-        while True:
-            seen_epoch = self.epoch
-            try:
-                resp = await self._roundtrip(req_id, verb, req, deadline)
-                break
-            except respolicy.TRANSIENT_ERRORS as e:
-                if deadline.expired():
-                    raise TimeoutError(f"verb {verb!r} exceeded its "
-                                       f"{self.budgets.budget(verb):g}s budget (last error: "
-                                       f"{type(e).__name__}: {e})") from e
-                self.stats["call_retries"] += 1
-                await self._ensure_connected(seen_epoch)
-                if first_boot is not None and self.boot_id != first_boot:
-                    raise ServerRestartedError(
-                        f"server {self._host}:{self._port} restarted while {verb!r} was in "
-                        "flight — state lost, replay unsafe") from e
-        if isinstance(resp, dict) and "__error__" in resp:
+        retried = False
+        try:
+            while True:
+                seen_epoch = self.epoch
+                try:
+                    t_sent = time.time()
+                    resp = await self._roundtrip(req_id, verb, req, deadline)
+                    if verb == "status" and not retried:
+                        # a replayed status may come from the dedup cache,
+                        # whose clock is the first execution's
+                        self._note_clock(resp, t_sent)
+                    break
+                except respolicy.TRANSIENT_ERRORS as e:
+                    retried = True
+                    if deadline.expired():
+                        raise TimeoutError(f"verb {verb!r} exceeded its "
+                                           f"{self.budgets.budget(verb):g}s budget (last "
+                                           f"error: {type(e).__name__}: {e})") from e
+                    self.obs.count("call_retries")
+                    obs.emit("resilience.call_retry", severity="debug", verb=verb,
+                             epoch=seen_epoch, error=f"{type(e).__name__}: {e}")
+                    await self._ensure_connected(seen_epoch)
+                    if first_boot is not None and self.boot_id != first_boot:
+                        raise ServerRestartedError(
+                            f"server {self._host}:{self._port} restarted while {verb!r} was "
+                            "in flight — state lost, replay unsafe") from e
+        except BaseException:
+            if twire is not None:
+                obstrace.call_event(verb, self.obs.name, twire[1], error=True)
+            raise
+        server_err = isinstance(resp, dict) and "__error__" in resp
+        if twire is not None:
+            obstrace.call_event(verb, self.obs.name, twire[1], error=server_err)
+        if server_err:
             raise RuntimeError(f"server error on {verb}: {resp['__error__']}")
         return resp
 

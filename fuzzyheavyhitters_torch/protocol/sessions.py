@@ -48,6 +48,9 @@ import numpy as np
 import torch
 
 from .. import native
+from .. import obs as obsmod
+from ..obs import devmem
+from ..obs import metrics as obsmetrics
 from ..ops import dpf, ibdcf, prg
 from ..ops.fields import F255, FE62
 from ..parallel import server_mesh as smesh
@@ -262,38 +265,61 @@ class _WindowPool:
         return out
 
 
-# the per-collection counters (the server's own ``stats`` holds their totals
-# and the shared plane's: control bytes, dedup hits, plane resets, the
-# largest data-plane frame): crawl verbs begun and finished, add_keys
-# chunks, checkpoints written (bytes, seconds) and restored (seconds),
-# sketch_verify verbs and the prunes' sketch advance seconds, device
-# readbacks, the data shards' reductions, gathers, faults, re-shards and
-# re-runs, the ingest front door's submissions (replays among them),
+# The flat figures of a ``server.exit`` line and of a ``sessions`` row, read
+# from the registries under the registries' own names (the run report has
+# them all): these counters' totals, and these timers' seconds
+# (``<name>_s``) and calls (``<name>_calls``).  Crawl verbs begun and
+# finished, add_keys chunks, checkpoints written (bytes, seconds) and
+# restored (seconds), sketch_verify verbs and the prunes' sketch advance,
+# device readbacks, the data shards' reductions, gathers, faults, re-shards
+# and re-runs, the ingest front door's submissions (replays among them),
 # admitted and shed keys, Overloaded answers and sealed windows, the
-# data-plane bytes, the warmup's shapes and warm-ladder hits, the
-# channel's handshakes (the coin flip and, secure, the base OT) and their
-# seconds, and the fleet's session exports, imports and retirements
-SESSION_COUNTERS = ("levels", "levels_done", "add_keys", "ckpt_writes", "ckpt_bytes",
-                    "ckpt_write_s", "restores", "restore_s", "sketch_verifies",
-                    "sketch_advance_s", "device_fetches", "ici_reduce_s", "kernel_gathers",
-                    "kernel_gather_s", "mesh_faults", "mesh_reshards", "shards_rerun",
-                    "pool_submits", "pool_dup_submits", "pool_admitted_keys", "pool_shed_keys",
-                    "pool_rejected", "windows_sealed", "data_bytes_sent", "data_bytes_recv",
-                    "warmup_shapes", "warmup_ladder_hits", "plane_handshakes",
-                    "plane_handshake_s", "session_exports", "session_imports",
-                    "sessions_retired")
-# the run report's phases: host-clock spans of every level (the JAX server's
-# fss, gc_ot, field), then the secure exchange's steps, spans of the device
-# stream on the card (driver.PhaseClock), then the sketch_verify verbs' host
-# seconds (the JAX server's "sketch" span)
+# data-plane bytes, the warmup's shapes and warm-ladder hits, the channel's
+# handshakes (the coin flip and, secure, the base OT), and the fleet's
+# session exports, imports and retirements.
+SUMMARY_COUNTERS = (
+    "levels", "levels_done", "add_keys", "checkpoint_writes", "checkpoint_bytes",
+    "checkpoint_restores", "sketch_verifies", "device_fetches", "kernel_gathers",
+    "mesh_faults", "mesh_reshards", "shards_rerun", "pool_submits", "pool_dup_submits",
+    "pool_admitted_keys", "pool_shed_keys", "pool_rejected", "windows_sealed",
+    "data_bytes_sent", "data_bytes_recv", "warmup_shapes", "warmup_ladder_hits",
+    "session_exports", "session_imports", "sessions_retired",
+)
+SUMMARY_TIMERS = ("checkpoint_write", "checkpoint_restore", "sketch_advance", "ici_reduce",
+                  "kernel_gather", "plane_handshake")
+# the run report's crawl phases, summed into the flat view's ``seconds``:
+# host-clock spans of every level (the JAX server's fss, gc_ot, field),
+# then the secure exchange's steps, spans of the device stream on the card
+# (driver.PhaseClock), then the sketch_verify verbs' host seconds
 PHASES = ("fss", "gc_ot", "field", "otext", "b2a", "garble", "eval", "sketch")
 
 
-def new_stats() -> dict:
-    """Zeroed counters, the phases' seconds and the last window's seconds
-    from its seal to its final shares (None before one)."""
-    return {"seconds": dict.fromkeys(PHASES, 0.0), **dict.fromkeys(SESSION_COUNTERS, 0),
-            "seal_to_hitters_s": None}
+def summary(snaps) -> dict:
+    """The flat figures (:data:`SUMMARY_COUNTERS`, :data:`SUMMARY_TIMERS`),
+    the phases' seconds and the longest window from seal to final shares
+    (None before one), summed over registry snapshots
+    (``Registry.report()``)."""
+    out = {"seconds": dict.fromkeys(PHASES, 0.0)}
+    out.update(dict.fromkeys(SUMMARY_COUNTERS, 0))
+    for name in SUMMARY_TIMERS:
+        out.update({f"{name}_s": 0.0, f"{name}_calls": 0})
+    seal = None
+    for snap in snaps:
+        counters, phases = snap["counters"], snap["phases"]
+        for name in SUMMARY_COUNTERS:
+            out[name] += counters.get(name, {}).get("total", 0)
+        for name in SUMMARY_TIMERS:
+            if name in phases:
+                out[f"{name}_s"] += phases[name]["seconds"]
+                out[f"{name}_calls"] += phases[name]["count"]
+        for ph in PHASES:
+            if ph in phases:
+                out["seconds"][ph] += phases[ph]["seconds"]
+        h = (snap.get("hists") or {}).get("seal_to_hitters")
+        if h is not None:
+            seal = h["max_s"] if seal is None else max(seal, h["max_s"])
+    out["seal_to_hitters_s"] = seal
+    return out
 
 
 class CollectionSession:
@@ -304,14 +330,18 @@ class CollectionSession:
     stay ordered.  ``bound`` counts the connections bound to it (a bound
     session is never evicted); ``last_used`` marks a verb's arrival and
     ``last_progress`` its completion; ``phase``/``level`` name the verb
-    running (None between verbs)."""
+    running (None between verbs).  ``obs`` is its registry: the server's
+    for the default collection, ``server{id}:{key}`` for any other (JAX
+    sessions.py:1055-1072)."""
 
     # verdict codes in the checkpoint blob: slot >= 0, -1 = appended in
     # arrival order (no slot), -2 = reservoir-shed
     _ING_APPEND, _ING_SHED = -1, -2
 
-    def __init__(self, key: str, server_id: int, cfg, device, ckpt_dir: str | None):
+    def __init__(self, key: str, server_id: int, cfg, device, ckpt_dir: str | None,
+                 obs: obsmetrics.Registry):
         self.key = key
+        self.obs = obs
         self.server_id = server_id
         self.cfg = cfg
         self.device = device
@@ -319,7 +349,6 @@ class CollectionSession:
         self.last_used = self.last_progress = time.monotonic()
         self.bound = 0
         self.phase = self.level = None
-        self.stats = new_stats()
         # the plane epoch this session's channel was keyed against (the coin
         # flip, and in secure mode its base-OT sessions); 0: never
         self.plane_epoch = 0
@@ -330,10 +359,6 @@ class CollectionSession:
         # data shards (JAX sessions.py:403): bound to this collection's batch
         k = smesh.resolve_data_devices(cfg.server_data_devices, device)
         self._mesh = smesh.ServerMesh(k, device) if k > 1 else None
-        # the last value of the data shards' per-level gauges (None before
-        # any), and the kernel stage's widest
-        self._gauges = {"kernel_shards": None, "kernel_shards_max": None,
-                        "sketch_shards": None}
         # the streaming front door: window pools and a gate of its own, so a
         # flooding tenant drains only its own token bucket; the gate's
         # arithmetic runs in an executor behind ``_adm_gate``
@@ -400,13 +425,23 @@ class CollectionSession:
         self._expand_ready: dict = {}  # (last, level, span) -> pre-expanded stage
         self._mask_cache = None  # ((level, F, f255), the whole level's mask rows)
 
-    def reset_state(self) -> None:
+    def summary(self) -> dict:
+        """This collection's flat counters (:func:`summary` of its registry;
+        the default collection's is the server's)."""
+        return summary([self.obs.report()])
+
+    def reset_state(self, reset_obs: bool = True) -> None:
         """The ``reset`` verb's body: a new collection run opens clean (crawl
-        and sketch state, ingest pools, checkpoint namespace), with fresh
-        GC/b2a randomness when the secure plane is keyed."""
+        and sketch state, ingest pools, checkpoint namespace, telemetry),
+        with fresh GC/b2a randomness when the secure plane is keyed.
+        ``reset_obs`` False keeps the registry (the default collection's is
+        the server's, whose shared-plane figures other live collections
+        still count on)."""
         self.clear()
         self._ingest_pools.clear()
         self.ckpt_clear()
+        if reset_obs:
+            self.obs.reset()
         if self._ot_snd is not None:
             self._sec_seed = np.frombuffer(secrets.token_bytes(16), "<u4").copy()
 
@@ -441,12 +476,6 @@ class CollectionSession:
     def _f_bucket(self) -> int:
         return self._shards(self.frontier)[0].f_bucket
 
-    def _gauge(self, name: str, value: int) -> None:
-        self._gauges[name] = value
-        if name == "kernel_shards":
-            self._gauges["kernel_shards_max"] = max(self._gauges["kernel_shards_max"] or 0,
-                                                    value)
-
     def _has_sketch(self) -> bool:
         return bool(self._sketch_parts) or self._sketch is not None
 
@@ -472,6 +501,9 @@ class CollectionSession:
                 self.keys_parts = []  # only a re-shard reads them again
                 self.keys = ibdcf.keys_from_numpy(ibdcf.IbDcfKeyBatch(*leaves), self.device)
             self._keys_stale = False
+            # key-plane residency (JAX sessions.py:523-528): set where the
+            # plane changes size
+            self.obs.gauge("key_plane_bytes", devmem.tree_nbytes(self.keys))
         d = self._kb().cw_seed.shape[1]
         if not 1 <= d <= collect.MAX_DIMS:
             raise ValueError(f"n_dims={d}: supported 1..{collect.MAX_DIMS}")
@@ -685,16 +717,17 @@ class CollectionSession:
         shard count (None before one)."""
         if self._mesh is None:
             return None
-        st = self.stats
+        reg = self.obs
         return {"data_devices": self._mesh.n_devices, "data_shards": self._mesh.shards,
                 "shard_clients": self._mesh.occupancy(),
-                "ici_reduce_seconds": round(st["ici_reduce_s"], 6),
-                "reshards": st["mesh_reshards"], "faults": st["mesh_faults"],
-                "kernel_shards": self._gauges["kernel_shards"],
-                "kernel_shards_max": self._gauges["kernel_shards_max"],
-                "kernel_gathers": st["kernel_gathers"],
-                "kernel_gather_seconds": round(st["kernel_gather_s"], 6),
-                "sketch_shards": self._gauges["sketch_shards"]}
+                "ici_reduce_seconds": round(reg.timer_seconds("ici_reduce"), 6),
+                "reshards": int(reg.counter_value("mesh_reshards")),
+                "faults": int(reg.counter_value("mesh_faults")),
+                "kernel_shards": reg.gauge_value("kernel_shards"),
+                "kernel_shards_max": reg.gauge_max("kernel_shards"),
+                "kernel_gathers": int(reg.counter_value("kernel_gathers")),
+                "kernel_gather_seconds": round(reg.timer_seconds("kernel_gather"), 6),
+                "sketch_shards": reg.gauge_value("sketch_shards")}
 
     # -- the checkpoint namespace (JAX sessions.py:700-753) ---------------
 
@@ -995,11 +1028,16 @@ class SessionTable:
     pools, no binding, not mid-verb) is evicted oldest first, else the new
     collection is refused: a server never drops a live tenant's state."""
 
-    def __init__(self, server_id: int, cfg, device, ckpt_dir: str | None):
+    def __init__(self, server_id: int, cfg, device, ckpt_dir: str | None,
+                 server_obs: obsmetrics.Registry | None = None):
         self.server_id = server_id
         self.cfg = cfg
         self.device = device
         self.ckpt_dir = ckpt_dir
+        # the default collection's registry is the server's, so a
+        # single-collection run reports as one server
+        self.server_obs = (server_obs if server_obs is not None
+                           else obsmetrics.Registry(f"server{server_id}"))
         self._by_key: dict = {}
 
     def __len__(self) -> int:
@@ -1033,8 +1071,12 @@ class SessionTable:
                     f"{cap}-session bound and no live session is idle "
                     f"(live: {sorted(self._by_key)})"
                 )
+            reg = (self.server_obs if key == DEFAULT_COLLECTION
+                   else obsmetrics.Registry(f"server{self.server_id}:{key}"))
             cs = self._by_key[key] = CollectionSession(key, self.server_id, self.cfg,
-                                                       self.device, self.ckpt_dir)
+                                                       self.device, self.ckpt_dir, reg)
+            if key != DEFAULT_COLLECTION:
+                obsmod.emit("session.created", server=self.server_id, collection=key)
         cs.last_used = time.monotonic()
         return cs
 
@@ -1050,10 +1092,12 @@ class _PlaneFailure:
 
 class PlaneMux:
     """The server↔server socket demultiplexed per collection (JAX
-    sessions.py:1083-1225).  Every frame is ``(channel, payload)`` (a
-    third element, a traced JAX peer's header, is dropped); one pump task a
-    transport routes payloads into per-channel FIFO queues, and each
-    receiver reads only its own channel.  ``epoch`` counts transports: a
+    sessions.py:1083-1225).  Every frame is ``(channel, payload)``, or under
+    tracing ``(channel, payload, (trace_id, span_id))``: the sender's span,
+    under which the receiver records the frame's arrival (a ``plane_recv``
+    instant on the ``tag`` track).  One pump task a transport routes
+    payloads into per-channel FIFO queues, and each receiver reads only its
+    own channel.  ``epoch`` counts transports: a
     session keyed against an older epoch re-keys before it trusts the plane
     again.  A dead transport reaches every blocked receiver as
     ``ConnectionError``, never as a hang."""
@@ -1063,12 +1107,13 @@ class PlaneMux:
     # two servers' channels diverged: the plane fails loudly
     MAX_DEPTH = 1024
 
-    def __init__(self, route_count=None):
+    def __init__(self, route_count=None, tag: str = "plane"):
         self.epoch = 0
         self._queues: dict = {}
         self._err: BaseException | None = None
         self._pump_task: asyncio.Task | None = None
         self._route_count = route_count  # (channel, framed bytes) of each frame routed
+        self.tag = tag  # the trace component of the arrival instants
 
     def attach(self, reader, read_frame) -> int:
         """Bind to a fresh transport: fail every waiter of the old one (its
@@ -1129,7 +1174,11 @@ class PlaneMux:
             # leave the failure visible to any later recv on this channel
             self._deliver_failure(q, item.err)
             raise ConnectionError(f"data plane down: {item.err!r}") from item.err
-        return item
+        payload, hdr = item
+        if hdr is not None and obsmod.trace.enabled():
+            obsmod.trace.instant("plane_recv", comp=self.tag, trace_id=hdr[0],
+                                 parent=hdr[1], chan=chan)
+        return payload
 
     async def _pump(self, reader, read_frame, epoch: int) -> None:
         """Route frames until the transport dies.  A pump outliving its
@@ -1141,9 +1190,10 @@ class PlaneMux:
                 if epoch != self.epoch:
                     return
                 chan = frame[0]
+                hdr = frame[2] if len(frame) > 2 else None
                 if self._route_count is not None:
                     self._route_count(chan, nbytes)
-                self._queue(chan).put_nowait(frame[1])
+                self._queue(chan).put_nowait((frame[1], hdr))
         except asyncio.CancelledError:
             raise
         except Exception as e:  # EOF, a reset, a diverged channel: a plane death

@@ -11,7 +11,10 @@ interleaving scheduled (FIFO device turns) and observable (stall fills):
   tenant's dispatch burst cannot starve another's), and ``wire_wait(key)``
   brackets its data-plane waits.  A device turn taken while another
   session waits on the wire is a **stall fill**, counted per session and
-  in total and reported in ``status`` and ``server.exit``.
+  in total and reported in ``status`` and ``server.exit``, and on the
+  server's registry (``tenant_device_turns``, ``tenant_stall_fills``);
+  under tracing both brackets record as ``device_turn`` and ``wire_wait``
+  spans of the active verb.
 - The warm ladder (:func:`warmed`, :func:`mark_warmed`): the process-level
   set of warmed shapes.  Once any session warmed a shape, a collection of
   the same shape skips that warm run (``ladder_hits``): the kernels are
@@ -26,13 +29,16 @@ import contextlib
 import threading
 import time
 
+from ..obs import trace as obstrace
+
 
 class TenantScheduler:
     """FIFO device turns and stall-fill accounting (module doc).  All state
     changes on the owning server's event loop, so the counters need no
-    lock."""
+    lock; the ``obs`` registry has its own."""
 
-    def __init__(self):
+    def __init__(self, obs=None):
+        self.obs = obs
         self._device_lock = asyncio.Lock()
         # session key -> depth of its active wire waits (recovery paths may
         # nest, so a count is the safe shape)
@@ -52,7 +58,11 @@ class TenantScheduler:
         self.device_turns += 1
         self.turns_by_session[key] = self.turns_by_session.get(key, 0) + 1
         self.last_progress_s[key] = time.time()
+        if self.obs is not None:
+            self.obs.count("tenant_device_turns")
         if self._others_on_wire(key):
+            if self.obs is not None:
+                self.obs.count("tenant_stall_fills")
             self.stall_fills += 1
             self.fills_by_session[key] = self.fills_by_session.get(key, 0) + 1
 
@@ -68,9 +78,12 @@ class TenantScheduler:
     def wire_wait(self, key: str):
         """Mark a session as blocked on the data plane."""
         self._wire[key] = self._wire.get(key, 0) + 1
+        st = obstrace.span_begin() if obstrace.enabled() else None
         try:
             yield
         finally:
+            if st is not None:
+                obstrace.span_end(st, "wire_wait", self._comp())
             n = self._wire.get(key, 1) - 1
             if n <= 0:
                 self._wire.pop(key, None)
@@ -81,6 +94,9 @@ class TenantScheduler:
         """Turn accounting for a device stage that cannot await (the
         frame-arrival pre-expand, which must stay atomic on the loop)."""
         self._note_turn(key)
+
+    def _comp(self) -> str:
+        return self.obs.name if self.obs is not None else "server"
 
     def wire_waiting(self) -> list:
         return sorted(k for k, n in self._wire.items() if n > 0)
@@ -110,14 +126,18 @@ class TenantScheduler:
 
 
 class _DeviceTurn:
-    __slots__ = ("_sched", "_key", "_count")
+    __slots__ = ("_sched", "_key", "_count", "_trace")
 
     def __init__(self, sched: TenantScheduler, key: str, count: bool = True):
         self._sched = sched
         self._key = key
         self._count = count
+        self._trace = None
 
     async def __aenter__(self):
+        # the span covers the lock wait and the dispatch: a long turn with a
+        # short dispatch is the cross-tenant queueing made visible
+        self._trace = obstrace.span_begin() if obstrace.enabled() else None
         await self._sched._device_lock.acquire()
         if self._count:
             self._sched._note_turn(self._key)
@@ -125,6 +145,9 @@ class _DeviceTurn:
 
     async def __aexit__(self, exc_type, exc, tb):
         self._sched._device_lock.release()
+        if self._trace is not None:
+            obstrace.span_end(self._trace, "device_turn", self._sched._comp(),
+                              error=exc_type is not None)
         return False
 
 

@@ -54,6 +54,8 @@ import struct
 import time
 from dataclasses import dataclass, field
 
+from .. import obs
+
 _HDR = struct.Struct("<Q")  # protocol/rpc.py's framing
 
 _ACTIONS = ("sever", "delay", "blackhole", "truncate", "flood", "slowclient")
@@ -196,6 +198,13 @@ class ChaosProxy:
                 fault = self._fault_for(direction, counts[direction])
                 if fault is not None:
                     self.fired.append((fault.action, direction, counts[direction]))
+                    obs.emit("resilience.chaos_fired", severity="debug", link=self.link,
+                             action=fault.action, direction=direction,
+                             msg=counts[direction])
+                    # a fault is a trace instant: the injected sever shows on
+                    # the merged timeline at the frame it fired
+                    obs.trace.instant(f"chaos.{fault.action}", comp=f"chaos:{self.link}",
+                                      direction=direction, msg=counts[direction])
                     if fault.action == "sever":
                         self._sever_pair(pair)
                         return
@@ -315,6 +324,7 @@ class MeshChaos:
             self._armed.remove(f)
             self.fired.append((f.action, level))
             self.emit("resilience.mesh_chaos_fired", action=f.action, level=level)
+            obs.trace.instant(f"chaos.mesh_{f.action}", comp="chaos:mesh", level=level)
             if f.action == "delay":
                 time.sleep(f.ms / 1000.0)
                 continue
@@ -414,6 +424,7 @@ class HostChaos:
             self._armed.remove(f)
             self.fired.append((f.action, window))
             self.emit("resilience.host_chaos_fired", action=f.action, window=window)
+            obs.trace.instant(f"chaos.host_{f.action}", comp="chaos:host", level=window)
             hit = True
         return hit
 

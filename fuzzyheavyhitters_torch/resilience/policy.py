@@ -21,6 +21,8 @@ import random
 import time
 from dataclasses import dataclass, field
 
+from .. import obs
+
 # asyncio.TimeoutError aliases TimeoutError only from 3.11: list both
 TRANSIENT_ERRORS: tuple[type[BaseException], ...] = (
     ConnectionError,
@@ -97,10 +99,13 @@ async def retry_async(fn, policy: RetryPolicy):
     for attempt in range(1, policy.attempts + 1):
         try:
             return await fn()
-        except TRANSIENT_ERRORS:
+        except TRANSIENT_ERRORS as e:
             if attempt == policy.attempts:
                 raise
-            await asyncio.sleep(policy.delay(attempt - 1))
+            delay = policy.delay(attempt - 1)
+            obs.emit("resilience.retry", severity="debug", attempt=attempt,
+                     delay_s=round(delay, 4), error=f"{type(e).__name__}: {e}")
+            await asyncio.sleep(delay)
 
 
 # ~10 s of redialing (undithered envelope 0.05·(1+2+4+8+16) + 2·4 ≈ 9.6 s)

@@ -72,7 +72,7 @@ def load_config(path: str) -> Config:
     return Config(**raw)
 
 
-SANITIZERS = "the sanitizers (queued as slice 15)"
+SANITIZERS = "the sanitizers (queued as slice 16)"
 
 
 def refuse_debug_guards(cfg: Config) -> None:

@@ -5,7 +5,8 @@
 ``chip_smoke.socket_run`` (the card's socket phase) on free ports, the
 leader with ``FHH_SUPERVISE=0`` and its default warmup.  The
 leader's heavy-hitter CSV and hitter lines must equal ``bin.mesh.run``'s
-for the same seed; the servers must report their run on SIGTERM and exit 0.
+for the same seed; the servers must report their run on SIGTERM and exit
+143 (the SIGTERM contract of ``obs.exit_report``).
 Once more at ``crawl_radix_bits: 2`` with the leader in the test's process
 (``socket_run(warm_buckets=...)``, the card's phase 16), warming the
 buckets given.  And under the leader's default, the supervised crawl, with
@@ -14,7 +15,6 @@ checkpoint and started again (``socket_run(supervise=True, kill=True)``,
 the card's phase 18), once more in malicious mode, where that first
 checkpoint is the init blob."""
 
-import io
 import os
 
 import numpy as np
@@ -59,8 +59,8 @@ def test_socket_binaries_match_mesh(tmp_path, monkeypatch, secure):
 
     (tmp_path / "mesh").mkdir()
     monkeypatch.chdir(tmp_path / "mesh")  # the same synthetic rides points
-    res = mesh.run(cfg, N_REQS, device="cpu", seed=SEED, csv_path=str(tmp_path / "mesh.csv"),
-                   out=io.StringIO()).result
+    res = mesh.run(cfg, N_REQS, device="cpu", seed=SEED,
+                   csv_path=str(tmp_path / "mesh.csv")).result
     assert res.paths.shape[0] >= 1  # a non-degenerate scenario
     assert got_csv == (tmp_path / "mesh.csv").read_text()
     assert got == {str(row.tolist()): int(c) for row, c in zip(res.decode_ints(), res.counts)}
@@ -95,8 +95,8 @@ def test_socket_leader_in_process_warms_given_buckets(tmp_path, monkeypatch):
     assert run["warmup"]["shapes"] == [2, 2]
     (tmp_path / "mesh").mkdir()
     monkeypatch.chdir(tmp_path / "mesh")
-    res = mesh.run(cfg, N_REQS, device="cpu", seed=SEED, csv_path=str(tmp_path / "mesh.csv"),
-                   out=io.StringIO()).result
+    res = mesh.run(cfg, N_REQS, device="cpu", seed=SEED,
+                   csv_path=str(tmp_path / "mesh.csv")).result
     assert res.paths.shape[0] >= 1
     assert {e["value"]: e["count"] for e in run["hitters"]} == {
         str(row.tolist()): int(c) for row, c in zip(res.decode_ints(), res.counts)}
@@ -119,8 +119,8 @@ def test_socket_binaries_supervised_by_default_survive_a_kill(tmp_path, monkeypa
                         kill=True)
     (tmp_path / "mesh").mkdir()
     monkeypatch.chdir(tmp_path / "mesh")
-    res = mesh.run(cfg, N_REQS, device="cpu", seed=SEED, csv_path=str(tmp_path / "mesh.csv"),
-                   out=io.StringIO()).result
+    res = mesh.run(cfg, N_REQS, device="cpu", seed=SEED,
+                   csv_path=str(tmp_path / "mesh.csv")).result
     assert res.paths.shape[0] >= 1
     assert {e["value"]: e["count"] for e in run["hitters"]} == {
         str(row.tolist()): int(c) for row, c in zip(res.decode_ints(), res.counts)}
@@ -129,8 +129,8 @@ def test_socket_binaries_supervised_by_default_survive_a_kill(tmp_path, monkeypa
     assert crawl["recoveries"] >= 1 and crawl["levels_rerun"] >= 1
     assert run["killed"]["rc"] == -9 and os.path.exists(run["killed"]["restored_blob"])
     s0, s1 = run["exits"]  # s1: the process started again
-    assert s0["ckpt_writes"] == 3 and s0["add_keys"] == s1["add_keys"] == 2
-    assert s1["restores"] == 1 and s1["levels_done"] == CFG["data_len"] - 4
+    assert s0["checkpoint_writes"] == 3 and s0["add_keys"] == s1["add_keys"] == 2
+    assert s1["checkpoint_restores"] == 1 and s1["levels_done"] == CFG["data_len"] - 4
     assert s0["boot_id"] != s1["boot_id"]
     restored = [e for e in run["events"]["leader"] if e["event"] == "resilience.restored"]
     assert [e["level"] for e in restored] == [3]
@@ -155,7 +155,7 @@ def test_socket_binaries_malicious_supervised_survive_a_kill(tmp_path, monkeypat
     (tmp_path / "mesh").mkdir()
     monkeypatch.chdir(tmp_path / "mesh")
     res = mesh.run(tconfig.Config(**CFG), N_REQS, device="cpu", seed=SEED,
-                   csv_path=str(tmp_path / "mesh.csv"), out=io.StringIO()).result
+                   csv_path=str(tmp_path / "mesh.csv")).result
     assert {e["value"]: e["count"] for e in run["hitters"]} == {
         str(row.tolist()): int(c) for row, c in zip(res.decode_ints(), res.counts)}
     crawl = run["crawl"]
@@ -167,7 +167,7 @@ def test_socket_binaries_malicious_supervised_survive_a_kill(tmp_path, monkeypat
     assert killed_ck[0] == -1  # the init blob, killed at
     s0, s1 = run["exits"]
     assert s0["alive_clients"] == s1["alive_clients"] == N_REQS
-    assert s1["restores"] == 1 and s0["sketch_verifies"] >= CFG["data_len"]
+    assert s1["checkpoint_restores"] == 1 and s0["sketch_verifies"] >= CFG["data_len"]
     assert s0["seconds"]["sketch"] > 0 and s0["sketch_advance_s"] > 0
     assert [e["level"] for e in run["events"]["leader"]
             if e["event"] == "resilience.restored"] == [-1]
@@ -209,24 +209,24 @@ def test_socket_binaries_stream_windows(tmp_path):
     assert run["crawl"]["windows"] == 2 and run["crawl"]["ingest_admitted"] == N_REQS
     for ex in run["exits"]:
         assert ex["windows_sealed"] == 2 and ex["pool_admitted_keys"] == N_REQS
-        assert ex["levels"] == 2 * CFG["data_len"] and ex["ckpt_writes"] == 2
+        assert ex["levels"] == 2 * CFG["data_len"] and ex["checkpoint_writes"] == 2
         assert ex["add_keys"] == 0 and ex["seal_to_hitters_s"] is not None
 
 
-# -- the switches the port refuses by name (the JAX binaries read them) -------
+# -- the JAX binaries' switches: the per-run telemetry's are read, the live
+# plane's and the sanitizers' refused by name ----------------------------------
 
-_SWITCHES = [("FHH_RUN_REPORT", "report.json", "the run report"),
-             ("FHH_METRICS_PORT", "9100", "the metrics exporter"),
-             ("FHH_TRACE_DIR", "traces", "distributed tracing"),
-             ("FHH_PROFILE", "prof", "the profiler hooks"),
-             ("FHH_LOG_STREAM", "stdout", "the log sinks"),
-             ("FHH_LOG_LEVEL", "debug", "log severity filtering"),
-             ("FHH_LOG_FORMAT", "human", "log formats other than json"),
-             ("FHH_HEARTBEAT_S", "5", "the heartbeat"),
+_SWITCHES = [("FHH_METRICS_PORT", "9100", "the metrics exporter"),
              ("FHH_ALERT_STALL_S", "30", "alerting"),
              ("FHH_ALERT_HBM_FRAC", "0.9", "alerting"),
              ("FHH_DEBUG_GUARDS", "1", "the lock-discipline sanitizer"),
              ("FHH_DEBUG_TAINT", "1", "the taint sanitizer")]
+# the switches of obs/ (the run report, tracing, the profiler hooks, the log
+# sinks, formats and severities, the heartbeat), read as the JAX binaries do
+_PORTED_SWITCHES = [("FHH_RUN_REPORT", "report.json"), ("FHH_TRACE_DIR", "traces"),
+                    ("FHH_PROFILE", "prof"), ("FHH_LOG_STREAM", "stdout"),
+                    ("FHH_LOG_LEVEL", "debug"), ("FHH_LOG_FORMAT", "human"),
+                    ("FHH_HEARTBEAT_S", "5")]
 
 
 def _main(binary):
@@ -248,15 +248,45 @@ def _clear_switches(monkeypatch):
 @pytest.mark.parametrize("binary", ["leader", "server", "mesh"])
 @pytest.mark.parametrize("var,val,layer", _SWITCHES, ids=[v for v, _, _ in _SWITCHES])
 def test_unported_switch_is_refused_by_name(tmp_path, monkeypatch, binary, var, val, layer):
-    """Each observability and sanitizer switch of the JAX binaries is
-    refused at start-up, by name and with the part of the port that will
-    bring it, before the config is read or anything is started."""
+    """Each live-plane and sanitizer switch of the JAX binaries is refused
+    at start-up, by name and with the part of the port that will bring it,
+    before the config is read or anything is started."""
     _clear_switches(monkeypatch)
     monkeypatch.setenv(var, val)
-    part = "sanitizers" if var.startswith("FHH_DEBUG_") else "observability"
+    part = "sanitizers" if var.startswith("FHH_DEBUG_") else "live plane"
     with pytest.raises(NotImplementedError, match=f"{var}={val}: {layer}.* is not ported "
                        f"to PyTorch yet; it belongs to .*{part}"):
         _main(binary)(str(tmp_path / "absent.json"))
+
+
+@pytest.mark.parametrize("binary", ["leader", "server", "mesh"])
+@pytest.mark.parametrize("var,val", _PORTED_SWITCHES, ids=[v for v, _ in _PORTED_SWITCHES])
+def test_telemetry_switch_is_accepted(tmp_path, monkeypatch, binary, var, val):
+    """Each per-run telemetry switch of the JAX binaries (``obs/``) is
+    taken: the binary goes on to read its config (absent here)."""
+    _clear_switches(monkeypatch)
+    monkeypatch.setenv(var, val)
+    with pytest.raises(FileNotFoundError):
+        _main(binary)(str(tmp_path / "absent.json"))
+
+
+def test_no_bare_print_in_port():
+    """The port's events go through ``obs.emit``: a bare ``print()`` in the
+    package is a debug leftover or a way round the log sinks (the JAX
+    package's ``test_obs.py`` guard)."""
+    import ast
+    import pathlib
+
+    import fuzzyheavyhitters_torch
+
+    root = pathlib.Path(fuzzyheavyhitters_torch.__file__).parent
+    found = []
+    for path in sorted(root.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                    and node.func.id == "print"):
+                found.append(f"{path.relative_to(root)}:{node.lineno}")
+    assert not found, "bare print() (use fuzzyheavyhitters_torch.obs.emit): " + ", ".join(found)
 
 
 @pytest.mark.parametrize("binary", ["leader", "server", "mesh"])

@@ -11,7 +11,6 @@ interval oracle in u64 space (cases of the JAX suite's
 config end to end, its counts equal to ``chip_smoke.plaintext_counts``.
 """
 
-import io
 
 import numpy as np
 import pytest
@@ -155,7 +154,7 @@ def test_mesh_binary_cpu_covid(tmp_path):
                server1="127.0.0.1:8001", distribution="covid")
     n = 40
     run = tmesh.run(tconfig.Config(**raw), n, device="cpu", seed=9,
-                    csv_path=str(tmp_path / "hh.csv"), out=io.StringIO())
+                    csv_path=str(tmp_path / "hh.csv"))
     # bin/mesh draws the points first from its seed: the JAX sampler's points
     np.testing.assert_array_equal(run.points, jcovid.sample_covid_locations(
         tworkloads.COVID_CSV, CENTROIDS, n, fuzz_factor=float(tworkloads.AUG_LEN), seed=9))

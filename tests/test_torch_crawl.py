@@ -5,13 +5,13 @@ and counts, in both PRG bit modes, for a zipf ``n_dims=1`` and a
 rides-shaped ``n_dims=2`` workload.  Also: the port's ``bin/mesh`` end to
 end on the CPU, the config and device refusals."""
 
-import io
 import json
 
 import numpy as np
 import pytest
 import torch
 
+import torch_logs
 import torch_ref
 from fuzzyheavyhitters_torch import workloads as tworkloads
 from fuzzyheavyhitters_torch.bin import mesh as tmesh
@@ -102,8 +102,9 @@ def test_mesh_binary_cpu_rides(tmp_path, capsys):
     cfg_path = tmp_path / "rides.json"
     cfg_path.write_text(json.dumps(WORKLOADS["rides"]))
     csv_path = tmp_path / "hh.csv"
-    tmesh.main(["--config", str(cfg_path), "-n", "150", "--device", "cpu",
-                "--seed", "9", "--csv", str(csv_path)])
+    with torch_logs.binary_in_process():  # events as JSON lines on stdout
+        tmesh.main(["--config", str(cfg_path), "-n", "150", "--device", "cpu",
+                    "--seed", "9", "--csv", str(csv_path)])
     events = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     kinds = [e["event"] for e in events]
     assert kinds[:3] == ["sampling", "keygen.report", "crawl.done"]
@@ -112,7 +113,7 @@ def test_mesh_binary_cpu_rides(tmp_path, capsys):
     assert len(csv_path.read_text().splitlines()) == len(hitters) + 1
     # the run() form returns what a caller needs to check the answer
     run = tmesh.run(tconfig.Config(**WORKLOADS["rides"]), 150, device="cpu",
-                    seed=9, csv_path=str(tmp_path / "b.csv"), out=io.StringIO())
+                    seed=9, csv_path=str(tmp_path / "b.csv"))
     np.testing.assert_array_equal(
         run.result.counts, _brute_force_counts(run.points, 1, run.result.paths))
     assert [int(h["count"]) for h in hitters] == run.result.counts.tolist()
@@ -131,10 +132,10 @@ def test_config_refuses_later_slices(field, value, tmp_path):
     assert cfg.malicious and getattr(cfg, field) == value
     trust = "the mesh co-locates both parties in one trust domain"
     with pytest.raises(SystemExit, match=trust):
-        tmesh.run(cfg, 10, device="cpu", seed=1, out=io.StringIO())
+        tmesh.run(cfg, 10, device="cpu", seed=1)
     cfg_path = tmp_path / "m.json"
     cfg_path.write_text(json.dumps(raw))
-    with pytest.raises(SystemExit, match=trust) as exc:
+    with pytest.raises(SystemExit, match=trust) as exc, torch_logs.binary_in_process():
         tmesh.main(["--config", str(cfg_path), "-n", "10", "--device", "cpu"])
     assert "not ported" not in str(exc.value)
 
@@ -164,5 +165,5 @@ def test_refusals_of_unported_paths(tmp_path, monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tmesh.run(tconfig.Config(**WORKLOADS["zipf"]), 4, out=io.StringIO())
+        tmesh.run(tconfig.Config(**WORKLOADS["zipf"]), 4)
     assert resolve_device("cpu").type == "cpu"

@@ -102,7 +102,7 @@ def _boot(server) -> str:
 
 def _counter(server, name) -> int:
     cs = server._default()
-    return cs.stats[name] if isinstance(server, trpc.CollectorServer) else int(
+    return cs.summary()[name] if isinstance(server, trpc.CollectorServer) else int(
         cs.obs.counter_value(name))
 
 
@@ -477,7 +477,7 @@ def test_retire_requires_matching_epoch_and_drops_sealed_pools(tmp_path, kind):
     assert _pools(s) == {} and not os.path.exists(x["path"])
     assert s._default().idle()
     if kind == "port":
-        assert s.stats["sessions_retired"] == 1
+        assert s.summary()["sessions_retired"] == 1
 
 
 @pytest.mark.parametrize("src_kind,dst_kind", [("port", "port"), ("jax", "port"),

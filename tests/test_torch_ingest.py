@@ -186,7 +186,7 @@ def _pools(server) -> dict:
 
 def _stat(server, name) -> int:
     if isinstance(server, trpc.CollectorServer):
-        return server.stats[name]
+        return server.summary()[name]
     return int(server._default().obs.counter_value(name))
 
 
@@ -396,7 +396,7 @@ def test_seal_is_idempotent_and_a_sealed_window_refuses():
     st = _call(s, "window_seal", {"window": 0})
     assert st == {"window": 0, "sealed": True, "keys": 2, "subs": 1, "admitted_keys": 2,
                   "shed_keys": 0, "rejected": 0}
-    assert _call(s, "window_seal", {"window": 0}) == st and s.stats["windows_sealed"] == 1
+    assert _call(s, "window_seal", {"window": 0}) == st and s.summary()["windows_sealed"] == 1
     with pytest.raises(RuntimeError, match="window 0 is sealed"):
         _call(s, "submit_keys", _sub(0, "b", slice(2, 4)))
     assert _call(s, "submit_keys", _sub(1, "b", slice(2, 4)))["admitted"]
@@ -461,7 +461,7 @@ def test_overloaded_then_retried_and_landed(tmp_path):
                                     tuple(x[sl] for x in KEYS[1]))
                 assert r["admitted"]
             assert wi.counters["ingest_rejected"] >= 1
-            assert live["s0"].stats["pool_rejected"] == wi.counters["ingest_rejected"]
+            assert live["s0"].summary()["pool_rejected"] == wi.counters["ingest_rejected"]
             st = await wi.seal_window()
             assert st["keys"] == 12 and st["rejected"] == wi.counters["ingest_rejected"]
             with pytest.raises(tleader.IngestOverloadedError, match="burst allowance"):
@@ -602,7 +602,7 @@ def test_kill_mid_window_under_flood_is_bit_exact(tmp_path, leader):
     assert fig["counters"]["ingest_recoveries"] >= 1
     assert fig["counters"]["ingest_journal_replays"] >= 1
     assert fig["stats"]["s1"]["pool_dup_submits"] >= 1
-    assert fig["servers"]["s1"].stats["restores"] == 1
+    assert fig["servers"]["s1"].summary()["checkpoint_restores"] == 1
 
 
 def test_slow_client_stalls_only_itself(tmp_path):

@@ -21,6 +21,7 @@ import jax
 import numpy as np
 import pytest
 
+import chip_smoke
 import torch
 import torch_mp_worker
 import torch_ref
@@ -48,9 +49,10 @@ def _pair(argv_of, cwd):
     """Run two processes (``argv_of(pid, coordinator)``) to their end;
     returns their standard outputs."""
     # one intra-op thread a process: the suite runs beside other workers, and
-    # two spinning thread pools that wait on each other's messages starve
+    # two spinning thread pools that wait on each other's messages starve;
+    # the binaries' events as JSON lines on standard output
     env = dict(os.environ, PYTHONPATH=_REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
-               OMP_NUM_THREADS="1")
+               OMP_NUM_THREADS="1", FHH_LOG_FORMAT="json", FHH_LOG_STREAM="stdout")
     coord = f"127.0.0.1:{_free_port()}"
     procs = [subprocess.Popen(argv_of(pid, coord), env=env, cwd=cwd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for pid in (0, 1)]
@@ -131,7 +133,10 @@ def test_two_process_supervised_snapshots_match_one_process(oracle, secure, tmp_
 
 
 def _events(text):
-    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    """The JSON event lines of a binary's output, each without its wall
+    clock ``ts`` (two processes' events are compared)."""
+    return [{k: v for k, v in json.loads(ln).items() if k != "ts"}
+            for ln in text.splitlines() if ln.startswith("{")]
 
 
 @pytest.mark.parametrize("secure", [False, True])
@@ -152,8 +157,9 @@ def test_bin_mesh_two_processes_match_one(secure, tmp_path):
         "--processes", "2", "--process_id", str(pid), "--coordinator", coord,
         "--csv", str(tmp_path / f"hh{pid}.csv")], tmp_path)
     buf = io.StringIO()
-    one = tmesh_bin.run(tconfig.Config(**dict(raw, secure_exchange=False)), n, device="cpu",
-                        seed=seed, csv_path=str(tmp_path / "one.csv"), out=buf)
+    with chip_smoke.json_logs(buf):
+        one = tmesh_bin.run(tconfig.Config(**dict(raw, secure_exchange=False)), n,
+                            device="cpu", seed=seed, csv_path=str(tmp_path / "one.csv"))
     ev_one = _events(buf.getvalue())
     want = [e for e in ev_one if e["event"] == "hitter"]
     assert want and not next(e for e in ev_one if e["event"] == "crawl.done")["mesh"]

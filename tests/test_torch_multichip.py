@@ -339,7 +339,10 @@ def test_device_kill_without_a_checkpoint_escalates(tmp_path):
     assert lead.counters["recoveries"] == 1 and lead.counters["levels_rerun"] == 1
     classified = [f for _, ev, f in events if ev == "resilience.loss_classified"]
     assert classified == [{"server_loss": [], "device_loss": [1]}]
-    assert status[1]["mesh"]["faults"] == 1 and status[1]["mesh"]["reshards"] == 0
+    # the recovery from scratch reset the collection, and a reset clears its
+    # telemetry, as the JAX server's does: the fault was counted (classified
+    # above from the probe before the reset), its count is gone after
+    assert status[1]["mesh"]["faults"] == 0 and status[1]["mesh"]["reshards"] == 0
 
 
 def _planar(states, planar):

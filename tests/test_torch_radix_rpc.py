@@ -70,7 +70,7 @@ def test_port_pair_at_radix_matches_radix1(d, k, secure, monkeypatch):
     assert got and got == rpct._port_driver_hitters(d, rpct._keys(d))
     rounds = -(-L // k)
     for s in seen["servers"]:
-        assert s.stats["levels"] == rounds
+        assert s.summary()["levels"] == rounds
     assert len(seen["leader"].buckets) == rounds
     v = rpct.tfields.F255.np_sub(*(np.asarray(f["shares"], np.uint32) for f in finals))
     np.testing.assert_array_equal(v[:, 0], np.asarray(res.counts))
@@ -93,7 +93,7 @@ def test_mixed_pair_at_radix2_matches_jax_driver(kinds, leader, secure):
     got = rpct._hitters(res)
     assert got and got == rpct._jax_driver_hitters(1, rpct._keys(1))
     port = seen["servers"][kinds.index("port")]
-    assert port.stats["levels"] == -(-L // 2)
+    assert port.summary()["levels"] == -(-L // 2)
     v = rpct.tfields.F255.np_sub(*(np.asarray(f["shares"], np.uint32) for f in finals))
     assert not v[:, 1:].any()
     np.testing.assert_array_equal(v[:, 0], np.asarray(res.counts))
@@ -131,7 +131,7 @@ def test_span_crawl_at_radix2(kinds, secure):
     lead = seen["leader"]
     assert max(lead.buckets) > 1  # a round ran in several spans
     port = seen["servers"][kinds.index("port")]
-    assert port.stats["levels"] == sum(lead.buckets)
+    assert port.summary()["levels"] == sum(lead.buckets)
 
 
 # -- (d) the prune's radix ----------------------------------------------------------------
@@ -208,7 +208,7 @@ def test_warmup_answers_both_leaders(leader, secure, k):
             # no live state moved: no frontier, no OT session, no crawl verb
             assert [s.frontier for s in servers] == frontiers == [None, None]
             for s in servers:
-                assert s.stats["levels"] == 0 and s.stats["data_bytes_sent"] == 0
+                assert s.summary()["levels"] == 0 and s.summary()["data_bytes_sent"] == 0
                 assert s._ot_snd is None and not s._plane_keyed
             res = await asyncio.wait_for(lead.run(N), 300)
             return rpct._hitters(res)

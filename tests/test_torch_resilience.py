@@ -36,6 +36,7 @@ import torch
 
 import chip_smoke
 import torch_ref
+from fuzzyheavyhitters_torch.obs import metrics as obsmetrics
 from fuzzyheavyhitters_torch.ops import ibdcf as tibdcf
 from fuzzyheavyhitters_torch.protocol import driver as tdriver
 from fuzzyheavyhitters_torch.protocol import leader_rpc as tleader
@@ -291,7 +292,7 @@ def test_session_replay_answers_from_cache():
         for _ in range(2):  # the second is a replay
             await trpc._send(w, frame)
             assert (await trpc._recv(r))[1] is True
-        assert len(s0.keys_parts) == 1 and s0.stats["add_keys"] == 1
+        assert len(s0.keys_parts) == 1 and s0.summary()["add_keys"] == 1
         await trpc._send(w, (4, "status", {}))
         st = (await trpc._recv(r))[1]
         assert st["dedup_hits"] == 1 and st["has_keys"] and not st["has_frontier"]
@@ -301,7 +302,7 @@ def test_session_replay_answers_from_cache():
             await trpc._send(w, (5, "tree_restore", {"level": 0}))
             errs.append((await trpc._recv(r))[1])
         assert "no checkpoint dir" in errs[0]["__error__"] and errs[0] == errs[1]
-        assert s0.stats["dedup_hits"] == 2
+        assert s0.summary()["dedup_hits"] == 2
         w.close()
         for s in live.values():
             await _kill(s)
@@ -332,10 +333,12 @@ def test_client_reconnects_and_replays_across_sever():
         live, (p0, _) = await _port_pair()
         px = await ChaosProxy("127.0.0.1", chip_smoke.free_ports()[0], "127.0.0.1", p0,
                               parse_faults("ctl0:sever@msg=2,dir=s2c"), link="ctl0").start()
-        c0 = await trpc.CollectorClient.connect("127.0.0.1", px.listen_port)
+        # a registry of the client's own: the process's default is shared
+        c0 = await trpc.CollectorClient.connect("127.0.0.1", px.listen_port,
+                                                reg=obsmetrics.Registry("client"))
         assert await c0.call("reset") is True
         st = await c0.call("status")
-        assert c0.epoch == 2 and c0.stats["reconnects"] == 1
+        assert c0.epoch == 2 and c0.obs.counter_value("reconnects") == 1
         assert st["dedup_hits"] == 1 and px.fired == [("sever", "s2c", 2)]
         await c0.aclose()
         await px.stop()
@@ -465,7 +468,7 @@ def test_tree_restore_refusals_leave_state_untouched(tmp_path, case):
     with pytest.raises(RuntimeError, match=want):
         asyncio.run(s.tree_restore({"level": level}))
     assert all(a is b for a, b in zip((s.frontier, s.alive_keys, s.children), before))
-    assert s.stats["restores"] == 0
+    assert s.summary()["checkpoint_restores"] == 0
 
 
 def test_checkpoint_blob_is_the_jax_servers(tmp_path):
@@ -513,7 +516,9 @@ def test_supervised_without_ckpt_dir_restarts_from_scratch(tmp_path):
                             kill_when=lambda lead: len(lead.buckets) >= 3)
     assert _result(res) == _jax_fault_free(tmp_path)
     assert fig["levels"]["recoveries"] >= 1 and fig["levels"]["crawl_checkpoints"] == 0
-    assert fig["servers"]["s0"].stats["add_keys"] == 4  # the upload, and the one again
+    # the recovery's reset clears the collection's telemetry, as the JAX
+    # server's reset does: the re-upload is what is left
+    assert fig["servers"]["s0"].summary()["add_keys"] == 2
 
 
 @pytest.mark.parametrize("mode", ["trusted", "secure"])
@@ -532,10 +537,10 @@ def test_e2e_sever_and_kill_bit_identical(tmp_path, mode):
     assert fig["fired"] == [("sever", "s2c", 9)]
     assert fig["levels"]["recoveries"] >= 1 and fig["levels"]["levels_rerun"] >= 1
     s1 = fig["servers"]["s1"]
-    assert s1.boot_id != fig["boots"][1] and s1.stats["restores"] == 1
-    assert s1.stats["add_keys"] == 2  # the restarted server's re-upload, and only its
-    assert fig["servers"]["s0"].stats["add_keys"] == 2
-    assert fig["servers"]["s0"].stats["plane_resets"] >= 1
+    assert s1.boot_id != fig["boots"][1] and s1.summary()["checkpoint_restores"] == 1
+    assert s1.summary()["add_keys"] == 2  # the restarted server's re-upload, and only its
+    assert fig["servers"]["s0"].summary()["add_keys"] == 2
+    assert fig["servers"]["s0"].summary()["plane_resets"] >= 1
 
 
 def test_e2e_mid_level_span_loss_reruns_the_span(tmp_path):
@@ -601,7 +606,7 @@ def test_cross_package_restore(tmp_path, before, after, leader):
     s1 = fig["servers"]["s1"]
     assert isinstance(s1, trpc.CollectorServer) == (after == "port")
     if after == "port":
-        assert s1.stats["restores"] == 1
+        assert s1.summary()["checkpoint_restores"] == 1
     # the level-1 blob is the killed server's, in its package's layout; the
     # level-3 one the new server's
     for level, kind in ((1, before), (3, after)):
@@ -648,8 +653,8 @@ def test_malicious_fault_before_level_2_restores_the_init_checkpoint(tmp_path):
     assert _result(res) + (fig["alive"],) == _jax_fault_free(tmp_path, sketch=SKETCH)
     restored = [kw for ev, kw in fig["events"] if ev == "resilience.restored"]
     assert restored and restored[0]["level"] == -1 and restored[0]["restarted_servers"] == [1]
-    assert fig["servers"]["s1"].stats["restores"] == 1
-    assert fig["servers"]["s1"].stats["sketch_verifies"] >= 1
+    assert fig["servers"]["s1"].summary()["checkpoint_restores"] == 1
+    assert fig["servers"]["s1"].summary()["sketch_verifies"] >= 1
 
 
 def test_malicious_scratch_restart_refused_before_touching_servers(tmp_path):
@@ -668,7 +673,7 @@ def test_malicious_scratch_restart_refused_before_touching_servers(tmp_path):
         try:
             with pytest.raises(ValueError, match="needs the sketch key batches"):
                 await lead.run_supervised(N, k0, k1)
-            assert live["s0"].stats["add_keys"] == 0  # refused before the upload
+            assert live["s0"].summary()["add_keys"] == 0  # refused before the upload
 
             async def assassin():
                 while len(lead.buckets) < 2:
@@ -679,7 +684,7 @@ def test_malicious_scratch_restart_refused_before_touching_servers(tmp_path):
             with pytest.raises(ValueError, match="cannot restart from scratch"):
                 await lead.run_supervised(N, k0, k1, *SKETCH)
             await kill
-            state.update(stats=dict(live["s0"].stats), counters=dict(lead.counters))
+            state.update(stats=live["s0"].summary(), counters=dict(lead.counters))
         finally:
             for c in clients:
                 await c.aclose()
@@ -703,7 +708,7 @@ def test_malicious_cross_package_restore(tmp_path, before, after, leader):
     assert _result(res) + (fig["alive"],) == _jax_fault_free(tmp_path, sketch=SKETCH)
     assert _counter(lead, "recoveries") >= 1
     if after == "port":
-        assert fig["servers"]["s1"].stats["restores"] == 1
+        assert fig["servers"]["s1"].summary()["checkpoint_restores"] == 1
     with np.load(tmp_path / "s1" / "fhh_server1_l3.npz") as z:  # the new server's blob
         assert "sk_root" in z and int(z["sk_depth"]) == 4
 
@@ -818,4 +823,4 @@ def test_torn_or_mismatched_sketch_blob_refused_untouched(tmp_path, case):
     with pytest.raises(RuntimeError, match=want):
         asyncio.run(s.tree_restore({"level": -1}))
     after = (s.frontier, s.alive_keys, s._sketch_states, s._sketch_pairs, s._ratchet_digest)
-    assert all(a is b for a, b in zip(after, before)) and s.stats["restores"] == 0
+    assert all(a is b for a, b in zip(after, before)) and s.summary()["checkpoint_restores"] == 0

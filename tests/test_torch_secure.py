@@ -9,7 +9,6 @@ hitters and counts must equal the JAX package's trusted driver on the same
 keys.  The JAX package's equality kernels run as its XLA twins (see
 ``test_torch_ot2s.py``)."""
 
-import io
 import json
 import random
 
@@ -17,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_logs
 import torch_ref
 from fuzzyheavyhitters_torch.bin import mesh as tmesh
 from fuzzyheavyhitters_torch.ops import fields as tfields
@@ -187,14 +187,15 @@ def test_mesh_binary_secure_rides_equals_trusted(tmp_path, capsys, path):
     cfg_path = tmp_path / "rides.json"
     cfg_path.write_text(json.dumps(dict(CRAWLS["rides"], secure_exchange=True,
                                         ot_path=path)))
-    tmesh.main(["-c", str(cfg_path), "-n", "300", "--device", "cpu", "--seed", "1",
-                "--csv", str(tmp_path / "a.csv")])
+    with torch_logs.binary_in_process():  # events as JSON lines on stdout
+        tmesh.main(["-c", str(cfg_path), "-n", "300", "--device", "cpu", "--seed", "1",
+                    "--csv", str(tmp_path / "a.csv")])
     events = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     done = next(e for e in events if e["event"] == "crawl.done")
     assert done["secure"] and len(done["ot_consumed"]) == 2
     secure = [(e["value"], e["count"]) for e in events if e["event"] == "hitter"]
     trusted = tmesh.run(tconfig.Config(**CRAWLS["rides"]), 300, device="cpu", seed=1,
-                        csv_path=str(tmp_path / "b.csv"), out=io.StringIO())
+                        csv_path=str(tmp_path / "b.csv"))
     assert secure and secure == [(str(r.tolist()), int(c)) for r, c in
                                  zip(trusted.result.decode_ints(), trusted.result.counts)]
 

@@ -338,7 +338,7 @@ def test_jax_blob_of_a_named_collection_restores_in_a_port_server(tmp_path):
         os.replace(tmp_path / "fhh_server0_ctenA_l1.npz", tmp_path / "fhh_server0_ctenB_l1.npz")
         with pytest.raises(RuntimeError, match="stamped for collection 'tenA', not 'tenB'"):
             await s.tree_restore({"level": 1}, cb)
-        assert cb.frontier is None and cb.stats["restores"] == 0
+        assert cb.frontier is None and cb.summary()["checkpoint_restores"] == 0
         # a port blob of tenB with a torn ingest tail: refused, pools intact
         cb._concat_keys("test")
         cb.alive_keys = torch.ones(6, dtype=torch.bool)
@@ -358,7 +358,7 @@ def test_jax_blob_of_a_named_collection_restores_in_a_port_server(tmp_path):
         with pytest.raises(RuntimeError, match="missing ingest fields"):
             await s.tree_restore({"level": 2}, cb)
         assert cb._ingest_pools == before and cb.frontier is want
-        assert s.stats["restores"] == ca.stats["restores"] == 1
+        assert s.summary()["checkpoint_restores"] == ca.summary()["checkpoint_restores"] == 1
         await s.aclose()
 
     asyncio.run(port_side())

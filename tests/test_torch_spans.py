@@ -119,8 +119,8 @@ def test_port_span_pair_matches_port_driver(d, mode):
     assert lead.pipeline["overlap_s"] >= 0.0 and lead.pipeline["stalls"] >= 0
     for s, w in zip(seen["servers"], seen_w["servers"]):
         # one verb per span: more crawl verbs, the largest frame no larger
-        assert s.stats["levels"] == sum(lead.buckets) > w.stats["levels"]
-        assert s.stats["data_frame_max"] <= w.stats["data_frame_max"]
+        assert s.summary()["levels"] == sum(lead.buckets) > w.summary()["levels"]
+        assert s.summary()["data_frame_max"] <= w.summary()["data_frame_max"]
 
 
 # -- (c) a torn level -----------------------------------------------------------

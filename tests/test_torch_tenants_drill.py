@@ -42,6 +42,7 @@ from fuzzyheavyhitters_torch.protocol import driver as tdriver
 from fuzzyheavyhitters_torch.protocol import leader_rpc as tleader
 from fuzzyheavyhitters_torch.protocol import rpc as trpc
 from fuzzyheavyhitters_torch.protocol import tenancy as ttenancy
+from fuzzyheavyhitters_torch.resilience import admission as tadmission
 from fuzzyheavyhitters_torch.resilience import policy as tpolicy
 from fuzzyheavyhitters_torch.utils import config as tconfig
 
@@ -160,6 +161,11 @@ def test_flood_and_kill_mid_crawl_keeps_the_other_collection_exact(tmp_path, kin
                                          "127.0.0.1", ports[1])
         try:
             lead_a, lead_b = await drv.open("ta"), await drv.open("tb")
+            # ta's bucket refills on a clock that stands still: its flood
+            # outruns the bucket however slowly the shared event loop lets
+            # the submissions go (tb's 10 keys fit its burst)
+            for s in live.values():
+                s._table.peek("ta")._admission.bucket.clock = tadmission.ManualClock()
             wa = lrpc.WindowedIngest(lead_a, checkpoint=False, policy=pol)
             wb = lrpc.WindowedIngest(lead_b)  # checkpointing on
             for i in range(nb):
@@ -171,10 +177,12 @@ def test_flood_and_kill_mid_crawl_keeps_the_other_collection_exact(tmp_path, kin
             async def assassin():  # round 2 of tb's crawl on server 1
                 while True:
                     cs = live["s1"]._table.peek("tb")
-                    if cs is not None and cs.stats["levels"] >= 2:
+                    # one counter read a poll: the loop shares the servers'
+                    # event loop, which a whole summary a millisecond would starve
+                    if cs is not None and cs.obs.counter_value("levels") >= 2:
                         break
                     await asyncio.sleep(0.001)
-                fig["killed_at"] = cs.stats["levels"]
+                fig["killed_at"] = int(cs.obs.counter_value("levels"))
                 await _kill(live["s1"])
                 await asyncio.sleep(0.3)
                 live["s1"] = trpc.CollectorServer(1, tconfig.Config(**cfg_kw), "cpu",
@@ -192,7 +200,7 @@ def test_flood_and_kill_mid_crawl_keeps_the_other_collection_exact(tmp_path, kin
             fig["st_a"] = await lead_a.c0.call("status")
             new = live["s1"]._table
             fig["bound"] = {k: new.peek(k).bound for k in ("ta", "tb") if new.peek(k)}
-            fig["restores"] = new.peek("tb").stats["restores"]
+            fig["restores"] = new.peek("tb").summary()["checkpoint_restores"]
             return _result(res_b), fig
         finally:
             await drv.close()
@@ -258,6 +266,7 @@ def test_two_leader_processes_with_distinct_collections_share_one_pair(tmp_path)
         env = {k: v for k, v in os.environ.items() if not k.startswith("FHH_")}
         env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
         env["FHH_CKPT_EVERY"] = "2"
+        env.update(chip_smoke.LOG_ENV)  # the leaders' events as JSON lines on stdout
         try:
             procs = {key: await asyncio.create_subprocess_exec(
                 sys.executable, "-m", "fuzzyheavyhitters_torch.bin.leader", "--config", path,
@@ -268,7 +277,7 @@ def test_two_leader_processes_with_distinct_collections_share_one_pair(tmp_path)
             for key, p in procs.items():
                 out, _ = await asyncio.wait_for(p.communicate(), FLOW_S)
                 outs[key] = (p.returncode, out.decode())
-            stats = {sid: {k: dict(s._table.peek(k).stats) for k in seeds}
+            stats = {sid: {k: s._table.peek(k).summary() for k in seeds}
                      for sid, s in enumerate((live["s0"], live["s1"]))}
             return outs, stats
         finally:

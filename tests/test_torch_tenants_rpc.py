@@ -122,11 +122,13 @@ def _port_servers(live):
 def _check_sums(server):
     """Every collection's counters sum to the server's totals."""
     rows = server.sessions_status()["per_session"]
-    for k in tsessions.SESSION_COUNTERS:
-        assert sum(r["counters"][k] for r in rows.values()) == pytest.approx(server.stats[k]), k
+    timers = tuple(f"{t}_{x}" for t in tsessions.SUMMARY_TIMERS for x in ("s", "calls"))
+    for k in tsessions.SUMMARY_COUNTERS + timers:
+        assert (sum(r["counters"][k] for r in rows.values())
+                == pytest.approx(server.summary()[k])), k
     for ph in tsessions.PHASES:
         assert (sum(r["counters"]["seconds"][ph] for r in rows.values())
-                == pytest.approx(server.stats["seconds"][ph]))
+                == pytest.approx(server.summary()["seconds"][ph]))
 
 
 _WANT: dict = {}
@@ -201,7 +203,7 @@ def four_collections(tmp_path, mode, kinds, leader):
     for s in _port_servers(live):
         _check_sums(s)
         for t in ("t0", "t1", "t2", "t3"):
-            assert s._table.peek(t).stats["levels"] == L
+            assert s._table.peek(t).summary()["levels"] == L
             if secure:
                 assert s._table.peek(t)._ot_snd is not None
     if supervised:  # each collection checkpointed in its own namespace

@@ -104,7 +104,7 @@ def pools(server, key="default") -> dict:
 def stat(server, name, key="default") -> int:
     cs = server._table.peek(key)
     if isinstance(server, trpc.CollectorServer):
-        return cs.stats[name]
+        return cs.summary()[name]
     return int(cs.obs.counter_value(name))
 
 

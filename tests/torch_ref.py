@@ -100,6 +100,25 @@ def installed():
             _remove(added)
 
 
+@contextlib.contextmanager
+def attached(package, **submodules):
+    """``package``'s submodule attributes set for the length of the block
+    (inside :func:`installed`): the loader detaches them after each import,
+    and code that reaches a submodule through its package (``obs.trace``)
+    needs the one its own load imported."""
+    saved = {k: getattr(package, k, None) for k in submodules}
+    for k, mod in submodules.items():
+        setattr(package, k, mod)
+    try:
+        yield
+    finally:
+        for k, old in saved.items():
+            if old is not None:
+                setattr(package, k, old)
+            elif hasattr(package, k):
+                delattr(package, k)
+
+
 class _Ref:
     """A kernel ref over a numpy block view: reads give jax arrays, writes
     land in the view."""
