@@ -342,7 +342,35 @@ Phases (any failure raises, and the script exits non-zero):
     that, its limit the card's capacity; no fresh ``nvcc`` build in either
     server; a heartbeat line names an active span.  Reported: server 0's
     per-level ``fss``/``gc_ot``/``otext``/``field`` seconds, the crawl
-    seconds against phase 9's as a ratio (no gate), and the launches.
+    seconds against phase 9's as a ratio (no gate), and the launches;
+42. ``rides_secure_socket_live``: ``rides_secure_socket`` again (the same
+    config, seed and 8,192 clients, unsupervised) with the live plane and
+    both sanitizers on: ``FHH_METRICS_PORT`` at a free base (the leader on
+    base + 0, the servers + 1 and + 2), ``FHH_DEBUG_GUARDS=1``,
+    ``FHH_DEBUG_TAINT=1``, ``FHH_RUN_REPORT``, ``FHH_TRACE_DIR``, the SLO and
+    device-memory alert budgets at 1e-6 (so ``slo_burn`` and
+    ``hbm_high_water`` fire) and the stall budget at ``LIVE_STALL_S``.  A
+    thread here scrapes the three ``/metrics`` endpoints every
+    ``LIVE_SCRAPE_S`` during the crawl and runs ``python -m
+    fuzzyheavyhitters_torch.obs.ops top --once`` against the base once both
+    servers name their alerts; after the leader's exit the servers are held
+    past the stall budget, scraped again, asked their ``status``, then sent
+    SIGTERM.  Its hitters equal phase 9's and the recount; no log holds a
+    ``GuardViolation`` or ``TaintViolation``; each exporter bound its port
+    and every scrape parsed line for line; from each server's post-crawl
+    scrape the ``level_latency`` buckets, count and sum equal its run
+    report's, and so does its p95 (with the report's observed extremes, which
+    the exposition does not carry: the scrape alone gives the same p95 unless
+    the report's is clamped to them); the scrape's counters equal the
+    report's, but those the status call and the exit advance
+    (``LIVE_ADVANCED``); each server fired ``slo_burn``, ``hbm_high_water``
+    and, after the stall, ``tenant_stall`` for the default collection,
+    exactly once each and nothing else, alike in ``status.alerts``, the run
+    report's ``alerts``, the ``alert.*`` log lines and the trace instants;
+    the ``ops top`` frame names both servers' alerts and default rows.
+    Reported: the crawl seconds against phase 9's as a ratio (no gate), the
+    scrapes' median milliseconds and bytes, the secrets each server's taint
+    sanitizer watched (``server.exit`` ``taint_markers``), the launches.
 
 The shapes are fixed: there is no option to cut them.  Exact comparisons
 throughout (tolerance 0: the system is bitwise).  Prints the card's name
@@ -355,7 +383,7 @@ expand's row also carries its restored-frontier checks, keygen's its
 data_len-32 check, the ot2s rows their phase-20 checks; each row the
 launches per server of the later phases' processes, phases 35-37's as
 ``tenant_launches``, phases 38-40's as ``fleet_launches``, phase 41's as
-``observed_launches``), and
+``observed_launches``, phase 42's as ``live_launches``), and
 as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX.
 """
@@ -457,6 +485,18 @@ RIDES_SEVER_CLIENTS = 4096
 PLAIN_COMPARE = 1 << 26  # elements per slice of a large kernel-vs-plain comparison
 # phase 41: the levels profiled, rides' widest FE62 level and its F255 leaf
 OBSERVED_LEVELS = (14, 15)
+# phase 42: the live plane and both sanitizers on rides_secure_socket's cell.
+# The stall budget stays above a level's seconds (up to 2.75 s a level of
+# this cell on an H100 80GB HBM3, its base OT in level 0), so the stall
+# fires after the crawl
+LIVE_STALL_S = 6.0
+LIVE_ENV = {"FHH_DEBUG_GUARDS": "1", "FHH_DEBUG_TAINT": "1",
+            "FHH_ALERT_LEVEL_P95_S": "0.000001", "FHH_ALERT_HBM_FRAC": "0.000001",
+            "FHH_ALERT_STALL_S": str(LIVE_STALL_S)}
+LIVE_SCRAPE_S = 0.1  # the scrape thread's pause between rounds of the three targets
+# counters the script's status call and the exit advance after the
+# post-crawl scrape: the verb count and the control plane's bytes
+LIVE_ADVANCED = {"verb_requests", "control_bytes_recv", "control_bytes_sent"}
 # the symbol of each kernel of phase 41's servers, as a profile names it
 KERNEL_SYMBOLS = {"expand": "fhh_expand_kernel", "ot2s_encrypt": "fhh_ot2s_enc_kernel",
                   "ot2s_decrypt": "fhh_ot2s_dec_kernel"}
@@ -992,7 +1032,7 @@ def _chaos_proxy(spec, target_port):
 
 def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=False,
                kill=False, ctl0_faults=None, leader_coro=None, keep_blobs=False,
-               server_env=None, ckpt=None):
+               server_env=None, ckpt=None, after_leader=None):
     """Phase 9: ``bin.server --server_id 1``, ``--server_id 0`` and ``bin.leader
     --seed`` started together as OS processes (warm ones from :data:`POOL`
     once it is on; the restart after ``kill`` cold) (on the card unless
@@ -1020,7 +1060,9 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
     events written to its log as the process's are, and its warmup over
     those buckets; with ``leader_coro`` the leader is the coroutine
     ``leader_coro(config)`` there instead (its return value is the run's
-    ``leader_result``).  With ``keep_blobs`` every checkpoint blob a server
+    ``leader_result``).  ``after_leader((port0, port1), logs)`` runs once the
+    leader has ended, before the servers are sent SIGTERM (its return value
+    is the run's ``after``).  With ``keep_blobs`` every checkpoint blob a server
     writes is hard-linked into ``blobs/`` as it appears (the servers keep
     only their two newest).  Every process must end without a traceback
     inside its timeout: the leader with 0, the servers, sent SIGTERM at the
@@ -1171,6 +1213,7 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
                 os.environ.update(saved)
             rcs["leader"] = 0
         wall = time.perf_counter() - t0
+        after = None if after_leader is None else after_leader((p0, p1), logs)
         done.set()
         for th in (killer_th, keeper_th):
             if th is not None:
@@ -1211,7 +1254,7 @@ def socket_run(name, cfg, n, seed, tmp, env=None, warm_buckets=None, supervise=F
             "hitters": [e for e in ev["leader"] if e["event"] == "hitter"],
             "exits": [one(f"server{sid}", "server.exit") for sid in (0, 1)],
             "events": ev, "killed": killed, "proxy_fired": proxy.fired if proxy else None,
-            "leader_result": result, "blobs": blobs if keep_blobs else None}
+            "leader_result": result, "blobs": blobs if keep_blobs else None, "after": after}
 
 
 def _recount(name, got, cfg, points):
@@ -4021,6 +4064,268 @@ def observed_phase(seed, cells, points, hitters, report, tmp, stage, torch):
     stage(f"{name} socket run")
 
 
+def free_port_run(n=3) -> int:
+    """A base port of localhost with ``base`` .. ``base + n - 1`` free."""
+    import socket
+
+    while True:
+        socks = []
+        try:
+            for i in range(n):
+                sk = socket.socket()
+                socks.append(sk)
+                sk.bind(("127.0.0.1", socks[0].getsockname()[1] + i if i else 0))
+            return socks[0].getsockname()[1]
+        except (OSError, OverflowError):  # taken, or past the last port
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+
+
+class _Scraper:
+    """Phase 42's scrape thread: every ``LIVE_SCRAPE_S`` a GET of /metrics
+    from the leader and both servers (``base`` + 0, 1, 2), each answer timed,
+    sized and parsed; once both servers' expositions name their ``slo_burn``
+    and ``hbm_high_water`` alerts, one ``python -m
+    fuzzyheavyhitters_torch.obs.ops top --once`` against the base (unless
+    ``top`` is False)."""
+
+    def __init__(self, base, env, log, top=True):
+        import threading
+
+        self.targets = {"leader": base, "server0": base + 1, "server1": base + 2}
+        self.scrapes = {who: [] for who in self.targets}
+        self.last = {}
+        self.base, self.env, self.log, self.want_top = base, env, log, top
+        self.top = None
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+
+    def get(self, who):
+        """One scrape of ``who`` -> its text (None when it does not answer)."""
+        import urllib.request
+
+        from fuzzyheavyhitters_torch.obs import ops
+
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{self.targets[who]}/metrics",
+                                        timeout=5) as resp:
+                body = resp.read()
+        except OSError:
+            return None
+        ms = (time.perf_counter() - t0) * 1e3
+        text = body.decode()
+        lines = [ln for ln in text.splitlines() if ln.strip() and not ln.startswith("#")]
+        self.scrapes[who].append({"ms": ms, "bytes": len(body), "lines": len(lines),
+                                  "samples": len(ops.parse_prometheus(text))})
+        self.last[who] = text
+        return text
+
+    def _loop(self):
+        while not self.stop.is_set():
+            for who in self.targets:
+                self.get(who)
+            if self.want_top and self.top is None and all(
+                    f'fhh_alert_active{{rule="{rule}",subject="server{sid}"}}' in
+                    self.last.get(f"server{sid}", "")
+                    for sid in (0, 1) for rule in ("slo_burn", "hbm_high_water")):
+                self.top = POOL.start("fuzzyheavyhitters_torch.obs.ops", ["top", "--once"],
+                                      os.path.dirname(self.log),
+                                      {**self.env, "FHH_METRICS_PORT": str(self.base)}, self.log)
+            self.stop.wait(LIVE_SCRAPE_S)
+
+
+def _alert_keys(recs) -> list:
+    return sorted((r["rule"], r["subject"]) for r in recs)
+
+
+def live_phase(seed, cells, points, hitters, report, tmp, stage):
+    """Phase 42: ``rides_secure_socket`` with the live plane and both
+    sanitizers on (see the module doc)."""
+    import asyncio
+    import glob
+
+    from fuzzyheavyhitters_torch.obs import exporter as obsexporter
+    from fuzzyheavyhitters_torch.obs import ops
+    from fuzzyheavyhitters_torch.obs.hist import Histogram
+    from fuzzyheavyhitters_torch.protocol.rpc import CollectorClient
+
+    name, cell = "rides_secure_socket_live", "rides_secure"
+    cfg, n, per_level = cells[cell][0], cells[cell][1], cells[cell][2]
+    obs_dir = os.path.join(tmp, f"{name}_obs")
+    trace_dir = os.path.join(obs_dir, "trace")
+    os.makedirs(obs_dir)
+    base = free_port_run(3)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(SOCKET_ENV, **LIVE_ENV, FHH_METRICS_PORT=str(base), FHH_TRACE_DIR=trace_dir,
+               FHH_RUN_REPORT=os.path.join(obs_dir, "report.json"))
+    scraper = _Scraper(base, {**os.environ, **LOG_ENV, **env, "PYTHONPATH": repo + os.pathsep +
+                              os.environ.get("PYTHONPATH", "")},
+                       os.path.join(obs_dir, "ops_top.log"))
+
+    def after_leader(ports, logs):
+        """The crawl is over: stop the scrape thread, wait for the frame of
+        ``ops top``, hold the servers past the stall budget, scrape them
+        again, then ask each its status."""
+        t_end = time.time()
+        scraper.stop.set()
+        scraper.thread.join(30)
+        top_rc = None if scraper.top is None else scraper.top.wait(timeout=120)
+        time.sleep(LIVE_STALL_S + 1.5)
+        post = {sid: scraper.get(f"server{sid}") for sid in (0, 1)}
+
+        async def statuses():
+            out = []
+            for p in ports:
+                c = await CollectorClient.connect("127.0.0.1", p)
+                try:
+                    out.append(await c.call("status"))
+                finally:
+                    await c.aclose()
+            return out
+
+        return {"t_end": t_end, "top_rc": top_rc, "post": post,
+                "status": asyncio.run(asyncio.wait_for(statuses(), 60))}
+
+    scraper.thread.start()
+    try:
+        run = socket_run(name, cfg, n, seed, tmp, env, after_leader=after_leader)
+    finally:
+        scraper.stop.set()
+        scraper.thread.join(30)
+        if scraper.top is not None and scraper.top.poll() is None:
+            scraper.top.kill()
+            scraper.top.wait()
+    base_run = report["sockets"]["rides_secure_socket"]
+    rep = check_socket_run(name, run, cfg, points[cell], hitters[cell],
+                           report["crawls"][cell]["seconds"]["crawl"], per_level)
+    if rep["hitter_map"] != base_run["hitter_map"]:
+        raise AssertionError(f"{name}: hitters differ from rides_secure_socket's")
+    after = run["after"]
+    for who in ("leader", "server0", "server1"):
+        with open(os.path.join(run["work"], f"{who}.log")) as f:
+            text = f.read()
+        if "GuardViolation" in text or "TaintViolation" in text:
+            raise AssertionError(f"{name}: a sanitizer fired in {who}'s log:\n{text[-3000:]}")
+        offset = obsexporter.PORT_OFFSETS["leader" if who == "leader" else f"s{who[-1]}"]
+        bound = [e["port"] for e in run["events"][who] if e["event"] == "metrics.listening"]
+        if bound != [base + offset] or any(e["event"] == "metrics.disabled"
+                                           for e in run["events"][who]):
+            raise AssertionError(f"{name}: {who}'s exporter bound {bound}, want "
+                                 f"[{base + offset}]")
+        # every answer parsed line for line (a leader's first ones hold no
+        # sample yet), at least two during the crawl
+        got = scraper.scrapes[who]
+        if (len(got) < 2 + (who != "leader") or any(sc["samples"] != sc["lines"] for sc in got)
+                or not any(sc["samples"] for sc in got)):
+            raise AssertionError(f"{name}: {who}'s scrapes {got}")
+    reports = {}
+    for sid in (0, 1):
+        with open(os.path.join(obs_dir, f"report.s{sid}.json")) as f:
+            reports[sid] = json.load(f)
+    scraped, counters_advanced, alerts, markers = {}, {}, {}, {}
+    for sid in (0, 1):
+        reg_name = f"server{sid}"
+        reg = reports[sid]["registries"][reg_name]
+        samples = ops.parse_prometheus(after["post"][sid] or "")
+
+        def series(family, key=None):
+            """The server registry's samples of ``family`` (its ``key`` label
+            ``key``; le labels kept)."""
+            return [(lb, v) for nm, lb, v in samples if nm == family and lb.get(
+                "registry") == reg_name and "collection" not in lb and lb.get("key") == key]
+
+        # the level latency: the scrape carries the report's bucket counts,
+        # count and sum; its p95 is the report's unless the report's is
+        # clamped to the observed extremes, which the exposition lacks
+        snap = reg["hists"]["level_latency"]
+        (_, sum_s), = series("fhh_level_latency_seconds_sum")
+        (_, count), = series("fhh_level_latency_seconds_count")
+        h = ops.hist_from_series(series("fhh_level_latency_seconds_bucket"), sum_s, int(count))
+        want_h = Histogram.from_snapshot(snap)
+        p95 = h.quantile(0.95)
+        slo = reports[sid]["slo"]["level_latency"]["by_registry"][reg_name]
+        h.min, h.max = want_h.min, want_h.max
+        if (h.counts != want_h.counts or (h.count, snap["count"]) != (cfg.data_len,) * 2
+                or round(h.sum, 6) != snap["sum_s"] or round(h.quantile(0.95), 6) != slo["p95_s"]
+                or (round(p95, 6) != slo["p95_s"] and slo["p95_s"] not in (
+                    slo["max_s"], slo["min_s"]))):
+            raise AssertionError(f"{name}: server {sid}'s scraped level_latency (p95 {p95}, "
+                                 f"count {h.count}) against its report's {slo}")
+        scraped[reg_name] = {"p95_s": p95, "report_p95_s": slo["p95_s"], "count": h.count}
+        # the crawl's counters in that scrape against the report's at exit
+        differ = {}
+        for cname, ent in reg["counters"].items():
+            fam, extra = obsexporter._split_key(cname)
+            vals = [v for _, v in series(f"fhh_{fam}_total", extra.get("key"))]
+            if vals != [float(ent["total"])]:
+                differ[cname] = (vals, ent["total"])
+        if not set(differ) <= LIVE_ADVANCED:
+            raise AssertionError(f"{name}: server {sid}'s scraped counters differ from its "
+                                 f"report's: {differ}")
+        counters_advanced[reg_name] = differ
+        # the alerts: each rule once a subject, the same on every surface
+        want = sorted([("hbm_high_water", reg_name), ("slo_burn", reg_name),
+                       ("tenant_stall", f"{reg_name}/default")])
+        status = after["status"][sid]["alerts"]
+        instants = []
+        for path in glob.glob(os.path.join(trace_dir, f"fhh_trace_s{sid}_*.jsonl*")):
+            with open(path) as f:
+                instants += [json.loads(ln) for ln in f if ln.startswith("{") and ln.endswith("\n")]
+        surfaces = {
+            "status": _alert_keys(status["fired"]),
+            "report": _alert_keys(reports[sid].get("alerts", {}).get("fired", [])),
+            "log": sorted((e["event"][len("alert."):], e["subject"])
+                          for e in run["events"][reg_name] if e["event"].startswith("alert.")),
+            "trace": sorted((e["name"][len("alert:"):], e["args"]["subject"]) for e in instants
+                            if e.get("ph") == "i" and e["name"].startswith("alert:")),
+        }
+        stall = [r for r in status["fired"] if r["rule"] == "tenant_stall"]
+        if (any(v != want for v in surfaces.values()) or status["count"] != len(want)
+                or stall[0]["ts"] < after["t_end"] - 0.5
+                or stall[0]["last_progress_s"] < LIVE_STALL_S):
+            raise AssertionError(f"{name}: server {sid}'s alerts {surfaces} (status "
+                                 f"{status}), want {want}, the stall after "
+                                 f"{after['t_end']:.3f}")
+        alerts[reg_name] = status["fired"]
+        markers[reg_name] = run["exits"][sid].get("taint_markers")
+        if not markers[reg_name]:
+            raise AssertionError(f"{name}: server {sid} registered no secret "
+                                 f"({run['exits'][sid]})")
+    # the one frame of ops top, taken during the crawl
+    if after["top_rc"] != 0:
+        raise AssertionError(f"{name}: ops top exited {after['top_rc']}")
+    with open(scraper.log) as f:
+        frame = f.read()
+    lines = frame.splitlines()
+    for sid in (0, 1):
+        for rule in ("slo_burn", "hbm_high_water"):
+            if not any(ln.split() == ["!!", rule, f"server{sid}"] for ln in lines):
+                raise AssertionError(f"{name}: the ops top frame lacks {rule} of server "
+                                     f"{sid}:\n{frame}")
+        if not any(ln.split()[:2] == [f"server{sid}", "default"] for ln in lines):
+            raise AssertionError(f"{name}: the ops top frame lacks server {sid}'s default "
+                                 f"collection row:\n{frame}")
+    med = {who: {k: sorted(sc[k] for sc in got)[len(got) // 2] for k in ("ms", "bytes")}
+           for who, got in scraper.scrapes.items()}
+    ratio = rep["crawl_s"] / base_run["crawl_s"]
+    log(f"live {name}: hitters = rides_secure_socket's; crawl_s={rep['crawl_s']:.3f} "
+        f"(rides_secure_socket {base_run['crawl_s']:.3f}; ratio {ratio:.3f}, no gate) scrapes="
+        f"{ {w: len(g) for w, g in scraper.scrapes.items()} } median ms/bytes={med} "
+        f"exporter base={base} level_latency={scraped} counters the status call and the exit "
+        f"advance={ {r: sorted(d) for r, d in counters_advanced.items()} } alerts="
+        f"{ {r: [(a['rule'], a['subject']) for a in v] for r, v in alerts.items()} } "
+        f"taint markers={markers} ops top frame={lines[:2]} launches={rep['launches']}")
+    rep.update(crawl_s_ratio=ratio, scrapes={w: len(g) for w, g in scraper.scrapes.items()},
+               scrape_median=med, level_latency=scraped, counters_advanced=counters_advanced,
+               alerts=alerts, taint_markers=markers, ops_top=frame,
+               leader_keygen_launches=run["crawl"]["launches"]["keygen"])
+    report["sockets"][name] = rep
+    stage(f"{name} socket run")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -4412,6 +4717,7 @@ def main() -> int:
         tenant_phases(args.seed, cells, report, tmp, stage, torch)
         fleet_phases(args.seed, cells, report, errs, tmp, stage, torch)
         observed_phase(args.seed, cells, points, hitters, report, tmp, stage, torch)
+        live_phase(args.seed, cells, points, hitters, report, tmp, stage)
     for name in points:
         kg = measure_keygen(name, points[name], cells[name][0], keygen_cuda, ibdcf, torch, rng)
         report["crawls"][name]["keygen_check"] = kg
@@ -4514,6 +4820,11 @@ def main() -> int:
         rows[-1]["observed_launches"] = (
             {w: obs41["launches"][w][kn] for w in ("server0", "server1")}
             | ({"leader": obs41["leader_keygen_launches"]} if kn == "keygen" else {}))
+        # phase 42: launches per server process of the sanitized, scraped run
+        live42 = report["sockets"]["rides_secure_socket_live"]
+        rows[-1]["live_launches"] = (
+            {w: live42["launches"][w][kn] for w in ("server0", "server1")}
+            | ({"leader": live42["leader_keygen_launches"]} if kn == "keygen" else {}))
         if kn not in ("keygen", "expand"):
             rows[-1]["k3_checks"] = [
                 {k: c[k] for k in ("kind", "level", "shard", "S", "W", "bp", "max_abs_err",

@@ -43,9 +43,11 @@ ingest counters.  No CSV is written and no warmup runs in this mode.
 alike) in that collection of the servers: leaders of distinct collections
 share one server pair, each collection with its own keys, frontier, OT
 sessions, ingest gate and checkpoint names (``fhh_server{id}_c{key}_l{level}
-.npz``).  The live-plane and sanitizer switches the port does not have
-yet are refused by name (``bin.refuse_unported_switches``), and so is
-``debug_guards: true`` in the config (``utils.config.refuse_debug_guards``).
+.npz``).  With ``FHH_METRICS_PORT`` set the leader serves ``/metrics`` on
+the base port itself, claimed before anything else (JAX bin/leader.py:
+241-245); ``FHH_DEBUG_GUARDS=1`` or ``debug_guards: true`` arms the
+lock-discipline sanitizer on its windowed ingest, ``FHH_DEBUG_TAINT=1`` the
+taint sanitizer.
 Telemetry (JAX bin/leader.py:245-256): ``FHH_RUN_REPORT`` is written at
 exit (the bare path; the servers take siblings), the trace ring is tagged
 ``leader`` and each crawl or window is one trace, ``FHH_PROFILE`` without
@@ -73,7 +75,6 @@ from .. import obs
 from ..ops import ibdcf
 from ..ops.fields import F255, FE62
 from ..protocol import sessions, sketch
-from . import refuse_unported_switches
 from ..protocol.leader_rpc import RpcLeader, WindowedIngest
 from ..protocol.rpc import CollectorClient
 from ..utils import config as configmod
@@ -282,6 +283,9 @@ async def run_windows(lead: RpcLeader, nreqs: int, windows: int, keys0, keys1, s
 
 
 def main(argv=None) -> None:
+    # the /metrics exporter claims its port first, so a leader that dies on
+    # a bad config was scrapeable (one getenv when FHH_METRICS_PORT is unset)
+    obs.exporter.maybe_start("leader")
     p = argparse.ArgumentParser(
         prog="Leader", description="Leader of the socket deployment (PyTorch/CUDA); runs "
         "the supervised crawl (checkpoints every FHH_CKPT_EVERY levels, default 16) unless "
@@ -297,9 +301,7 @@ def main(argv=None) -> None:
                    help="seed of the client sampling and keygen randomness")
     args = p.parse_args(argv)
     refuse_unported_env()
-    refuse_unported_switches()
     cfg = configmod.load_config(args.config)
-    configmod.refuse_debug_guards(cfg)
     dev = resolve_device(args.device or ("cpu" if cfg.backend == "cpu" else None))
     obs.trace.claim_tag("leader")
     with obs.exit_report():

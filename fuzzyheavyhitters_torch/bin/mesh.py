@@ -41,9 +41,9 @@ in the JAX binary, the mesh ignores ``ot_path`` (its engine follows
         --seed 1 --devices 8 --processes 2 --process_id 0 --coordinator 127.0.0.1:29500
 
 It runs on ``cuda`` unless ``--device`` names another device, and raises
-when there is no card.  ``--platform`` (a JAX backend pin) is refused, and
-so are the live-plane and sanitizer switches the port does not have yet
-(``bin.refuse_unported_switches``).  It runs under ``obs.exit_report``
+when there is no card.  ``--platform`` (a JAX backend pin) is refused.  It
+starts no /metrics exporter, as the JAX ``bin/mesh`` starts none; the
+sanitizers' switches act as anywhere.  It runs under ``obs.exit_report``
 (JAX bin/mesh.py:87-92): the run report at exit (``FHH_RUN_REPORT``; two
 processes write ``<path>.p<id>.json`` siblings), the trace ring, the
 heartbeat.
@@ -64,7 +64,6 @@ import numpy as np
 import torch
 
 from .. import obs
-from . import refuse_unported_switches
 from ..ops import ibdcf
 from ..parallel import mesh as meshmod
 from ..protocol import driver
@@ -244,7 +243,6 @@ def main(argv=None) -> None:
         p.error(f"--processes {args.processes}: the mesh runs in one process or two")
     if args.processes == 2 and (args.coordinator is None or args.process_id not in (0, 1)):
         p.error("--processes 2 needs --coordinator host:port and --process_id 0 or 1")
-    refuse_unported_switches()
     cfg = configmod.load_config(args.config)
     if args.processes == 2:  # both inherit one FHH_RUN_REPORT: one sibling each
         obs.claim_report_path(f"p{args.process_id}")

@@ -38,10 +38,14 @@ set, the server registers in that fleet directory once it serves: it writes
 ``<pair>_s<id>.json`` (``FHH_FLEET_PAIR``, default ``pair0``; its host, port,
 boot id and ``FHH_FLEET_CAPACITY``, default 4) by a temporary file and a
 rename, and prints ``fleet.registered``; ``protocol.fleet.FleetDirectory.
-scan`` folds the two halves into one pair.  The live-plane and sanitizer
-switches the port does not have yet are refused
-(``bin.refuse_unported_switches``), and so is ``debug_guards: true`` in the
-config (``utils.config.refuse_debug_guards``).
+scan`` folds the two halves into one pair.  With ``FHH_METRICS_PORT`` set
+the server serves ``/metrics`` on base + 1 (server 0) or + 2 (server 1),
+claimed before the arguments are checked (JAX bin/server.py:146-153; a bind
+failure is a ``metrics.disabled`` warning), with its live session rows and
+the alert rules evaluated at each scrape; ``FHH_ALERT_*`` set the rules'
+thresholds.  ``FHH_DEBUG_GUARDS=1`` or ``debug_guards: true`` arms the
+lock-discipline sanitizer on the server and its collection sessions, and
+``FHH_DEBUG_TAINT=1`` the taint sanitizer.
 
 Telemetry (JAX bin/server.py:166-178): ``FHH_RUN_REPORT`` is claimed as
 this server's ``<path>.s<id>.json`` sibling and written at exit, the trace
@@ -58,7 +62,9 @@ seal to final shares (``seal_to_hitters_s``).  The counters are the
 server's totals over its collections; ``sessions`` gives each
 collection's row (its counters, the plane epoch its channel was keyed at,
 its checkpoint levels) and the tenant scheduler's device turns and stall
-fills.  ``alive_clients`` and ``mesh`` are the default collection's.
+fills.  ``alive_clients`` and ``mesh`` are the default collection's.  Under
+``FHH_DEBUG_TAINT=1`` it also counts the secret buffers the taint
+sanitizer watched (``taint_markers``).
 """
 
 from __future__ import annotations
@@ -75,11 +81,10 @@ import time
 import torch
 
 from .. import obs
-from . import refuse_unported_switches
 from ..protocol.rpc import CollectorServer
 from ..resilience.chaos import MeshChaos, parse_mesh_faults
 from ..utils import config as configmod
-from ..utils import resolve_device
+from ..utils import guards, resolve_device, taint_guard
 
 
 def emit(event: str, **kw) -> None:
@@ -164,10 +169,13 @@ async def amain(cfg, server_id: int, device) -> None:
         # a last device-memory sample: a run whose leader never probes
         # status still reports the card's memory at its end
         obs.devmem.sample(server.obs, phase="exit")
-        emit("server.exit", server=server_id, device=str(server.device),
+        with guards.unguarded("exit report: the server is closed, no verb runs"):
+            alive = server.alive_keys
+        # with the taint sanitizer on: how many secret buffers it watched
+        armed = {"taint_markers": taint_guard.marker_count()} if taint_guard.enabled() else {}
+        emit("server.exit", server=server_id, device=str(server.device), **armed,
              boot_id=server.boot_id, **server.summary(), launches=launch_counts(),
-             alive_clients=(None if server.alive_keys is None
-                            else int(server.alive_keys.sum())),
+             alive_clients=None if alive is None else int(alive.sum()),
              mesh=server.mesh_status(), sessions=server.sessions_status(),
              max_memory_allocated=(
                  torch.cuda.max_memory_allocated(server.device)
@@ -176,7 +184,26 @@ async def amain(cfg, server_id: int, device) -> None:
         raise SystemExit(143)  # obs.exit_report's SIGTERM contract
 
 
+def _peek_server_id(argv: list) -> int | None:
+    """``--server_id``'s value before the arguments are parsed, so the
+    /metrics port is claimed first (:func:`main`)."""
+    for i, a in enumerate(argv):
+        val = (argv[i + 1] if a in ("--server_id", "-i") and i + 1 < len(argv)
+               else a.split("=", 1)[1] if a.startswith("--server_id=") else None)
+        if val is not None:
+            try:
+                return int(val)
+            except ValueError:
+                return None
+    return None
+
+
 def main(argv=None) -> None:
+    # the /metrics exporter claims its port first, before the arguments are
+    # checked: a server that dies on a bad config was scrapeable while it
+    # lived, and a port conflict shows at once (one getenv when unset)
+    sid = _peek_server_id(sys.argv[1:] if argv is None else list(argv))
+    obs.exporter.maybe_start(f"s{sid}" if sid in (0, 1) else "server")
     p = argparse.ArgumentParser(prog="Server", description="Collector server (PyTorch/CUDA).")
     p.add_argument("-c", "--config", required=True, help="Location of JSON config file")
     p.add_argument("-i", "--server_id", type=int, required=True, help="Zero-indexed ID of server")
@@ -186,9 +213,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     if args.server_id not in (0, 1):
         raise SystemExit(f"server_id must be 0 or 1, got {args.server_id}")
-    refuse_unported_switches()
     cfg = configmod.load_config(args.config)
-    configmod.refuse_debug_guards(cfg)
     device = resolve_device(args.device or ("cpu" if cfg.backend == "cpu" else None))
     # both servers and the leader inherit one FHH_RUN_REPORT: each server
     # writes its own sibling, and names its trace ring the same way

@@ -1,7 +1,7 @@
-"""Per-run telemetry for the port (``fuzzyheavyhitters_tpu/obs/`` ported,
-less the live plane): the same metric, span and report names, ``FHH_*``
-knobs, file layouts and trace event format, so a run report or trace of
-either package reads alike and their traces merge into one timeline.
+"""Telemetry for the port (``fuzzyheavyhitters_tpu/obs/`` ported): the same
+metric, span and report names, ``FHH_*`` knobs, file layouts, trace event
+format and exposition series, so a run report, trace or scrape of either
+package reads alike and their traces merge into one timeline.
 
 - :mod:`.metrics` — named counters, gauges and phase timers with
   level-indexed breakdowns, grouped into per-component ``Registry``
@@ -23,13 +23,26 @@ either package reads alike and their traces merge into one timeline.
 - :mod:`.devmem` — device memory from ``torch.cuda`` (in use, watermark,
   delta, capacity), key-plane bytes, and the fresh ``nvcc`` build counter.
 - :mod:`.report` — the end-of-run report (``FHH_RUN_REPORT``), schema
-  ``fhh-run-report/1``.
+  ``fhh-run-report/1``, with the fired alerts in its ``alerts`` section.
+- :mod:`.exporter` — the live plane: a Prometheus ``/metrics`` endpoint
+  (``FHH_METRICS_PORT``: base + 0 / 1 / 2 for ``leader`` / ``s0`` / ``s1``,
+  ``0`` an ephemeral port; ``FHH_METRICS_HOST``, loopback by default; one
+  ``getenv`` when unset) serving every live registry's counters, gauges,
+  timers and histograms, plus producers' lines (a server's session rows).
+- :mod:`.alerts` — threshold rules (tenant stall, SLO burn, ingest backlog,
+  a kernel build after the warmup, device memory high water, a stuck fleet
+  migration; ``FHH_ALERT_*``) fired once a subject into the logs, the trace
+  ring, ``status.alerts`` and the run report.
+- :mod:`.ops` — ``python -m fuzzyheavyhitters_torch.obs.ops top [--once]
+  [--targets host:port,...]``: one screen over the three processes'
+  scrapes.
 
-The Prometheus exporter (``FHH_METRICS_PORT``), the alert rules
-(``FHH_ALERT_*``) and the ``ops top`` view are not ported yet.
+Every sink here (log line, trace record, run report, exposition document,
+alert) is checked by the taint sanitizer (``utils/taint_guard.py``,
+``FHH_DEBUG_TAINT=1``).
 """
 
-from . import devmem, trace
+from . import alerts, devmem, exporter, trace
 from .heartbeat import start_heartbeat, stop_heartbeat
 from .hist import Histogram
 from .logs import configure as configure_logs, emit
@@ -46,9 +59,11 @@ from .report import (
 __all__ = [
     "Histogram",
     "Registry",
+    "alerts",
     "all_registries",
     "claim_report_path",
     "devmem",
+    "exporter",
     "configure_logs",
     "default_registry",
     "emit",

@@ -23,8 +23,7 @@
   ``fresh_compiles_post_warmup``, as the JAX listener counts an XLA
   compile past the warmup ladder.
 
-``torch`` is imported inside each function: the obs package imports
-without it.
+``torch`` is imported inside each function.
 """
 
 from __future__ import annotations

@@ -32,6 +32,8 @@ import sys
 import threading
 import time
 
+from ..utils import taint_guard
+
 _SEVERITIES = {"debug": 10, "info": 20, "warn": 30, "error": 40}
 
 # RLock: emit() holds it across _resolve_stream, which takes it again
@@ -138,6 +140,9 @@ def emit(event: str, severity: str = "info", **fields) -> None:
             )
             ts = time.strftime("%H:%M:%S")
             line = f"[fhh {ts} {severity}] {event}" + (f" {kv}" if kv else "")
+        # the rendered line (either format) is the sink: the taint
+        # sanitizer checks it once, here
+        taint_guard.check(line, sink="log-emit")
         try:
             stream.write(line + "\n")
             stream.flush()

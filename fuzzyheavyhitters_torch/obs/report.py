@@ -1,6 +1,5 @@
 """End-of-run machine-readable report (the port of
-``fuzzyheavyhitters_tpu/obs/report.py``: the same schema and summaries, less
-the ``alerts`` section, which comes with the live plane).
+``fuzzyheavyhitters_tpu/obs/report.py``: the same schema and summaries).
 
 One JSON document aggregating every registry's snapshot — the artifact
 postmortems consume instead of scraping stdout.  Schema
@@ -80,9 +79,11 @@ import os
 import signal
 import time
 
+from . import alerts as _alerts
 from . import metrics
 from . import trace as tracemod
 from .hist import Histogram
+from ..utils import taint_guard
 
 SCHEMA = "fhh-run-report/1"
 
@@ -151,8 +152,16 @@ def run_report(registries=None) -> dict:
     slo = _slo_summary(out)
     if slo is not None:
         doc["slo"] = slo
+    # the alerts fired in this process (obs.alerts), beside the accounting
+    # they explain; absent when none fired
+    al = _alerts.report_section()
+    if al is not None:
+        doc["alerts"] = al
     if dropped:
         doc["dropped_registries"] = dropped
+    # the document goes to files whole: no registered secret may ride a
+    # summary row (the taint sanitizer)
+    taint_guard.check(doc, sink="run-report")
     return doc
 
 

@@ -64,6 +64,7 @@ import sys
 import threading
 import time
 
+from ..utils import taint_guard
 
 ENV_DIR = "FHH_TRACE_DIR"
 ENV_RING = "FHH_TRACE_RING"
@@ -209,6 +210,9 @@ def _writer() -> "_Writer | None":
 
 
 def _event(rec: dict) -> None:
+    # every span, instant and call record passes here: the taint
+    # sanitizer watches the whole trace plane at this one place
+    taint_guard.check(rec, sink="trace-event")
     w = _writer()
     if w is not None:
         w.write(rec)

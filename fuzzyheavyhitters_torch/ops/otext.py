@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from . import baseot, prg
-from ..utils import words_from_numpy
+from ..utils import taint_guard, words_from_numpy
 
 KAPPA = 128  # security parameter: base-OT count == row width in bits
 M32 = prg.M32
@@ -179,6 +179,10 @@ class OtExtSender:
         self.s_bits = s_bits
         self.s_block = s_to_block(s_bits)  # uint32[4]
         self._seeds = words_from_numpy(seeds, dev)
+        # the extension's secrets, as held, under the taint sanitizer (free
+        # unless FHH_DEBUG_TAINT=1; a card tensor is copied to the host once)
+        taint_guard.register("OtExtSender.s_bits", self.s_bits)
+        taint_guard.register("OtExtSender._seeds", self._seeds)
         self._s_dev = torch.from_numpy(s_bits.copy()).to(dev)
         self._off = 0
         self._sent = 0
@@ -239,6 +243,8 @@ class OtExtReceiver:
         dev = torch.device(device)
         self._seeds0 = words_from_numpy(seeds0, dev)
         self._seeds1 = words_from_numpy(seeds1, dev)
+        taint_guard.register("OtExtReceiver._seeds0", self._seeds0)
+        taint_guard.register("OtExtReceiver._seeds1", self._seeds1)
         self._off = 0
         self._recv = 0
 

@@ -37,6 +37,7 @@ import os
 import time
 
 from ..obs import metrics as obsmetrics
+from ..utils import guards
 
 FLEET_COUNTERS = ("placement_decisions", "session_migrations", "session_failovers")
 
@@ -64,11 +65,19 @@ class HostPair:
         return (self.host0, self.port0) if which == 0 else (self.host1, self.port1)
 
 
+# The lock-discipline sanitizer's map of the directory (JAX fleet.py:74-77).
+_FLEET_GUARDS = {
+    "_hosts": "_lock",
+    "_placements": "_lock",
+}
+
+
 class FleetDirectory:
     """The registered pairs and each collection's pair.  All state sits
     behind one asyncio lock: the placer, a probe loop and status readers
-    share it on the leader's event loop.  ``emit(event, **fields)``
-    receives ``fleet.pairs_dead``."""
+    share it on the leader's event loop (under ``FHH_DEBUG_GUARDS=1`` the
+    lock-discipline sanitizer holds every access to it).
+    ``emit(event, **fields)`` receives ``fleet.pairs_dead``."""
 
     def __init__(self, fleet_dir: str | None = None, emit=None):
         self.fleet_dir = fleet_dir
@@ -76,6 +85,7 @@ class FleetDirectory:
         self._hosts: dict = {}
         self._placements: dict = {}
         self._lock = asyncio.Lock()
+        guards.install(self, _FLEET_GUARDS)
 
     # -- registration ---------------------------------------------------------
 
@@ -264,7 +274,8 @@ class FleetPlacer:
     otherwise, on both outcomes: a failed migration leaves the source
     authoritative) and keeps the placements true.  Its registry ``obs``
     (``fleet``, JAX fleet.py:295) holds ``FLEET_COUNTERS`` (``counters``
-    reads them) and the inflight gauge.  ``emit`` receives ``fleet.placed``,
+    reads them) and the inflight gauge, which the ``migration_stuck`` alert
+    rule reads (``obs/alerts.py``).  ``emit`` receives ``fleet.placed``,
     ``fleet.migrated`` and ``fleet.failed_over``."""
 
     def __init__(self, directory: FleetDirectory, emit=None):

@@ -155,12 +155,15 @@ import secrets
 import socket
 import struct
 import time
+import weakref
 
 import numpy as np
 import torch
 
 from .. import obs
+from ..obs import alerts as obsalerts
 from ..obs import devmem as obsdevmem
+from ..obs import exporter as obsexporter
 from ..obs import metrics as obsmetrics
 from ..obs import trace as obstrace
 from ..ops import baseot, dpf, ibdcf, otext
@@ -171,8 +174,8 @@ from ..parallel.server_mesh import Sharded
 from ..resilience import chaos as reschaos
 from ..resilience import policy as respolicy
 from ..ops.ibdcf import EvalState
+from ..utils import guards, taint_guard
 from ..utils import resolve_device, tensor_from_numpy, words_from_numpy, words_to_numpy
-from ..utils import config as configmod
 from ..utils.config import Config
 from . import collect, mpc, secure, sessions, tenancy
 from . import sketch as sketchmod
@@ -309,6 +312,44 @@ class _Session:
             self.bytes_total -= self.sizes.pop(old, 0)
 
 
+# The lock-discipline sanitizer's map of the server's own state (JAX
+# rpc.py:266-270; a collection's state is sessions._SESSION_GUARDS'): the
+# leader sessions' replay table belongs to the server's lock.
+_SERVER_GUARDS = {
+    "_sessions": "_verb_lock",
+}
+
+
+def _session_metrics_producer(ref):
+    """A /metrics producer bound to a server by weakref (JAX rpc.py:273-320):
+    at each scrape, the live collections' rows as labelled gauges, and the
+    session alert rules over the same rows.  ``None`` once the server is
+    gone, so the exporter prunes it.  It runs in the scrape thread, where
+    :meth:`CollectorServer.sessions_status` opens its own unguarded window."""
+
+    def produce():
+        srv = ref()
+        if srv is None:
+            return None
+        try:
+            sess = srv.sessions_status()
+        except Exception:  # a dict torn by the event loop skips one frame
+            return []
+        obsalerts.evaluate_sessions(sess["per_session"], source=f"server{srv.server_id}")
+        reg = f'registry="server{srv.server_id}"'
+        lines = ["# TYPE fhh_session_last_progress_seconds gauge",
+                 "# TYPE fhh_session_queue_depth_keys gauge",
+                 "# TYPE fhh_session_dedup_entries gauge"]
+        for key, row in sorted(sess["per_session"].items()):
+            lbl = f'{{{reg},collection="{obsexporter._esc(key)}"}}'
+            lines.append(f"fhh_session_last_progress_seconds{lbl} {row['last_progress_s']}")
+            lines.append(f"fhh_session_queue_depth_keys{lbl} {row['queue_depth']}")
+            lines.append(f"fhh_session_dedup_entries{lbl} {row['dedup_entries']}")
+        return lines
+
+    return produce
+
+
 def _load_npz(path: str) -> dict:
     with np.load(path) as npz:
         return {k: npz[k] for k in npz.files}
@@ -327,7 +368,11 @@ class CollectorServer:
     come from ``cfg.server_data_devices`` (``parallel/server_mesh.py``);
     ``mesh_chaos`` (a ``resilience.chaos.MeshChaos``) injects device faults
     at a crawl verb's entry, into whichever collection reaches its level
-    first.
+    first.  With the exporter running, the server publishes its session rows
+    at each scrape (:func:`_session_metrics_producer`); under
+    ``FHH_DEBUG_GUARDS=1`` or ``cfg.debug_guards`` the lock-discipline
+    sanitizer guards its replay table (:data:`_SERVER_GUARDS`) and each
+    collection's state.
 
     The server holds only what its collections share: the listeners, the
     data plane (:class:`sessions.PlaneMux`), the replay caches, the tenant
@@ -348,7 +393,6 @@ class CollectorServer:
                  emit=None, mesh_chaos=None):
         if server_id not in (0, 1):
             raise ValueError(f"server_id must be 0 or 1, got {server_id}")
-        configmod.refuse_debug_guards(cfg)
         self.server_id = server_id
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -371,6 +415,13 @@ class CollectorServer:
         self._peer_reader = self._peer_writer = None
         self._rpc_srv = self._peer_srv = None
         self._ctl_writers: set = set()
+        # the live plane: by weakref, so a dropped server's producer is
+        # pruned rather than pinning its registries
+        if obsexporter.running():
+            obsexporter.add_producer(_session_metrics_producer(weakref.ref(self)))
+        # last: the sanitizer wraps the state already built (a no-op unless
+        # FHH_DEBUG_GUARDS=1 or cfg.debug_guards)
+        guards.install(self, _SERVER_GUARDS, force=cfg.debug_guards)
 
     # -- the default collection's state, for single-tenant callers ------------
 
@@ -986,6 +1037,14 @@ class CollectorServer:
         # -- every check passed: mutate
         if parsed is not None:
             cs.ingest_restore_apply(parsed)
+            if taint_guard.enabled():
+                # the rebuilt pools are clients' key shares (and sketch
+                # material) this host never held before: the sinks refuse them
+                for pool in cs._ingest_pools.values():
+                    for entry in pool.entries:
+                        for leaf in entry:
+                            taint_guard.register("CollectionSession._imported_pool_shares",
+                                                 leaf)
         else:
             cs._ingest_pools.clear()  # an empty export imports as empty
         if stamp is not None:
@@ -1129,11 +1188,16 @@ class CollectorServer:
         calling collection's exports and imports, and the placement signals
         ``fleet.FleetDirectory.note_load`` takes); and the calling
         collection's latency quantiles (``slo``: per-level crawl, per-verb,
-        seal to hitters).  Each probe samples device memory onto the
-        server's registry.  The JAX server's ``alerts`` section belongs to
-        the live plane, which is not ported."""
+        seal to hitters), and every alert fired in this process (``alerts``).
+        Each probe samples device memory onto the server's registry, then
+        runs the session alert rules over the rows just built and the
+        registry rules over every live registry: fire-once per (rule,
+        subject), so probes of a stalled collection give one alert."""
         cs = cs or self._default()
         obsdevmem.sample(self.obs, phase="status")
+        sess = self.sessions_status()
+        obsalerts.evaluate_sessions(sess["per_session"], source=f"server{self.server_id}")
+        obsalerts.evaluate_registries()
         return {"boot_id": self.boot_id, "collection": cs.key,
                 "clock": round(time.time(), 6),
                 "has_keys": cs.keys is not None or bool(cs.keys_parts),
@@ -1141,13 +1205,13 @@ class CollectorServer:
                 "dedup_hits": int(self.obs.counter_value("dedup_hits")),
                 "plane_resets": int(self.obs.counter_value("plane_resets")),
                 "ckpt_levels": cs.ckpt_levels(), "ingest": cs.ingest_status(),
-                "mesh": cs.mesh_status(), "sessions": self.sessions_status(),
+                "mesh": cs.mesh_status(), "sessions": sess,
                 "fleet": {"pair": os.environ.get("FHH_FLEET_PAIR", ""),
                           "boot_id": self.boot_id,
                           "session_exports": int(cs.obs.counter_value("session_exports")),
                           "session_imports": int(cs.obs.counter_value("session_imports")),
                           "load": self._sched.fleet_load()},
-                "slo": cs.obs.hists_summary()}
+                "slo": cs.obs.hists_summary(), "alerts": obsalerts.status_section()}
 
     def sessions_status(self) -> dict:
         """The ``sessions`` section of ``status`` and ``server.exit`` (JAX
@@ -1157,19 +1221,23 @@ class CollectorServer:
         channel was keyed at, the seconds since it last finished a verb, and
         its flat counters from its registry, :func:`sessions.summary`, which
         sum to the server's), and the tenant scheduler's device turns and
-        stall fills."""
+        stall fills.  A point-in-time probe for an operator, read without the
+        locks (also from the exporter's scrape thread)."""
         dedup: dict = {}
-        for sess in self._sessions.values():
-            dedup[sess.collection] = dedup.get(sess.collection, 0) + len(sess.cache)
-        now = time.monotonic()
-        rows = {key: {"phase": cs.phase, "level": cs.level,
-                      "queue_depth": sum(p.keys for p in cs._ingest_pools.values()
-                                         if not p.sealed),
-                      "dedup_entries": dedup.get(key, 0), "ckpt_levels": cs.ckpt_levels(),
-                      "has_frontier": cs.frontier is not None, "plane_epoch": cs.plane_epoch,
-                      "last_progress_s": round(max(0.0, now - cs.last_progress), 3),
-                      "counters": sessions.summary([cs.obs.report()])}
-                for key, cs in self._table.items()}
+        with guards.unguarded("status rollup: point-in-time operator probe over the replay "
+                              "table and every collection's rows, without their locks"):
+            for sess in list(self._sessions.values()):
+                dedup[sess.collection] = dedup.get(sess.collection, 0) + len(sess.cache)
+            now = time.monotonic()
+            rows = {key: {"phase": cs.phase, "level": cs.level,
+                          "queue_depth": sum(p.keys for p in list(cs._ingest_pools.values())
+                                             if not p.sealed),
+                          "dedup_entries": dedup.get(key, 0), "ckpt_levels": cs.ckpt_levels(),
+                          "has_frontier": cs.frontier is not None,
+                          "plane_epoch": cs.plane_epoch,
+                          "last_progress_s": round(max(0.0, now - cs.last_progress), 3),
+                          "counters": sessions.summary([cs.obs.report()])}
+                    for key, cs in self._table.items()}
         return {"count": len(self._table), "scheduler": self._sched.stats(),
                 "per_session": rows}
 
@@ -1759,6 +1827,7 @@ class CollectorServer:
             theirs = await self._swap(cs, mine)
             cs._sketch_seed = np.frombuffer(bytes(a ^ b for a, b in zip(mine, theirs)),
                                             "<u4").copy()
+            taint_guard.register("CollectionSession._sketch_seed", cs._sketch_seed)
             if self.cfg.secure_exchange:
                 await self._setup_secure(cs)
         cs.plane_epoch = self._plane.epoch
@@ -1786,6 +1855,7 @@ class CollectorServer:
                     lambda: bs.seeds([baseot.decompress(m) for m in r_msgs]))
                 cs._ot_rcv = otext.OtExtReceiver(s0, s1, self.device)
         cs._sec_seed = np.frombuffer(secrets.token_bytes(16), "<u4").copy()
+        taint_guard.register("CollectionSession._sec_seed", cs._sec_seed)
 
     # -- serving --------------------------------------------------------------
 
@@ -1801,11 +1871,17 @@ class CollectorServer:
             if verb not in self.VERBS:
                 raise ValueError(f"unknown verb {verb!r}")
             if verb in ("add_keys", "submit_keys", "plane_break"):
-                return await getattr(self, verb)(req, cs)
+                with guards.unguarded("unlocked fast-path verb: add_keys is event-loop-atomic; "
+                                      "submit_keys re-validates after its one suspension "
+                                      "(executor admission); plane_break must reach a verb "
+                                      "wedged on the plane while holding its lock"):
+                    return await getattr(self, verb)(req, cs)
             if verb == "plane_reset":
                 async with self._verb_lock:
                     return await self.plane_reset(req, cs)
-            self._maybe_pre_expand(cs, verb, req)
+            with guards.unguarded("frame-arrival prefetch: event-loop-atomic, device work "
+                                  "only, recomputed under the lock on any failure"):
+                self._maybe_pre_expand(cs, verb, req)
             async with cs._verb_lock:
                 if verb != "status":  # a probe is not the collection's phase
                     cs.phase, cs.level = f"verb:{verb}", (req or {}).get("level")
@@ -1834,7 +1910,9 @@ class CollectorServer:
         collection's phase, nor its progress)."""
         self.obs.count("verb_requests")  # the dedup rate's denominator
         if cs is None:
-            cs = self._default()
+            with guards.unguarded("serve-loop session bind: event-loop-atomic lookup in "
+                                  "the session table"):
+                cs = self._default()
         cs.last_used = time.monotonic()
         if sess is not None:
             sess.last_seen = time.monotonic()
@@ -1931,11 +2009,15 @@ class CollectorServer:
                     reader, count=lambda n: self.obs.count("control_bytes_recv", n))
                 if verb == "__hello__":
                     try:
-                        new_cs = self._table.get((req or {}).get("collection"))
+                        with guards.unguarded("serve-loop session bind: event-loop-atomic "
+                                              "lookup in the session table"):
+                            new_cs = self._table.get((req or {}).get("collection"))
                     except (ValueError, RuntimeError) as e:
                         await respond(req_id, {"__error__": f"{type(e).__name__}: {e}"})
                         continue
-                    sess = self._bind_session(req)
+                    with guards.unguarded("serve-loop session bind: event-loop-atomic "
+                                          "replay-table update"):
+                        sess = self._bind_session(req)
                     if new_cs is not cs:
                         if cs is not None:
                             cs.bound -= 1

@@ -11,7 +11,9 @@ once every piece of per-collection state is keyed:
   OT sender and receiver, the secure seeds, the coin flip and the plane
   epoch it was keyed at, the data shards' ``ServerMesh``, the ingest pools
   and their admission gate, the checkpoint namespace, the per-collection
-  counters and the verb lock its verbs serialize on.
+  counters and the verb lock its verbs serialize on.  Under
+  ``FHH_DEBUG_GUARDS=1`` (or ``Config.debug_guards``) the lock-discipline
+  sanitizer binds the crawl state of :data:`_SESSION_GUARDS` to that lock.
 - :class:`SessionTable`: the bounded table of live sessions, selected on
   the wire by the ``collection`` field of ``__hello__`` (a connection that
   names none works on the default collection, so every single-tenant flow
@@ -56,6 +58,7 @@ from ..ops.fields import F255, FE62
 from ..parallel import server_mesh as smesh
 from ..parallel import sketch_shard
 from ..resilience import admission
+from ..utils import guards, taint_guard
 from ..utils import tensor_from_numpy, words_from_numpy, words_to_numpy
 from . import collect
 from . import sketch as sketchmod
@@ -322,6 +325,37 @@ def summary(snaps) -> dict:
     return out
 
 
+# The lock-discipline sanitizer's map of a collection's state: attribute ->
+# the session lock that owns it.  The JAX twin (sessions.py:271-290) under
+# the port's names: _SESSION_RENAMES maps each JAX row to the port's
+# attribute, or to None where the port keeps no such state.
+_SESSION_RENAMES = {
+    "_children": "children",
+    "_last_shares": "last_shares",
+    # the port's radix is the crawl_radix method over the config, no state
+    "_radix": None,
+}
+_SESSION_GUARDS = {
+    "frontier": "_verb_lock",
+    "keys": "_verb_lock",
+    "keys_parts": "_verb_lock",
+    "alive_keys": "_verb_lock",
+    "children": "_verb_lock",
+    "last_shares": "_verb_lock",
+    "_shard_children": "_verb_lock",
+    "_shard_last": "_verb_lock",
+    "_expand_ready": "_verb_lock",
+    "_ingest_pools": "_verb_lock",
+    "_admission": "_verb_lock",
+    "_sketch_parts": "_verb_lock",
+    "_sketch_root": "_verb_lock",
+    "_ratchet_digest": "_verb_lock",
+    "_window_sketch_root": "_verb_lock",
+    "_export_epoch": "_verb_lock",
+    "_import_seen": "_verb_lock",
+}
+
+
 class CollectionSession:
     """One collection's whole server-side state (see the module doc).  The
     server's verbs receive the session bound by their connection's
@@ -380,6 +414,9 @@ class CollectionSession:
         self._export_epoch = 0
         self._import_seen: set = set()
         self.clear()
+        # last: the sanitizer wraps the state already built (a no-op unless
+        # FHH_DEBUG_GUARDS=1 or cfg.debug_guards)
+        guards.install(self, _SESSION_GUARDS, force=cfg.debug_guards)
 
     # -- lifecycle --------------------------------------------------------
 
@@ -444,6 +481,7 @@ class CollectionSession:
             self.obs.reset()
         if self._ot_snd is not None:
             self._sec_seed = np.frombuffer(secrets.token_bytes(16), "<u4").copy()
+            taint_guard.register("CollectionSession._sec_seed", self._sec_seed)
 
     def idle(self) -> bool:
         """Nothing durable here and no connection bound: an eviction

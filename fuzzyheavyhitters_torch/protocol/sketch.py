@@ -49,7 +49,7 @@ import torch
 
 from ..ops import dpf, prg
 from ..ops.dpf import DpfKeyBatch
-from ..utils import tensor_from_numpy, words_from_numpy
+from ..utils import taint_guard, tensor_from_numpy, words_from_numpy
 from . import mpc
 
 LANES = 2  # payload lanes: (x, k·x)
@@ -62,7 +62,8 @@ _RATCHET_TAG = b"fhh-sketch-ratchet/1"
 
 
 def transcript_init() -> bytes:
-    """Root of the crawl transcript digest."""
+    """Root of the crawl transcript digest: a hash of a public tag, so not
+    registered with the taint sanitizer (as in the JAX package)."""
     return hashlib.sha256(_RATCHET_TAG).digest()
 
 
@@ -77,7 +78,11 @@ def transcript_absorb(digest: bytes, level: int, parent: np.ndarray, pat_bits: n
     h.update(struct.pack("<qq", int(level), int(n_alive)))
     h.update(np.ascontiguousarray(np.asarray(parent[:n_alive], np.int64)).tobytes())
     h.update(np.ascontiguousarray(np.asarray(pat_bits[:n_alive], bool)).tobytes())
-    return h.digest()
+    out = h.digest()
+    # the advanced digest commits to the survivor tables, private data: the
+    # taint sanitizer watches its bytes at every obs sink
+    taint_guard.register("CollectionSession._ratchet_digest", out)
+    return out
 
 
 def ratchet_seed(root_seed, level: int, digest: bytes) -> np.ndarray:

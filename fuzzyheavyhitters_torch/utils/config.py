@@ -2,10 +2,10 @@
 
 Same fields and defaults as ``fuzzyheavyhitters_tpu/utils/config.py`` (the
 reference schema of src/config.rs:5-16 plus the JAX package's knobs), so
-every config file in ``configs/`` parses unchanged.  Fields the port does
-not use yet parse as before and are ignored, but for ``debug_guards: true``,
-which a server and a leader refuse (:func:`refuse_debug_guards`): it asks
-for a sanitizer the port does not have yet.  The ``ingest_*`` fields
+every config file in ``configs/`` parses unchanged.  ``debug_guards: true``
+arms the lock-discipline sanitizer (``utils/guards.py``) on every server,
+collection session and windowed ingest built from the config, whatever
+``FHH_DEBUG_GUARDS`` says.  The ``ingest_*`` fields
 configure the streaming front door (``resilience/admission.py``).
 ``secure_exchange: true`` runs the GC/OT data plane, with ``ot_path``
 ("auto", "ot2s" or "gc") choosing its equality engine.  ``crawl_radix_bits`` (1, 2 or 3) fuses that
@@ -71,14 +71,3 @@ def load_config(path: str) -> Config:
         raise ValueError(f"Unknown config keys: {sorted(unknown)}")
     return Config(**raw)
 
-
-SANITIZERS = "the sanitizers (queued as slice 16)"
-
-
-def refuse_debug_guards(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for ``debug_guards: true``: the JAX
-    server and leader arm their lock-discipline sanitizer on it."""
-    if cfg.debug_guards:
-        raise NotImplementedError("debug_guards: true: the lock-discipline sanitizer, "
-                                  f"utils/guards.py is not ported to PyTorch yet; it belongs to "
-                                  f"{SANITIZERS}")

@@ -213,10 +213,10 @@ def test_socket_binaries_stream_windows(tmp_path):
         assert ex["add_keys"] == 0 and ex["seal_to_hitters_s"] is not None
 
 
-# -- the JAX binaries' switches: the per-run telemetry's are read, the live
-# plane's and the sanitizers' refused by name ----------------------------------
+# -- the JAX binaries' switches: the per-run telemetry's, the live plane's and
+# the sanitizers' are read as there ---------------------------------------------
 
-_SWITCHES = [("FHH_METRICS_PORT", "9100", "the metrics exporter"),
+_SWITCHES = [("FHH_METRICS_PORT", "0", "the metrics exporter"),
              ("FHH_ALERT_STALL_S", "30", "alerting"),
              ("FHH_ALERT_HBM_FRAC", "0.9", "alerting"),
              ("FHH_DEBUG_GUARDS", "1", "the lock-discipline sanitizer"),
@@ -245,18 +245,33 @@ def _clear_switches(monkeypatch):
             monkeypatch.delenv(k)
 
 
+@pytest.fixture
+def _exporter_stopped():
+    """No /metrics exporter before or after the test."""
+    from fuzzyheavyhitters_torch.obs import exporter
+
+    exporter.stop()
+    yield exporter
+    exporter.stop()
+
+
+# The names and cases of the next two tests are those of the refusals they
+# held until the live plane and the sanitizers were ported.
 @pytest.mark.parametrize("binary", ["leader", "server", "mesh"])
 @pytest.mark.parametrize("var,val,layer", _SWITCHES, ids=[v for v, _, _ in _SWITCHES])
-def test_unported_switch_is_refused_by_name(tmp_path, monkeypatch, binary, var, val, layer):
-    """Each live-plane and sanitizer switch of the JAX binaries is refused
-    at start-up, by name and with the part of the port that will bring it,
-    before the config is read or anything is started."""
+def test_unported_switch_is_refused_by_name(tmp_path, monkeypatch, _exporter_stopped, binary,
+                                            var, val, layer):
+    """Each live-plane and sanitizer switch of the JAX binaries (``layer``)
+    is taken, not refused: the binary goes on to read its config (absent
+    here).  ``FHH_METRICS_PORT`` starts the exporter first, on an ephemeral
+    port for base 0, in the server and the leader and not in ``mesh`` (as
+    the JAX binaries do)."""
     _clear_switches(monkeypatch)
     monkeypatch.setenv(var, val)
-    part = "sanitizers" if var.startswith("FHH_DEBUG_") else "live plane"
-    with pytest.raises(NotImplementedError, match=f"{var}={val}: {layer}.* is not ported "
-                       f"to PyTorch yet; it belongs to .*{part}"):
+    with pytest.raises(FileNotFoundError):
         _main(binary)(str(tmp_path / "absent.json"))
+    exporter = _exporter_stopped
+    assert exporter.running() == (var == "FHH_METRICS_PORT" and binary != "mesh"), layer
 
 
 @pytest.mark.parametrize("binary", ["leader", "server", "mesh"])
@@ -300,12 +315,25 @@ def test_json_log_format_is_accepted(tmp_path, monkeypatch, binary):
         _main(binary)(str(tmp_path / "absent.json"))
 
 
+class _Built(Exception):
+    """Raised by a patched constructor or start to hand its object out."""
+
+    def __init__(self, obj):
+        super().__init__(type(obj).__name__)
+        self.obj = obj
+
+
 @pytest.mark.parametrize("where", ["leader", "server", "CollectorServer", "RpcLeader"])
 def test_debug_guards_config_is_refused(tmp_path, monkeypatch, where):
-    """``debug_guards: true`` arms the JAX server's and leader's sanitizer:
-    the port's binaries and their classes refuse it by name."""
+    """``debug_guards: true`` arms the lock-discipline sanitizer, with
+    ``FHH_DEBUG_GUARDS`` unset, where the JAX package arms it: a server and
+    its collection sessions (``bin.server`` and ``CollectorServer``), and a
+    leader's windowed ingest (``bin.leader`` with ``FHH_WINDOWS`` and
+    ``WindowedIngest`` over an ``RpcLeader``); each object is the guarded
+    subclass of its class."""
     import json
 
+    from fuzzyheavyhitters_torch.bin import leader as leader_bin
     from fuzzyheavyhitters_torch.protocol import leader_rpc, rpc
 
     _clear_switches(monkeypatch)
@@ -313,10 +341,50 @@ def test_debug_guards_config_is_refused(tmp_path, monkeypatch, where):
     path.write_text(json.dumps(dict(CFG, server0="127.0.0.1:1", server1="127.0.0.1:2",
                                     debug_guards=True)))
     cfg = tconfig.load_config(str(path))
+
+    async def start(self, *a, **kw):  # the server built, before it listens
+        raise _Built(self)
+
+    def built(init):
+        def wrapped(self, *a, **kw):
+            init(self, *a, **kw)
+            raise _Built(self)
+        return wrapped
+
+    class Client:  # a leader's connection, never dialled
+        session_id, boot_id, collection, obs = "s", "b", None, None
+
+        @classmethod
+        async def connect(cls, *a, **kw):
+            return cls()
+
+        async def aclose(self):
+            pass
+
+    async def both(self, verb, req=None):
+        return None, None
+
+    if where == "server":
+        monkeypatch.setattr(rpc.CollectorServer, "start", start)
+    if where == "leader":
+        monkeypatch.setenv("FHH_WINDOWS", "2")
+        monkeypatch.setattr(leader_bin, "CollectorClient", Client)
+        monkeypatch.setattr(leader_rpc.RpcLeader, "_both", both)
+        monkeypatch.setattr(leader_rpc.WindowedIngest, "__init__",
+                            built(leader_rpc.WindowedIngest.__init__))
     run = {"leader": lambda: _main("leader")(str(path)),
            "server": lambda: _main("server")(str(path)),
            "CollectorServer": lambda: rpc.CollectorServer(0, cfg, "cpu"),
-           "RpcLeader": lambda: leader_rpc.RpcLeader(cfg, None, None)}[where]
-    with pytest.raises(NotImplementedError, match="debug_guards: true: the lock-discipline "
-                       "sanitizer.* is not ported to PyTorch yet"):
-        run()
+           "RpcLeader": lambda: leader_rpc.WindowedIngest(leader_rpc.RpcLeader(cfg, None, None),
+                                                          checkpoint=False)}[where]
+    if where in ("leader", "server"):
+        with pytest.raises(_Built) as ei:
+            run()
+        obj = ei.value.obj
+    else:
+        obj = run()
+    want = {"leader": "WindowedIngest", "RpcLeader": "WindowedIngest"}.get(where,
+                                                                           "CollectorServer")
+    assert type(obj).__name__ == f"Guarded{want}" and type(obj).__mro__[1].__name__ == want
+    if want == "CollectorServer":
+        assert type(obj._table.default()).__name__ == "GuardedCollectionSession"

@@ -45,15 +45,16 @@ from fuzzyheavyhitters_torch.resilience import policy as respolicy
 from fuzzyheavyhitters_torch.resilience.chaos import ChaosProxy, parse_faults
 from fuzzyheavyhitters_torch.utils import bits as tbits
 from fuzzyheavyhitters_torch.utils import config as tconfig
+from fuzzyheavyhitters_torch.utils import guards as tguards
 
 from fuzzyheavyhitters_torch.ops import fields as tfields
 from fuzzyheavyhitters_torch.protocol import sketch as tsketch
 
-(jrpc, jleader, jibdcf, jconfig, jsketch, jdpf, jmpc) = torch_ref.reference(
+(jrpc, jleader, jibdcf, jconfig, jsketch, jdpf, jmpc, jguards) = torch_ref.reference(
     "fuzzyheavyhitters_tpu.protocol.rpc", "fuzzyheavyhitters_tpu.protocol.leader_rpc",
     "fuzzyheavyhitters_tpu.ops.ibdcf", "fuzzyheavyhitters_tpu.utils.config",
     "fuzzyheavyhitters_tpu.protocol.sketch", "fuzzyheavyhitters_tpu.ops.dpf",
-    "fuzzyheavyhitters_tpu.protocol.mpc")
+    "fuzzyheavyhitters_tpu.protocol.mpc", "fuzzyheavyhitters_tpu.utils.guards")
 
 L, N = 5, 12
 DRILL_S = 240  # each drill's own limit: a wedged plane fails its test, not the suite
@@ -120,9 +121,14 @@ def _jax_sketch(leaves):
 
 
 def _alive(server) -> list:
+    """The default collection's client liveness, read after the crawl (in
+    the lock sanitizer's window: ``FHH_DEBUG_GUARDS=1`` runs the drill)."""
+    reason = "the test's read of the liveness after the crawl, no verb running"
     if isinstance(server, trpc.CollectorServer):
-        return server.alive_keys.cpu().numpy().tolist()
-    return np.asarray(server._default().alive_keys).tolist()
+        with tguards.unguarded(reason):
+            return server.alive_keys.cpu().numpy().tolist()
+    with jguards.unguarded(reason):
+        return np.asarray(server._default().alive_keys).tolist()
 
 
 def _result(res):
