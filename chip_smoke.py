@@ -1455,8 +1455,9 @@ def restored_expand_check(name, blob, cfg, keys1, ex, collect, prg, torch, sketc
     nxt = level + srv.crawl_radix(level)
     last = nxt + srv.crawl_radix(nxt) == cfg.data_len
     st = srv.frontier.states
-    if st.seed.device.type != "cuda":
-        raise AssertionError(f"{name}: the restored frontier is on {st.seed.device}")
+    dev = st.seed.device
+    if dev.type != "cuda":
+        raise AssertionError(f"{name}: the restored frontier is on {dev}")
     d, _, F, N = st.bit.shape
     d2, B = 2 * d, F * N
     cws, cwf = collect.level_cw_planar(srv.keys, nxt)

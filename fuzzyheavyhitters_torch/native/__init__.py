@@ -31,8 +31,8 @@ from ..ops import cuda_build
 _SRC = Path(__file__).resolve().parent / "reservoir.cc"
 _FLAGS = ("-O3", "-shared", "-fPIC")
 _lock = threading.Lock()
-_lib = None
-_build_failed = False
+_lib = None  # fhh-guard: _lib=_lock
+_build_failed = False  # fhh-guard: _build_failed=_lock
 
 
 def lib_path() -> Path:

@@ -68,9 +68,9 @@ ENV_MIGRATION_STUCK_S = ("FHH_ALERT_MIGRATION_STUCK_S", 120.0)
 _MAX_FIRED = 256  # rollup bound: alerts are transitions, not a log
 
 _lock = threading.Lock()
-_fired: list = []
-_seen: set = set()
-_dropped = 0
+_fired: list = []  # fhh-guard: _fired=_lock
+_seen: set = set()  # fhh-guard: _seen=_lock
+_dropped = 0  # fhh-guard: _dropped=_lock
 
 
 def _threshold(knob: tuple[str, float]) -> float:

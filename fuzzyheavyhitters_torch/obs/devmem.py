@@ -34,6 +34,7 @@ from . import logs
 from .metrics import Registry, all_registries, default_registry
 
 _lock = threading.Lock()
+# fhh-guard: _state=_lock
 _state = {"warmup_done": False}
 
 

@@ -54,8 +54,9 @@ ENV_HOST = "FHH_METRICS_HOST"  # default loopback: telemetry, not a service
 PORT_OFFSETS = {"leader": 0, "s0": 1, "s1": 2}
 
 _lock = threading.Lock()
+# fhh-guard: _state=_lock
 _state: dict = {"server": None, "thread": None, "port": None, "tag": None}
-_producers: list = []
+_producers: list = []  # fhh-guard: _producers=_lock
 
 _SANE_RE = re.compile(r"[^a-z0-9_]")
 
@@ -198,7 +199,9 @@ def render() -> str:
     for prod in producers:
         try:
             extra_lines = prod()
-        except Exception:  # a racy producer never fails the scrape or its thread
+        # fhh-lint: disable=broad-except (scrape path: a racy producer
+        # snapshot may never 500 the exporter or kill its thread)
+        except Exception:
             continue
         if extra_lines is None:
             dead.append(prod)

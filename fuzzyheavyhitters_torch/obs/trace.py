@@ -484,7 +484,7 @@ def profile_capture(kind: str, level=None):
             p = profile(activities=acts)
             p.start()
             prof = p
-        except Exception as e:  # the profiler's availability boundary: a missing or busy profiler degrades the capture, never the crawl
+        except Exception as e:  # fhh-lint: disable=broad-except (profiler availability boundary: a missing/busy profiler degrades the capture, never the crawl)
             from . import logs
 
             logs.emit(
@@ -500,7 +500,7 @@ def profile_capture(kind: str, level=None):
                 prof.stop()
                 path = _profile_path(prof_dir, kind, level)
                 prof.export_chrome_trace(path)
-            except Exception as e:  # teardown of a best-effort capture
+            except Exception as e:  # fhh-lint: disable=broad-except (teardown of a best-effort capture)
                 from . import logs
 
                 logs.emit(

@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: dict = {}
+_libs: dict = {}  # fhh-guard: _libs=_lock
 
 
 def build_dir() -> Path:
@@ -123,6 +123,7 @@ def _build_locked(names) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, building it first if needed."""
+    # fhh-lint: disable=guarded-state-unlocked (double-checked fast path: one dict.get, atomic under the GIL; a miss re-reads under the lock before it writes)
     lib = _libs.get(name)
     if lib is None:
         path = build([name])[name]

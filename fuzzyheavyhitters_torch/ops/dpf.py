@@ -86,8 +86,11 @@ def gen_pair(init_seeds, alpha_bits, values, values_last, field_t, field_u, lane
     batch = alpha_bits.shape[:-1]
     L = alpha_bits.shape[-1]
     if init_seeds.shape != batch + (2, 4):
-        raise ValueError(f"init_seeds shaped {tuple(init_seeds.shape)}, want "
-                         f"{tuple(batch) + (2, 4)}")
+        # interpolate the precomputed shape, not the seed array: key
+        # material must never reach exception messages (fhh-lint
+        # secret-to-sink)
+        got_shape = tuple(init_seeds.shape)
+        raise ValueError(f"init_seeds shaped {got_shape}, want {tuple(batch) + (2, 4)}")
     if values.shape[:len(batch)] != batch or values.shape[-2] != L - 1:
         raise ValueError(f"values shaped {tuple(values.shape)} for batch {tuple(batch)}, "
                          f"L={L}")

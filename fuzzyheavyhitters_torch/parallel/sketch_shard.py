@@ -126,19 +126,3 @@ def stream_parts(ss: SketchShard | None, field, seed, level: int, m: int, N: int
     rands = [sketchmod.challenge_rands(field, seed, level, m, j * n * d, n * d, dev)
              for j, dev in enumerate(devs)]
     return sketchmod.wire(r), np.concatenate([sketchmod.wire(x) for x in rands])
-
-
-def warm_verify(ss: SketchShard | None, field, m: int, N: int, d: int, server_idx: bool,
-                device=None) -> None:
-    """The whole cor -> out -> verdict chain on zero inputs at one (bucket
-    ``m``, batch) shape, both wire messages through host numpy as on the
-    socket path; touches no live state.  Unsharded it runs on ``device``
-    (the card unless the caller names another)."""
-    dev = ss.devices[0] if ss is not None else resolve_device(device)
-    pairs = field.zeros((m, N, d, sketchmod.LANES), dev)
-    trip = mpc.TripleBatch(*(field.zeros((N, d, mpc.CHECKS), dev) for _ in range(3)))
-    mk, mk2 = field.zeros((N,), dev), field.zeros((N,), dev)
-    seed = np.zeros(4, np.uint32)
-    cor, st = cor_state(ss, field, pairs, trip, mk, mk2, seed, 0)
-    o = out_shares(ss, field, st, cor, wire(cor), server_idx)
-    verdicts(ss, field, o, wire(o)).cpu()

@@ -135,6 +135,7 @@ class CwWindows:
                 torch.empty((self.window,) + tuple(a.shape[1:]), dtype=a.dtype,
                             pin_memory=True) for a in host)
         if self._done[k] is not None:
+            # fhh-lint: disable=host-sync-in-hot-loop (double-buffered staging: waits only until this pinned buffer's previous upload has left it, a host write hazard, never for the crawl)
             self._done[k].synchronize()  # the buffer's last copy has left it
         stage = tuple(buf[:hi - lo] for buf in self._staging[k])
         for buf, a in zip(stage, host):
@@ -234,6 +235,7 @@ class PhaseClock:
     def settle(self) -> dict:
         """Seconds per phase since the last settle (waits for the events)."""
         for name, start, end in self._marks:
+            # fhh-lint: disable=host-sync-in-hot-loop (phase timing: settle runs once per level, after the level's one readback has synchronized, so each wait returns at once)
             end.synchronize()
             self.spent[name] = self.spent.get(name, 0.0) + start.elapsed_time(end) / 1e3
         out, self.spent, self._marks = self.spent, {}, []
@@ -431,6 +433,7 @@ class Leader:
                 self.server0.alive_keys, alive_nodes,
             )
             # the one per-level readback: thresholding is leader logic
+            # fhh-lint: disable=host-sync-in-hot-loop (counted above: the level's one readback)
             counts = counts.cpu().numpy()  # [F, 2^(r·d)]
         del packed
         t2 = time.perf_counter()
@@ -518,6 +521,7 @@ class Leader:
                 raise RuntimeError("non-count residue in F255 shares")
             v = limbs[..., 0].astype(np.int64)
         else:
+            # fhh-lint: disable=host-sync-in-hot-loop (the secure level's one readback: the opened counts)
             v = FE62.canon(FE62.sub(sh[0], sh[1])).cpu().numpy()
             if (v > N).any():  # e.g. a share-sign or role mismatch
                 raise RuntimeError("count reconstruction out of range")
@@ -584,6 +588,7 @@ class Leader:
             h = hashlib.sha256()
             reduced = {}  # the parties of one keygen share their cw tensors
             for s in (self.server0, self.server1):
+                # fhh-lint: disable=host-sync-in-hot-loop (key fingerprint: once per run, cached; not per level)
                 h.update(np.ascontiguousarray(s.keys.key_idx.cpu().numpy()))
                 h.update(np.ascontiguousarray(words_to_numpy(s.keys.root_seed)))
                 cw = s.keys[2:]

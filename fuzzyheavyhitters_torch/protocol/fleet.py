@@ -166,7 +166,11 @@ class FleetDirectory:
         for name, boot0, boot1 in live:
             try:
                 got = await probe_fn(name)
-            except Exception:  # a dead host fails its probe in every way there is
+            # fhh-lint: disable=broad-except (a dead host fails its
+            # probe in arbitrary ways — refused dial, timeout, torn
+            # frame; EVERY failure mode means the same thing here:
+            # mark the pair dead and fail its sessions over)
+            except Exception:
                 died.append(name)
                 continue
             if ((boot0 and str(got.get("boot0", boot0)) != boot0)

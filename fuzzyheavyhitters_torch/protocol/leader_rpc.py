@@ -154,6 +154,9 @@ class RpcLeader:
         """Gather that cancels the other calls when one fails, and raises
         the first failure."""
         tasks = [asyncio.ensure_future(c) for c in coros]
+        # fhh-lint: disable=unbounded-await (every child is a client call
+        # bounded by its own per-verb wall-clock budget; a second timeout
+        # here would race the real one)
         done, pending = await asyncio.wait(tasks, return_when=asyncio.FIRST_EXCEPTION)
         errs = [t.exception() for t in done]  # retrieve every one
         failed = next((e for e in errs if e is not None), None)
@@ -247,7 +250,10 @@ class RpcLeader:
             s0, s1 = await self._shard_call(verb, dict(req, shard=list(span)))
             if rerun:
                 self.obs.count("shards_rerun", level=level)
+            # fhh-lint: disable=host-sync-in-hot-loop (wire responses:
+            # already host numpy off the control socket, no device sync)
             parts0.append(np.asarray(s0))
+            # fhh-lint: disable=host-sync-in-hot-loop (wire response)
             parts1.append(np.asarray(s1))
         return np.concatenate(parts0, axis=0), np.concatenate(parts1, axis=0)
 
@@ -265,6 +271,7 @@ class RpcLeader:
 
         t_level = time.perf_counter()
         it = iter(spans[depth:])
+        # fhh-lint: disable=unbounded-queue (bounded by construction: at most `depth` span tasks live at once — the refill below only appends after the head pops)
         window = collections.deque(launch(sp) for sp in spans[:depth])
         parts0, parts1 = [], []
         busy, stalls = 0.0, 0
@@ -275,7 +282,9 @@ class RpcLeader:
                     stalls += 1
                 (s0, s1), dt = await head
                 busy += dt
+                # fhh-lint: disable=host-sync-in-hot-loop (wire response)
                 parts0.append(np.asarray(s0))
+                # fhh-lint: disable=host-sync-in-hot-loop (wire response)
                 parts1.append(np.asarray(s1))
                 nxt = next(it, None)
                 if nxt is not None:
@@ -744,6 +753,7 @@ class WindowedIngest:
         """:data:`INGEST_COUNTERS`, from the registry."""
         return {c: int(self.obs.counter_value(c)) for c in INGEST_COUNTERS}
 
+    # fhh-race: atomic (telemetry-only read of the window id for the span label: one event-loop slice, and a label one boundary stale costs nothing)
     def _ensure_span(self) -> None:
         """Open the current window's ``ingest`` span at its first submission
         (closed at its seal: a ``with`` cannot straddle the two calls)."""
@@ -751,6 +761,7 @@ class WindowedIngest:
             with guards.unguarded("telemetry-only window-id read for the span label: one "
                                   "event-loop slice, a label one boundary stale costs nothing"):
                 w = self.window
+            # fhh-lint: disable=span-discipline (explicitly managed context: the ingest span opens at the first submit and _exit_span closes it at the seal boundary — a with-block cannot straddle the two call sites)
             self._span_ctx = self.obs.span("ingest", level=w)
             self._span_ctx.__enter__()
 
@@ -838,8 +849,10 @@ class WindowedIngest:
                                     self.policy.delay(attempt - 1)))
         # the window the submission landed in: the id read under the lock
         if rec["shed"]:
+            # fhh-lint: disable=stale-read-across-await (deliberate snapshot: the stats must label the window this submission actually LANDED in — the admission-time id banked under the lock; a post-await re-read would mislabel it with whatever window is current now)
             self.obs.count("ingest_shed_subs", level=w)
         else:
+            # fhh-lint: disable=stale-read-across-await (deliberate snapshot, same contract as the shed branch: the admitted count labels the window this submission LANDED in — the id banked under the lock at gate time, not whatever window is current after the backoff awaits)
             self.obs.count("ingest_admitted", n_keys, level=w)
         self.obs.observe("ingest_admit", time.perf_counter() - t_admit)
         return r0
@@ -930,6 +943,7 @@ class WindowedIngest:
                 # between replayed records would part the servers' slot orders
                 async with self._submit_lock:
                     await self._recover_or_retry()
+        # fhh-lint: disable=stale-read-across-await (deliberate snapshot: the SLO clock starts at the SEAL-time instant banked in the stats row — a sealed window's stats never mutate, and re-reading under the lock would return the identical row or None after the prune below)
         seal_s = max(0.0, time.time() - stats["sealed_at"])
         self.obs.observe("seal_to_hitters", seal_s)
         self.windows[w] = {"crawl_s": time.perf_counter() - t0, "recoveries": recoveries,

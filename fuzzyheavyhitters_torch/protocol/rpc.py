@@ -231,9 +231,11 @@ async def _send(writer: asyncio.StreamWriter, obj, count=None) -> None:
 async def _recv(reader: asyncio.StreamReader, count=None):
     """One frame.  Waits indefinitely by design: response waits are bounded
     by the caller's verb budget, the data plane by TCP keepalive."""
+    # fhh-lint: disable=unbounded-await (see docstring)
     (n,) = _HDR.unpack(await reader.readexactly(_HDR.size))
     if count is not None:
         count(n + _HDR.size)
+    # fhh-lint: disable=unbounded-await (see docstring)
     return pickle.loads(await reader.readexactly(n))
 
 
@@ -333,7 +335,9 @@ def _session_metrics_producer(ref):
             return None
         try:
             sess = srv.sessions_status()
-        except Exception:  # a dict torn by the event loop skips one frame
+        # fhh-lint: disable=broad-except (scrape-thread probe racing the
+        # event loop: a torn dict iteration skips one frame, never 500s)
+        except Exception:
             return []
         obsalerts.evaluate_sessions(sess["per_session"], source=f"server{srv.server_id}")
         reg = f'registry="server{srv.server_id}"'
@@ -520,14 +524,14 @@ class CollectorServer:
     # Each takes the collection bound by its connection's hello (``cs``; the
     # default one when called directly) and runs under that session's lock.
 
-    async def reset(self, _req, cs=None) -> bool:
+    async def reset(self, _req, cs=None) -> bool:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         cs = cs or self._default()
         # the default collection's registry is the server's: with other
         # collections live its reset keeps their shared-plane figures
         cs.reset_state(reset_obs=(cs.key != DEFAULT_COLLECTION or len(self._table) <= 1))
         return True
 
-    async def add_keys(self, req, cs=None) -> bool:
+    async def add_keys(self, req, cs=None) -> bool:  # fhh-race: atomic (unlocked upload fast path: append-only, never suspends — many in-flight batches deserialize concurrently by design)
         """Append one key chunk: the five leaves of a [B, d, 2] batch, and in
         malicious mode the 16 leaves of the same clients' sketch keys
         (``sketch``, :func:`sketch.sketch_leaves` order)."""
@@ -536,13 +540,15 @@ class CollectorServer:
         if sk is not None and len(sk) != 16:
             raise ValueError(f"add_keys: a sketch chunk has 16 leaves, got {len(sk)}")
         cs.obs.count("add_keys")
+        # fhh-lint: disable=chunked-device-readback (wire input: pickled host numpy, no device involved)
         cs.keys_parts.append(tuple(np.asarray(a) for a in req["keys"]))
         cs._keys_stale = True
         if sk is not None:
+            # fhh-lint: disable=chunked-device-readback (wire input: pickled host numpy, no device involved)
             cs._sketch_parts.append(tuple(np.asarray(a) for a in sk))
         return True
 
-    async def tree_init(self, req, cs=None) -> bool:
+    async def tree_init(self, req, cs=None) -> bool:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         cs = cs or self._default()
         if not cs.keys_parts and cs.keys is None:
             raise RuntimeError("tree_init before add_keys")
@@ -582,7 +588,7 @@ class CollectorServer:
                                                          pat, n_alive)
         cs.obs.timer_add("sketch_advance", time.perf_counter() - t0, level=level)
 
-    async def sketch_verify(self, req, cs=None) -> np.ndarray:
+    async def sketch_verify(self, req, cs=None) -> np.ndarray:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """The malicious-security check (JAX rpc.py:541-696): sketch inner
         products and Beaver verification over the data plane, per (client,
         dim); a client fails if any dim fails, and its liveness flag flips
@@ -659,13 +665,14 @@ class CollectorServer:
             # the pairs from the checkpoint and replays the same challenge
             cs._sketch_pairs = None
         cs.obs.count("device_fetches", level=level)  # the verdicts' readback
+        # fhh-lint: disable=host-sync-in-hot-loop (the verdicts' one readback a sketch check, off the event loop and counted above)
         return await asyncio.to_thread(lambda: cs.alive_keys.cpu().numpy().copy())
 
-    async def tree_crawl(self, req, cs=None) -> np.ndarray:
+    async def tree_crawl(self, req, cs=None) -> np.ndarray:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """-> FE62 shares uint64[F, 2^d] of the per-child counts (rpc.rs:60)."""
         return await self._crawl(cs or self._default(), "tree_crawl", req, last=False)
 
-    async def tree_crawl_last(self, req, cs=None) -> np.ndarray:
+    async def tree_crawl_last(self, req, cs=None) -> np.ndarray:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """-> F255 shares uint32[F, 2^d, 8] of the last level (rpc.rs:61),
         kept for ``tree_prune_last`` and ``final_shares``; a span's shares
         are banked for ``tree_prune_last`` to assemble."""
@@ -679,7 +686,7 @@ class CollectorServer:
             cs._shard_last[shard[0]] = shares
         return shares
 
-    async def tree_prune(self, req, cs=None) -> bool:
+    async def tree_prune(self, req, cs=None) -> bool:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """Fused prune + advance: the surviving children, gathered from this
         round's child cache (ref: rpc.rs:63, collect.rs:918-929), assembled
         from its spans when the round was crawled in spans.  A prune with no
@@ -714,7 +721,7 @@ class CollectorServer:
         cs.obs.gauge("survivors", n_alive, level=level)
         return True
 
-    async def tree_prune_last(self, req, cs=None) -> bool:
+    async def tree_prune_last(self, req, cs=None) -> bool:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """Compact the last level's shares to the survivors
         (ref: collect.rs:931-942)."""
         cs = cs or self._default()
@@ -744,7 +751,7 @@ class CollectorServer:
         cs.obs.gauge("survivors", n_alive, level=cs._data_len() - 1)
         return True
 
-    async def final_shares(self, _req, cs=None) -> dict:
+    async def final_shares(self, _req, cs=None) -> dict:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """The surviving leaves' count shares (ref: rpc.rs:65).  After a
         loaded window's crawl, the seconds since that window's seal go to
         the ``seal_to_hitters`` histogram, once a window."""
@@ -778,6 +785,7 @@ class CollectorServer:
         cs = cs or self._default()
         window = int(req["window"])
         sub_id = str(req["sub_id"])
+        # fhh-lint: disable=chunked-device-readback (wire input: pickled host numpy, no device involved)
         chunk = tuple(np.asarray(a) for a in req["keys"])
         n_keys = int(chunk[0].shape[0])
         sk = req.get("sketch")
@@ -787,6 +795,7 @@ class CollectorServer:
                                    "(cfg.malicious is off)")
             if len(sk) != 16:
                 raise ValueError(f"submit_keys: a sketch chunk has 16 leaves, got {len(sk)}")
+            # fhh-lint: disable=chunked-device-readback (wire input: pickled host numpy, no device involved)
             chunk = chunk + tuple(np.asarray(a) for a in sk)
         elif self.cfg.malicious:
             raise RuntimeError("malicious mode: submit_keys requires the client's sketch "
@@ -823,7 +832,7 @@ class CollectorServer:
             cs.obs.count("pool_rejected")
         return resp
 
-    async def window_seal(self, req, cs=None) -> dict:
+    async def window_seal(self, req, cs=None) -> dict:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """Freeze the named window: later submissions name later windows.
         Idempotent: sealing a sealed window returns the same stats.  In
         malicious mode the first seal commits the window's challenge root,
@@ -857,7 +866,7 @@ class CollectorServer:
                       sk_root=None if pool.sk_root is None else pool.sk_root.tolist())
         return pool.stats()
 
-    async def window_load(self, req, cs=None) -> dict:
+    async def window_load(self, req, cs=None) -> dict:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """Make a sealed window's frozen pool the crawl's key batch (the
         streaming twin of the ``add_keys`` upload): the crawl and sketch
         state clear, the pool's entries become the uploaded chunks in slot
@@ -899,7 +908,7 @@ class CollectorServer:
 
     # -- fleet migration (JAX rpc.py:1662-1890; protocol/fleet.py) --------------
 
-    async def session_export(self, req, cs=None) -> dict:
+    async def session_export(self, req, cs=None) -> dict:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """Bank the collection's migratable state as a stamped blob for a
         ``session_import`` on another pair, or, in retire mode, drop the
         source copy after the destination confirmed its import.
@@ -977,7 +986,7 @@ class CollectorServer:
         # listing and pruning pass it by
         return os.path.join(cs.ckpt_dir, f"{cs.ckpt_prefix()}xport.npz")
 
-    async def session_import(self, req, cs=None) -> dict:
+    async def session_import(self, req, cs=None) -> dict:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """Adopt a migrated or orphaned collection's banked state.
 
         ``{"path", "boot", "epoch"}`` names a ``session_export`` blob (live
@@ -1059,7 +1068,7 @@ class CollectorServer:
                   windows=windows, path=path)
         return {"windows": windows}
 
-    async def warmup(self, req, cs=None) -> dict:
+    async def warmup(self, req, cs=None) -> dict:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """Run, for every requested bucket ``f_buckets`` and every span size
         it implies under ``crawl_shard_nodes`` (none for a whole-level
         secure crawl unless ``secure_spans``), what a crawl at that bucket
@@ -1165,9 +1174,11 @@ class CollectorServer:
                     whole = packed[0] if mesh is None else mesh.gather(Sharded(packed, 1))
                     secure.warm_level_kernels(whole, d, field, ot_path, r)
             elif mesh is not None:
+                # fhh-lint: disable=chunked-device-readback,host-sync-in-hot-loop (warmup only: deliberately mirrors the live wire round trip, off the measured clock)
                 mesh.counts_by_pattern(packed, packed, collect.pattern_masks_radix(d, r),
                                        alive, frs[0].alive).cpu()
             else:
+                # fhh-lint: disable=chunked-device-readback,host-sync-in-hot-loop (as above)
                 collect.counts_by_pattern(packed[0], packed[0],
                                           collect.pattern_masks_radix(d, r), alive,
                                           frs[0].alive).cpu()
@@ -1175,7 +1186,7 @@ class CollectorServer:
     # -- recovery verbs (no reference analogue: its only recovery verb is
     # reset, server.rs:64-69) ------------------------------------------------
 
-    async def status(self, _req, cs=None) -> dict:
+    async def status(self, _req, cs=None) -> dict:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """The supervising leader's probe: the boot id tells it whether this
         is the process it knew (replay is safe) or a restart (state gone:
         restore), the dedup hits that no verb ran twice; for the calling
@@ -1213,7 +1224,7 @@ class CollectorServer:
                           "load": self._sched.fleet_load()},
                 "slo": cs.obs.hists_summary(), "alerts": obsalerts.status_section()}
 
-    def sessions_status(self) -> dict:
+    def sessions_status(self) -> dict:  # fhh-race: atomic (read-only rollup over the session table in one event-loop slice; per-session reads are point-in-time probes for an operator, not protocol state)
         """The ``sessions`` section of ``status`` and ``server.exit`` (JAX
         rpc.py:1969-2005): the live collections, one row each (the verb it
         runs and its level, the unsealed queue depth, the replay-cache
@@ -1241,7 +1252,7 @@ class CollectorServer:
         return {"count": len(self._table), "scheduler": self._sched.stats(),
                 "per_session": rows}
 
-    async def tree_checkpoint(self, req, cs=None) -> dict:
+    async def tree_checkpoint(self, req, cs=None) -> dict:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """Persist the crawl state after the round based at ``level``: the
         frontier (plane-major: ``planar`` True), node and client liveness,
         stamped with the key fingerprint, the level, the collection
@@ -1305,7 +1316,7 @@ class CollectorServer:
                   seconds=dt)
         return {"level": level}
 
-    async def tree_restore(self, req, cs=None) -> dict:
+    async def tree_restore(self, req, cs=None) -> dict:  # fhh-race: holds=_verb_lock (dispatched only by _dispatch, which holds the session's verb lock; sanitizer-validated)
         """Reload the :meth:`tree_checkpoint` of the level the leader names
         and return it (the crawl goes on at the round after it).  Needs the
         keys: still held, or re-uploaded after a restart.  Every check runs
@@ -1409,7 +1420,7 @@ class CollectorServer:
                   planar=bool(z["planar"]))
         return {"level": level}
 
-    async def plane_reset(self, _req, cs=None) -> bool:
+    async def plane_reset(self, _req, cs=None) -> bool:  # fhh-race: holds=_verb_lock (dispatched by _dispatch under the SERVER infra lock — the plane is shared infrastructure across sessions; sanitizer-validated)
         """Re-establish the data plane after a peer loss: server 0 drops its
         transport and redials under ``DIAL_POLICY``; server 1 re-accepts on
         its listener, which is still bound.  The plane is shared: the new
@@ -1444,7 +1455,9 @@ class CollectorServer:
     def _prune_args(req):
         """(parent_idx int64[F'], pattern bits bool[F', r, d], n_alive): the
         wire's ``[F', d]`` (radix 1) or ``[F', r, d]`` (a fused round)."""
+        # fhh-lint: disable=host-sync-in-hot-loop (wire input: host numpy)
         parent = np.asarray(req["parent_idx"], np.int64)
+        # fhh-lint: disable=host-sync-in-hot-loop (wire input: host numpy)
         pat = np.asarray(req["pattern_bits"], bool)
         if pat.ndim == 2:
             pat = pat[:, None, :]
@@ -1460,7 +1473,7 @@ class CollectorServer:
 
     # -- one level: the device stage, then the exchange --------------------------
 
-    def _do_expand(self, cs, level: int, last: bool, shard) -> dict:
+    def _do_expand(self, cs, level: int, last: bool, shard) -> dict:  # fhh-race: atomic (dispatch-only device work, never suspends; called both under the session's verb lock and from the frame-arrival pre-expand)
         """The device half of one crawl verb: the expansion of the frontier
         view, per data shard on its clients (and in secure mode its
         equality strings: row-sharded over the kernel stage's shards, or
@@ -1510,7 +1523,7 @@ class CollectorServer:
         async with self._sched.device_turn(cs.key, count=not pre):
             return self._expand_stage(cs, level, last, shard)
 
-    def _maybe_pre_expand(self, cs, verb: str, req) -> None:
+    def _maybe_pre_expand(self, cs, verb: str, req) -> None:  # fhh-race: atomic (frame-arrival prefetch: reads frontier/keys and stashes in one event-loop slice; every frontier mutation clears the stash before the next slice)
         """Frame arrival of a span's crawl verb, before the verb lock: run
         its expansion now, while an earlier span holds the lock on the data
         plane.  A prefetch only: any failure here leaves the verb to
@@ -1528,7 +1541,7 @@ class CollectorServer:
         t0 = time.perf_counter()
         try:
             cs._expand_ready[key] = self._do_expand(cs, key[1], key[0], shard)
-        except Exception:  # prefetch only: the verb recomputes and reports
+        except Exception:  # fhh-lint: disable=broad-except (prefetch only: the verb recomputes under the lock and surfaces the real error to the leader)
             cs._expand_ready.pop(key, None)
             return
         # a dispatch while another collection's span is on the wire is the
@@ -1636,6 +1649,7 @@ class CollectorServer:
         if cs._mesh is None:
             return contextlib.nullcontext()
         cs.obs.gauge("data_shards", cs._mesh.shards, level=level)
+        # fhh-lint: disable=span-discipline (returned to the caller's with statement, which enters and exits it)
         return cs.obs.span("ici_reduce", level=level)
 
     async def _crawl_trusted(self, cs, level: int, last: bool, shard) -> np.ndarray:
@@ -1669,6 +1683,7 @@ class CollectorServer:
                     dev_counts = mesh.counts_by_pattern(packed, words_from_numpy(peer, "cpu"),
                                                         masks, cs.alive_keys,
                                                         frontier[0].alive)
+                # fhh-lint: disable=host-sync-in-hot-loop (the level's one readback, off the event loop and counted as device_fetches; counts are int64, not the uint32 words _fetch_words moves)
                 counts = await asyncio.to_thread(lambda: dev_counts.cpu().numpy())
                 cs.obs.count("device_fetches")
         self._level_done(cs, level, sp_fss, sp_gc, sp_field)
@@ -1890,7 +1905,10 @@ class CollectorServer:
                 finally:
                     if verb != "status":
                         cs.phase = cs.level = None
-        except Exception as e:  # the RPC boundary: every failure goes to the caller
+        # fhh-lint: disable=broad-except (RPC boundary: EVERY failure
+        # mode must surface to the caller as an error response — a
+        # narrowed list would hang the leader on the first unlisted one)
+        except Exception as e:
             obs.emit("verb.error", severity="warn", server=self.server_id, verb=verb,
                      collection=cs.key, error=f"{type(e).__name__}: {e}")
             return {"__error__": f"{type(e).__name__}: {e}"}
@@ -1932,6 +1950,7 @@ class CollectorServer:
         t_verb = time.monotonic()
         try:
             with (contextlib.nullcontext() if verb == "status"
+                  # fhh-lint: disable=span-discipline (the with-item picks a nullcontext for status; the span it otherwise names is entered and exited by this with statement)
                   else cs.obs.span(f"verb:{verb}")):
                 resp = await self._run_verb(cs, verb, req)
         except asyncio.CancelledError:  # release any replay awaiting this execution
@@ -1953,7 +1972,7 @@ class CollectorServer:
                 done.set_result(resp)
         return resp
 
-    def _bind_session(self, req) -> _Session | None:
+    def _bind_session(self, req) -> _Session | None:  # fhh-race: atomic (serve-loop session table: create-or-attach + eviction never suspends; all connections share one event loop)
         """Create or attach the leader session a ``__hello__`` names; the
         oldest idle one makes room past ``_SESSION_CAP``."""
         sid = (req or {}).get("session")
@@ -2036,6 +2055,7 @@ class CollectorServer:
             pass
         finally:
             if tasks:
+                # fhh-lint: disable=unbounded-await (drain: every verb task of this connection finishes, so no peer frame is left unread mid-verb; a silently dead peer surfaces through the data plane's TCP keepalive, which ends the blocked verb)
                 await asyncio.wait(set(tasks))
             writer.close()
             self._ctl_writers.discard(writer)
@@ -2045,7 +2065,9 @@ class CollectorServer:
     @staticmethod
     async def _recv_plane_frame(reader):
         """One data-plane frame for the mux's pump -> (framed bytes, frame)."""
+        # fhh-lint: disable=unbounded-await (serve-loop read: the pump waits indefinitely for the next frame by design; liveness comes from the socket's TCP keepalive)
         (n,) = _HDR.unpack(await reader.readexactly(_HDR.size))
+        # fhh-lint: disable=unbounded-await (as above)
         return n + _HDR.size, pickle.loads(await reader.readexactly(n))
 
     def _attach_plane(self, reader, writer) -> None:
@@ -2095,7 +2117,10 @@ class CollectorServer:
                 self._peer_srv = await asyncio.start_server(on_peer, host, peer_port)
                 if on_plane_listen is not None:
                     on_plane_listen()
-                await ready.wait()  # as long as the peer takes to come up
+                # fhh-lint: disable=unbounded-await (startup barrier: a
+                # listening server legitimately waits as long as it takes
+                # its peer to come up; operators bound this externally)
+                await ready.wait()
             else:
                 await self._dial_peer()
             self._rpc_srv = await asyncio.start_server(self._handle_leader, host, port)
@@ -2252,7 +2277,7 @@ class CollectorClient:
                 fut = self._pending.pop(req_id, None)
                 if fut is not None and not fut.done():
                     fut.set_result(resp)
-        except Exception as e:  # reader death fails every call in flight
+        except Exception as e:  # fhh-lint: disable=broad-except (reader death fails every call in flight: each pending caller gets the ConnectionError and redials or raises; nothing awaits this task)
             self._fail_pending(ConnectionError(
                 f"connection to {self._host}:{self._port} lost: {e!r}"))
 

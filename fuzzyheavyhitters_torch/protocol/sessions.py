@@ -420,7 +420,7 @@ class CollectionSession:
 
     # -- lifecycle --------------------------------------------------------
 
-    def clear(self) -> None:
+    def clear(self) -> None:  # fhh-race: holds=_verb_lock (reached only from the constructor, reset_state and window_load/session_import, which run under this session's verb lock; sanitizer-validated)
         """Drop the crawl and sketch state (``window_load``'s fresh batch);
         the ingest pools and checkpoints stay."""
         # the uploaded numpy key chunks; with data shards they are kept after
@@ -455,7 +455,7 @@ class CollectionSession:
         self._window_sketch_root = None
         self._window_seal_ts = None
 
-    def clear_spans(self) -> None:
+    def clear_spans(self) -> None:  # fhh-race: holds=_verb_lock (reached only from clear and tree_init/tree_restore under this session's verb lock; sanitizer-validated)
         self._shard_children: dict = {}  # span lo -> child cache of this level
         self._shard_last: dict = {}  # span lo -> last-level shares
         self._shard_level = None
@@ -467,7 +467,7 @@ class CollectionSession:
         the default collection's is the server's)."""
         return summary([self.obs.report()])
 
-    def reset_state(self, reset_obs: bool = True) -> None:
+    def reset_state(self, reset_obs: bool = True) -> None:  # fhh-race: holds=_verb_lock (reached only from the reset verb, which _dispatch runs under this session's verb lock; sanitizer-validated)
         """The ``reset`` verb's body: a new collection run opens clean (crawl
         and sketch state, ingest pools, checkpoint namespace, telemetry),
         with fresh GC/b2a randomness when the secure plane is keyed.
@@ -483,7 +483,7 @@ class CollectionSession:
             self._sec_seed = np.frombuffer(secrets.token_bytes(16), "<u4").copy()
             taint_guard.register("CollectionSession._sec_seed", self._sec_seed)
 
-    def idle(self) -> bool:
+    def idle(self) -> bool:  # fhh-race: atomic (read-only probe from the serve-loop session bind; one event-loop slice)
         """Nothing durable here and no connection bound: an eviction
         candidate."""
         return (self.bound == 0 and self.keys is None and not self.keys_parts
@@ -501,30 +501,30 @@ class CollectionSession:
         """:meth:`_shards`' inverse."""
         return parts if self._mesh is not None else parts[0]
 
-    def _kb(self) -> ibdcf.IbDcfKeyBatch:
+    def _kb(self) -> ibdcf.IbDcfKeyBatch:  # fhh-race: atomic (pure read of the key batch, never suspends; reached from the verbs under this session's verb lock and from the frame-arrival pre-expand)
         """A key batch to read the key shapes from (the first shard's)."""
         return self._shards(self.keys)[0]
 
-    def _n_clients(self) -> int:
+    def _n_clients(self) -> int:  # fhh-race: holds=_verb_lock (reached only from tree_init/tree_restore/warmup under this session's verb lock; sanitizer-validated)
         return self._mesh.n_clients if self._mesh is not None else self.keys.cw_seed.shape[0]
 
     def _data_len(self) -> int:
         return self._kb().cw_seed.shape[-2]
 
-    def _f_bucket(self) -> int:
+    def _f_bucket(self) -> int:  # fhh-race: atomic (pure read of the frontier, never suspends; reached from the verbs under this session's verb lock and from the frame-arrival pre-expand)
         return self._shards(self.frontier)[0].f_bucket
 
-    def _has_sketch(self) -> bool:
+    def _has_sketch(self) -> bool:  # fhh-race: holds=_verb_lock (reached only from tree_init/tree_restore under this session's verb lock; sanitizer-validated)
         return bool(self._sketch_parts) or self._sketch is not None
 
-    def _concat_sketch(self) -> None:
+    def _concat_sketch(self) -> None:  # fhh-race: holds=_verb_lock (reached only from tree_init/tree_restore under this session's verb lock; sanitizer-validated)
         """The uploaded sketch chunks as one key batch on the device."""
         if self._sketch_parts:
             leaves = [np.concatenate(p) for p in zip(*self._sketch_parts)]
             self._sketch_parts = []
             self._sketch = sketchmod.sketch_from_numpy(leaves, self.device)
 
-    def _concat_keys(self, verb: str) -> None:
+    def _concat_keys(self, verb: str) -> None:  # fhh-race: holds=_verb_lock (reached only from tree_init/tree_restore/warmup under this session's verb lock; sanitizer-validated)
         """The uploaded chunks as one key batch on the device (with data
         shards, bound to the batch and split per shard), checked against
         the crawl radix.  With data shards the chunks are kept."""
@@ -547,7 +547,7 @@ class CollectionSession:
             raise ValueError(f"n_dims={d}: supported 1..{collect.MAX_DIMS}")
         collect.check_radix(d, self.cfg.crawl_radix_bits)
 
-    def _keys_fp(self) -> np.ndarray:
+    def _keys_fp(self) -> np.ndarray:  # fhh-race: holds=_verb_lock (reached only from tree_checkpoint/tree_restore under this session's verb lock; sanitizer-validated)
         """uint8[32]: SHA-256 over ``key_idx`` then ``root_seed`` in their
         wire dtypes, byte for byte the JAX session's ``keys_fp``: did the
         leader re-upload the batch this checkpoint was written under (an
@@ -566,7 +566,7 @@ class CollectionSession:
 
     # -- the malicious sketch ---------------------------------------------
 
-    def challenge_seed(self, level: int) -> np.ndarray:
+    def challenge_seed(self, level: int) -> np.ndarray:  # fhh-race: holds=_verb_lock (reached only from sketch_verify under this session's verb lock; sanitizer-validated)
         """This level's sketch challenge: the ratchet of the committed root,
         the level and the transcript digest (the channel's raw coin flip only
         before any ``tree_init`` committed a root)."""
@@ -574,6 +574,7 @@ class CollectionSession:
             return self._sketch_seed
         return sketchmod.ratchet_seed(self._sketch_root, level, self._ratchet_digest)
 
+    # fhh-race: holds=_verb_lock (reached only from tree_prune/tree_prune_last under this session's verb lock; sanitizer-validated)
     def advance_sketch(self, level: int, parent: np.ndarray, pat: np.ndarray,
                        n_alive: int) -> None:
         """Advance the frontier-following sketch states with the prune's
@@ -633,7 +634,7 @@ class CollectionSession:
                   else min(int(self.cfg.sketch_shards), self._mesh.shards))
         return sketch_shard.bind(self._mesh._active_devices(), n, d, budget)
 
-    def _sketch_blob(self) -> dict:
+    def _sketch_blob(self) -> dict:  # fhh-race: holds=_verb_lock (reached only from tree_checkpoint under this session's verb lock; sanitizer-validated)
         """The sketch's share of a checkpoint (JAX rpc.py:2092-2128): the
         frontier-following DPF states, the stored pairs not yet opened (one
         ``sk_pairs_{i}`` a fused depth, with their depths and fields), the
@@ -675,7 +676,7 @@ class CollectionSession:
             raise RuntimeError(f"tree_restore: checkpoint at {path} is missing sketch fields "
                                f"{sorted(missing)} (truncated write?)")
 
-    def _restore_sketch(self, z: dict) -> None:
+    def _restore_sketch(self, z: dict) -> None:  # fhh-race: holds=_verb_lock (reached only from tree_restore under this session's verb lock; sanitizer-validated)
         """Load the sketch state of a checked blob: per-depth ``sk_pairs_{i}``
         entries, or the older single ``sk_pairs``."""
         self._concat_sketch()
@@ -700,12 +701,12 @@ class CollectionSession:
 
     # -- node spans -------------------------------------------------------
 
-    def _frontier_view(self, shard):
+    def _frontier_view(self, shard):  # fhh-race: atomic (pure slice of the frontier, never suspends; reached from the frame-arrival pre-expand)
         if shard is None:
             return self.frontier
         return self._one([collect.frontier_slice(f, *shard) for f in self._shards(self.frontier)])
 
-    def _stash_children(self, level: int, shard, children) -> None:
+    def _stash_children(self, level: int, shard, children) -> None:  # fhh-race: holds=_verb_lock (reached only from the crawl verbs under this session's verb lock; sanitizer-validated)
         """Bank one crawl's child cache for the prune: the whole level's,
         or a span's under its ``lo`` (the first span of a new level drops
         any stale ones)."""
@@ -720,7 +721,7 @@ class CollectionSession:
         if children is not None:
             self._shard_children[shard[0]] = children
 
-    def _assemble_shard_children(self, radix: int):
+    def _assemble_shard_children(self, radix: int):  # fhh-race: holds=_verb_lock (reached only from tree_prune under this session's verb lock; sanitizer-validated)
         """The round's child cache from its spans (``2^(radix-1)`` cache
         rows per frontier slot); a missing span raises rather than advance
         garbage for its nodes."""
@@ -735,7 +736,7 @@ class CollectionSession:
         self._shard_children.clear()
         return children
 
-    def _mask_rows(self, level: int, shard, C: int, f255: bool) -> np.ndarray:
+    def _mask_rows(self, level: int, shard, C: int, f255: bool) -> np.ndarray:  # fhh-race: holds=_verb_lock (reached only from tree_crawl/_last under this session's verb lock; sanitizer-validated)
         """The trusted answer's mask rows of one (level, span): the whole
         level's stream sliced to the span's nodes (one-entry cache)."""
         F = self._f_bucket()
@@ -812,7 +813,7 @@ class CollectionSession:
 
     # -- the ingest pools (a gate a session) ------------------------------
 
-    def ingest_pool(self, window: int) -> _WindowPool:
+    def ingest_pool(self, window: int) -> _WindowPool:  # fhh-race: atomic (create-or-get + bounded eviction in one event-loop slice; called from the unlocked ingest fast path and from locked verbs)
         """Create-or-get the pool for ``window``; live-window count is
         BOUNDED (``cfg.ingest_windows_retained``) so a runaway window id
         can never grow server memory — the refusal is loud, never a
@@ -846,7 +847,7 @@ class CollectionSession:
             )
         return pool
 
-    def ingest_status(self) -> dict:
+    def ingest_status(self) -> dict:  # fhh-race: holds=_verb_lock (reached only from the status verb under this session's verb lock; sanitizer-validated)
         """Front-door health for ``status``: per-window occupancy, the
         unsealed-queue depth, and the admit/shed/reject counters."""
         pools = [self._ingest_pools[w] for w in sorted(self._ingest_pools)]
@@ -870,7 +871,7 @@ class CollectionSession:
             },
         }
 
-    def ingest_ckpt_fields(self, blob: dict) -> None:
+    def ingest_ckpt_fields(self, blob: dict) -> None:  # fhh-race: holds=_verb_lock (reached only from tree_checkpoint/session_export under this session's verb lock; sanitizer-validated)
         """Flatten every live ingest pool into ``ing_*`` npz fields."""
         ws = sorted(self._ingest_pools)
         if not ws:
@@ -1014,7 +1015,7 @@ class CollectionSession:
             })
         return parsed
 
-    def ingest_restore_apply(self, parsed: list) -> None:
+    def ingest_restore_apply(self, parsed: list) -> None:  # fhh-race: holds=_verb_lock (reached only from tree_restore/session_import under this session's verb lock; sanitizer-validated)
         """Rebuild the ingest pools from validated records (the mutation
         half of the restore contract)."""
         self._ingest_pools.clear()
@@ -1093,7 +1094,7 @@ class SessionTable:
     def default(self) -> CollectionSession:
         return self.get(DEFAULT_COLLECTION)
 
-    def get(self, key: str | None = None) -> CollectionSession:
+    def get(self, key: str | None = None) -> CollectionSession:  # fhh-race: atomic (serve-loop session table: create-or-get + eviction never suspends; all connections share one event loop)
         key = check_key(key)
         cs = self._by_key.get(key)
         if cs is None:

@@ -100,7 +100,9 @@ _WINDOW_TAG = b"fhh-sketch-window-root/1"
 
 def window_root(session_seed, window: int) -> np.ndarray:
     """A streaming window's ratchet root: uint32[4] = SHA-256(tag ‖ session
-    coin flip ‖ window)[:16] (the windows that commit it are not ported)."""
+    coin flip ‖ window)[:16].  ``window_seal`` commits it to the sealed
+    pool, and ``tree_init`` over the loaded window takes it in place of the
+    coin flip (``rpc.py``)."""
     h = hashlib.sha256(_WINDOW_TAG)
     h.update(np.ascontiguousarray(np.asarray(session_seed, np.uint32)).tobytes())
     h.update(struct.pack("<q", int(window)))

@@ -190,8 +190,12 @@ class ChaosProxy:
         (a half-open proxy would hide a real sever)."""
         try:
             while True:
+                # fhh-lint: disable=unbounded-await (proxy pump: a chaos
+                # proxy must never impose its own deadline — the system
+                # under test owns all timeout behavior)
                 hdr = await reader.readexactly(_HDR.size)
                 (n,) = _HDR.unpack(hdr)
+                # fhh-lint: disable=unbounded-await (as above)
                 body = await reader.readexactly(n)
                 counts[direction] += 1
                 self.frames[direction] += 1

@@ -141,7 +141,9 @@ def _buffer_bytes(value) -> bytes | None:
         value = _host(value)
         tobytes = getattr(value, "tobytes", None)
         return tobytes() if callable(tobytes) else None
-    except Exception:  # a sanitizer never crashes the protocol it watches
+    # fhh-lint: disable=broad-except (a sanitizer must never crash
+    # the protocol it watches: an exotic tobytes() is just skipped)
+    except Exception:
         return None
 
 
@@ -160,7 +162,9 @@ def register(label: str, value) -> None:
         _text_markers.setdefault(raw.hex(), label)
     try:  # the interpolated form: str(ndarray) / str(bytes)
         text = str(_host(value)).strip()
-    except Exception:  # no text marker for a value whose str() throws
+    # fhh-lint: disable=broad-except (sanitizer-never-crashes: a value
+    # whose __str__ throws simply gets no text marker)
+    except Exception:
         return
     if len(text) >= _MIN_TEXT_MARKER:
         _text_markers.setdefault(text, label)
@@ -183,7 +187,9 @@ def _scan_text(text: str, sink: str) -> None:
     # a snapshot: a scrape thread scans while the event loop registers
     for marker, label in tuple(_text_markers.items()):
         if marker in text:
-            # `label` is the source's name, never its bytes
+            # fhh-lint: disable=secret-to-sink (`label` here is the
+            # SOURCE NAME from the registry — "CollectionSession
+            # ._sec_seed" — never the secret bytes themselves)
             raise TaintViolation(
                 f"rendered text at sink '{sink}' contains the interpolated bytes of "
                 f"registered source '{label}': key material crossed an obs boundary "
@@ -194,6 +200,8 @@ def _scan_text(text: str, sink: str) -> None:
 def _scan_bytes(raw: bytes, sink: str) -> None:
     for marker, label in tuple(_byte_markers.items()):
         if marker == raw or (len(raw) > len(marker) and marker in raw):
+            # fhh-lint: disable=secret-to-sink (`label` is the source
+            # NAME from the registry, never the secret bytes)
             raise TaintViolation(
                 f"payload at sink '{sink}' carries the raw bytes of registered source "
                 f"'{label}': key material crossed an obs boundary")
@@ -226,7 +234,9 @@ def _scan(obj, sink: str, depth: int) -> None:
         _scan_text(str(obj), sink)
     except TaintViolation:
         raise
-    except Exception:  # an object whose str() throws renders nowhere
+    # fhh-lint: disable=broad-except (sanitizer-never-crashes: objects
+    # whose __str__ throws are not scannable and not sink-renderable)
+    except Exception:
         pass
 
 

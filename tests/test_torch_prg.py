@@ -2,6 +2,7 @@
 for bit (tolerance 0: the system is bitwise), plus the port's import
 isolation: importing it must load neither JAX nor the JAX package."""
 
+import os
 import subprocess
 import sys
 
@@ -73,6 +74,10 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import fuzzyheavyhitters_torch.bin.mesh\n"
         "import fuzzyheavyhitters_torch.ops.cuda_build\n"
+        "import fuzzyheavyhitters_torch.analysis\n"
+        "import fuzzyheavyhitters_torch.analysis.cli\n"
+        "import fuzzyheavyhitters_torch.workloads.covid_data_visualization\n"
+        "import fuzzyheavyhitters_torch.workloads.ride_austin_visualization\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('fuzzyheavyhitters_tpu')]\n"
         "assert not bad, bad\n"
@@ -80,3 +85,25 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_port_sources_import_no_jax():
+    """No file of the port, and not chip_smoke.py, has an import of jax or
+    of the JAX package (at module level or inside a function)."""
+    import ast
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = [os.path.join(root, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(root, "fuzzyheavyhitters_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    bad = []
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read())
+        for n in ast.walk(tree):
+            mods = ([a.name for a in n.names] if isinstance(n, ast.Import)
+                    else [n.module or ""] if isinstance(n, ast.ImportFrom) and not n.level
+                    else [])
+            bad += [(path, n.lineno, m) for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "fuzzyheavyhitters_tpu")]
+    assert len(files) > 60 and not bad, bad

@@ -162,6 +162,3 @@ def test_sketch_shard_binding_degrades_and_warms():
     assert tss.bind((CPU,) * 4, 13, D, 4) is None
     ss = tss.bind((CPU,) * 4, 12, D, 3)
     assert ss.k == 3 and ss.spans() == [(0, 4), (4, 8), (8, 12)]
-    for field in (tf.FE62, tf.F255):
-        tss.warm_verify(ss, field, 4, 12, D, True)
-        tss.warm_verify(None, field, 4, 12, D, False, "cpu")

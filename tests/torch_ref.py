@@ -28,6 +28,7 @@ over several steps does so as on the chip.
 
 import contextlib
 import importlib
+import importlib.util
 import itertools
 import sys
 
@@ -78,6 +79,22 @@ def reference(*names):
             added = _ours(set(sys.modules) - before)
             _loaded.update({m: sys.modules[m] for m in added})
             _remove(added)
+
+
+def reference_file(path, name):
+    """Import a file that imports the JAX package (one of its test
+    modules) as module ``name``, as :func:`reference` imports a module."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    before = set(sys.modules)
+    with _shimmed():
+        try:
+            spec.loader.exec_module(mod)
+        finally:
+            added = _ours(set(sys.modules) - before)
+            _loaded.update({m: sys.modules[m] for m in added})
+            _remove(added)
+    return mod
 
 
 @contextlib.contextmanager
