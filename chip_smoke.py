@@ -47,7 +47,12 @@ Phases (any failure raises, and the script exits non-zero):
    levels): at the widest FE62 level and at the F255 last level, each timed;
 8. chunk checks of 1,048,576 tests, the pad index starting at 2^32 - 1000 so
    it wraps inside the batch: ot2s at S in {2, 4, 6} and the GC kernels at
-   S in {2, 4, 6, 8, 16}, each at W in {4, 8};
+   S in {2, 4, 6, 8, 16}, each at W in {4, 8}; then the GC timing line
+   (``gc_timing``): garble and eval timed warm with CUDA events at the
+   shapes of ``GC_TIMING`` (S = 4 at rides_secure_gc level 14's bp, S' = 8
+   at a phase-29 kernel shard's, S = 8 and 16 on 1,048,576 tests), each
+   with its bound, the ratio, and the registers, spills and SASS
+   instructions of the instantiation it ran;
 9. the socket deployment: two ``bin.server`` processes and a ``bin.leader``
    (``--seed``) as real OS processes on the card, started together on free
    localhost ports (server 0 and the leader dial with retries; from here on
@@ -450,6 +455,15 @@ PLAIN_ROWS = 1 << 23  # rows per plain-expand slice: bounds its int64 temporarie
 PLAIN_TESTS = 1 << 19  # tests per plain ot2s/GC slice
 CHUNK_TESTS = 1 << 20  # tests of each chunk check
 CHUNK_IDX0 = 2**32 - 1000  # the chunk checks' pad index wraps inside the batch
+# the GC timing line: (what, S, W, bp) — rides_secure_gc's widest level, a
+# K3 shard of rides_secure_socket_radix2_sharded's widest round at 16,384
+# clients and at the 4,096 the cell runs, the chunks
+GC_TIMING = (("rides_secure_gc level 14", 4, 4, 1 << 24),
+             ("K3 shard, S' = 8", 8, 4, 1 << 19),
+             ("K3 shard at 4,096 clients, S' = 8", 8, 4, 1 << 17),
+             ("chunk", 8, 4, CHUNK_TESTS), ("chunk", 8, 8, CHUNK_TESTS),
+             ("chunk", 16, 4, CHUNK_TESTS), ("chunk", 16, 8, CHUNK_TESTS))
+GC_TIMING_REPS = 20
 PROFILE_LEVELS = 8  # secure levels --profile traces per secure crawl
 # bench.py:485-489 (bench_crawl_hbm_max): the streaming crawl's leader
 STREAM = dict(stream_chunk=32, stream_window=64, min_bucket=128)
@@ -2311,6 +2325,111 @@ def chunk_checks(torch, seed):
                                                   gcc.eval_planar, "chunk", 1))
             del tab, gbl, dec, cts, a
     return checks
+
+
+def gc_time_shape(torch, gcc, S, W, bp, seed, reps=GC_TIMING_REPS):
+    """Garble and eval of ``gcc`` (a ``gc_cuda`` module) at one shape on
+    random inputs from ``seed``, each timed warm over ``reps`` launches
+    (CUDA events) -> (garble ms, eval ms, every output of both)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    words = lambda r: torch.randint(-2**31, 2**31, (r, bp), dtype=torch.int32,
+                                    device="cuda", generator=g)
+    bits = lambda r: torch.randint(0, 2, (r, bp), dtype=torch.int32, device="cuda", generator=g)
+    R = [int(v) for v in torch.randint(0, 2**32, (4,), generator=torch.Generator()
+                                       .manual_seed(seed))]
+    R[0] |= 1
+    a = (R, words(4 * S), words(4 * S), bits(S), bits(1), words(W), words(W), CHUNK_IDX0)
+    garbled = gcc.garble_planar(*a)
+    g_ms = cuda_ms(lambda: gcc.garble_planar(*a), reps, warm=True)
+    tab, gbl, dec, cts = garbled
+    b = (gbl, words(4 * S), tab, dec, cts, CHUNK_IDX0)
+    del a
+    opened = gcc.eval_planar(*b)
+    e_ms = cuda_ms(lambda: gcc.eval_planar(*b), reps, warm=True)
+    return g_ms, e_ms, garbled + opened
+
+
+def ptxas_by_function(text: str) -> dict:
+    """``nvcc -Xptxas -v`` output -> {mangled function: {"registers",
+    "spill_stores", "spill_loads"}} (each ``Function properties for F``
+    line, then its spill line and its ``Used N registers`` line)."""
+    import re
+
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
+def sass_by_function(lib_path) -> dict:
+    """{mangled function: SASS instructions} of a built library
+    (``cuobjdump -sass``; {} where the toolkit has no cuobjdump)."""
+    import re
+
+    tool = os.path.join(os.path.dirname(_ops("cuda_build").nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = 0
+        elif cur is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            out[cur] += 1
+    return out
+
+
+def gc_instantiation(fns: dict, which: str, S: int, W: int):
+    """The entry of ``fns`` (keyed by mangled name) of the GC kernel
+    ``which`` ("garble" or "eval") that runs (S, W): the one templated on W,
+    or on (S, W) in a tree before S became a kernel argument; else None."""
+    syms = (f"fhh_gc_{which}_kernelILi{W}EEv", f"fhh_gc_{which}_kernelILi{S}ELi{W}EEv")
+    hits = [v for k, v in fns.items() if any(sym in k for sym in syms)]
+    return hits[0] if len(hits) == 1 else None
+
+
+def gc_timing(torch, seed):
+    """The GC timing line: garble and eval at each shape of GC_TIMING, with
+    its bound, the ratio, and the ptxas registers and spills and the SASS
+    instructions of the instantiation it ran."""
+    gcc, cb = _ops("gc_cuda"), _ops("cuda_build")
+    ptx = ptxas_by_function(cb.log_path("gc").read_text())
+    sass = sass_by_function(cb.lib_path("gc"))
+    rows = []
+    for i, (what, S, W, bp) in enumerate(GC_TIMING):
+        g_ms, e_ms, outs = gc_time_shape(torch, gcc, S, W, bp, seed + i)
+        del outs
+        torch.cuda.empty_cache()
+        for kn, which, ms in (("gc_garble", "garble", g_ms), ("gc_eval", "eval", e_ms)):
+            b_ms, b_by = secure_bound(kn, S, W, bp)
+            px = gc_instantiation(ptx, which, S, W) or {}
+            row = {"kernel": kn, "what": what, "S": S, "W": W, "bp": bp, "ms": ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "ratio": ms / b_ms,
+                   "registers": px.get("registers"), "spill_stores": px.get("spill_stores"),
+                   "spill_loads": px.get("spill_loads"),
+                   "sass_instructions": gc_instantiation(sass, which, S, W)}
+            rows.append(row)
+            log(f"gc timing {kn} {what} S={S} W={W} bp={bp}: ms={ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}) ratio={row['ratio']:.3f} "
+                f"registers={row['registers']} spills={row['spill_stores']}/"
+                f"{row['spill_loads']} B sass={row['sass_instructions']}")
+    log(json.dumps({"gc_timing": rows}))
+    return rows
 
 
 def _hitter_map(res):
@@ -4726,6 +4845,8 @@ def main() -> int:
     stage("keygen checks")
     report["chunk_checks"] = chunk_checks(torch, args.seed)
     stage("chunk checks")
+    report["gc_timing"] = gc_timing(torch, args.seed)
+    stage("gc timing")
     for kn, cs in report["chunk_checks"].items():
         errs[kn] += [c["max_abs_err"] for c in cs]
 

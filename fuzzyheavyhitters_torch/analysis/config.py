@@ -314,6 +314,7 @@ class LintConfig:
         "scripts/live_cost.py",
         "scripts/socket_ab.py",
         "scripts/nvcc_split_check.py",
+        "scripts/gc_ab.py",
     )
 
 

@@ -273,6 +273,11 @@ _SESSION_CACHE_CAP = 1024
 _SESSION_CACHE_BYTES = 128 << 20
 _SESSION_CAP = 8
 
+# a closed control connection's drain (the JAX server's): its verb tasks are
+# polled this often, and cancelled once none has finished for the backstop
+DRAIN_POLL_S = 30.0
+DRAIN_BACKSTOP_S = 1800.0
+
 
 def _resp_nbytes(resp) -> int:
     """Approximate retained size of a cached response."""
@@ -2054,9 +2059,23 @@ class CollectorServer:
         except (asyncio.IncompleteReadError, ConnectionResetError):
             pass
         finally:
-            if tasks:
-                # fhh-lint: disable=unbounded-await (drain: every verb task of this connection finishes, so no peer frame is left unread mid-verb; a silently dead peer surfaces through the data plane's TCP keepalive, which ends the blocked verb)
-                await asyncio.wait(set(tasks))
+            # drain, don't cancel: a verb mid-exchange must not leave the
+            # peer's frame unread.  Cancel only when the peer plane is gone
+            # (the data plane is lost anyway) or when no task has finished
+            # for DRAIN_BACKSTOP_S while the plane stays open: a wedged verb,
+            # not a long one.  A silently dead peer surfaces through the data
+            # plane's TCP keepalive, which ends the blocked verb.
+            pending = set(tasks)
+            deadline = time.monotonic() + DRAIN_BACKSTOP_S
+            while pending:
+                done, pending = await asyncio.wait(pending, timeout=DRAIN_POLL_S)
+                if done:  # progress: push the backstop out again
+                    deadline = time.monotonic() + DRAIN_BACKSTOP_S
+                if pending and (self._peer_writer is None or self._peer_writer.is_closing()
+                                or time.monotonic() > deadline):
+                    for t in pending:
+                        t.cancel()
+                    break
             writer.close()
             self._ctl_writers.discard(writer)
             if cs is not None:
@@ -2277,9 +2296,15 @@ class CollectorClient:
                 fut = self._pending.pop(req_id, None)
                 if fut is not None and not fut.done():
                     fut.set_result(resp)
-        except Exception as e:  # fhh-lint: disable=broad-except (reader death fails every call in flight: each pending caller gets the ConnectionError and redials or raises; nothing awaits this task)
+        except Exception as e:  # fhh-lint: disable=broad-except (reader death fails every call in flight with the ConnectionError; an error outside TRANSIENT_ERRORS is a bug here, emitted as client.reader_error and re-raised as the task's result)
             self._fail_pending(ConnectionError(
                 f"connection to {self._host}:{self._port} lost: {e!r}"))
+            if not isinstance(e, respolicy.TRANSIENT_ERRORS):
+                # nothing awaits this task, so a bare re-raise would sit
+                # unretrieved: emit it now, then re-raise for any consumer
+                obs.emit("client.reader_error", severity="error",
+                         error=f"{type(e).__name__}: {e}")
+                raise
 
     async def _roundtrip(self, req_id, verb: str, req, deadline: respolicy.Deadline):
         """One send and its answer on the current transport, no retry."""

@@ -121,7 +121,7 @@ def test_ot2s_kernels_equal_plain(cuda, S, W):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("S", [2, 4, 6, 8, 16])
+@pytest.mark.parametrize("S", [2, 4, 6, 8, 16, 3, 5, 15])
 @pytest.mark.parametrize("W", [4, 8])
 def test_gc_kernels_equal_plain(cuda, S, W):
     rng = np.random.default_rng(17 + S + W)
@@ -145,6 +145,20 @@ def test_gc_kernels_equal_plain(cuda, S, W):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("S", [1, 17])
+def test_gc_kernels_refuse_untaken_widths(cuda, S):
+    """S is a kernel argument bounded by the labels' shared memory: the
+    wrappers refuse a width outside 2..16 before any launch."""
+    rng = np.random.default_rng(23)
+    n = 1000
+    args = (_planes(rng, 4 * S, n), _planes(rng, 4 * S, n), _planes(rng, S, n, True),
+            _planes(rng, 1, n, True), _planes(rng, 4, n), _planes(rng, 4, n))
+    before = gc_cuda.GARBLE_LAUNCHES
+    with pytest.raises(ValueError, match="compiled for S in"):
+        gc_cuda.garble_planar([1, 2, 3, 4], *(a.to(cuda) for a in args), 0)
+    assert gc_cuda.GARBLE_LAUNCHES == before
 
 
 def test_two_processes_build_on_an_empty_build_dir(cuda, tmp_path):

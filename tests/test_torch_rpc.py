@@ -464,3 +464,164 @@ def test_wire_refuses_tensors_and_binaries_refuse_unported_modes(monkeypatch, tm
                                 "capacity")} == {
         "pair": "pair0", "server_id": 1, "host": "127.0.0.1", "port": 4001,
         "boot_id": server.boot_id, "capacity": 4}
+
+
+# -- (e) the control plane under a fault: the drain and the read loop --------
+
+
+class _PeerPlane:
+    """A stand-in for the server's peer-plane writer: open unless closed."""
+
+    def __init__(self, closing=False):
+        self.closing = closing
+
+    def is_closing(self):
+        return self.closing
+
+
+@pytest.mark.parametrize("case", ["wedged", "peer_gone", "progress"])
+def test_closed_connection_drain_is_bounded(case, monkeypatch):
+    """A closed control connection drains its verb tasks as the JAX server
+    does (``rpc.py:3013-3029``): polled every DRAIN_POLL_S, any finished task
+    pushes the DRAIN_BACKSTOP_S backstop out again, and what is pending is
+    cancelled once the backstop has passed with the peer plane open
+    (``wedged``) or at the first poll once the peer plane is gone
+    (``peer_gone``).  Tasks that keep finishing are never cancelled
+    (``progress``).  Each way the connection closes and its binding drops."""
+    monkeypatch.setattr(trpc, "DRAIN_POLL_S", 0.02)
+    monkeypatch.setattr(trpc, "DRAIN_BACKSTOP_S", 0.25 if case != "peer_gone" else 1e9)
+
+    async def flow():
+        server = trpc.CollectorServer(0, tconfig.Config(**_cfg_kw(1, "trusted")), "cpu")
+        server._peer_writer = None if case == "peer_gone" else _PeerPlane()
+        cs = server._table.get(None)
+        started, cancelled, finished = [], [], []
+        never = asyncio.Event()
+        t0 = asyncio.get_running_loop().time()
+
+        async def dispatch(sess, cs, req_id, verb, req):
+            started.append(req_id)
+            try:
+                if case == "progress":  # one task finishes every 0.15 s: 0.6 s in all
+                    await asyncio.sleep(0.15 * req_id)
+                else:
+                    await never.wait()
+            except asyncio.CancelledError:
+                cancelled.append(req_id)
+                raise
+            finished.append(req_id)
+            return True
+
+        server._dispatch = dispatch
+        srv = await asyncio.start_server(server._handle_leader, "127.0.0.1", 0)
+        port = srv.sockets[0].getsockname()[1]
+        r, w = await asyncio.open_connection("127.0.0.1", port)
+        await trpc._send(w, (0, "__hello__", {"session": "s", "epoch": 1}))
+        assert (await trpc._recv(r))[1]["collection"] == cs.key
+        assert cs.bound == 1
+        for req_id in range(1, 5):
+            await trpc._send(w, (req_id, "reset", {}))
+        while len(started) < 4:
+            await asyncio.sleep(0.01)
+        w.close()  # the leader goes: the serve loop drains
+        while cs.bound:
+            await asyncio.wait_for(asyncio.sleep(0.01), 5)
+            assert asyncio.get_running_loop().time() - t0 < 5, "the drain never ended"
+        assert await r.read() == b""  # the server closed its end
+        srv.close()
+        await srv.wait_closed()
+        return sorted(cancelled), sorted(finished), asyncio.get_running_loop().time() - t0
+
+    cancelled, finished, took = asyncio.run(flow())
+    if case == "progress":
+        assert (cancelled, finished) == ([], [1, 2, 3, 4])
+        assert took > 0.5  # past twice the backstop: the progress pushed it out
+    else:
+        assert (cancelled, finished) == ([1, 2, 3, 4], [])
+        if case == "peer_gone":
+            assert took < 1.0
+
+
+async def _hello_then(act):
+    """A stand-in server: answers a hello, reads one verb frame, then
+    ``act(writer)``.  Returns (server, port)."""
+    async def serve(reader, writer):
+        req_id, verb, _ = await trpc._recv(reader)
+        assert verb == "__hello__"
+        await trpc._send(writer, (req_id, {"boot_id": "fake", "server_id": 0}))
+        await trpc._recv(reader)
+        await act(writer)
+
+    srv = await asyncio.start_server(serve, "127.0.0.1", 0)
+    return srv, srv.sockets[0].getsockname()[1]
+
+
+@pytest.mark.parametrize("fault", ["bad_frame", "hang_up"])
+def test_read_loop_death_fails_pending_and_reports_bugs(fault, monkeypatch):
+    """The client's reader dies: every pending call fails with a
+    ConnectionError either way.  A bad frame (a ValueError from unpacking
+    it, outside ``TRANSIENT_ERRORS``) is a bug of the client: it emits
+    exactly one ``client.reader_error`` (severity error, ``error`` "type:
+    message", the JAX client's event) and stays the reader task's
+    exception.  A hang-up is transient: no event, no exception."""
+    events = []
+    emit = trpc.obs.emit
+    monkeypatch.setattr(trpc.obs, "emit", lambda event, severity="info", **kw: (
+        events.append((event, severity, kw)), emit(event, severity, **kw)))
+
+    async def act(writer):
+        if fault == "bad_frame":
+            await trpc._send(writer, (1, 2, 3))  # not a (req_id, resp) pair
+        writer.close()
+
+    async def flow():
+        srv, port = await _hello_then(act)
+        c = await trpc.CollectorClient.connect("127.0.0.1", port)
+        other = asyncio.get_running_loop().create_future()
+        c._pending[1000] = other  # a second call in flight
+        c._next_id += 1
+        with pytest.raises(ConnectionError, match="lost"):
+            await c._roundtrip(c._next_id, "reset", {}, trpc.respolicy.Deadline(5.0))
+        with pytest.raises(ConnectionError, match="lost"):
+            other.result()
+        await asyncio.wait({c._reader_task}, timeout=5)
+        task = c._reader_task
+        assert task.done() and c._pending == {}
+        exc = task.exception()
+        await c.aclose()
+        srv.close()
+        await srv.wait_closed()
+        return exc
+
+    exc = asyncio.run(flow())
+    mine = [e for e in events if e[0] == "client.reader_error"]
+    if fault == "bad_frame":
+        assert isinstance(exc, ValueError)
+        assert mine == [("client.reader_error", "error",
+                         {"error": f"ValueError: {exc}"})]
+    else:
+        assert exc is None and mine == []
+
+
+def test_read_loop_death_fails_inflight_futures():
+    """The port's twin of the JAX ``test_read_loop_death_fails_inflight_futures``:
+    reader death fails every in-flight caller (no future left dangling), and
+    once redials exhaust the call surfaces a ConnectionError with the
+    pending table empty."""
+    async def act(writer):
+        writer.close()  # hang up without answering
+
+    async def flow():
+        srv, port = await _hello_then(act)
+        c = await trpc.CollectorClient.connect(
+            "127.0.0.1", port,
+            dial_policy=trpc.respolicy.RetryPolicy(base_s=0.001, attempts=2),
+            budgets=trpc.respolicy.VerbBudgets(default_s=5.0, per_verb={}))
+        srv.close()  # no more accepts: redials must exhaust
+        with pytest.raises(ConnectionError):
+            await c.call("reset")
+        assert c._pending == {}
+        await c.aclose()
+        await srv.wait_closed()  # from Python 3.12 on, after its connection ends
+
+    asyncio.run(flow())
