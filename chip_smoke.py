@@ -52,7 +52,17 @@ Phases (any failure raises, and the script exits non-zero):
    shapes of ``GC_TIMING`` (S = 4 at rides_secure_gc level 14's bp, S' = 8
    at a phase-29 kernel shard's, S = 8 and 16 on 1,048,576 tests), each
    with its bound, the ratio, and the registers, spills and SASS
-   instructions of the instantiation it ran;
+   instructions of the instantiation it ran; then the ot2s timing line
+   (``ot2s_timing``): each level's encrypt and decrypt step (the packed
+   entries, one launch each) at the shapes of ``OT2S_TIMING``
+   (config4_zipf_secure level 10, ``configs/secure.json``'s widest FE62
+   level and F255 leaf, a K3 shard and its leaf, the S = 6 chunks), each
+   with the step's milliseconds (CUDA events, warm), its device
+   milliseconds (the same calls captured in a CUDA graph and replayed),
+   the host microseconds a call, the bound, decrypt's sector floor at 32-
+   and 64-byte granules from the actual choices (and the 128-byte lines
+   those sectors touch), the ratios, and the registers, spills and SASS
+   instructions of the kernel it ran;
 9. the socket deployment: two ``bin.server`` processes and a ``bin.leader``
    (``--seed``) as real OS processes on the card, started together on free
    localhost ports (server 0 and the leader dial with retries; from here on
@@ -464,6 +474,18 @@ GC_TIMING = (("rides_secure_gc level 14", 4, 4, 1 << 24),
              ("chunk", 8, 4, CHUNK_TESTS), ("chunk", 8, 8, CHUNK_TESTS),
              ("chunk", 16, 4, CHUNK_TESTS), ("chunk", 16, 8, CHUNK_TESTS))
 GC_TIMING_REPS = 20
+# the ot2s timing line: (what, S, W, B) — config4_zipf_secure level 10 at 2^24
+# tests (32,768 clients) and 2^22 (8,192), configs/secure.json's widest FE62
+# level and its F255 leaf, a rides_secure_socket_sharded K3 shard at its widest
+# FE62 level and at its leaf, and the chunks at S = 6; B whole planar blocks
+OT2S_TIMING = (("config4_zipf_secure level 10", 2, 4, 1 << 24),
+               ("config4_zipf_secure level 10 at 8,192 clients", 2, 4, 1 << 22),
+               ("secure.json widest FE62 level", 2, 4, 1 << 20),
+               ("secure.json F255 leaf", 2, 8, 1 << 16),
+               ("K3 shard, widest FE62 level", 4, 4, 1 << 19),
+               ("K3 shard, F255 leaf", 4, 8, 1 << 20),
+               ("chunk", 6, 4, CHUNK_TESTS), ("chunk", 6, 8, CHUNK_TESTS))
+OT2S_TIMING_REPS = 20
 PROFILE_LEVELS = 8  # secure levels --profile traces per secure crawl
 # bench.py:485-489 (bench_crawl_hbm_max): the streaming crawl's leader
 STREAM = dict(stream_chunk=32, stream_window=64, min_bucket=128)
@@ -2004,26 +2026,35 @@ PLAIN = {"ot2s_encrypt": ("otext_cuda", "enc_planar_plain"),
 
 
 def secure_shape(kn, args):
-    """(S, W, bp) of one call of a secure kernel's wrapper."""
+    """(S, W, bp, B) of one call of a secure kernel's wrapper: bp the tests
+    of its planar table or planes, B the tests it reads (bp for GC)."""
+    oc = _ops("otext_cuda")
     if kn == "ot2s_encrypt":
-        return args[1].shape[0], args[2].shape[0], args[0].shape[1]
+        B, S = args[2].shape
+        bp = args[6] if len(args) > 6 and args[6] is not None else _ops("gc").padded_tests(B)
+        return S, args[3].shape[1], bp, B
     if kn == "ot2s_decrypt":
-        S = args[1].shape[0]
-        return S, args[2].shape[0] >> S, args[0].shape[1]
+        B, S = args[1].shape
+        W, _, _, _, n = oc.table_strides(args[2], S, B)
+        return S, W, n, B
     if kn == "gc_garble":
-        return args[3].shape[0], args[5].shape[0], args[1].shape[1]
-    return args[0].shape[0] // 4, args[4].shape[0] // 2, args[0].shape[1]
+        return args[3].shape[0], args[5].shape[0], args[1].shape[1], args[1].shape[1]
+    return args[0].shape[0] // 4, args[4].shape[0] // 2, args[0].shape[1], args[0].shape[1]
 
 
-def secure_bound(kn, S, W, bp):
-    """Least time for one call: the bytes it must move — each input plane
-    read once, except that of the ciphertext slots a test holds (2^S for
-    ot2s, 2 for GC) it reads only the one it opens; each output plane
-    written once — and the ChaCha8 blocks it must hash."""
+def secure_bound(kn, S, W, bp, B=None):
+    """Least time for one call: the bytes it must move — each input read
+    once (ot2s: rows, 1-byte choices and payloads of the B real tests; the
+    GC planes), except that of the ciphertext slots a test holds (2^S for
+    ot2s, 2 for GC) it reads only the one it opens; each output written
+    once (encrypt's whole table of bp tests) — and the ChaCha8 blocks it
+    must hash."""
+    B = bp if B is None else B
     if kn == "ot2s_encrypt":
-        nbytes, blocks = bp * (16 * S + 4 * S + 8 * W + (1 << S) * 4 * W), bp * (1 << S)
+        nbytes = B * (16 * S + S + 8 * W) + bp * (1 << S) * 4 * W
+        blocks = bp * (1 << S)
     elif kn == "ot2s_decrypt":
-        nbytes, blocks = bp * (16 * S + 4 * S + 4 * W + 4 * W), bp
+        nbytes, blocks = B * (16 * S + S + 4 * W + 4 * W), B
     elif kn == "gc_garble":
         nbytes = bp * (32 * S + 4 * S + 4 + 8 * W + 32 * (S - 1) + 16 * S + 4 + 8 * W)
         blocks = bp * (4 * (S - 1) + 2)
@@ -2033,36 +2064,76 @@ def secure_bound(kn, S, W, bp):
     return bound(nbytes, blocks * CHACHA8_OPS)
 
 
-def _slice(kn, args, lo, hi):
-    """One call's arguments cut to tests [lo, hi): every plane by column,
-    the pad index moved to test lo."""
+def dec_sector_count(y, W: int, granule: int = 32) -> int:
+    """Sectors of ``granule`` bytes that decrypt must read from a planar
+    table: the distinct (plane, sector) pairs of the planes y_t * W + w
+    that test t opens, y the tests' choices bool[B, S] (granule / 4 tests
+    a sector of each plane)."""
+    import torch
+
+    B, S = y.shape
+    k = granule // 4
+    choice = ((y.to(torch.int64) & 1) << torch.arange(S, device=y.device)).sum(dim=1)
+    key = (torch.arange(B, device=y.device) // k) * (1 << S) + choice
+    seen = torch.zeros(-(-B // k) << S, dtype=torch.bool, device=y.device)
+    seen[key] = True
+    return int(seen.sum()) * W
+
+
+def ot2s_floor(y, W, granule=32):
+    """Decrypt's floor on a planar table: the rows, choices and output of
+    its B tests, and the ``granule``-byte sectors of the planes that the
+    choices ``y`` open (:func:`dec_sector_count`; 128 bytes: the lines
+    those sectors touch), against its ChaCha8 blocks -> (ms, by,
+    sectors)."""
+    B, S = y.shape
+    sectors = dec_sector_count(y, W, granule)
+    ms, by = bound(B * (16 * S + S + 4 * W) + sectors * granule, B * CHACHA8_OPS)
+    return ms, by, sectors
+
+
+def _idx0(kn, args):
+    return args[5] if kn == "ot2s_encrypt" else args[3] if kn == "ot2s_decrypt" else args[-1]
+
+
+def _cut(kn, args, outs, lo, hi):
+    """One call's arguments cut to tests [lo, hi), the pad index moved to
+    test lo, and the kernel's outputs there."""
+    if kn == "ot2s_encrypt":  # test-major rows (none past B); the planar table
+        S, W, bp, _ = secure_shape(kn, args)
+        q, s_block, x, m0, m1, idx0 = args[:6]
+        planes = outs[0].reshape((1 << S) * W, bp)[:, lo:hi]
+        return ((q[lo:hi], s_block, x[lo:hi], m0[lo:hi], m1[lo:hi], idx0 + lo, hi - lo),
+                (planes.reshape(-1),))
+    if kn == "ot2s_decrypt":  # the table's tests [lo, hi) as a [2^S, n, W] view
+        S, _, _, B = secure_shape(kn, args)
+        t, y, table, idx0 = args[:4]
+        cts = _ops("otext_cuda").table_view(table, S, B)[:, lo:hi]
+        return (t[lo:hi], y[lo:hi], cts, idx0 + lo), (outs[0][lo:hi],)
     head, planes = (args[:1], args[1:-1]) if kn == "gc_garble" else ((), args[:-1])
-    if kn == "ot2s_encrypt":
-        planes, tail = planes[:4], (planes[4],)  # the offsets are per choice, not per test
-    else:
-        tail = ()
-    return head + tuple(a[:, lo:hi] for a in planes) + tail + (args[-1] + lo,)
+    return (head + tuple(a[:, lo:hi] for a in planes) + (args[-1] + lo,),
+            tuple(o[:, lo:hi] for o in outs))
 
 
 def secure_check(kn, args, got, kernel, what, reps=3):
     """A secure kernel's output on one call against its plain version on
     slices of PLAIN_TESTS tests, and the kernel timed on the same inputs."""
-    S, W, bp = secure_shape(kn, args)
+    S, W, bp, B = secure_shape(kn, args)
     plain = getattr(_ops(PLAIN[kn][0]), PLAIN[kn][1])
     outs = got if isinstance(got, tuple) else (got,)
     err, plain_ms = 0, 0.0
-    for lo in range(0, bp, PLAIN_TESTS):
-        hi = min(bp, lo + PLAIN_TESTS)
-        sl, box = _slice(kn, args, lo, hi), {}
+    n = B if kn == "ot2s_decrypt" else bp  # decrypt opens the B real tests
+    for lo in range(0, n, PLAIN_TESTS):
+        hi = min(n, lo + PLAIN_TESTS)
+        (sl, mine), box = _cut(kn, args, outs, lo, hi), {}
         plain_ms += cuda_ms(lambda: box.update(w=plain(*sl)), 1)
         want = box["w"] if isinstance(box["w"], tuple) else (box["w"],)
-        err = max(err, same(tuple(o[:, lo:hi] for o in outs), want,
-                            f"{kn} {what} tests [{lo}, {hi})"))
+        err = max(err, same(mine, want, f"{kn} {what} tests [{lo}, {hi})"))
     ms = cuda_ms(lambda: kernel(*args), reps, warm=True)
-    b_ms, b_by = secure_bound(kn, S, W, bp)
-    log(f"{kn} {what} S={S} W={W} bp={bp} idx0={args[-1]}: kernel == plain, "
+    b_ms, b_by = secure_bound(kn, S, W, bp, B)
+    log(f"{kn} {what} S={S} W={W} bp={bp} B={B} idx0={_idx0(kn, args)}: kernel == plain, "
         f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
-    return {"what": what, "S": S, "W": W, "bp": bp, "max_abs_err": err, "ms": ms,
+    return {"what": what, "S": S, "W": W, "bp": bp, "B": B, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -2301,15 +2372,16 @@ def chunk_checks(torch, seed):
     checks = {kn: [] for kn in OT2S + GC}
     for S in (2, 4, 6):
         for W in (4, 8):
-            offs = torch.randint(-2**31, 2**31, (1 << S, 4), dtype=torch.int32,
-                                 device="cuda", generator=g)
-            a = (words(4 * S), bits(S), words(W), words(W), offs, CHUNK_IDX0)
+            q, s_block, x, m0, m1 = ot2s_inputs(torch, g, n, S, W)
+            a = (q, s_block, x, m0, m1, CHUNK_IDX0)
             cts = oc.enc_planar(*a)
             checks["ot2s_encrypt"].append(secure_check("ot2s_encrypt", a, cts,
                                                        oc.enc_planar, "chunk", 1))
-            a = (words(4 * S), bits(S), cts, CHUNK_IDX0)
+            t, _, y, _, _ = ot2s_inputs(torch, g, n, S, W)
+            a = (t, y, cts, CHUNK_IDX0)
             checks["ot2s_decrypt"].append(secure_check("ot2s_decrypt", a, oc.dec_planar(*a),
                                                        oc.dec_planar, "chunk", 1))
+            del q, x, m0, m1, t, y, cts, a
     for S in (2, 4, 6, 8, 16):
         for W in (4, 8):
             R = [int(v) for v in torch.randint(0, 2**32, (4,), generator=torch.Generator()
@@ -2325,6 +2397,147 @@ def chunk_checks(torch, seed):
                                                   gcc.eval_planar, "chunk", 1))
             del tab, gbl, dec, cts, a
     return checks
+
+
+def ot2s_inputs(torch, g, B, S, W):
+    """Random test-major ot2s inputs on the card from generator ``g``: (rows
+    int32[B, S, 4], an s_block with lsb 1, choices bool[B, S], two payloads
+    int32[B, W])."""
+    words = lambda *shape: torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                                         device="cuda", generator=g)
+    s_block = np.asarray(words(4).cpu().numpy().view(np.uint32))
+    s_block[0] |= 1
+    x = torch.randint(0, 2, (B, S), dtype=torch.bool, device="cuda", generator=g)
+    return words(B, S, 4), s_block, x, words(B, W), words(B, W)
+
+
+def _device_ms(torch, fn, reps, graph=True):
+    """Milliseconds of device time a call of ``fn``: ``reps`` calls captured
+    in a CUDA graph and replayed (no host work between the launches), or,
+    for calls that cannot be captured (a tree whose step copies from host
+    memory), ``torch.profiler``'s kernel, copy and fill time summed."""
+    fn()
+    torch.cuda.synchronize()
+    if graph:
+        g, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        ms = cuda_ms(g.replay, 3) / reps
+        del g
+        return ms
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+    if us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / 1e3 / reps
+
+
+def _host_us(torch, fn, reps):
+    """Host microseconds a call of ``fn`` takes to return, the card's queue
+    drained first (the launches queue up behind it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def ot2s_time_shape(torch, secure_mod, S, W, B, seed, reps=OT2S_TIMING_REPS, graph=True):
+    """A level's encrypt and decrypt steps through ``secure_mod``'s packed
+    entries (``secure.ot2s_encrypt_packed`` / ``ot2s_decrypt_packed`` of any
+    tree of the port) on random inputs from ``seed``: per step its
+    milliseconds (CUDA events, warm, mean of ``reps`` calls), device
+    milliseconds (:func:`_device_ms`, by a CUDA graph unless ``graph`` is
+    off) and host microseconds a call -> ({"encrypt": ..., "decrypt":
+    ...}, the choices y, the outputs)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, s_block, x, m0, m1 = ot2s_inputs(torch, g, B, S, W)
+    t, _, y, _, _ = ot2s_inputs(torch, g, B, S, W)
+    idx0 = CHUNK_IDX0
+    enc = lambda: secure_mod.ot2s_encrypt_packed(q, s_block, x, m1, m0, W, idx0)
+    msg = enc()
+    dec = lambda: secure_mod.ot2s_decrypt_packed(t, y, msg, W, idx0)
+    pay = dec()
+    out = {}
+    for step, fn in (("encrypt", enc), ("decrypt", dec)):
+        out[step] = {"ms": cuda_ms(fn, reps, warm=True),
+                     "device_ms": _device_ms(torch, fn, reps, graph),
+                     "device_by": "graph" if graph else "profiler",
+                     "host_us": _host_us(torch, fn, reps)}
+    del q, x, m0, m1, t
+    return out, y, (msg, pay)
+
+
+def ot2s_instantiation(fns: dict, which: str, S: int, W: int):
+    """The entry of ``fns`` (keyed by mangled name) of the ot2s kernel
+    ``which`` ("enc" or "dec") compiled for (S, W); else None."""
+    names = [k for k in fns if f"fhh_ot2s_{which}_kernelILi{S}ELi{W}E" in k]
+    return fns[names[0]] if len(names) == 1 else None
+
+
+def ot2s_timing(torch, seed):
+    """The ot2s timing line: each level's encrypt and decrypt step at each
+    shape of OT2S_TIMING, with its bound, decrypt's sector floor at 32 and
+    64 bytes, the ratios, and the ptxas registers and spills and the SASS
+    instructions of the kernel it ran."""
+    cb = _ops("cuda_build")
+    from fuzzyheavyhitters_torch.protocol import secure
+
+    ptx = ptxas_by_function(cb.log_path("ot2s").read_text())
+    sass = sass_by_function(cb.lib_path("ot2s"))
+    rows = []
+    for i, (what, S, W, B) in enumerate(OT2S_TIMING):
+        steps, y, outs = ot2s_time_shape(torch, secure, S, W, B, seed + i)
+        del outs
+        floors = {gr: ot2s_floor(y, W, gr) for gr in (32, 64, 128)}
+        del y
+        torch.cuda.empty_cache()
+        for kn, which in (("ot2s_encrypt", "enc"), ("ot2s_decrypt", "dec")):
+            st = steps["encrypt" if which == "enc" else "decrypt"]
+            b_ms, b_by = secure_bound(kn, S, W, _ops("gc").padded_tests(B), B)
+            px = ot2s_instantiation(ptx, which, S, W) or {}
+            row = {"kernel": kn, "what": what, "S": S, "W": W, "B": B, **st,
+                   "bound_ms": b_ms, "bound_by": b_by, "ratio": st["ms"] / b_ms,
+                   "device_ratio": st["device_ms"] / b_ms,
+                   "registers": px.get("registers"), "spill_stores": px.get("spill_stores"),
+                   "spill_loads": px.get("spill_loads"),
+                   "sass_instructions": ot2s_instantiation(sass, which, S, W)}
+            if kn == "ot2s_decrypt":
+                for gr, (f_ms, f_by, sectors) in floors.items():
+                    row.update({f"floor{gr}_ms": f_ms, f"floor{gr}_by": f_by,
+                                f"sectors{gr}": sectors})
+                row["floor_ratio"] = st["ms"] / row["floor32_ms"]
+                row["device_floor_ratio"] = st["device_ms"] / row["floor32_ms"]
+            rows.append(row)
+            floor = (f" floor32_ms={row['floor32_ms']:.4f} floor64_ms={row['floor64_ms']:.4f} "
+                     f"floor128_ms={row['floor128_ms']:.4f} "
+                     f"device/floor32={row['device_floor_ratio']:.3f} device/floor64="
+                     f"{st['device_ms'] / row['floor64_ms']:.3f} device/floor128="
+                     f"{st['device_ms'] / row['floor128_ms']:.3f}"
+                     if kn == "ot2s_decrypt" else "")
+            log(f"ot2s timing {kn} {what} S={S} W={W} B={B}: ms={st['ms']:.4f} "
+                f"device_ms={st['device_ms']:.4f} host_us={st['host_us']:.1f} "
+                f"bound_ms={b_ms:.4f} ({b_by}) device/bound={row['device_ratio']:.3f}{floor} "
+                f"registers={row['registers']} spills={row['spill_stores']}/"
+                f"{row['spill_loads']} B sass={row['sass_instructions']}")
+    log(json.dumps({"ot2s_timing": rows}))
+    return rows
 
 
 def gc_time_shape(torch, gcc, S, W, bp, seed, reps=GC_TIMING_REPS):
@@ -4847,6 +5060,8 @@ def main() -> int:
     stage("chunk checks")
     report["gc_timing"] = gc_timing(torch, args.seed)
     stage("gc timing")
+    report["ot2s_timing"] = ot2s_timing(torch, args.seed)
+    stage("ot2s timing")
     for kn, cs in report["chunk_checks"].items():
         errs[kn] += [c["max_abs_err"] for c in cs]
 

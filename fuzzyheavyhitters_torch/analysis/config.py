@@ -315,6 +315,9 @@ class LintConfig:
         "scripts/socket_ab.py",
         "scripts/nvcc_split_check.py",
         "scripts/gc_ab.py",
+        "scripts/ot2s_ab.py",
+        "scripts/kernel_ab.py",
+        "scripts/ot2s_sector_probe.py",
     )
 
 

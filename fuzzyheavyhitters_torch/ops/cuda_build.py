@@ -168,8 +168,9 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def stream_ptr(t) -> ctypes.c_void_p:
-    """The current CUDA stream of ``t``'s device, as a C pointer."""
+def stream_ptr(t) -> int:
+    """The current CUDA stream of ``t``'s device, as the raw handle a
+    ``c_void_p`` argument takes (no ``torch.cuda.Stream`` object is made)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

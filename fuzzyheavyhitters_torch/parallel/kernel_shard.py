@@ -20,7 +20,8 @@ each shard's slice of every wire plane is contiguous:
   wire (the sender's Q rows, the payload words, the garbler's labels and
   mask), as the whole level's planar padding is;
 - each shard calls the kernels' wrappers on its own tensors: the ot2s
-  entries ``otext_cuda.enc_planar`` / ``dec_planar`` and the GC entries
+  entries ``otext_cuda.enc_planar`` / ``dec_planar`` on the test-major
+  rows (one launch a shard and step) and the GC entries
   ``gc_cuda.garble_planar`` / ``eval_planar``, which launch on a card
   shard and run their plain versions on a CPU shard;
 - the sender's frame and the receiver's u matrix read back per shard
@@ -215,17 +216,16 @@ def gb_kernel(ks: KernelShard, s_block, q: Sharded, flat: Sharded, gc_seed, b2a_
     for j, dev in enumerate(ks.devices):
         t0 = j * bloc
         r1, w0, w1 = _b2a_pair_shard(field, b2a_seed, B, bloc, t0, W, garbler, dev)
-        qp = gc.planarize(q[j].reshape(bloc, S, 4), bloc)
-        xp = gc.planarize(flat[j], bloc)
         # result 1 (strings equal) -> the receiver learns r0 (collect.rs:439-456)
-        if path == "ot2s":
-            msg = otext_cuda.enc_planar(qp, xp, gc.planarize(w1, bloc), gc.planarize(w0, bloc),
-                                        secure._ot2s_offsets(s_block, S, dev), idx0 + t0)
+        if path == "ot2s":  # the shard's rows past B are zero: its pad tests
+            msg = otext_cuda.enc_planar(q[j].reshape(bloc, S, 4), s_block, flat[j], w1, w0,
+                                        idx0 + t0).reshape(-1, bloc)
         else:
             X0, mask = gc._carve_label_words_shard(words_from_numpy(gc_seed, dev), B, S, t0,
                                                    bloc)
             msg = torch.cat(gc_cuda.garble_planar(
-                R, gc.planarize(X0, bloc), qp, xp, gc.planarize(mask, bloc),
+                R, gc.planarize(X0, bloc), gc.planarize(q[j].reshape(bloc, S, 4), bloc),
+                gc.planarize(flat[j], bloc), gc.planarize(mask, bloc),
                 gc.planarize(w1, bloc), gc.planarize(w0, bloc), idx0 + t0))
         planes.append(msg)
         vals.append(r1)
@@ -246,15 +246,14 @@ def ev_open(ks: KernelShard, t_rows: Sharded, flat: Sharded, msg_np, field, path
     for j, dev in enumerate(ks.devices):
         t0 = j * bloc
         m_j = msg[:, t0:t0 + bloc].to(dev)
-        tp = gc.planarize(t_rows[j].reshape(bloc, S, 4), bloc)
-        yp = gc.planarize(flat[j], bloc)
-        if path == "ot2s":
-            tp[1] ^= secure._OT2S_DOMAIN  # row 0, word 1: comb's coefficient there is 1
-            pay = otext_cuda.dec_planar(tp, yp, m_j, idx0 + t0)
+        if path == "ot2s":  # the shard's planes [2^S * W, bloc], opened test-major
+            pay = otext_cuda.dec_planar(t_rows[j].reshape(bloc, S, 4), flat[j], m_j, idx0 + t0)
         else:
             tab, gbl, dec, cts = torch.split(m_j, [(S - 1) * 8, 4 * S, 1, 2 * W])
-            _, pay = gc_cuda.eval_planar(gbl, tp, tab, dec, cts, idx0 + t0)
-        vals.append(secure.words_to_field(field, gc.unplanarize(pay, bloc)))
+            _, pay = gc_cuda.eval_planar(gbl, gc.planarize(t_rows[j].reshape(bloc, S, 4), bloc),
+                                         tab, dec, cts, idx0 + t0)
+            pay = gc.unplanarize(pay, bloc)
+        vals.append(secure.words_to_field(field, pay))
     return Sharded(vals, 0)
 
 

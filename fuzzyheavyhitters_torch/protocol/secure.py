@@ -49,7 +49,7 @@ from ..utils import words_from_numpy, words_to_numpy
 
 EQ_OT4: bool = True  # False: "auto" takes the garbled circuit at every S
 OT2S_MAX_S = 6  # auto-path ceiling of the 1-of-2^S table (2^S ciphertexts per test)
-_OT2S_DOMAIN = 0x0F4E4F54  # ot_hash tweak domain of the per-test pads
+_OT2S_DOMAIN = otext_cuda.OT2S_DOMAIN  # ot_hash tweak domain of the per-test pads
 B2A_TESTS = 1 << 22  # tests per b2a pass; a multiple of 4 keeps passes block-aligned
 SUM_NODES = 64  # frontier nodes per share-sum pass (bounds int64 temporaries)
 
@@ -183,39 +183,25 @@ def _ot4_use(S: int) -> bool:
     return ot_path(S) == "ot2s"
 
 
-def _ot2s_offsets(s_block, S: int, device) -> torch.Tensor:
-    """The encrypt kernel's ``offs``: ``gf128_offsets(s, S)`` with the pad
-    domain folded into word 1."""
-    offs = otext.gf128_offsets(words_from_numpy(s_block, device), S)
-    offs[:, 1] ^= _OT2S_DOMAIN
-    return offs
-
-
 def ot2s_encrypt(q_rows, s_block, x_flat, m_v0, m_v1, n_words: int,
                  idx_offset: int) -> torch.Tensor:
     """Test-major sender table: q_rows int32[B, S, 4], x_flat bool[B, S],
     payloads int32[B, n_words] -> cts int32[2^S, B, n_words], slot c (the
     receiver's string as a little-endian S-bit integer) holding m_v1 where
     c = x, else m_v0, under the pad of test i at index idx_offset + i.
-    Through the encrypt kernel's wrapper on B planar tests."""
+    One launch of the encrypt kernel over B tests with no pad tests; the
+    result is a view of its planar table."""
     B, S = x_flat.shape
-    cts = otext_cuda.enc_planar(gc.planarize(q_rows, B), gc.planarize(x_flat, B),
-                                gc.planarize(m_v0, B), gc.planarize(m_v1, B),
-                                _ot2s_offsets(s_block, S, q_rows.device), idx_offset)
+    cts = otext_cuda.enc_planar(q_rows, s_block, x_flat, m_v0, m_v1, idx_offset, B)
     return cts.reshape(1 << S, n_words, B).permute(0, 2, 1)
 
 
 def ot2s_decrypt(t_rows, y_flat, cts, n_words: int, idx_offset: int) -> torch.Tensor:
     """Receiver open, test-major: t_rows int32[B, S, 4], y_flat bool[B, S]
-    (its strings, the extension's choices), cts int32[2^S, B, n_words] ->
-    int32[B, n_words] = m_{[x == y]}.  Through the decrypt kernel's wrapper."""
-    B, S = y_flat.shape
-    tp = gc.planarize(t_rows, B)
-    tp[1] ^= _OT2S_DOMAIN  # row 0, word 1: comb's coefficient there is 1
-    pay = otext_cuda.dec_planar(tp, gc.planarize(y_flat, B),
-                                cts.permute(0, 2, 1).reshape((1 << S) * n_words, B),
-                                idx_offset)
-    return gc.unplanarize(pay, B)
+    (its strings, the extension's choices), cts int32[2^S, B, n_words] at
+    any strides -> int32[B, n_words] = m_{[x == y]}.  One launch of the
+    decrypt kernel."""
+    return otext_cuda.dec_planar(t_rows, y_flat, cts, idx_offset)
 
 
 ot4_encrypt = ot2s_encrypt  # the JAX package's names, which its mesh calls
@@ -253,24 +239,15 @@ def ot2s_encrypt_packed(q_rows, s_block, x_flat, m_v0, m_v1, n_words: int,
                         idx_offset: int) -> torch.Tensor:
     """Planar 1-of-2^S sender table over padded_tests(B) tests, raveled:
     q_rows int32[B, S, 4], s_block uint32[4], x_flat bool[B, S], payloads
-    int32[B, n_words] (slot x gets m_v1, every other slot m_v0)."""
-    B, S = x_flat.shape
-    bp = gc.padded_tests(B)
-    cts = otext_cuda.enc_planar(gc.planarize(q_rows, bp), gc.planarize(x_flat, bp),
-                                gc.planarize(m_v0, bp), gc.planarize(m_v1, bp),
-                                _ot2s_offsets(s_block, S, q_rows.device), idx_offset)
-    return cts.reshape(-1)
+    int32[B, n_words] (slot x gets m_v1, every other slot m_v0).  One
+    launch of the encrypt kernel."""
+    return otext_cuda.enc_planar(q_rows, s_block, x_flat, m_v0, m_v1, idx_offset)
 
 
 def ot2s_decrypt_packed(t_rows, y_flat, msg, n_words: int, idx_offset: int) -> torch.Tensor:
-    """Open the planar table with the T rows int32[B, S, 4] -> int32[B, n_words]."""
-    B, S = y_flat.shape
-    bp = gc.padded_tests(B)
-    tp = gc.planarize(t_rows, bp)
-    tp[1, :B] ^= _OT2S_DOMAIN  # row 0, word 1: comb's coefficient there is 1
-    pay = otext_cuda.dec_planar(tp, gc.planarize(y_flat, bp),
-                                msg.reshape((1 << S) * n_words, bp), idx_offset)
-    return gc.unplanarize(pay, B)
+    """Open the planar table with the T rows int32[B, S, 4] -> int32[B,
+    n_words].  One launch of the decrypt kernel."""
+    return otext_cuda.dec_planar(t_rows, y_flat, msg, idx_offset)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,7 @@ rc=0
 python -m fuzzyheavyhitters_torch.analysis \
     fuzzyheavyhitters_torch tests/test_torch_*.py tests/torch_*.py \
     chip_smoke.py scripts/live_cost.py scripts/socket_ab.py scripts/nvcc_split_check.py \
-    scripts/gc_ab.py \
+    scripts/gc_ab.py scripts/ot2s_ab.py scripts/kernel_ab.py scripts/ot2s_sector_probe.py \
     --strict --format json > "$artifact" || rc=$?
 
 python - "$artifact" <<'PY'

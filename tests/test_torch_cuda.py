@@ -98,27 +98,41 @@ def _planes(rng, rows, n, bits=False):
     return _ints(rng, (rows, n))
 
 
+def _ot2s_inputs(rng, B, S, W):
+    s = rng.integers(0, 2**32, size=4, dtype=np.uint32)
+    s[0] |= 1
+    bits = lambda: torch.from_numpy(rng.integers(0, 2, size=(B, S)).astype(bool))
+    return (_ints(rng, (B, S, 4)), s, bits(), _ints(rng, (B, W)), _ints(rng, (B, W)),
+            _ints(rng, (B, S, 4)), bits())
+
+
 @pytest.mark.parametrize("S", [2, 4, 6])
 @pytest.mark.parametrize("W", [4, 8])
 def test_ot2s_kernels_equal_plain(cuda, S, W):
+    """The encrypt and decrypt kernels on test-major rows at a B that is not
+    a whole planar block (pad tests in the table) nor a whole number of
+    256-thread blocks, the pad index wrapping, the table raveled, as planes
+    and test-major: one launch a call."""
     rng = np.random.default_rng(13 + S + W)
-    n = 8192 + 777  # not a whole number of 256-thread blocks
+    B = 8192 + 777
     idx0 = 2**32 - 1000  # the pad index wraps inside the batch
-    q, x = _planes(rng, 4 * S, n), _planes(rng, S, n, bits=True)
-    mv0, mv1 = _planes(rng, W, n), _planes(rng, W, n)
-    offs = _ints(rng, (1 << S, 4))
-    want = otext_cuda.enc_planar_plain(q, x, mv0, mv1, offs, idx0)
+    q, s, x, mv0, mv1, t, y = _ot2s_inputs(rng, B, S, W)
+    want = otext_cuda.enc_planar_plain(q, s, x, mv0, mv1, idx0)
+    on = lambda *a: tuple(v.to(cuda) if torch.is_tensor(v) else v for v in a)
     before = otext_cuda.ENC_LAUNCHES
-    got = otext_cuda.enc_planar(q.to(cuda), x.to(cuda), mv0.to(cuda), mv1.to(cuda),
-                                offs.to(cuda), idx0)
+    got = otext_cuda.enc_planar(*on(q, s, x, mv0, mv1), idx0)
     torch.cuda.synchronize()
     assert otext_cuda.ENC_LAUNCHES == before + 1
+    assert got.shape == ((1 << S) * W * 2 * 8192,)
     assert torch.equal(got.cpu(), want)
-    t, y = _planes(rng, 4 * S, n), _planes(rng, S, n, bits=True)
-    want = otext_cuda.dec_planar_plain(t, y, got.cpu(), idx0)
-    got = otext_cuda.dec_planar(t.to(cuda), y.to(cuda), got, idx0)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
+    want = otext_cuda.dec_planar_plain(t, y, want, idx0)
+    planes = got.reshape((1 << S) * W, -1)
+    for table in (got, planes, planes.reshape(1 << S, W, -1).permute(0, 2, 1)):
+        before = otext_cuda.DEC_LAUNCHES
+        pay = otext_cuda.dec_planar(*on(t, y), table, idx0)
+        torch.cuda.synchronize()
+        assert otext_cuda.DEC_LAUNCHES == before + 1
+        assert torch.equal(pay.cpu(), want), f"table {table.shape}"
 
 
 @pytest.mark.parametrize("S", [2, 4, 6, 8, 16, 3, 5, 15])
@@ -279,22 +293,18 @@ def test_fused_radix_level_on_the_card_equals_the_cpu(cuda, d, r):
 @pytest.mark.parametrize("W", [4, 8])
 def test_test_major_ot2s_entry_equals_plain(cuda, S, W):
     """``secure.ot2s_encrypt`` / ``ot2s_decrypt`` (the mesh's 1-of-2^S
-    entries, planar through the kernels) on the card against the test-major
-    plain versions on the CPU; one launch of each kernel."""
+    entries: one launch of each kernel over B tests, no pad tests) and the
+    packed entries on the card against the plain test-major versions on
+    the CPU, at a B that is not a whole planar block."""
     from fuzzyheavyhitters_torch.protocol import secure
 
     rng = np.random.default_rng(31 + S + W)
     B, idx0 = 5000, 2**32 - 700
-    s = rng.integers(0, 2**32, size=4, dtype=np.uint32)
-    s[0] |= 1
-    q = _ints(rng, (B, S, 4))
-    x = torch.from_numpy(rng.integers(0, 2, size=(B, S)).astype(bool))
+    q, s, x, mv0, mv1, _, _ = _ot2s_inputs(rng, B, S, W)
     y = x.clone()
     y[::3] = torch.from_numpy(rng.integers(0, 2, size=y[::3].shape).astype(bool))
-    mv0, mv1 = _ints(rng, (B, W)), _ints(rng, (B, W))
     t = q ^ torch.where(y[..., None], torch.from_numpy(s.view(np.int32)), 0)
-    offs = secure._ot2s_offsets(s, S, "cpu")
-    want = otext_cuda.ot2s_encrypt(q, offs, x, mv0, mv1, W, idx0)
+    want = otext_cuda.ot2s_encrypt(q, otext_cuda.offsets(s, S, "cpu"), x, mv0, mv1, W, idx0)
     before = (otext_cuda.ENC_LAUNCHES, otext_cuda.DEC_LAUNCHES)
     got = secure.ot2s_encrypt(q.to(cuda), s, x.to(cuda), mv0.to(cuda), mv1.to(cuda), W, idx0)
     torch.cuda.synchronize()
@@ -303,11 +313,17 @@ def test_test_major_ot2s_entry_equals_plain(cuda, S, W):
     tf[:, 0, 1] ^= secure._OT2S_DOMAIN  # the plain decrypt takes the domain folded
     want_pay = otext_cuda.ot2s_decrypt(tf, y, want, W, idx0)
     pay = secure.ot2s_decrypt(t.to(cuda), y.to(cuda), got, W, idx0)
+    pay2 = secure.ot2s_decrypt(t.to(cuda), y.to(cuda), got.contiguous(), W, idx0)
     torch.cuda.synchronize()
-    assert (otext_cuda.ENC_LAUNCHES, otext_cuda.DEC_LAUNCHES) == (before[0] + 1, before[1] + 1)
-    assert torch.equal(pay.cpu(), want_pay)
+    assert (otext_cuda.ENC_LAUNCHES, otext_cuda.DEC_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(pay.cpu(), want_pay) and torch.equal(pay2.cpu(), want_pay)
     eq = (x == y).all(1)[:, None]
     assert torch.equal(want_pay, torch.where(eq, mv1, mv0))
+    msg = secure.ot2s_encrypt_packed(q.to(cuda), s, x.to(cuda), mv0.to(cuda), mv1.to(cuda), W,
+                                     idx0)
+    assert torch.equal(msg.cpu(), otext_cuda.enc_planar_plain(q, s, x, mv0, mv1, idx0))
+    pay = secure.ot2s_decrypt_packed(t.to(cuda), y.to(cuda), msg, W, idx0)
+    assert torch.equal(pay.cpu(), want_pay)
 
 
 @pytest.mark.parametrize("S", [2, 4, 8])
