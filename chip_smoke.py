@@ -761,8 +761,9 @@ def run_main_path(name, cfg, n, seed, tmp, per_level, drive, min_hitters):
     peak = torch.cuda.max_memory_allocated()
     res = run.result
     levels = len(run.leader.timings["expand"])
-    # expand, count, advance on the host clock; the secure phases as spans of
-    # the device stream (Leader.timings)
+    # expand, count, prune, advance on the host clock (the leader's phases
+    # take stream events only under a profiler); the secure phases as spans
+    # of the device stream (Leader.timings)
     phases = {k: float(np.sum(v)) for k, v in run.leader.timings.items()}
     consumed = ([s.consumed for s in run.leader.secure.snd]
                 if run.leader.secure is not None else None)

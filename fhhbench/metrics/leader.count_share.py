@@ -1,0 +1,14 @@
+"""leader.count_share: the leader loop's phase ``count`` of
+``driver.Leader.timings`` (the counts, or the reconstruction, and their
+readback; device-stream seconds: the leader's phase clock records its CUDA
+events only while a profiler runs) in the profiled collection (a traced run
+profiles the window's first), over that collection's seconds.  Read only
+where its timings hold ``prune``, the mark of the leader's phase clock
+(before it ``count`` was another quantity, or none)."""
+
+
+def read(run):
+    c = run.collections[0] if run.trace is not None and run.collections else None
+    if c is None or "prune" not in c.phases or not c.seconds:
+        return None
+    return 100.0 * c.phases["count"] / c.seconds

@@ -24,8 +24,11 @@ rule                    threshold env (default)         fires when
 warmup``                                                warmup`` > 0: an
                                                         ``nvcc`` build after
                                                         the warmup (devmem)
-``hbm_high_water``      ``FHH_ALERT_HBM_FRAC`` (0.9)    in-use / capacity over
-                                                        the fraction (skipped
+``hbm_high_water``      ``FHH_ALERT_HBM_FRAC`` (0.9)    the larger of in-use
+                                                        and the watermark (the
+                                                        allocator's peak) over
+                                                        capacity, over the
+                                                        fraction (skipped
                                                         where no capacity is
                                                         known: the CPU)
 ``migration_stuck``     ``FHH_ALERT_MIGRATION_STUCK_S`` the fleet placer's
@@ -125,7 +128,8 @@ def evaluate_registries(regs=None) -> None:
         post = reg.counter_value("fresh_compiles_post_warmup")
         if post:
             _fire("recompile_after_warmup", reg.name, compiles=int(post))
-        in_use = reg.gauge_value("hbm_in_use_bytes")
+        in_use = max(reg.gauge_value("hbm_in_use_bytes") or 0,
+                     reg.gauge_value("hbm_watermark_bytes") or 0)
         limit = reg.gauge_value("hbm_limit_bytes")
         if in_use and limit and in_use / limit > hbm_frac:
             _fire(

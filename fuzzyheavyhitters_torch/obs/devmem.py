@@ -1,15 +1,19 @@
 """Device-memory and kernel-build telemetry (the port of
 ``fuzzyheavyhitters_tpu/obs/devmem.py``: the same gauge and counter names).
 
-- :func:`sample` reads the card's allocator (``torch.cuda.memory_stats``,
-  ``allocated_bytes.all.current``) and its capacity
+- :func:`sample` reads the card's allocator (``torch.cuda.memory_stats``:
+  ``allocated_bytes.all.current`` and the allocator's own peak,
+  ``allocated_bytes.all.peak``) and its capacity
   (``torch.cuda.mem_get_info``) and sets ``hbm_in_use_bytes`` /
   ``hbm_watermark_bytes`` / ``hbm_delta_bytes`` / ``hbm_limit_bytes`` on a
-  registry; a ``phase`` argument adds a per-phase watermark
-  (``hbm_watermark_bytes:<phase>``).  On the CPU (no card, or a process
-  that never touched it) the in-use bytes are 0 and the capacity unknown:
-  the port keeps no walk over live tensors, so nothing here costs more
-  than one allocator query.
+  registry.  The watermark is the allocator's peak, so a sample taken at a
+  level's end still sees the level's high water; nothing here resets that
+  peak (the benchmark reads ``max_memory_allocated`` over its window).  A
+  ``phase`` argument adds a per-phase watermark of the bytes in use at
+  the phase's samples (``hbm_watermark_bytes:<phase>``).  On the CPU (no
+  card, or a process that never touched it) the in-use bytes are 0 and the
+  capacity unknown: the port keeps no walk over live tensors, so nothing
+  here costs more than one allocator query.
 - :func:`tree_nbytes` sizes the tensors (and numpy arrays) of a nested
   structure; the session layer publishes ``key_plane_bytes`` with it when
   a collection's key plane is concatenated.
@@ -41,13 +45,21 @@ _state = {"warmup_done": False}
 def device_bytes() -> tuple[int, int | None]:
     """(bytes the caching allocator holds for tensors now, the card's
     capacity or None) of the current card; (0, None) without one."""
+    in_use, _peak, total = _allocator()
+    return in_use, total
+
+
+def _allocator() -> tuple[int, int, int | None]:
+    """(bytes in use now, the allocator's peak of them, the card's
+    capacity or None) of the current card; (0, 0, None) without one."""
     import torch
 
     if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
-        return 0, None
-    in_use = int(torch.cuda.memory_stats().get("allocated_bytes.all.current", 0))
+        return 0, 0, None
+    stats = torch.cuda.memory_stats()
     _free, total = torch.cuda.mem_get_info()
-    return in_use, int(total)
+    return (int(stats.get("allocated_bytes.all.current", 0)),
+            int(stats.get("allocated_bytes.all.peak", 0)), int(total))
 
 
 def tree_nbytes(tree) -> int:
@@ -70,17 +82,17 @@ def tree_nbytes(tree) -> int:
 
 def sample(reg: Registry | None = None, phase: str | None = None) -> int:
     """One memory sample onto ``reg`` (default registry when None):
-    sets the in-use gauge, advances the watermark, records the delta
-    since the previous sample, and (with ``phase``) a per-phase
-    watermark.  Returns bytes in use."""
+    sets the in-use gauge, advances the watermark to the allocator's
+    peak, records the delta since the previous sample, and (with
+    ``phase``) a per-phase watermark.  Returns bytes in use."""
     reg = reg if reg is not None else default_registry()
-    in_use, limit = device_bytes()
+    in_use, peak, limit = _allocator()
     prev = reg.gauge_value("hbm_in_use_bytes") or 0
     reg.gauge("hbm_in_use_bytes", in_use)
     reg.gauge("hbm_delta_bytes", in_use - prev)
     wm = reg.gauge_value("hbm_watermark_bytes") or 0
-    if in_use > wm:
-        reg.gauge("hbm_watermark_bytes", in_use)
+    if max(in_use, peak) > wm:
+        reg.gauge("hbm_watermark_bytes", max(in_use, peak))
     if limit:
         reg.gauge("hbm_limit_bytes", limit)
     if phase:

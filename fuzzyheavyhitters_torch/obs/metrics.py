@@ -18,7 +18,9 @@ reports as its headline server cost (collect.rs:412-503) is
 
 Spans (:meth:`Registry.span`) are timing contexts that feed the timers
 AND mark the registry's "currently running" stack, which the heartbeat
-thread reads to name the active phase and level of a wedged run.  A
+thread reads to name the active phase and level of a wedged run.  While
+a ``torch.profiler`` runs, a span named ``x`` is also the profiler range
+``fhh.x``, so the program's spans lie on the device trace's clock.  A
 counter incremented inside a span inherits the span's ``level`` when the
 call site doesn't know it (the data-plane byte accounting in
 ``protocol/rpc.py`` attributes bytes to the level whose exchange sent
@@ -309,13 +311,36 @@ class Registry:
         return out
 
 
+def _profiler_range(name: str):
+    """An entered profiler range ``fhh.<name>`` while a ``torch.profiler``
+    runs in this process, else None: with no profiler the span costs one
+    flag read, not a range's enter and exit.  The range is torch's
+    ``RecordFunctionFast`` where it has one (a tenth of
+    ``record_function``'s host cost under a profiler, which a crawl's
+    thousands of spans would otherwise add to the device's idle time),
+    else ``torch.profiler.record_function``."""
+    import torch
+
+    if not torch.autograd._profiler_enabled():
+        return None
+    make = getattr(torch._C._profiler, "_RecordFunctionFast", None) \
+        or torch.profiler.record_function
+    rf = make(f"fhh.{name}")
+    rf.__enter__()
+    return rf
+
+
 class _SpanCtx:
-    __slots__ = ("_reg", "_name", "_level", "_span", "_trace")
+    __slots__ = ("_reg", "_name", "_level", "_span", "_trace", "_range")
 
     def __init__(self, reg: Registry, name: str, level: int | None):
         self._reg, self._name, self._level = reg, name, level
 
     def __enter__(self) -> Span:
+        # under a profiler the span is also a range on the profiler's clock
+        # (the benchmark's traced collection, FHH_PROFILE captures), opened
+        # first and closed last, so the span's own bookkeeping lies in it
+        self._range = _profiler_range(self._name)
         self._span = Span(self._name, self._level)
         # distributed tracing (obs.trace): under an active trace context
         # this span records as a child event in the per-process ring —
@@ -344,6 +369,8 @@ class _SpanCtx:
                 level=self._span.level, error=exc_type is not None,
             )
         self._reg.timer_add(self._name, dt, self._level)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
 
 
 def default_registry() -> Registry:

@@ -41,6 +41,11 @@ tie, at zero cost when disabled (one flag read):
   launched through ``ctypes`` show under their ``fhh_`` names), written
   as one Chrome trace per capture and recorded alongside the active
   trace id, so the device timeline is joinable to the Perfetto view.
+  Each capture opens with a zero-length profiler range ``fhh.clock``;
+  with tracing on, the ring records the wall clock at it beside the
+  range's profiler timestamp, and :func:`merge` shifts the capture onto
+  the ring's timeline.  (While a profiler runs, every ``Registry.span``
+  ``x`` is also the range ``fhh.x`` in the capture.)
 
 Events are small dicts, one JSON object per line::
 
@@ -72,6 +77,7 @@ ENV_PROFILE = "FHH_PROFILE"
 ENV_PROFILE_LEVELS = "FHH_PROFILE_LEVELS"
 
 _DEFAULT_RING = 200_000
+CLOCK_RANGE = "fhh.clock"  # a capture's zero-length range, shared with the ring
 
 # (trace_id, current_span_id) for the running task; None = no trace
 _CTX: contextvars.ContextVar = contextvars.ContextVar(
@@ -429,6 +435,31 @@ def _profile_path(prof_dir: str, kind: str, level) -> str:
     )
 
 
+def _clock_mark() -> float:
+    """Open and close the zero-length profiler range :data:`CLOCK_RANGE`;
+    returns the wall clock (``time.time()``) at it."""
+    from torch.profiler import record_function
+
+    wall = time.time()
+    with record_function(CLOCK_RANGE):
+        pass
+    return wall
+
+
+def _clock_event(prof, wall: float, path: str) -> None:
+    """The ring's record of a capture's start: ``ts`` the wall clock at
+    its ``fhh.clock`` range, ``prof_ns`` the range's start on the
+    profiler's clock (kineto's ns, which the Chrome trace gives less its
+    ``baseTimeNanoseconds``), and the capture's path."""
+    if wall is None or not enabled():
+        return
+    prof_ns = next((e.start_ns() for e in prof.profiler.kineto_results.events()
+                    if e.name() == CLOCK_RANGE), None)
+    if prof_ns is not None:
+        _event({"ph": "i", "name": CLOCK_RANGE, "comp": "profile",
+                "ts": round(wall, 6), "args": {"prof_ns": int(prof_ns), "path": path}})
+
+
 def _sync_device() -> None:
     """Wait for the device's queued work, so the capture holds it."""
     import torch
@@ -470,7 +501,7 @@ def profile_capture(kind: str, level=None):
             yield False
             return
         _PROF_ACTIVE[0] = True
-    prof = None
+    prof = wall = None
     try:
         try:
             import torch
@@ -484,6 +515,7 @@ def profile_capture(kind: str, level=None):
             p = profile(activities=acts)
             p.start()
             prof = p
+            wall = _clock_mark()
         except Exception as e:  # fhh-lint: disable=broad-except (profiler availability boundary: a missing/busy profiler degrades the capture, never the crawl)
             from . import logs
 
@@ -500,6 +532,7 @@ def profile_capture(kind: str, level=None):
                 prof.stop()
                 path = _profile_path(prof_dir, kind, level)
                 prof.export_chrome_trace(path)
+                _clock_event(prof, wall, path)
             except Exception as e:  # fhh-lint: disable=broad-except (teardown of a best-effort capture)
                 from . import logs
 
@@ -700,13 +733,53 @@ def validate(events: list) -> dict:
     }
 
 
+def captures_on_timeline(events: list, next_pid: int) -> list:
+    """The Chrome events of every profiler capture whose ``fhh.clock``
+    record is in ``events``, shifted onto the ring's timeline (µs of the
+    wall clock), one process each from ``next_pid`` on.  A capture file
+    that is gone or unreadable is skipped."""
+    out = []
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("name") != CLOCK_RANGE or "prof_ns" not in args:
+            continue
+        try:
+            with open(args["path"], encoding="utf-8") as f:
+                cap = json.load(f)
+        except (OSError, ValueError):
+            continue
+        # the range's profiler time is the ring's wall time at it
+        base = int(cap.get("baseTimeNanoseconds", 0))
+        shift = e["ts"] * 1e6 - (args["prof_ns"] - base) / 1e3
+        pids: dict = {}
+        for ce in cap.get("traceEvents", []):
+            if ce.get("ph") == "M" and ce.get("name") == "process_name":
+                continue
+            ce = dict(ce)
+            if ce.get("pid") not in pids:
+                pids[ce.get("pid")] = next_pid
+                out.append({"ph": "M", "name": "process_name", "pid": next_pid, "tid": 0,
+                            "args": {"name": f"{os.path.basename(args['path'])}:"
+                                             f"{ce.get('pid')}"}})
+                next_pid += 1
+            ce["pid"] = pids[ce.get("pid")]
+            if isinstance(ce.get("ts"), (int, float)):
+                ce["ts"] = round(ce["ts"] + shift, 3)
+            out.append(ce)
+    return out
+
+
 def merge(trace_dir: str, out_path: str) -> dict:
     """Load every ring under ``trace_dir``, validate, and write the
-    merged Perfetto/Chrome trace to ``out_path``.  Returns the
-    validation verdict (plus event counts)."""
+    merged Perfetto/Chrome trace to ``out_path``, with the profiler
+    captures the rings name shifted onto its timeline
+    (:func:`captures_on_timeline`).  Returns the validation verdict (plus
+    event counts)."""
     events = load_events(trace_dir)
     verdict = validate(events)
     doc = to_chrome(events)
+    pids = [ev["pid"] for ev in doc["traceEvents"]]
+    doc["traceEvents"] += captures_on_timeline(events, max(pids, default=0) + 1)
     tmp = f"{out_path}.tmp"
     with open(tmp, "w", encoding="utf-8") as f:
         json.dump(doc, f)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from . import keygen_cuda, prg
+from ..obs.metrics import default_registry
 from ..utils import bits as bitutils
 from ..utils import resolve_device, tensor_from_numpy, words_from_numpy, words_to_numpy
 
@@ -203,13 +204,11 @@ def _rng_seeds(rng: np.random.Generator, shape) -> np.ndarray:
     return rng.integers(0, 1 << 32, size=tuple(shape) + (2, 4), dtype=np.uint32)
 
 
-def _gen_on(alpha: np.ndarray, side: np.ndarray, seeds: np.ndarray, device):
+def _upload(alpha: np.ndarray, side: np.ndarray, seeds: np.ndarray, device):
+    """``gen_pair``'s arguments on the device."""
     dev = resolve_device(device)
-    return gen_pair(
-        words_from_numpy(seeds, dev),
-        tensor_from_numpy(alpha, dev, bool),
-        tensor_from_numpy(side, dev, bool),
-    )
+    return (words_from_numpy(seeds, dev), tensor_from_numpy(alpha, dev, bool),
+            tensor_from_numpy(side, dev, bool))
 
 
 def _to_limbs(bits: np.ndarray, pad: int) -> np.ndarray:
@@ -261,11 +260,14 @@ def gen_l_inf_ball(points_bits, ball_size: int, rng: np.random.Generator,
 
     points_bits: bool[N, n_dims, L].  Returns both parties' key batches of
     shape [N, n_dims, 2] (trailing axis = (left-DCF, right-DCF)) on
-    ``device`` (default cuda)."""
-    lo, hi = ball_bounds(points_bits, ball_size)
-    alpha = np.stack([lo, hi], axis=-2)  # [N, n_dims, 2, L]
-    side = np.broadcast_to(np.array([True, False]), alpha.shape[:-1])
-    return _gen_on(alpha, side, _rng_seeds(rng, alpha.shape[:-1]), device)
+    ``device`` (default cuda).  Everything before the keygen launch is the
+    span ``keygen.host`` of the default registry."""
+    with default_registry().span("keygen.host"):
+        lo, hi = ball_bounds(points_bits, ball_size)
+        alpha = np.stack([lo, hi], axis=-2)  # [N, n_dims, 2, L]
+        side = np.broadcast_to(np.array([True, False]), alpha.shape[:-1])
+        args = _upload(alpha, side, _rng_seeds(rng, alpha.shape[:-1]), device)
+    return gen_pair(*args)
 
 
 def gen_l_inf_ball_host(points_bits, ball_size: int, rng: np.random.Generator,
@@ -311,7 +313,7 @@ def gen_l_inf_ball_from_coords(coords: np.ndarray, ball_size: int,
     ).astype(bool)
     alpha = np.stack([to_bits(lo), to_bits(hi)], axis=-2)  # [N, d, 2, 16]
     side = np.broadcast_to(np.array([True, False]), alpha.shape[:-1])
-    return _gen_on(alpha, side, _rng_seeds(rng, alpha.shape[:-1]), device)
+    return gen_pair(*_upload(alpha, side, _rng_seeds(rng, alpha.shape[:-1]), device))
 
 
 def keys_from_numpy(batch, device) -> IbDcfKeyBatch:

@@ -46,7 +46,13 @@ Checkpoint/resume (``Leader.run(checkpoint_path, checkpoint_every,
 resume)``) writes the JAX package's file, key for key and dtype for dtype,
 so a crawl checkpointed by either package resumes under the other.
 
-Per-level host timings go to ``Leader.timings`` (a plain dict of lists).
+Each round's phases go to ``Leader.timings`` (a plain dict of lists, one
+entry a round, :class:`PhaseClock`): the secure phases in device-stream
+seconds on the card; ``expand``, ``count`` and ``advance`` in
+device-stream seconds on the card while a profiler runs, else in host
+seconds; ``prune``, and every phase on the CPU, in host seconds.  Each
+phase is also a span of the driver's registry, so a profiler sees it as
+the range ``fhh.<phase>``.
 """
 
 from __future__ import annotations
@@ -212,32 +218,68 @@ class PhaseClock:
     work (the ``phase`` argument of ``protocol/secure.py``).  On the card a
     phase is the span of the device stream between CUDA events recorded
     around it — no sync of its own — read by :meth:`settle` once a readback
-    has waited for the work; on the CPU it is host time."""
+    has waited for the work; a ``host=True`` phase, and on the CPU every
+    phase, is host time.  With a registry (``reg``) each phase is also the
+    span of its name at ``level`` (``Registry.span``: the registry's timer,
+    the heartbeat, the trace ring and, while a profiler runs, the range
+    ``fhh.<name>``), one after another inside the caller's span."""
 
-    def __init__(self, device):
+    def __init__(self, device, reg: obsmetrics.Registry | None = None,
+                 level: int | None = None):
         self.cuda = torch.device(device).type == "cuda"
+        self.reg, self.level = reg, level
         self.spent: dict = {}
         self._marks: list = []  # (phase, start event, end event)
 
     @contextlib.contextmanager
-    def __call__(self, name: str):
-        if self.cuda:
+    def __call__(self, name: str, host: bool = False):
+        """Time the body as phase ``name``; yields its registry span (None
+        without a registry)."""
+        if self.reg is None:
+            with self._timed(name, host):
+                yield None
+        else:
+            with self.reg.span(name, self.level) as sp, self._timed(name, host):
+                yield sp
+
+    @contextlib.contextmanager
+    def _timed(self, name: str, host: bool):
+        if self.cuda and not host:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             yield
             ev[1].record()
             self._marks.append((name, *ev))
-            return
-        t = time.perf_counter()
-        yield
-        self.spent[name] = self.spent.get(name, 0.0) + time.perf_counter() - t
+        else:
+            t = time.perf_counter()
+            yield
+            self.spent[name] = self.spent.get(name, 0.0) + time.perf_counter() - t
+
+    def take(self, name: str) -> list:
+        """Take phase ``name``'s event pairs out of the next :meth:`settle`,
+        for a phase that a later readback waits for (:meth:`read` them
+        then)."""
+        out = [m for m in self._marks if m[0] == name]
+        self._marks = [m for m in self._marks if m[0] != name]
+        return out
+
+    @staticmethod
+    def read(marks: list) -> float:
+        """Stream seconds of the event pairs ``marks``, waiting only for an
+        end event that has not completed yet."""
+        total = 0.0
+        for _name, start, end in marks:
+            if not end.query():
+                # fhh-lint: disable=host-sync-in-hot-loop (phase timing: read after a readback that waited for these events, so no wait is left but at the crawl's end)
+                end.synchronize()
+            total += start.elapsed_time(end) / 1e3
+        return total
 
     def settle(self) -> dict:
-        """Seconds per phase since the last settle (waits for the events)."""
-        for name, start, end in self._marks:
-            # fhh-lint: disable=host-sync-in-hot-loop (phase timing: settle runs once per level, after the level's one readback has synchronized, so each wait returns at once)
-            end.synchronize()
-            self.spent[name] = self.spent.get(name, 0.0) + start.elapsed_time(end) / 1e3
+        """Seconds per phase since the last settle (waits for events not
+        yet completed)."""
+        for m in self._marks:
+            self.spent[m[0]] = self.spent.get(m[0], 0.0) + self.read([m])
         out, self.spent, self._marks = self.spent, {}, []
         return out
 
@@ -269,24 +311,30 @@ def session_material(rng=None) -> dict:
     """Base-OT material of both sessions and the session seed, from ``rng``
     (``secrets.SystemRandom`` by default; a seeded ``random.Random`` gives
     reproducible sessions): ``{"sessions": [(s_bits, seeds0, seeds1,
-    chosen)] * 2, "sec_seed": uint32[4]}``."""
-    mats = []
-    for _ in range(2):
-        s_bits = otext.fresh_s_bits(rng)
-        seeds0, seeds1, chosen = baseot.exchange(s_bits, rng)
-        mats.append((s_bits, seeds0, seeds1, chosen))
-    if rng is None:
-        sec_seed = np.frombuffer(_secrets.token_bytes(16), "<u4").copy()
-    else:
-        sec_seed = np.array([rng.getrandbits(32) for _ in range(4)], np.uint32)
+    chosen)] * 2, "sec_seed": uint32[4]}``.  The span
+    ``sessions.material`` of the default registry."""
+    with obsmetrics.default_registry().span("sessions.material"):
+        mats = []
+        for _ in range(2):
+            s_bits = otext.fresh_s_bits(rng)
+            seeds0, seeds1, chosen = baseot.exchange(s_bits, rng)
+            mats.append((s_bits, seeds0, seeds1, chosen))
+        if rng is None:
+            sec_seed = np.frombuffer(_secrets.token_bytes(16), "<u4").copy()
+        else:
+            sec_seed = np.array([rng.getrandbits(32) for _ in range(4)], np.uint32)
     return {"sessions": mats, "sec_seed": sec_seed}
 
 
 def make_sessions(material: dict, device) -> SecureSessions:
-    snd, rcv = [], []
-    for s_bits, seeds0, seeds1, chosen in material["sessions"]:
-        snd.append(otext.OtExtSender(s_bits, chosen, device))
-        rcv.append(otext.OtExtReceiver(seeds0, seeds1, device))
+    """Both directions' extension sessions from ``material``
+    (:func:`session_material`), on ``device``: the span ``sessions.setup``
+    of the default registry."""
+    with obsmetrics.default_registry().span("sessions.setup"):
+        snd, rcv = [], []
+        for s_bits, seeds0, seeds1, chosen in material["sessions"]:
+            snd.append(otext.OtExtSender(s_bits, chosen, device))
+            rcv.append(otext.OtExtReceiver(seeds0, seeds1, device))
     return SecureSessions(snd=tuple(snd), rcv=tuple(rcv),
                           sec_seed=np.asarray(material["sec_seed"], np.uint32))
 
@@ -330,18 +378,26 @@ class Leader:
     paths: np.ndarray = field(default=None)  # bool[F, d, level]
     n_nodes: int = 0
     buckets: list = field(default_factory=list)  # frontier bucket per round
-    # seconds per round, host clock: "expand" (enqueue of both servers'
-    # expansions, and the strings in a secure crawl), "count" (counts, or
-    # the leader's reconstruction, and the readback that waits for the
-    # device), "advance" (prune bookkeeping + enqueue of both gathers, or
-    # when streaming both re-expanding advances); a
-    # secure crawl adds the socket server's phases "otext", "b2a",
-    # "garble", "eval" and "field" (the share sums): on the card each is
-    # the span on the device stream between CUDA events recorded around
-    # it (no sync of its own), on the CPU its host time
+    # seconds per round, one PhaseClock a round.  On the card the secure
+    # phases, and expand, count and advance while a torch.profiler runs,
+    # are the span of the device stream between CUDA events recorded
+    # around them, read after a readback has waited for them (no sync of
+    # their own); otherwise, and for "prune", host seconds of the phase's
+    # span (then expand and advance are their launches' enqueue time, and
+    # count holds the wait for the device).
+    # "expand": both servers' expansions (and the child strings in a
+    # secure crawl); "count": the counts, or the leader's reconstruction,
+    # and the readback; "prune": from the readback's return to the first
+    # advance launch (threshold, survivors, pattern bits, their upload);
+    # "advance": both servers' advances (when streaming, re-expanding).
+    # A secure crawl adds the socket server's phases "otext", "b2a",
+    # "garble", "eval" and "field" (the share sums), between expand and
+    # count.
     timings: dict = field(default_factory=dict)
-    # the driver's registry (JAX driver.py:156-160): a "level" span a round,
-    # the round's fss / field / advance seconds, readbacks, survivors and
+    # the driver's registry (JAX driver.py:156-160): a "level" span a
+    # round and inside it a span of each phase above (host seconds), with
+    # the JAX names' timers fed from them ("fss" from expand and, in the
+    # trusted crawl, "field" from count); readbacks, survivors and
     # checkpoints
     obs: obsmetrics.Registry | None = None
 
@@ -382,10 +438,11 @@ class Leader:
     def _reset(self):
         """Per-crawl bookkeeping: timings, buckets."""
         self.buckets = []
-        names = ["expand", "count", "advance"]
+        names = ["expand", "count", "prune", "advance"]
         if self.secure is not None:
             names += list(SECURE_PHASES)
         self.timings = {k: [] for k in names}
+        self._late = []  # the round before's advance events, read at this round's readback
 
     def tree_init(self):
         for s in (self.server0, self.server1):
@@ -412,45 +469,57 @@ class Leader:
         last = level + r == self.data_len
         servers = (self.server0, self.server1)
         alive_nodes = self.server0.frontier.alive
-        t0 = time.perf_counter()
+        clock = PhaseClock(self.device, self.obs, level)
+        # stream events for the leader's own phases only under a profiler:
+        # six events a round cost a 512-level crawl on an H100 about 0.65%
+        # of its time, which no untraced reading needs
+        host = not torch.autograd._profiler_enabled()
         packed, cws = [], []
-        for i, s in enumerate(servers):
-            if self.stream:
-                cws.append(self._cw[i].at(level))
-                p, _ = collect.expand_share_bits_from_cw(cws[i], s.frontier, want_children=False)
-            else:
-                p, s.children = collect.expand_share_bits_radix(
-                    s.keys, s.frontier, level, r, want_children=not last)
-                s.frontier = None  # the child cache is all the advance needs
-            packed.append(p)
-        self.buckets.append(int(alive_nodes.shape[0]))
-        if self.secure is not None:
-            counts, t1, tc = self._secure_counts(level, packed, alive_nodes, last)
-        else:
-            t1 = tc = time.perf_counter()
-            counts = collect.counts_by_pattern(
-                packed[0], packed[1], collect.pattern_masks_radix(d, r),
-                self.server0.alive_keys, alive_nodes,
-            )
-            # the one per-level readback: thresholding is leader logic
-            # fhh-lint: disable=host-sync-in-hot-loop (counted above: the level's one readback)
-            counts = counts.cpu().numpy()  # [F, 2^(r·d)]
-        del packed
-        t2 = time.perf_counter()
-        thresh = max(1, int(threshold * nreqs))  # ref: leader.rs:193-194
-        # fused children in the radix-1 crawl's visit order (the identity
-        # at r = 1), so survivors and f_max truncation are the same
-        order = collect.radix_pattern_order(d, r)
-        keep = counts[:, order] >= thresh
-        keep[self.n_nodes:, :] = False
-        parent, rank, n_alive = collect.compact_survivors(keep, self.f_max, self.min_bucket)
-        pattern = order[rank]
-        pat_bits = collect.pattern_to_bits_radix(pattern, d, r)  # [F', r, d]
-        if not last and (n_alive or not self.stream):
-            parent_t = torch.from_numpy(parent.astype(np.int64)).to(self.device)
-            pat_t = torch.from_numpy(pat_bits).to(self.device)
+        with clock("expand", host) as sp_expand:
             for i, s in enumerate(servers):
                 if self.stream:
+                    cws.append(self._cw[i].at(level))
+                    p, _ = collect.expand_share_bits_from_cw(cws[i], s.frontier,
+                                                             want_children=False)
+                else:
+                    p, s.children = collect.expand_share_bits_radix(
+                        s.keys, s.frontier, level, r, want_children=not last)
+                    s.frontier = None  # the child cache is all the advance needs
+                packed.append(p)
+            if self.secure is not None:
+                packed = [secure.child_strings(p, d) for p in packed]
+        self.buckets.append(int(alive_nodes.shape[0]))
+        if self.secure is not None:
+            counts = self._secure_counts(level, packed, alive_nodes, last, clock, host)
+        else:
+            with clock("count", host) as sp_count:
+                counts = collect.counts_by_pattern(
+                    packed[0], packed[1], collect.pattern_masks_radix(d, r),
+                    self.server0.alive_keys, alive_nodes,
+                )
+                del packed
+                # the one per-level readback: thresholding is leader logic
+                # fhh-lint: disable=host-sync-in-hot-loop (the level's one readback, counted as device_fetches)
+                counts = counts.cpu().numpy()  # [F, 2^(r·d)]
+        with clock("prune", host=True):
+            thresh = max(1, int(threshold * nreqs))  # ref: leader.rs:193-194
+            # fused children in the radix-1 crawl's visit order (the identity
+            # at r = 1), so survivors and f_max truncation are the same
+            order = collect.radix_pattern_order(d, r)
+            keep = counts[:, order] >= thresh
+            keep[self.n_nodes:, :] = False
+            parent, rank, n_alive = collect.compact_survivors(keep, self.f_max, self.min_bucket)
+            pattern = order[rank]
+            pat_bits = collect.pattern_to_bits_radix(pattern, d, r)  # [F', r, d]
+            advance = not last and (n_alive or not self.stream)
+            if advance:
+                parent_t = torch.from_numpy(parent.astype(np.int64)).to(self.device)
+                pat_t = torch.from_numpy(pat_bits).to(self.device)
+        with clock("advance", host):
+            for i, s in enumerate(servers):
+                if not advance:
+                    s.frontier = s.children = None
+                elif self.stream:
                     # drop every reference to the old frontier before the
                     # next server advances: two old and two new frontiers
                     # at once are what overflows the card at wide levels
@@ -462,40 +531,48 @@ class Leader:
                     s.frontier = collect.advance_from_children_radix(
                         s.children, parent_t, pat_t, n_alive, r)
                     s.children = None
-        else:
-            for s in servers:
-                s.frontier = s.children = None
-        self.paths = np.concatenate(
-            [self.paths[parent[:n_alive]], pat_bits[:n_alive].transpose(0, 2, 1)], axis=-1)
-        self.n_nodes = n_alive
-        self._last_counts = counts[parent[:n_alive], pattern[:n_alive]]
-        t3 = time.perf_counter()
-        self.timings["expand"].append(t1 - t0)
-        self.timings["count"].append(t2 - tc)
-        self.timings["advance"].append(t3 - t2)
-        self.obs.timer_add("fss", t1 - t0, level=level)
-        self.obs.timer_add("field", t2 - tc, level=level)
-        self.obs.timer_add("advance", t3 - t2, level=level)
+            self.paths = np.concatenate(
+                [self.paths[parent[:n_alive]], pat_bits[:n_alive].transpose(0, 2, 1)], axis=-1)
+            self.n_nodes = n_alive
+            self._last_counts = counts[parent[:n_alive], pattern[:n_alive]]
+            # while the device runs the advance: the JAX driver's timers,
+            # from the phase spans, and the phases that this round's
+            # readback has waited for (every one before this advance, and
+            # the round before's advance, whose row is still the last)
+            self.obs.timer_add("fss", sp_expand.seconds, level=level)
+            if self.secure is None:
+                self.obs.timer_add("field", sp_count.seconds, level=level)
+            row = clock.settle()
+            if self._late:
+                self.timings["advance"][-1] += PhaseClock.read(self._late)
+        # this advance's events wait for the next round's readback, or are
+        # read at the crawl's end
+        self._late = clock.take("advance")
+        row.update(clock.settle())
+        for k, v in self.timings.items():
+            v.append(row.get(k, 0.0))
+        if last or not n_alive:
+            self.timings["advance"][-1] += PhaseClock.read(self._late)
+            self._late = []
         self.obs.count("device_fetches", level=level)
         self.obs.gauge("survivors", n_alive, level=level)
         return n_alive
 
-    def _secure_counts(self, level: int, packed: list, alive_nodes, last: bool):
-        """One secure level after both expansions: strings, the whole-level
-        2PC with garbler ``level % 2``, share sums, reconstruction.
-        Returns (counts int64[F, 2^d], the host times at which the strings
-        were ready and the reconstruction began)."""
-        sec, d = self.secure, self.n_dims
-        phase = PhaseClock(packed[0].device)
+    def _secure_counts(self, level: int, strs: list, alive_nodes, last: bool,
+                       phase: PhaseClock, host: bool):
+        """One secure level after both expansions and their child strings
+        ``strs`` (emptied here, so that the strings go with the 2PC's
+        inputs): the whole-level 2PC with garbler ``level % 2``, share
+        sums, then the leader's reconstruction as the phase ``count``
+        (host time if ``host``).  Returns counts int64[F, 2^d]."""
+        sec = self.secure
         field_ = F255 if last else FE62
         g = level % 2
         ev = 1 - g
-        strs = [secure.child_strings(p, d) for p in packed]
         F, C, N, S = strs[0].shape
         B = F * C * N
         flat = [s.reshape(B, S) for s in strs]
-        del strs
-        t1 = time.perf_counter()
+        strs.clear()
         sec.crawl_ctr += 1
         gseed = secure.derive_seed(sec.sec_seed, 1, level, sec.crawl_ctr)
         bseed = secure.derive_seed(sec.sec_seed, 2, level, sec.crawl_ctr)
@@ -512,23 +589,20 @@ class Leader:
             shape = (F, C, N) + field_.limb_shape
             sh = [secure.node_share_sums(field_, vals[s].reshape(shape), w) for s in (0, 1)]
         del vals, vals_g, vals_ev
-        tc = time.perf_counter()
         # leader reconstruction: v0 - v1 per (node, pattern); the readback
-        # waits for the level's device work, so every phase event is done
-        if last:
-            limbs = words_to_numpy(F255.sub(sh[0], sh[1]))  # [F, C, 8]
-            if limbs[..., 1:].any():
-                raise RuntimeError("non-count residue in F255 shares")
-            v = limbs[..., 0].astype(np.int64)
-        else:
-            # fhh-lint: disable=host-sync-in-hot-loop (the secure level's one readback: the opened counts)
-            v = FE62.canon(FE62.sub(sh[0], sh[1])).cpu().numpy()
-            if (v > N).any():  # e.g. a share-sign or role mismatch
-                raise RuntimeError("count reconstruction out of range")
-        spent = phase.settle()
-        for k in SECURE_PHASES:
-            self.timings[k].append(spent.get(k, 0.0))
-        return v, t1, tc
+        # waits for the level's device work, so every phase before it is done
+        with phase("count", host):
+            if last:
+                limbs = words_to_numpy(F255.sub(sh[0], sh[1]))  # [F, C, 8]
+                if limbs[..., 1:].any():
+                    raise RuntimeError("non-count residue in F255 shares")
+                v = limbs[..., 0].astype(np.int64)
+            else:
+                # fhh-lint: disable=host-sync-in-hot-loop (the secure level's one readback: the opened counts)
+                v = FE62.canon(FE62.sub(sh[0], sh[1])).cpu().numpy()
+                if (v > N).any():  # e.g. a share-sign or role mismatch
+                    raise RuntimeError("count reconstruction out of range")
+        return v
 
     def run(self, nreqs: int, threshold: float, checkpoint_path: str | None = None,
             checkpoint_every: int = 64, resume: bool = False) -> CrawlResult:
